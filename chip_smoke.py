@@ -20,9 +20,14 @@
 1. prints the card (name, count, power limit);
 2. builds every CUDA kernel of the port from ops/csrc (one nvcc per
    source, all at once);
-3. holds each kernel against its plain PyTorch version on the card;
-4. times each kernel at the serving path's shapes beside its bound,
-   its plain version and one PyTorch library call;
+3. holds each kernel against its plain PyTorch version on the card
+   (flash forward, dQ, dK/dV, cross-entropy forward and backward; the
+   cross-entropy gradient element by element, scaled by its mean);
+4. times each kernel at its path's shapes beside its bound, its plain
+   version and one PyTorch library call (flash forward at the serving
+   prefill widths and at the training shape; the backward and the
+   cross-entropy at the training shapes), and the next-token
+   objective's logits copy alone;
 5. serves the full-width LM (the architecture of
    demo/serving/lm-serving.yaml without its int8 options: vocab 32000,
    E 512, 8 layers, 8 heads, 2 KV heads, rope, max_seq_len 2048; bf16,
@@ -32,7 +37,22 @@
    greedy response must equal greedy_decode on the same prompt, and
    the flash kernel must have launched once per layer per admission;
 6. times the engine's admission prefill at four bucket widths and one
-   decode step with every slot active (host clock around synced work).
+   decode step with every slot active (host clock around synced work);
+7. trains the same architecture at full width and depth (f32
+   parameters, bf16 compute, f32 logits, sequence 2048, the demo
+   driver's SGD defaults; global batch 8, cut from 256) for 12 steps
+   through the driver's ``main`` (what ``python -m
+   container_engine_accelerators_tpu_torch.train`` runs): every loss
+   finite, the last below the first, exactly 8 flash_fwd, 8 dQ,
+   8 dK/dV, 1 cross-entropy forward and 1 backward launch per step,
+   and the driver's JSON result in agreement; then one batch-2 step
+   held against the same step through the plain versions (plain
+   attention_fn and plain loss): loss and every gradient's relative
+   L2 error.
+
+Where a training step's device time goes is measured by
+``container_engine_accelerators_tpu_torch.train_profile`` (a
+torch.profiler trace), not here.
 
 Any failure exits nonzero. Without a CUDA device it exits 2 before
 printing any result. The last three lines of output are the
@@ -58,6 +78,25 @@ MODEL = dict(vocab_size=32000, embed_dim=512, num_layers=8, num_heads=8,
 MAX_NEW = 128
 MAX_BATCH = 8
 SEED = 0
+# The training slice: sequence 2048 at global batch 8 (the demo
+# driver's default batch, 256, cut to keep the run short).
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 8
+TRAIN_STEPS = 12
+TRAIN_WARMUP = 2
+PLAIN_BATCH = 2  # the plain attention's [B, H, S, S] f32 scores fit
+# The kernel step against the plain step: loss within 1e-3 relative,
+# each gradient within 5e-2 relative L2. Both steps compute in bf16
+# with f32 sums but round at different points (the flash forward's
+# online softmax against one dense softmax, the fused cross-entropy's
+# gradient against log_softmax's), so single values differ by a bf16
+# unit (2**-8) here and there, and the differences grow through 8
+# layers of backward: on the card the worst gradient sits near 2%
+# (the last layer's q projection, whose gradient is small) and the
+# median near 0.7%. A wrong mask or tile bound moves a gradient by
+# O(1).
+STEP_LOSS_TOL = 1e-3
+STEP_GRAD_TOL = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by
 # input type (bf16 on the tensor cores, f32 outside them).
@@ -94,24 +133,53 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, s, h, d, dtype, causal, window):
-    """Least time for the flash forward's work on these inputs: q, k,
-    v read once, o and lse written once, against HBM bandwidth; the
-    products QK^T and PV over the (causal/window-kept) score pairs
-    against the input type's peak. Returns (ms, "bytes"|"operations")."""
-    item = 2 if dtype == "torch.bfloat16" else 4
-    nbytes = 4 * b * s * h * d * item + b * s * h * 4
-    if causal and window:
-        pairs = sum(min(i + 1, window) for i in range(s))
-    elif causal:
-        pairs = s * (s + 1) // 2
-    else:
-        pairs = s * s
-    flops = 4 * b * h * d * pairs
+def bound_ms(nbytes, flops, dtype):
+    """The least time for ``nbytes`` of memory traffic and ``flops``
+    operations of input type ``dtype``: (ms, "bytes"|"operations")."""
     t_bytes = nbytes / PEAK_BYTES_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kept_pairs(s, causal, window):
+    """(query, key) pairs the masks keep in one head."""
+    if causal and window:
+        return sum(min(i + 1, window) for i in range(s))
+    if causal:
+        return s * (s + 1) // 2
+    return s * s
+
+
+def attention_bound_ms(b, s, h, d, dtype, causal, window, role="fwd"):
+    """Least time for one flash kernel's work on these inputs. Bytes:
+    each input read once, each output written once (fwd: q, k, v in,
+    o and lse out; dq: q, k, v, dO, lse, delta in, dQ out; dkv: the
+    same in, dK and dV out). Operations over the kept score pairs:
+    fwd QK^T and PV (4*D a pair), dq also dO.V^T (6*D), dkv also the
+    dV and dK products (8*D); against the input type's peak."""
+    item = 2 if dtype == "torch.bfloat16" else 4
+    tensor = b * s * h * d * item
+    rows = b * s * h * 4
+    nbytes, per_pair = {
+        "fwd": (4 * tensor + rows, 4),
+        "dq": (5 * tensor + 2 * rows, 6),
+        "dkv": (6 * tensor + 2 * rows, 8),
+    }[role]
+    flops = per_pair * d * b * h * kept_pairs(s, causal, window)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def xent_bound_ms(n, c, role):
+    """Least time for the cross-entropy kernels on f32 logits [n, c]
+    with int64 labels: fwd reads logits and labels and writes the
+    loss; bwd also reads g and writes dlogits. About 4 (fwd) and 6
+    (bwd) f32 operations per logit against the f32 peak."""
+    if role == "fwd":
+        return bound_ms(n * c * 4 + n * 8 + n * 4, 4 * n * c,
+                        "torch.float32")
+    return bound_ms(2 * n * c * 4 + n * 8 + n * 4, 6 * n * c,
+                    "torch.float32")
 
 
 def check_flash(torch, attn):
@@ -170,6 +238,213 @@ def time_flash(torch, attn, widths):
             1, s, heads, d, "torch.bfloat16", True, 0)
         log("flash time", json.dumps(row))
         rows.append(row)
+    return rows
+
+
+def near(got, want, dtype):
+    """(max abs error, tolerance): bf16 2e-2 of the reference's largest
+    magnitude (outputs rounded to 8 bits); f32 1e-4, relative once the
+    values exceed 1 (summation order)."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = TOL[dtype] * (scale if dtype == "torch.bfloat16"
+                        else max(1.0, scale))
+    return err, tol
+
+
+def bwd_inputs(torch, attn, shape, dtype, causal, window, gen, lse_grad):
+    """q, k, v, dO, and the lse/delta the backward kernels take
+    (delta = rowsum(dO * O) - g_lse, from the plain forward)."""
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                               dtype=dtype) for _ in range(4))
+    o, lse = attn.flash_attention_reference(q, k, v, causal, window)
+    delta = (do.float() * o.float()).sum(-1)
+    if lse_grad:
+        delta = delta - torch.randn(shape[:3], generator=gen,
+                                    device="cuda")
+    return q, k, v, do, lse, delta
+
+
+def check_backward(torch, attn):
+    """Phase 3: dQ and dK/dV against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((1, s, 8, 64), bf16, True, 0, s == 200)
+             for s in (16, 200, 512, 2048)]
+    cases += [((2, 200, 4, 32), f32, False, 0, False),
+              ((1, 300, 4, 64), f32, True, 64, True),
+              ((1, 2048, 8, 64), bf16, True, 256, False)]
+    results = []
+    for shape, dtype, causal, window, lse_grad in cases:
+        args = bwd_inputs(torch, attn, shape, dtype, causal, window, gen,
+                          lse_grad)
+        dq = attn.flash_bwd_dq(*args, causal, window)
+        dk, dv = attn.flash_bwd_dkv(*args, causal, window)
+        torch.cuda.synchronize()
+        rq = attn.flash_attention_dq_reference(*args, causal, window)
+        rk, rv = attn.flash_attention_dkv_reference(*args, causal, window)
+        case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
+                    window=window, lse_cotangent=lse_grad)
+        ok = True
+        for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
+                                ("dv", dv, rv)):
+            err, tol = near(got, want, str(dtype))
+            case[f"err_{name}"], case[f"tol_{name}"] = err, tol
+            ok = ok and err <= tol
+        log("flash bwd check", json.dumps(case))
+        if not ok:
+            raise AssertionError(f"flash backward kernel disagrees: {case}")
+        results.append(case)
+    return results
+
+
+def xent_inputs(torch, n, c, gen):
+    """f32 logits [n, c] (std 3), labels with rows 0 and 1 outside
+    [0, c) (they match no class), and a per-row cotangent."""
+    logits = 3 * torch.randn((n, c), generator=gen, device="cuda")
+    labels = torch.randint(0, c, (n,), generator=gen, device="cuda")
+    labels[0], labels[1] = -1, c + 7
+    g = torch.randn((n,), generator=gen, device="cuda")
+    return logits, labels, g
+
+
+# dlogits against its plain version, element by element: |got - want|
+# <= DLOGITS_RTOL * (|want| + mean|want|). Almost every entry is a
+# softmax term p * g, far below the label's (p - 1) * g, so a bound
+# tied to the largest value would pass a softmax that is wrong
+# everywhere but at the top. Both sides compute exp(x - max) / sum in f32 and differ by a few f32
+# units (~4e-6 relative at most); the floor mean|want| leaves out only
+# values far below the row's typical one.
+DLOGITS_RTOL = 1e-4
+
+
+def dlogits_err(got, want):
+    """(max |got - want| / (|want| + mean|want|), relative L2 error)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scaled = (diff / (want.abs() + want.abs().mean())).max().item()
+    return scaled, (diff.norm() / want.norm()).item()
+
+
+def check_xent(torch, xent):
+    """Phase 3: the cross-entropy kernels against their plain
+    versions: at the training shape and at a ragged C % 4 == 0 shape
+    (16-byte loads, 513 float4s a row) and a ragged C % 4 != 0 one
+    (scalar loads)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    results = []
+    for n, c in (((TRAIN_SEQ - 1) * TRAIN_BATCH, MODEL["vocab_size"]),
+                 (300, 2052), (200, 333)):
+        logits, labels, g = xent_inputs(torch, n, c, gen)
+        loss = xent.xent_fwd(logits, labels)
+        dlogits = xent.xent_bwd(logits, labels, g)
+        torch.cuda.synchronize()
+        case = dict(shape=[n, c], dtype="torch.float32")
+        err, tol = near(loss, xent.softmax_cross_entropy_reference(
+            logits, labels), "torch.float32")
+        case["err_loss"], case["tol_loss"] = err, tol
+        want = xent.softmax_cross_entropy_bwd_reference(logits, labels, g)
+        case["err_dlogits"] = (dlogits - want).abs().max().item()
+        case["err_dlogits_scaled"], case["rel_l2_dlogits"] = dlogits_err(
+            dlogits, want)
+        case["tol_dlogits_scaled"] = DLOGITS_RTOL
+        log("xent check", json.dumps(case))
+        if not (err <= tol and case["err_dlogits_scaled"] <= DLOGITS_RTOL):
+            raise AssertionError(f"xent kernel disagrees: {case}")
+        results.append(case)
+        del logits, dlogits, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_training_kernels(torch, attn, xent):
+    """Phase 4 at the training slice's shapes: the flash forward, dQ
+    and dK/dV at q/k/v [8, 2048, 8, 64] bf16 causal, the cross-entropy
+    at logits [16376, 32000] f32. Library yardsticks (never called by
+    the port): SDPA forward; SDPA's backward for dQ and dK/dV together;
+    F.cross_entropy(reduction="none") and its backward."""
+    import torch.nn.functional as F
+    heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
+    shape = (TRAIN_BATCH, TRAIN_SEQ, heads, d)
+    bf16 = "torch.bfloat16"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, k, v, do, lse, delta = bwd_inputs(torch, attn, shape, torch.bfloat16,
+                                         True, 0, gen, False)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_g = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), sdpa_g, retain_graph=True), 20)
+    rows = {}
+    row = dict(shape=list(shape), dtype=bf16)
+    row["kernel_ms"] = cuda_ms(lambda: attn.flash_fwd.launch(
+        q, k, v, True, 0), 20)
+    row["plain_ms"] = cuda_ms(lambda: attn.flash_attention_reference(
+        q, k, v, True, 0), 5)
+    row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    o, _ = attn.flash_fwd.launch(q, k, v, True, 0)
+    ro, _ = attn.flash_attention_reference(q, k, v, True, 0)
+    row["max_abs_err"] = (o.float() - ro.float()).abs().max().item()
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(
+        *shape, bf16, True, 0, "fwd")
+    rows["flash_fwd"] = row
+    args = (q, k, v, do, lse, delta, True, 0)
+    for name, kern, plain in (
+            ("flash_bwd_dq", attn.flash_bwd_dq,
+             attn.flash_attention_dq_reference),
+            ("flash_bwd_dkv", attn.flash_bwd_dkv,
+             attn.flash_attention_dkv_reference)):
+        row = dict(shape=list(shape), dtype=bf16)
+        row["kernel_ms"] = cuda_ms(lambda: kern.launch(*args), 20)
+        row["plain_ms"] = cuda_ms(lambda: plain(*args), 5)
+        row["library_ms"] = sdpa_bwd_ms
+        row["library_call"] = ("scaled_dot_product_attention backward "
+                               "(dQ, dK and dV together)")
+        got, want = kern.launch(*args), plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        row["max_abs_err"] = max((a.float() - b.float()).abs().max().item()
+                                 for a, b in zip(got, want))
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            *shape, bf16, True, 0, name.split("_")[-1])
+        rows[name] = row
+    del q, k, v, do, lse, delta, qt, kt, vt, sdpa_out, sdpa_g, o, ro
+    torch.cuda.empty_cache()
+
+    n, c = (TRAIN_SEQ - 1) * TRAIN_BATCH, MODEL["vocab_size"]
+    logits, labels, g = xent_inputs(torch, n, c, gen)
+    lib_logits = logits.detach().requires_grad_()
+    lib_loss = F.cross_entropy(lib_logits, labels.clamp(0, c - 1),
+                               reduction="none")
+    for name, launch, plain, lib, role in (
+            ("xent_fwd", lambda: xent.xent_fwd.launch(logits, labels),
+             lambda: xent.softmax_cross_entropy_reference(logits, labels),
+             lambda: F.cross_entropy(logits, labels.clamp(0, c - 1),
+                                     reduction="none"), "fwd"),
+            ("xent_bwd", lambda: xent.xent_bwd.launch(logits, labels, g),
+             lambda: xent.softmax_cross_entropy_bwd_reference(
+                 logits, labels, g),
+             lambda: torch.autograd.grad(lib_loss, lib_logits, g,
+                                         retain_graph=True), "bwd")):
+        row = dict(shape=[n, c], dtype="torch.float32")
+        row["kernel_ms"] = cuda_ms(launch, 20)
+        row["plain_ms"] = cuda_ms(plain, 5)
+        row["library_ms"] = cuda_ms(lib, 20)
+        row["max_abs_err"] = (launch().float() - plain().float()).abs(
+        ).max().item()
+        row["bound_ms"], row["bound_by"] = xent_bound_ms(n, c, role)
+        rows[name] = row
+    # The next-token objective's copy of logits[:, :-1] (a view that
+    # does not merge to [N, V]), timed alone at the slice's shape.
+    full = torch.randn((TRAIN_BATCH, TRAIN_SEQ, c), generator=gen,
+                       device="cuda")
+    rows["logits_copy_ms"] = cuda_ms(
+        lambda: full[:, :-1].reshape(-1, c), 20)
+    del logits, lib_logits, lib_loss, full
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log("train kernel time", name, json.dumps(row))
     return rows
 
 
@@ -303,6 +578,141 @@ def time_engine(torch, engine, rng):
     return out
 
 
+def train_argv(steps, warmup, batch=TRAIN_BATCH):
+    """The training slice's flags for the port's driver: MODEL at full
+    width, sequence 2048, the demo's optimizer defaults."""
+    return ["--model", "transformer", "--device", "cuda",
+            "--vocab-size", str(MODEL["vocab_size"]),
+            "--embed-dim", str(MODEL["embed_dim"]),
+            "--num-layers", str(MODEL["num_layers"]),
+            "--num-heads", str(MODEL["num_heads"]),
+            "--num-kv-heads", str(MODEL["num_kv_heads"]),
+            "--pos-embedding", MODEL["pos_embedding"],
+            "--seq-len", str(TRAIN_SEQ), "--batch-size", str(batch),
+            "--steps", str(steps), "--warmup-steps", str(warmup),
+            "--seed", str(SEED)]
+
+
+def drive_training(torch, train, kernels):
+    """Phase 7's main path: TRAIN_STEPS steps through the port's
+    training driver (``train.main``, what ``python -m
+    container_engine_accelerators_tpu_torch.train`` runs). A per-step
+    hook reads the launch counts and records a CUDA event after each
+    step. Returns the summary and the launch counts of the run (counts
+    set to 0 just before it)."""
+    import contextlib
+    import io
+    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+    losses, events, bad = [], [], []
+    prev = [0] * len(kernels)
+
+    def on_step(step, loss):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+        losses.append(loss)
+        counts = [kern.launches for kern in kernels]
+        got = tuple(c - p for c, p in zip(counts, prev))
+        if got != per_step:
+            bad.append((step, got))
+        prev[:] = counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    # The driver prints its JSON result on stdout; keep this script's
+    # stdout to its own result lines (the result is logged below).
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = train.main(train_argv(TRAIN_STEPS, TRAIN_WARMUP),
+                            on_step=on_step)
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in kernels}
+    losses = [float(x) for x in losses]
+    # Step i's time: from the event after step i - 1 to the one after
+    # step i (step 0 has no start event, and is warm-up).
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    timed = step_ms[TRAIN_WARMUP - 1:]
+    summary = dict(
+        losses=losses, step_ms=step_ms,
+        step_ms_mean=sum(timed) / len(timed),
+        tokens_per_s=result["tokens_per_sec"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        per_step_launches_expected=per_step, bad_steps=bad,
+        driver_result=result)
+    log("train:", json.dumps(summary))
+    want = {kern.name: TRAIN_STEPS * n for kern, n in zip(kernels, per_step)}
+    if bad or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"steps with other launch counts than "
+                             f"{per_step}: {bad}")
+    if result["kernel_launches"] != want or launches != want:
+        raise AssertionError(f"driver launches {result['kernel_launches']}, "
+                             f"counted {launches}, want {want}")
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not (losses[-1] < losses[0] and result["final_loss"] == losses[-1]
+            and result["tokens_per_sec"] > 0):
+        raise AssertionError(f"loss did not fall, or the driver's result "
+                             f"disagrees: {losses} {result}")
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def check_plain_step(torch, attn, convert, train):
+    """One batch-2 step's loss and gradients through the kernels
+    against the same step through the plain versions (attention_fn =
+    the plain forward, loss = the plain cross_entropy_loss), on the
+    same weights and batch."""
+    import functools
+
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        next_token_loss_fn,
+    )
+    from container_engine_accelerators_tpu_torch.ops.xent import (
+        mean_cross_entropy_loss,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        SyntheticTokenLoader,
+        cross_entropy_loss,
+    )
+    config = train.lm_config(train.parse_args(train_argv(1, 0, PLAIN_BATCH)))
+    tree = convert.init_flax_layout_params(config, SEED)
+    tokens = next(SyntheticTokenLoader(PLAIN_BATCH, TRAIN_SEQ,
+                                       config["vocab_size"],
+                                       device="cuda"))[0]
+
+    def plain_attention(q, k, v, causal):
+        return attn.flash_attention_reference(q, k, v, causal)[0]
+
+    def step(attention_fn, loss):
+        model = convert.load_lm(config, tree, device="cuda",
+                                trainable=True, attention_fn=attention_fn)
+        loss_fn = next_token_loss_fn(functools.partial(
+            loss, label_smoothing=0.0))
+        value = loss_fn(model(tokens), tokens)
+        value.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        return value.item(), grads
+
+    kernel_loss, kernel_grads = step(None, mean_cross_entropy_loss)
+    plain_loss, plain_grads = step(plain_attention, cross_entropy_loss)
+    rel = {n: ((kernel_grads[n] - g).norm() / g.norm().clamp_min(1e-30)
+               ).item() for n, g in plain_grads.items()}
+    worst = max(rel, key=rel.get)
+    out = dict(kernel_loss=kernel_loss, plain_loss=plain_loss,
+               loss_rel_err=abs(kernel_loss - plain_loss) / abs(plain_loss),
+               grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
+               grad_rel_l2_median=sorted(rel.values())[len(rel) // 2],
+               loss_tol=STEP_LOSS_TOL, grad_tol=STEP_GRAD_TOL)
+    log("kernel step vs plain step:", json.dumps(out))
+    if out["loss_rel_err"] > STEP_LOSS_TOL or rel[worst] > STEP_GRAD_TOL:
+        raise AssertionError(f"kernel step differs from the plain step: "
+                             f"{out}")
+    del kernel_grads, plain_grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -319,8 +729,11 @@ def main():
     from container_engine_accelerators_tpu_torch.models.decode import (
         greedy_decode,
     )
+    from container_engine_accelerators_tpu_torch import train
+    from container_engine_accelerators_tpu_torch.models import convert
     from container_engine_accelerators_tpu_torch.ops import _build
     from container_engine_accelerators_tpu_torch.ops import attention
+    from container_engine_accelerators_tpu_torch.ops import xent
     from container_engine_accelerators_tpu_torch.serving.server import (
         GenerationServer,
     )
@@ -347,10 +760,14 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # Phases 3 and 4: the kernel against its plain version, then times.
+    # Phases 3 and 4: each kernel against its plain version, then times.
     report["flash_checks"] = check_flash(torch, attention)
+    report["flash_bwd_checks"] = check_backward(torch, attention)
+    report["xent_checks"] = check_xent(torch, xent)
     widths = [16, 128, 1024, 1920]
     report["flash_times"] = time_flash(torch, attention, widths)
+    report["train_kernel_times"] = time_training_kernels(torch, attention,
+                                                         xent)
 
     # Phase 5: the server at full width.
     tree = init_flax_layout_params(MODEL, SEED)
@@ -364,9 +781,12 @@ def main():
             raise AssertionError("healthz not ok")
         rng = np.random.default_rng(SEED)
         prefills0 = server.engine.prefills
-        attention.flash_fwd.launches = 0
+        for kern in attention.KERNELS + xent.KERNELS:
+            kern.launches = 0
         greedy, summary = drive_server(server, rng)
         launches = attention.flash_fwd.launches
+        others = {k.name: k.launches for k in attention.KERNELS[1:]
+                  + xent.KERNELS if k.launches}
         stats = get(server.port, "/stats")
         admissions = server.engine.prefills - prefills0
     finally:
@@ -380,6 +800,8 @@ def main():
             f"admissions of a {MODEL['num_layers']}-layer model")
     if stats["flash_fwd_launches"] != launches:
         raise AssertionError("/stats flash_fwd_launches disagrees")
+    if others:
+        raise AssertionError(f"serving launched training kernels: {others}")
 
     # Every greedy response against the single-request oracle.
     mismatches = []
@@ -402,19 +824,61 @@ def main():
     report["engine_times"] = time_engine(torch, server.engine, rng)
     log("engine times:", json.dumps(report["engine_times"]))
 
+    # Phase 7: training at full width.
+    all_kernels = attention.KERNELS + xent.KERNELS
+    report["train"], train_launches = drive_training(torch, train,
+                                                     all_kernels)
+    report["train_plain_step"] = check_plain_step(torch, attention,
+                                                  convert, train)
+
     big = report["flash_times"][-1]
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "container_engine_accelerators_tpu_torch/ops/csrc/"
-                  "flash_fwd.cu",
-        "replaces": "container_engine_accelerators_tpu/ops/attention.py:"
-                    "136 (_fwd_kernel) and :237 (_fwd_kernel_stream)",
-        "launches": launches,
-        "max_abs_err": max(c["err_o"] for c in report["flash_checks"]),
-        "ms": big["kernel_ms"], "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": big["library_ms"], "shape": big["shape"],
-    }]
+    tk = report["train_kernel_times"]
+    src = "container_engine_accelerators_tpu_torch/ops/csrc/"
+    ref = "container_engine_accelerators_tpu/ops/"
+    checks = {
+        "flash_fwd": max(c["err_o"] for c in report["flash_checks"]),
+        "flash_bwd_dq": max(c["err_dq"] for c in
+                            report["flash_bwd_checks"]),
+        "flash_bwd_dkv": max(max(c["err_dk"], c["err_dv"]) for c in
+                             report["flash_bwd_checks"]),
+        "xent_fwd": max(c["err_loss"] for c in report["xent_checks"]),
+        "xent_bwd": max(c["err_dlogits"] for c in report["xent_checks"]),
+    }
+    replaces = {
+        "flash_fwd": "attention.py:136 (_fwd_kernel) and :237 "
+                     "(_fwd_kernel_stream)",
+        "flash_bwd_dq": "attention.py:167 (_dq_kernel) and :275 "
+                        "(_dq_kernel_stream)",
+        "flash_bwd_dkv": "attention.py:191 (_dkv_kernel) and :307 "
+                         "(_dkv_kernel_stream)",
+        "xent_fwd": "xent.py:42 (_fwd_kernel)",
+        "xent_bwd": "xent.py:54 (_bwd_kernel)",
+    }
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    kernels = []
+    for kern in all_kernels:
+        name = kern.name
+        # flash_fwd's fields hold its time at the serving prefill's
+        # largest bucket (S 1920), their meaning since the kernel was
+        # ported; its time at the training shape goes under train_*.
+        # The other kernels run on the training path alone.
+        row = big if name == "flash_fwd" else tk[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"{src}{kern.library}.cu",
+            "replaces": f"{ref}{replaces[name]}",
+            "launches": train_launches[name] + (
+                launches if name == "flash_fwd" else 0),
+            "max_abs_err": checks[name],
+        }
+        entry.update({key: row["kernel_ms" if key == "ms" else key]
+                      for key in timed})
+        entry["launches_by_path"] = {"training": train_launches[name]}
+        if name == "flash_fwd":
+            entry["launches_by_path"]["serving"] = launches
+            entry.update({f"train_{key}": tk[name][
+                "kernel_ms" if key == "ms" else key] for key in timed})
+        kernels.append(entry)
     report["kernels"] = kernels
     report["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -422,7 +886,9 @@ def main():
         json.dump(report, f, indent=1)
     log(f"informational on {kind} ({smi}): concurrent "
         f"{summary['concurrent_tokens_per_s']:.1f} tokens/s, time to "
-        f"first token {summary['ttft_ms']} ms (16-token prompt)")
+        f"first token {summary['ttft_ms']} ms (16-token prompt); "
+        f"training {report['train']['tokens_per_s']:.0f} tokens/s, "
+        f"{report['train']['step_ms_mean']:.2f} ms a step")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

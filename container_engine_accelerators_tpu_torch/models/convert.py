@@ -12,7 +12,7 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Carry TransformerLM weights from the flax layout to the port.
+"""Carry TransformerLM weights between the flax layout and the port.
 
 The flax tree (numpy leaves, f32) names each parameter by module path:
 ``tok_embed/embedding``, ``pos_embed/embedding`` (learned positions),
@@ -22,7 +22,11 @@ or ``attn/q`` [E, H, D] + ``attn/kv`` [E, 2, Hkv, D] (GQA),
 ``Dense_1`` [4E, E], the top-level ``LayerNorm_0`` and ``lm_head``
 [E, V]. A Dense kernel [in, out...] becomes a Linear weight
 [out, in] with the out axes flattened in order, which is the feature
-order the port's modules unflatten.
+order the port's modules unflatten. ``params_to_flax`` is the
+inverse, and ``flax_shapes`` the table of every leaf's flax path and
+shape behind both; the weight-decay mask of the trainer reads the
+flax ranks from it (the attention biases are rank 2-3 in flax and
+rank 1 here).
 """
 
 import numpy as np
@@ -51,6 +55,68 @@ def _count_leaves(tree):
     if hasattr(tree, "keys"):
         return sum(_count_leaves(tree[k]) for k in tree.keys())
     return 1
+
+
+def flax_shapes(config):
+    """{port state_dict name: (flax leaf path, flax shape)} for a
+    TransformerLM ``config`` (its keyword arguments)."""
+    e, v = config["embed_dim"], config["vocab_size"]
+    heads = config["num_heads"]
+    kv = config.get("num_kv_heads") or heads
+    d = e // heads
+    hidden = config.get("mlp_ratio", 4) * e
+    out = {"tok_embed.weight": (("tok_embed", "embedding"), (v, e))}
+    if config.get("pos_embedding", "learned") == "learned":
+        out["pos_embed.weight"] = (("pos_embed", "embedding"),
+                                   (config["max_seq_len"], e))
+
+    def dense(name, path, in_dim, out_shape):
+        out[f"{name}.weight"] = (path + ("kernel",), (in_dim, *out_shape))
+        out[f"{name}.bias"] = (path + ("bias",), tuple(out_shape))
+
+    def norm(name, path):
+        out[f"{name}.weight"] = (path + ("scale",), (e,))
+        out[f"{name}.bias"] = (path + ("bias",), (e,))
+
+    for i in range(config["num_layers"]):
+        blk, name = f"block{i}", f"blocks.{i}"
+        norm(f"{name}.attn.ln", (blk, "attn", "LayerNorm_0"))
+        if kv == heads:
+            dense(f"{name}.attn.qkv", (blk, "attn", "qkv"), e, (3, heads, d))
+        else:
+            dense(f"{name}.attn.q", (blk, "attn", "q"), e, (heads, d))
+            dense(f"{name}.attn.kv", (blk, "attn", "kv"), e, (2, kv, d))
+        dense(f"{name}.attn.proj", (blk, "attn", "proj"), e, (e,))
+        norm(f"{name}.ln", (blk, "LayerNorm_0"))
+        dense(f"{name}.mlp_in", (blk, "Dense_0"), e, (hidden,))
+        dense(f"{name}.mlp_out", (blk, "Dense_1"), hidden, (e,))
+    norm("ln_f", ("LayerNorm_0",))
+    dense("lm_head", ("lm_head",), e, (v,))
+    return out
+
+
+def params_to_flax(model_or_state_dict, config):
+    """The inverse of ``params_from_flax``: the port's parameters (a
+    TransformerLM or its state_dict) as a nested dict of f32 numpy
+    arrays in the flax layout."""
+    state = model_or_state_dict
+    if hasattr(state, "state_dict"):
+        state = state.state_dict()
+    shapes = flax_shapes(config)
+    if set(state) != set(shapes):
+        raise ValueError(
+            f"state_dict names differ from the config's: "
+            f"{sorted(set(state) ^ set(shapes))}")
+    tree = {}
+    for name, (path, shape) in shapes.items():
+        value = state[name].detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            value = value.T  # Linear [out, in] -> Dense [in, out]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(value.reshape(shape))
+    return tree
 
 
 def params_from_flax(tree):
@@ -103,48 +169,35 @@ def init_flax_layout_params(config, seed):
     biases and norm affines get small random values so that a
     conversion that drops or misplaces them shows."""
     rng = np.random.default_rng(seed)
-    e, v = config["embed_dim"], config["vocab_size"]
-    heads = config["num_heads"]
-    kv = config.get("num_kv_heads") or heads
-    d = e // heads
-    hidden = config.get("mlp_ratio", 4) * e
-
-    def normal(shape, std):
-        return (rng.standard_normal(shape) * std).astype(np.float32)
-
-    def dense(in_dim, out_shape):
-        return {"kernel": normal((in_dim,) + tuple(out_shape),
-                                 in_dim ** -0.5),
-                "bias": normal(tuple(out_shape), 0.02)}
-
-    def norm():
-        return {"scale": 1.0 + normal((e,), 0.02),
-                "bias": normal((e,), 0.02)}
-
-    tree = {"tok_embed": {"embedding": normal((v, e), e ** -0.5)}}
-    if config.get("pos_embedding", "learned") == "learned":
-        tree["pos_embed"] = {"embedding": normal(
-            (config["max_seq_len"], e), e ** -0.5)}
-    for i in range(config["num_layers"]):
-        attn = {"LayerNorm_0": norm()}
-        if kv == heads:
-            attn["qkv"] = dense(e, (3, heads, d))
-        else:
-            attn["q"] = dense(e, (heads, d))
-            attn["kv"] = dense(e, (2, kv, d))
-        attn["proj"] = dense(e, (e,))
-        tree[f"block{i}"] = {"attn": attn, "LayerNorm_0": norm(),
-                             "Dense_0": dense(e, (hidden,)),
-                             "Dense_1": dense(hidden, (e,))}
-    tree["LayerNorm_0"] = norm()
-    tree["lm_head"] = dense(e, (v,))
+    e = config["embed_dim"]
+    tree = {}
+    for path, shape in flax_shapes(config).values():
+        leaf = path[-1]
+        std = {"embedding": e ** -0.5,
+               "kernel": shape[0] ** -0.5}.get(leaf, 0.02)
+        value = (rng.standard_normal(shape) * std).astype(np.float32)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf] = 1.0 + value if leaf == "scale" else value
     return tree
 
 
-def load_lm(config, tree, device="cuda", dtype=torch.bfloat16):
+def load_lm(config, tree, device="cuda", dtype=torch.bfloat16,
+            trainable=False, attention_fn=None):
     """Build the port's TransformerLM from ``config`` (TransformerLM
     keyword arguments) on ``device`` and load a flax-layout tree into
-    it. Runs on the card unless the caller asks for ``device="cpu"``."""
-    model = TransformerLM(**config, dtype=dtype, device=device)
+    it. Runs on the card unless the caller asks for ``device="cpu"``.
+
+    For serving (the default) the parameters are held in the compute
+    ``dtype`` and frozen, in eval mode. ``trainable=True`` holds them
+    in f32 (flax's param_dtype), with ``requires_grad``, in train
+    mode."""
+    param_dtype = torch.float32 if trainable else dtype
+    model = TransformerLM(**config, dtype=dtype, device=device,
+                          param_dtype=param_dtype,
+                          attention_fn=attention_fn)
     model.load_state_dict(params_from_flax(tree))
+    if trainable:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)

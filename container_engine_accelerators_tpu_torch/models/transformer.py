@@ -15,13 +15,21 @@
 """Decoder-only transformer LM (counterpart of the flax TransformerLM).
 
 Same architecture and numerics as the JAX package's module: pre-norm
-residual blocks, bf16 compute (projections and embeddings hold their
-weights in the compute dtype: flax keeps f32 parameters and casts
-them at every call, which is the same arithmetic), LayerNorm
-statistics and affine in f32 with epsilon
-1e-6, tanh-approximated GELU, and an f32 lm_head on an f32 copy of the
-final hidden state. Weights come over from a flax tree through
-``models/convert.py``.
+residual blocks, bf16 compute, LayerNorm statistics and affine in f32
+with epsilon 1e-6, tanh-approximated GELU, and an f32 lm_head on an
+f32 copy of the final hidden state. Weights come over from a flax tree
+through ``models/convert.py``.
+
+Parameters are held in ``param_dtype`` and cast to the compute dtype
+at every call, as flax's ``param_dtype``/``dtype`` pair does. Training
+holds them in f32 (the default, as in flax), so gradients and SGD
+updates land in f32: an update of lr * g ~ 1e-5 on a bf16 weight of
+magnitude 0.05 would round away. Serving loads them in the compute
+dtype (``convert.load_lm``), where the cast is a no-op.
+
+Training mode: ``attention_fn`` replaces the causal flash attention
+(the JAX module's argument of that name), and ``next_token_loss_fn``
+is the shift-by-one objective.
 
 Decode mode keeps a dense KV cache per layer, passed explicitly
 (``init_cache``) instead of living in a flax variable collection:
@@ -74,6 +82,34 @@ def apply_rope(x, positions, base=10000.0):
     return rotated.to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to the
+    compute dtype at the call (no-ops when they are held in it)."""
+
+    def __init__(self, in_features, out_features, dtype, param_dtype,
+                 device=None):
+        super().__init__(in_features, out_features, device=device,
+                         dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embedding(nn.Embedding):
+    """flax ``nn.Embed(dtype=...)``: the looked-up rows in the compute
+    dtype. Gathering first and casting the rows is the same lookup as
+    casting the table first, and leaves the table's gradient in f32."""
+
+    def __init__(self, num, dim, dtype, param_dtype, device=None):
+        super().__init__(num, dim, device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, tokens):
+        return super().forward(tokens).to(self.compute_dtype)
+
+
 def _expand_kv(x, heads):
     """[B, S, Hkv, D] -> [B, S, H, D] by repeating each KV head over
     its query group (no-op for MHA)."""
@@ -100,7 +136,8 @@ class CausalSelfAttention(nn.Module):
     """Pre-norm causal attention residual, [B, S, E] in/out."""
 
     def __init__(self, embed_dim, num_heads, num_kv_heads=None,
-                 rope=False, dtype=torch.bfloat16, device=None):
+                 rope=False, dtype=torch.bfloat16, device=None,
+                 param_dtype=torch.float32, attention_fn=None):
         super().__init__()
         kv = num_kv_heads or num_heads
         if num_heads % kv:
@@ -109,15 +146,16 @@ class CausalSelfAttention(nn.Module):
         self.num_heads, self.num_kv_heads = num_heads, kv
         self.head_dim = embed_dim // num_heads
         self.rope = rope
+        self.attention_fn = attention_fn or flash_attention
         d = self.head_dim
-        dd = dict(dtype=dtype, device=device)
+        dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.ln = LayerNorm(embed_dim, dtype, device)
         if kv == num_heads:
-            self.qkv = nn.Linear(embed_dim, 3 * num_heads * d, **dd)
+            self.qkv = Linear(embed_dim, 3 * num_heads * d, **dd)
         else:
-            self.q = nn.Linear(embed_dim, num_heads * d, **dd)
-            self.kv = nn.Linear(embed_dim, 2 * kv * d, **dd)
-        self.proj = nn.Linear(embed_dim, embed_dim, **dd)
+            self.q = Linear(embed_dim, num_heads * d, **dd)
+            self.kv = Linear(embed_dim, 2 * kv * d, **dd)
+        self.proj = Linear(embed_dim, embed_dim, **dd)
 
     def _project(self, h):
         b, s, _ = h.shape
@@ -140,8 +178,8 @@ class CausalSelfAttention(nn.Module):
             if self.rope:
                 pos = torch.arange(q.shape[1], device=q.device)
                 q, k = apply_rope(q, pos), apply_rope(k, pos)
-            attn = flash_attention(q, _expand_kv(k, heads),
-                                   _expand_kv(v, heads), causal=True)
+            attn = self.attention_fn(q, _expand_kv(k, heads),
+                                     _expand_kv(v, heads), causal=True)
         else:
             attn = self._cached_attention(q, k, v, cache, index)
         return x + self.proj(attn.reshape(x.shape))
@@ -206,15 +244,16 @@ class Block(nn.Module):
 
     def __init__(self, embed_dim, num_heads, mlp_ratio=4,
                  num_kv_heads=None, rope=False, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, param_dtype=torch.float32,
+                 attention_fn=None):
         super().__init__()
         self.attn = CausalSelfAttention(embed_dim, num_heads,
-                                        num_kv_heads, rope, dtype, device)
+                                        num_kv_heads, rope, dtype, device,
+                                        param_dtype, attention_fn)
         self.ln = LayerNorm(embed_dim, dtype, device)
-        self.mlp_in = nn.Linear(embed_dim, mlp_ratio * embed_dim,
-                                dtype=dtype, device=device)
-        self.mlp_out = nn.Linear(mlp_ratio * embed_dim, embed_dim,
-                                 dtype=dtype, device=device)
+        dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.mlp_in = Linear(embed_dim, mlp_ratio * embed_dim, **dd)
+        self.mlp_out = Linear(mlp_ratio * embed_dim, embed_dim, **dd)
 
     def forward(self, x, cache=None, index=None):
         x = self.attn(x, cache, index)
@@ -225,9 +264,13 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Causal LM. Input [B, S] int tokens -> [B, S, V] f32 logits.
 
-    Options of the flax module that this port does not carry yet
-    (int8/int4 KV cache, sliding window, paged KV, int8 weights,
-    speculative-verify chunks, ring slack) raise ValueError."""
+    ``attention_fn(q, k, v, causal=True)`` replaces the flash attention
+    of the full causal forward (None: ``flash_attention``), as the flax
+    module's argument does. ``param_dtype`` is the type the parameters
+    are held in (module docstring). Options of the flax module that
+    this port does not carry yet (int8/int4 KV cache, sliding window,
+    paged KV, int8 weights, speculative-verify chunks, ring slack)
+    raise ValueError."""
 
     def __init__(self, vocab_size=32000, embed_dim=512, num_layers=8,
                  num_heads=8, max_seq_len=2048, mlp_ratio=4,
@@ -235,7 +278,8 @@ class TransformerLM(nn.Module):
                  pos_embedding="learned", kv_cache_dtype=None,
                  attention_window=0, weights="native",
                  chunk_attends_cache=False, ring_slack=0, kv_pages=None,
-                 device="cuda"):
+                 device="cuda", param_dtype=torch.float32,
+                 attention_fn=None):
         super().__init__()
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(
@@ -255,16 +299,14 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.max_seq_len, self.mlp_ratio = max_seq_len, mlp_ratio
         self.pos_embedding, self.dtype = pos_embedding, dtype
-        # flax nn.Embed(dtype=...) casts its table before the lookup;
-        # holding the cast table is the same lookup.
-        self.tok_embed = nn.Embedding(vocab_size, embed_dim,
-                                      device=device, dtype=dtype)
+        dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.tok_embed = Embedding(vocab_size, embed_dim, **dd)
         if pos_embedding == "learned":
-            self.pos_embed = nn.Embedding(max_seq_len, embed_dim,
-                                          device=device, dtype=dtype)
+            self.pos_embed = Embedding(max_seq_len, embed_dim, **dd)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, num_kv_heads,
-                  pos_embedding == "rope", dtype, device)
+                  pos_embedding == "rope", dtype, device, param_dtype,
+                  attention_fn)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(embed_dim, dtype, device)
         self.lm_head = nn.Linear(embed_dim, vocab_size, device=device)
@@ -305,3 +347,17 @@ class TransformerLM(nn.Module):
         for block, layer_cache in zip(self.blocks, layers):
             x = block(x, layer_cache, index)
         return self.lm_head(self.ln_f(x).float())
+
+
+def next_token_loss_fn(loss):
+    """Shift-by-one LM objective over a fused per-example loss:
+    logits [B, S, V] + tokens [B, S] -> scalar. ``logits[:, :-1]``
+    cannot merge into [B*(S-1), V] as a view, so the reshape copies it,
+    as the JAX function's reshape does before XLA fuses it."""
+
+    def loss_fn(logits, tokens):
+        v = logits.shape[-1]
+        return loss(logits[:, :-1].reshape(-1, v),
+                    tokens[:, 1:].reshape(-1))
+
+    return loss_fn

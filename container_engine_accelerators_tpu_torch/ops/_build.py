@@ -19,7 +19,8 @@ library with a plain C interface under ``build/torch_kernels/`` (git
 ignores it). The file name carries a digest of the source and the
 flags, so an edited kernel rebuilds and an unchanged one loads from
 the last build. Nothing here runs at import: the CPU tests import
-every module on a machine with no ``nvcc``.
+every module on a machine with no ``nvcc``. ``Kernel`` is the common
+launcher of the wrappers in ``ops/attention.py`` and ``ops/xent.py``.
 """
 
 import concurrent.futures
@@ -31,6 +32,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -109,3 +112,40 @@ def load(name):
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+class Kernel:
+    """One kernel's launcher: loads entry point ``symbol`` of
+    ``csrc/<library>.cu`` at first launch and counts launches
+    (``launches``, incremented once per successful launch and nowhere
+    else). Subclasses check and allocate, then call ``_launch``."""
+
+    name = None      # the kernel's name in reports
+    library = None   # csrc/<library>.cu
+    symbol = None    # its extern "C" entry point
+    argtypes = ()    # ctypes types; every entry point returns cudaError_t
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._fn = None
+
+    def _kernel(self):
+        if self._fn is None:
+            fn = getattr(load(self.library), self.symbol)
+            fn.argtypes = list(self.argtypes)
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _launch(self, device, *args, what=""):
+        """Call the entry point with ``args`` and the current stream of
+        ``device`` (every entry point takes the stream last); raise on
+        a nonzero cudaError_t."""
+        fn = self._kernel()
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: cudaError {err} ({what})")
+        with self._lock:
+            self.launches += 1

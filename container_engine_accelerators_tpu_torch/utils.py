@@ -12,12 +12,14 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Env-var knob parsing (own copies of the JAX package's helpers) and
-the error every option of the JAX package that the port does not
-carry yet raises."""
+"""Env-var knob parsing and ``wall_sync`` (own copies of the JAX
+package's helpers) and the error every option of the JAX package that
+the port does not carry yet raises."""
 
 import logging
 import os
+
+import torch
 
 log = logging.getLogger(__name__)
 
@@ -57,3 +59,33 @@ def _env_flag(env_name, default):
     if raw is None or not raw.strip():
         return default
     return raw.strip().lower() not in ("0", "false", "off", "no")
+
+
+def _first_tensor(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree if tree.numel() else None
+    if isinstance(tree, torch.nn.Module):
+        tree = list(tree.parameters()) + list(tree.buffers())
+    elif hasattr(tree, "values"):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for leaf in tree:
+            found = _first_tensor(leaf)
+            if found is not None:
+                return found
+    return None
+
+
+def wall_sync(tree):
+    """Barrier until the device work producing ``tree`` (a tensor, a
+    module, or a mapping or sequence of them) has finished:
+    synchronize the tensor's device, then read one element of its
+    first non-empty tensor on the host. Returns that element, or None
+    when the tree holds no non-empty tensor. Call it around a batch of
+    steps, never per step."""
+    leaf = _first_tensor(tree)
+    if leaf is None:
+        return None
+    if leaf.device.type == "cuda":
+        torch.cuda.synchronize(leaf.device)
+    return leaf.detach().reshape(-1)[0].item()

@@ -144,9 +144,10 @@ def test_kernel_build_has_no_fallback(monkeypatch):
 
 
 def test_kernel_sources_and_library_names():
-    assert _build.sources() == ["flash_fwd"]
-    path = _build.library_path("flash_fwd")
-    assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
-    assert path == _build.library_path("flash_fwd")  # stable digest
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "xent"]
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert path == _build.library_path(name)  # stable digest
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -21,8 +21,9 @@ the card and no JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 
-The flash kernel is held to its plain PyTorch version on the same
-inputs: bf16 at 2e-2 (outputs rounded to 8 bits), f32 at 1e-4
+Each kernel is held to its plain PyTorch version on the same inputs:
+bf16 at 2e-2 (outputs rounded to 8 bits; the backward and the
+cross-entropy relative to the largest reference value), f32 at 1e-4
 (summation order).
 """
 
@@ -33,7 +34,15 @@ import torch
 
 from container_engine_accelerators_tpu_torch.models import convert
 from container_engine_accelerators_tpu_torch.models import decode
+from container_engine_accelerators_tpu_torch.models import transformer
 from container_engine_accelerators_tpu_torch.ops import attention as attn
+from container_engine_accelerators_tpu_torch.ops import xent
+from container_engine_accelerators_tpu_torch.parallel import (
+    Sgd,
+    SyntheticTokenLoader,
+    Trainer,
+    cross_entropy_loss,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -129,3 +138,159 @@ def test_engine_on_the_card_launches_the_kernel(cuda):
         want = decode.greedy_decode(model, p[None], 7)[0, len(p):]
         assert want.tolist() == seq
     assert math.isfinite(float(eng.step()[1][0]))
+
+
+def _assert_near(got, want, dtype, what):
+    """bf16: 2e-2 of the reference's largest magnitude; f32: 1e-4,
+    relative once values exceed 1."""
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    tol = TOL[dtype] * (scale if dtype == torch.bfloat16
+                        else max(1.0, scale))
+    err = float((got.float() - want.float()).abs().max()) if want.numel() \
+        else 0.0
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.parametrize("shape,dtype,causal,window", [
+    ((1, 16, 8, 64), torch.bfloat16, True, 0),
+    ((1, 200, 8, 64), torch.bfloat16, True, 0),
+    ((2, 333, 4, 128), torch.bfloat16, True, 0),
+    ((1, 512, 8, 64), torch.bfloat16, True, 256),
+    ((2, 200, 4, 32), torch.float32, False, 0),
+    ((1, 300, 4, 64), torch.float32, True, 64),
+    ((1, 1, 2, 8), torch.float32, False, 0),
+])
+def test_backward_kernels_match_plain_versions(cuda, shape, dtype, causal,
+                                               window):
+    q, k, v = _qkv(shape, dtype, sum(shape), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    do = torch.randn(shape, generator=gen, device=cuda, dtype=dtype)
+    g_lse = torch.randn(shape[:3], generator=gen, device=cuda)
+    o, lse = attn.flash_attention_reference(q, k, v, causal, window)
+    delta = (do.float() * o.float()).sum(-1) - g_lse
+    before = (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+    dq = attn.flash_bwd_dq(q, k, v, do, lse, delta, causal, window)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal, window)
+    torch.cuda.synchronize()
+    assert (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    rq = attn.flash_attention_dq_reference(q, k, v, do, lse, delta, causal,
+                                           window)
+    rk, rv = attn.flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                                causal, window)
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        _assert_near(got, want, dtype, name)
+
+
+def test_autograd_runs_the_three_kernels(cuda):
+    """flash_attention_lse's gradients on the card, through the
+    forward, dQ and dK/dV kernels, against autograd of the plain
+    forward; q/k/v are slices of one fused projection."""
+    fused = torch.randn((2, 150, 3, 4, 64), device=cuda,
+                        dtype=torch.float32, requires_grad=True)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    g_o = torch.randn((2, 150, 4, 64), device=cuda)
+    g_lse = torch.randn((2, 150, 4), device=cuda)
+    counts = [kern.launches for kern in attn.KERNELS]
+    got = torch.autograd.grad(attn.flash_attention_lse(q, k, v, causal=True),
+                              fused, (g_o, g_lse))[0]
+    assert [kern.launches for kern in attn.KERNELS] == [c + 1 for c in counts]
+    want = torch.autograd.grad(
+        attn.flash_attention_reference(q, k, v, True), fused,
+        (g_o, g_lse))[0]
+    _assert_near(got, want, torch.float32, "d(qkv)")
+
+
+def _assert_dlogits_near(got, want, dtype):
+    """Element by element, |got - want| <= rtol * (|want| + mean|want|):
+    almost every entry is a softmax term far below the label's, so a
+    bound tied to the largest value would miss a wrong softmax. f32
+    1e-4 (a few f32 units apart); bf16 1e-2 (at most one bf16 unit,
+    2**-7 relative, after rounding)."""
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    got, want = got.float(), want.float()
+    scaled = float(((got - want).abs()
+                    / (want.abs() + want.abs().mean())).max())
+    assert scaled <= rtol, f"dlogits: scaled error {scaled} > {rtol}"
+
+
+@pytest.mark.parametrize("n,c,dtype,aligned", [
+    (200, 333, torch.float32, True),
+    (300, 2052, torch.float32, True),  # 16-byte loads, ragged row end
+    (64, 32000, torch.float32, True),
+    (64, 32000, torch.float32, False),
+    (50, 1000, torch.bfloat16, True),
+])
+def test_xent_kernels_match_plain_versions(cuda, n, c, dtype, aligned):
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    base = torch.empty(n * c + 1, device=cuda, dtype=dtype)
+    logits = (base[:n * c] if aligned else base[1:]).view(n, c)
+    logits.copy_(3 * torch.randn((n, c), generator=gen, device=cuda))
+    labels = torch.randint(0, c, (n,), generator=gen, device=cuda)
+    labels[0], labels[1] = -1, c + 7  # outside [0, C): no class matches
+    g = torch.randn((n,), generator=gen, device=cuda)
+    before = (xent.xent_fwd.launches, xent.xent_bwd.launches)
+    loss = xent.xent_fwd(logits, labels)
+    dlogits = xent.xent_bwd(logits, labels, g)
+    torch.cuda.synchronize()
+    assert (xent.xent_fwd.launches, xent.xent_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_near(loss, xent.softmax_cross_entropy_reference(logits, labels),
+                 torch.float32, "loss")
+    want = xent.softmax_cross_entropy_bwd_reference(logits, labels, g)
+    _assert_near(dlogits, want, dtype, "dlogits")
+    _assert_dlogits_near(dlogits, want, dtype)
+
+
+def test_xent_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        xent.softmax_cross_entropy(torch.zeros((2, 4), device=cuda,
+                                               dtype=torch.float16),
+                                   torch.zeros(2, dtype=torch.long,
+                                               device=cuda))
+
+
+def test_trainer_two_steps_on_the_card(cuda):
+    """Two steps of a small LM through the kernels: every kernel
+    launches as often as the path needs, the losses are finite, and a
+    step's gradients agree with the plain path's (relative L2 within
+    2e-2: bf16 compute rounds at other points in the two paths)."""
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64)
+    tree = convert.init_flax_layout_params(config, 0)
+    model = convert.load_lm(config, tree, device="cuda", trainable=True)
+    loss_fn = transformer.next_token_loss_fn(xent.mean_cross_entropy_loss)
+    trainer = Trainer(model, loss_fn, Sgd(0.1, momentum=0.9))
+    state = trainer.init_state()
+    batches = SyntheticTokenLoader(2, 64, 128, device="cuda")
+    kernels = attn.KERNELS + xent.KERNELS
+    before = [kern.launches for kern in kernels]
+    losses = []
+    for _ in range(2):
+        state, loss = trainer.train_step(state, next(batches))
+        losses.append(float(loss))
+    layers = config["num_layers"]
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [
+        2 * layers, 2 * layers, 2 * layers, 2, 2]
+    assert all(math.isfinite(x) for x in losses)
+
+    def grads(attention_fn, loss):
+        m = convert.load_lm(config, tree, device="cuda", trainable=True,
+                            attention_fn=attention_fn)
+        tokens = next(SyntheticTokenLoader(2, 64, 128, device="cuda"))[0]
+        value = transformer.next_token_loss_fn(loss)(m(tokens), tokens)
+        value.backward()
+        return float(value.detach()), {
+            n: p.grad for n, p in m.named_parameters()}
+
+    def plain(q, k, v, causal):
+        return attn.flash_attention_reference(q, k, v, causal)[0]
+
+    kernel_loss, kernel_grads = grads(None, xent.mean_cross_entropy_loss)
+    plain_loss, plain_grads = grads(plain, cross_entropy_loss)
+    assert abs(kernel_loss - plain_loss) <= 1e-3 * abs(plain_loss)
+    for name, want in plain_grads.items():
+        got = kernel_grads[name]
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel <= 2e-2, f"{name}: relative L2 error {rel}"

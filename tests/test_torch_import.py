@@ -48,12 +48,14 @@ PORT_FILES = _port_files()
 
 def test_port_has_the_slice_modules():
     names = {_module_name(p) for p in PORT_FILES}
-    for mod in ("utils", "ops.attention", "ops._build",
+    for mod in ("utils", "ops", "ops.attention", "ops.xent", "ops._build",
                 "models.transformer", "models.convert", "models.decode",
-                "serving.server", "serving.serve"):
+                "serving.server", "serving.serve", "parallel",
+                "parallel.data", "parallel.train", "train"):
         assert f"{PORT}.{mod}" in names
-    assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",
-                                       "flash_fwd.cu"))
+    for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
+        assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",
+                                           source))
 
 
 @pytest.mark.parametrize(
