@@ -22,7 +22,12 @@
    source, all at once);
 3. holds each kernel against its plain PyTorch version on the card
    (flash forward, dQ, dK/dV, cross-entropy forward and backward; the
-   cross-entropy gradient element by element, scaled by its mean);
+   cross-entropy gradient element by element, scaled by its mean),
+   the bf16 flash forward and dK/dV also on q/k/v/dO rows that do not
+   start on 16 bytes; launches the two tensor-core kernels (bf16 flash
+   forward, dK/dV) twice on the same inputs and requires bitwise-equal
+   outputs; and counts the tensor-core instructions (HMMA/HGMMA) in
+   their SASS (cuobjdump), which must not be 0;
 4. times each kernel at its path's shapes beside its bound, its plain
    version and one PyTorch library call (flash forward at the serving
    prefill widths and at the training shape; the backward and the
@@ -63,6 +68,8 @@ chiprun_out/chip_smoke.json.
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -182,18 +189,42 @@ def xent_bound_ms(n, c, role):
                     "torch.float32")
 
 
+def attn_operands(torch, shape, dtype, n, gen, misaligned=False):
+    """n random [B, S, H, D] operands. misaligned: slices of one fused
+    [B, S, n*H*D + 1] projection starting one element in, so no row
+    starts on 16 bytes (the kernels' narrow-load staging)."""
+    if not misaligned:
+        return [torch.randn(shape, generator=gen, device="cuda",
+                            dtype=dtype) for _ in range(n)]
+    b, s, h, d = shape
+    fused = torch.randn((b, s, n * h * d + 1), generator=gen,
+                        device="cuda", dtype=dtype)
+    return [fused[:, :, 1 + i * h * d:1 + (i + 1) * h * d].unflatten(
+        -1, (h, d)) for i in range(n)]
+
+
+# Phase 3's attention cases: (shape, dtype, causal, window, misaligned
+# rows). bf16 runs the tensor-core forward and dK/dV (D 128, D 40 not a
+# multiple of 16, the window band, narrow loads), f32 the FMA kernels.
+BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
+                 ((2, 200, 4, 40), "bfloat16", False, 0, False),
+                 ((1, 300, 4, 64), "bfloat16", True, 64, False),
+                 ((2, 150, 4, 64), "bfloat16", True, 0, True)]
+
+
 def check_flash(torch, attn):
     """Phase 3: the kernel against the plain version, O and lse."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [((1, s, 8, 64), torch.bfloat16, True, 0)
+    cases = [((1, s, 8, 64), "bfloat16", True, 0, False)
              for s in (16, 200, 512, 1920)]
-    cases += [((2, 200, 4, 32), torch.float32, False, 0),
-              ((1, 300, 4, 64), torch.float32, True, 64),
-              ((1, 1920, 8, 64), torch.bfloat16, True, 256)]
+    cases += [((2, 200, 4, 32), "float32", False, 0, False),
+              ((1, 300, 4, 64), "float32", True, 64, False),
+              ((1, 1920, 8, 64), "bfloat16", True, 256, False)]
+    cases += BF16_TC_CASES
     results = []
-    for shape, dtype, causal, window in cases:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                               dtype=dtype) for _ in range(3))
+    for shape, dtype, causal, window, misaligned in cases:
+        dtype = getattr(torch, dtype)
+        q, k, v = attn_operands(torch, shape, dtype, 3, gen, misaligned)
         o, lse = attn.flash_attention_lse(q, k, v, causal=causal,
                                           window=window or None)
         torch.cuda.synchronize()
@@ -202,7 +233,8 @@ def check_flash(torch, attn):
         err_l = (lse - rl).abs().max().item()
         tol = TOL[str(dtype)]
         case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
-                    window=window, err_o=err_o, err_lse=err_l, tol=tol)
+                    window=window, rows_aligned=attn.rows_aligned(q, k, v),
+                    err_o=err_o, err_lse=err_l, tol=tol)
         log("flash check", json.dumps(case))
         if not (err_o <= tol and err_l <= tol):
             raise AssertionError(f"flash kernel disagrees: {case}")
@@ -252,11 +284,11 @@ def near(got, want, dtype):
     return err, tol
 
 
-def bwd_inputs(torch, attn, shape, dtype, causal, window, gen, lse_grad):
+def bwd_inputs(torch, attn, shape, dtype, causal, window, gen, lse_grad,
+               misaligned=False):
     """q, k, v, dO, and the lse/delta the backward kernels take
     (delta = rowsum(dO * O) - g_lse, from the plain forward)."""
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
-                               dtype=dtype) for _ in range(4))
+    q, k, v, do = attn_operands(torch, shape, dtype, 4, gen, misaligned)
     o, lse = attn.flash_attention_reference(q, k, v, causal, window)
     delta = (do.float() * o.float()).sum(-1)
     if lse_grad:
@@ -268,23 +300,25 @@ def bwd_inputs(torch, attn, shape, dtype, causal, window, gen, lse_grad):
 def check_backward(torch, attn):
     """Phase 3: dQ and dK/dV against their plain versions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [((1, s, 8, 64), bf16, True, 0, s == 200)
+    cases = [((1, s, 8, 64), "bfloat16", True, 0, False, s == 200)
              for s in (16, 200, 512, 2048)]
-    cases += [((2, 200, 4, 32), f32, False, 0, False),
-              ((1, 300, 4, 64), f32, True, 64, True),
-              ((1, 2048, 8, 64), bf16, True, 256, False)]
+    cases += [((2, 200, 4, 32), "float32", False, 0, False, False),
+              ((1, 300, 4, 64), "float32", True, 64, False, True),
+              ((1, 2048, 8, 64), "bfloat16", True, 256, False, False)]
+    cases += [case + (True,) for case in BF16_TC_CASES]
     results = []
-    for shape, dtype, causal, window, lse_grad in cases:
+    for shape, dtype, causal, window, misaligned, lse_grad in cases:
+        dtype = getattr(torch, dtype)
         args = bwd_inputs(torch, attn, shape, dtype, causal, window, gen,
-                          lse_grad)
+                          lse_grad, misaligned)
         dq = attn.flash_bwd_dq(*args, causal, window)
         dk, dv = attn.flash_bwd_dkv(*args, causal, window)
         torch.cuda.synchronize()
         rq = attn.flash_attention_dq_reference(*args, causal, window)
         rk, rv = attn.flash_attention_dkv_reference(*args, causal, window)
         case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
-                    window=window, lse_cotangent=lse_grad)
+                    window=window, rows_aligned=attn.rows_aligned(*args[:4]),
+                    lse_cotangent=lse_grad)
         ok = True
         for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
                                 ("dv", dv, rv)):
@@ -296,6 +330,72 @@ def check_backward(torch, attn):
             raise AssertionError(f"flash backward kernel disagrees: {case}")
         results.append(case)
     return results
+
+
+def check_repeat(torch, attn):
+    """Phase 3: the tensor-core kernels (bf16 flash forward, dK/dV) at
+    the training shape, launched twice on the same inputs, give
+    bitwise-equal outputs (each output tile has one owner block and
+    there are no atomics)."""
+    shape = (TRAIN_BATCH, TRAIN_SEQ, MODEL["num_heads"],
+             MODEL["embed_dim"] // MODEL["num_heads"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    args = bwd_inputs(torch, attn, shape, torch.bfloat16, True, 0, gen,
+                      True)
+    out = {}
+    for name, run in (
+            ("flash_fwd", lambda: attn.flash_fwd.launch(*args[:3], True, 0)),
+            ("flash_bwd_dkv",
+             lambda: attn.flash_bwd_dkv.launch(*args, True, 0))):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        out[name] = all(torch.equal(a, b) for a, b in zip(first, second))
+    log("bitwise repeat:", json.dumps(out))
+    if not all(out.values()):
+        raise AssertionError(f"two launches on the same inputs differ: {out}")
+    return out
+
+
+def tensor_core_counts(build):
+    """HMMA/HGMMA instructions in each kernel of the built flash
+    libraries, from ``cuobjdump -sass``: {"flash_fwd_tc_kernel<64>": n,
+    ...}, or None when the toolkit has no cuobjdump. Fails if a
+    tensor-core kernel (``*_tc_kernel``) has none."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        log("tensor-core count skipped: the CUDA toolkit has no cuobjdump "
+            f"(not in {home}/bin nor on PATH)")
+        return None
+    counts = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for section in sass.split("Function : ")[1:]:
+            header = section.split("\n", 1)[0]
+            # Mangled: ...19flash_fwd_tc_kernelILi64EE...; demangled:
+            # ...::flash_fwd_tc_kernel<64>(...).
+            name = re.search(r"(?:\d|::)(flash_\w+?_kernel)", header)
+            dmax = re.search(r"Li(\d+)E|(\d+)>", header)
+            if name is None:
+                continue
+            key = (f"{name.group(1)}"
+                   f"<{(dmax.group(1) or dmax.group(2)) if dmax else '?'}>")
+            if "bfloat16" in header:
+                key += " bf16"
+            elif "IfLi" in header or "<float" in header:
+                key += " f32"
+            counts[key] = sum(("HMMA" in line or "HGMMA" in line)
+                              for line in section.splitlines())
+    log("tensor-core instructions (SASS HMMA/HGMMA):", json.dumps(counts))
+    tc = {k: n for k, n in counts.items() if "_tc_kernel" in k}
+    if not tc or not all(tc.values()):
+        raise AssertionError(f"tensor-core kernels without HMMA/HGMMA: "
+                             f"{counts}")
+    return counts
 
 
 def xent_inputs(torch, n, c, gen):
@@ -761,8 +861,10 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     # Phases 3 and 4: each kernel against its plain version, then times.
+    report["tensor_core_instructions"] = tensor_core_counts(_build)
     report["flash_checks"] = check_flash(torch, attention)
     report["flash_bwd_checks"] = check_backward(torch, attention)
+    report["bitwise_repeat"] = check_repeat(torch, attention)
     report["xent_checks"] = check_xent(torch, xent)
     widths = [16, 128, 1024, 1920]
     report["flash_times"] = time_flash(torch, attention, widths)

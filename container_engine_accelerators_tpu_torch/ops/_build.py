@@ -16,10 +16,11 @@
 
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` into a shared
 library with a plain C interface under ``build/torch_kernels/`` (git
-ignores it). The file name carries a digest of the source and the
-flags, so an edited kernel rebuilds and an unchanged one loads from
-the last build. Nothing here runs at import: the CPU tests import
-every module on a machine with no ``nvcc``. ``Kernel`` is the common
+ignores it). The file name carries a digest of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel rebuilds
+and an unchanged one loads from the last build. Nothing here runs at
+import: the CPU tests import every module on a machine with no
+``nvcc``. ``Kernel`` is the common
 launcher of the wrappers in ``ops/attention.py`` and ``ops/xent.py``.
 """
 
@@ -64,6 +65,7 @@ def _nvcc():
 
 def library_path(name):
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

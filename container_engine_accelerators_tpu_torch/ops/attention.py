@@ -123,6 +123,20 @@ def _strides(*xs):
     return [x.stride(i) for x in xs for i in range(3)]
 
 
+def rows_aligned(*xs):
+    """1 when every row (one position of one head) of every [B, S, H, D]
+    operand starts on 16 bytes: the pointer and each stride of the
+    batch, sequence and head dims that is ever stepped. The bf16
+    tensor-core kernels then stage rows by 16-byte ``cp.async``, and by
+    2-byte loads otherwise (0)."""
+    for x in xs:
+        size = x.element_size()
+        if x.data_ptr() % 16 or any(
+                x.stride(i) * size % 16 for i in range(3) if x.shape[i] > 1):
+            return 0
+    return 1
+
+
 def _check_tensors(what, tensors):
     """Checks every kernel of this module makes on its [B, S, H, D]
     operands (``tensors``: {name: tensor}). Returns (b, s, h, d)."""
@@ -170,7 +184,7 @@ class FlashForward(_build.Kernel):
     argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong] * 9
                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p])
+                   ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, q, k, v, causal=False, window=0):
         """Returns (o [B, S, H, D] in q's dtype, lse [B, S, H] f32)."""
@@ -189,7 +203,7 @@ class FlashForward(_build.Kernel):
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
                      b, s, h, d, *_strides(q, k, v), int(bool(causal)),
-                     int(window), 1.0 / math.sqrt(d),
+                     int(window), 1.0 / math.sqrt(d), rows_aligned(q, k, v),
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
         return o, lse
 
@@ -197,14 +211,14 @@ class FlashForward(_build.Kernel):
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 12
                  + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p])
+                    ctypes.c_int, ctypes.c_void_p])
 
 
 class _FlashBackward(_build.Kernel):
     """Common checks and launch of the two backward kernels. Both
     entry points take (q, k, v, do, lse, delta, out0, out1, dtype, b,
-    s, h, d, 12 strides, causal, window, scale, stream); dQ passes a
-    null out1."""
+    s, h, d, 12 strides, causal, window, scale, aligned, stream); dQ
+    passes a null out1."""
 
     library = "flash_bwd"
     argtypes = _BWD_ARGTYPES
@@ -227,6 +241,7 @@ class _FlashBackward(_build.Kernel):
                      *ptrs, _DTYPE_CODES[q.dtype], b, s, h, d,
                      *_strides(q, k, v, do), int(bool(causal)),
                      int(window), 1.0 / math.sqrt(d),
+                     rows_aligned(q, k, v, do),
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
         return tuple(outs)
 

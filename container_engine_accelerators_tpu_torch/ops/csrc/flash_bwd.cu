@@ -37,13 +37,32 @@
 // head dim must be contiguous); lse and delta are contiguous [B, S, H]
 // f32; dQ, dK, dV are contiguous [B, S, H, D].
 //
-// What bounds it on an H100: at the training slice's shapes
+// What bounds them on an H100: at the training slice's shapes
 // ([8, 2048, 8, 64] bf16, causal) dQ does 6*D and dK/dV 8*D
 // operations per kept (query, key) pair, about 52 and 69 GFLOP, against
 // 85-101 MB of traffic, so the tensor cores' rate bounds both (about
-// 0.05-0.07 ms at 989 TFLOP/s). This first kernel does its products
-// with f32 FMAs on the CUDA cores (67 TFLOP/s at most), so it cannot
-// come near that bound; it is built to be right and simple:
+// 0.05-0.07 ms at 989 TFLOP/s).
+//
+// dK/dV, bf16: the tensor-core kernel (`flash_bwd_dkv_tc_kernel`).
+//   One 128-thread block per (batch*head, 64-key tile), each warp
+//   owning 16 keys; K and V staged once in bf16; Q and dO tiles (64
+//   queries, 32 at D > 64 to keep the accumulators in registers)
+//   double-buffered by 16-byte cp.async between the causal lower bound
+//   and the window's upper bound (`_dkv_kernel`, attention.py:212-215),
+//   with their lse and delta rows. Per tile, transposed (rows are the
+//   block's keys): S^T = K.Q^T and dP^T = V.dO^T by mma.m16n8k16 with
+//   f32 accumulators; P^T = exp(S^T * scale - lse) and dS^T = P^T *
+//   (dP^T - delta) * scale on the fragments, masked only on the tiles
+//   a mask can touch; then dV += P^T.dO and dK += dS^T.Q with P^T and
+//   dS^T rounded to bf16 as A operands straight from the registers
+//   (dO and Q through ldmatrix.trans). dK and dV stay in f32 registers
+//   for the whole loop. Rounding P^T and dS^T to bf16 before the two
+//   products is the change of numerics against the f32 kernel (as in
+//   FlashAttention-2). Misaligned rows are staged by 2-byte loads.
+// dK/dV, f32, and dQ (both types): FMA kernels on the CUDA cores (67
+//   TFLOP/s at most), built to be right and simple; f32 stays there
+//   because the tensor cores would round it to TF32, outside the f32
+//   limit of 1e-4:
 //   dQ: one 256-thread block per (batch*head, 64-row Q tile); Q, dO,
 //       lse, delta staged once; K/V tiles of 64 keys from the window's
 //       lower edge to the causal diagonal (the bounds of `_dq_kernel`,
@@ -52,16 +71,19 @@
 //       4 x D/16 register tiles.
 //   dK/dV: one 256-thread block per (batch*head, 64-key tile); K, V
 //       staged once; Q/dO tiles from the causal lower bound to the
-//       window's upper bound (`_dkv_kernel`, attention.py:212-215);
-//       p^T and ds^T through shared memory, dK and dV by 4 x D/16
-//       register tiles each.
-// Causal tiles run heaviest first. Tensor cores (mma/wgmma) and TMA
-// are left for a later change.
+//       window's upper bound; p^T and ds^T through shared memory, dK
+//       and dV by 4 x D/16 register tiles each.
+// Causal tiles run heaviest first. No atomics anywhere: each output
+// tile is owned by one block, so every result is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using cea_mma::bf16;
 
 constexpr int kTile = 64;  // rows of the block's own tile and of a partner tile
 constexpr int kThreadsY = 16;
@@ -84,6 +106,7 @@ struct Params {
   long long q_stride[3], k_stride[3], v_stride[3], do_stride[3];
   int causal, window;
   float scale;
+  int aligned;  // every q/k/v/dO row starts on 16 bytes
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -354,30 +377,242 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   write_tile<T, DMAX>(p.out1, dv, p, b, h, k0, ty, tx);
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const Params& p, bool dkv, cudaStream_t stream) {
-  const size_t smem = smem_bytes(DMAX);
-  auto kernel = dkv ? flash_bwd_dkv_kernel<T, DMAX> : flash_bwd_dq_kernel<T, DMAX>;
+// dK/dV for bf16 on the tensor cores. kQ queries a partner tile: 64,
+// or 32 at DMAX 128 (dK and dV take 2 * DMAX / 8 * 4 f32 registers).
+constexpr int kTcThreads = 128;  // 4 warps, 16 keys each
+
+template <int DMAX>
+struct DkvTc {
+  static constexpr int kQ = DMAX <= 64 ? 64 : 32;
+  static constexpr int kLd = DMAX + 8;
+  static constexpr size_t smem_bytes() {
+    // K and V tiles, two Q and two dO tiles in bf16, then lse and
+    // delta rows for both buffers in f32.
+    return sizeof(bf16) * (size_t)(2 * kTile + 4 * kQ) * kLd +
+           sizeof(float) * 4 * kQ;
+  }
+};
+
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_tc_kernel(const Params p) {
+  using namespace cea_mma;
+  constexpr int kQ = DkvTc<DMAX>::kQ;
+  constexpr int kLd = DkvTc<DMAX>::kLd;
+  constexpr int kSteps = DMAX / 16;  // 16-deep steps over the head dim
+  constexpr int kNb = kQ / 8;        // 8-query blocks of a score tile
+  constexpr int kNd = DMAX / 8;      // 8-column blocks of dK, dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][kLd]
+  bf16* v_s = k_s + kTile * kLd;                  // [kTile][kLd]
+  bf16* q_s = v_s + kTile * kLd;                  // [2][kQ][kLd]
+  bf16* do_s = q_s + 2 * kQ * kLd;                // [2][kQ][kLd]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kQ * kLd);  // [2][kQ]
+  float* delta_s = lse_s + 2 * kQ;                                // [2][kQ]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.heads;
+  const int h = blockIdx.x % p.heads;
+  // Causal: the first key tiles see the most queries; run them first.
+  const int k0 = (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * kTile;
+  const int seq = p.seq;
+  const int dim = p.dim;
+  const bool aligned = p.aligned;
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
+                   h * p.q_stride[2];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_stride[0] +
+                   h * p.k_stride[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_stride[0] +
+                   h * p.v_stride[2];
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.do_stride[0] +
+                    h * p.do_stride[2];
+  // lse and delta of (b, position, h) sit at (b * seq + pos) * heads + h.
+  const long long row_base = static_cast<long long>(b) * seq * p.heads + h;
+
+  // The query range that sees this key tile, as in the f32 kernel.
+  const int k_last = min(k0 + kTile, seq) - 1;
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi =
+      (p.causal && p.window) ? min(seq - 1, k_last + p.window - 1) : seq - 1;
+  const int qt_lo = q_lo / kQ, qt_hi = q_hi / kQ;
+
+  // Stage Q/dO tile qt, with its lse and delta rows, into buffer buf.
+  auto stage_partner = [&](int qt, int buf) {
+    const int q0 = qt * kQ;
+    stage_rows<kQ, DMAX, kTcThreads>(q_s + buf * kQ * kLd, qg, p.q_stride[1],
+                                     q0, seq, dim, aligned);
+    stage_rows<kQ, DMAX, kTcThreads>(do_s + buf * kQ * kLd, dog,
+                                     p.do_stride[1], q0, seq, dim, aligned);
+    for (int r = threadIdx.x; r < kQ; r += kTcThreads) {
+      const int pos = q0 + r;
+      const bool in = pos < seq;
+      const long long row = row_base + static_cast<long long>(pos) * p.heads;
+      cp_async4(lse_s + buf * kQ + r, in ? p.lse + row : p.lse, in);
+      cp_async4(delta_s + buf * kQ + r, in ? p.delta + row : p.delta, in);
+    }
+  };
+
+  stage_rows<kTile, DMAX, kTcThreads>(k_s, kg, p.k_stride[1], k0, seq, dim,
+                                      aligned);
+  stage_rows<kTile, DMAX, kTcThreads>(v_s, vg, p.v_stride[1], k0, seq, dim,
+                                      aligned);
+  stage_partner(qt_lo, 0);
+  cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+  const int key0 = k0 + warp * 16 + g;     // this lane's keys: key0, key0 + 8
+  const bf16* kw = k_s + warp * 16 * kLd;  // this warp's K rows
+  const bf16* vw = v_s + warp * 16 * kLd;
+  float dk[kNd][4], dv[kNd][4];
+#pragma unroll
+  for (int j = 0; j < kNd; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int qt = qt_lo; qt <= qt_hi; ++qt) {
+    const int buf = (qt - qt_lo) & 1;
+    if (qt < qt_hi) {  // the next tile loads while this one computes
+      stage_partner(qt + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qb = q_s + buf * kQ * kLd;
+    const bf16* dob = do_s + buf * kQ * kLd;
+    const float* lse_b = lse_s + buf * kQ;
+    const float* delta_b = delta_s + buf * kQ;
+
+    // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 keys.
+    float st[kNb][4], dpt[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      uint32_t ka[4], va[4];
+      load_a(ka, kw, kLd, ks * 16, lane);
+      load_a(va, vw, kLd, ks * 16, lane);
+#pragma unroll
+      for (int j = 0; j < kNb; j += 2) {
+        uint32_t bq[4], bd[4];
+        load_b_rows(bq, qb, kLd, j * 8, ks * 16, lane);
+        load_b_rows(bd, dob, kLd, j * 8, ks * 16, lane);
+        mma(st[j], ka, bq[0], bq[1]);
+        mma(st[j + 1], ka, bq[2], bq[3]);
+        mma(dpt[j], va, bd[0], bd[1]);
+        mma(dpt[j + 1], va, bd[2], bd[3]);
+      }
+    }
+
+    // P^T and dS^T on the fragments: element e of block j is key
+    // key0 + 8 * (e >> 1), query column j * 8 + 2t + (e & 1).
+    const int q0 = qt * kQ;
+    const bool masked =
+        q0 + kQ > seq || k0 + kTile > seq ||
+        (p.causal && (q0 < k0 + kTile - 1 ||
+                      (p.window && k0 <= q0 + kQ - 1 - p.window)));
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        float pr = exp2f(fmaf(st[j][e], scale2, -lse_b[c] * kLog2e));
+        if (masked) {
+          const int q_pos = q0 + c;
+          const int k_pos = key0 + (e >> 1) * 8;
+          bool keep = q_pos < seq && k_pos < seq;
+          if (p.causal) {
+            keep = keep && q_pos >= k_pos;
+            if (p.window) keep = keep && k_pos > q_pos - p.window;
+          }
+          pr = keep ? pr : 0.f;
+        }
+        st[j][e] = pr;
+        dpt[j][e] = pr * (dpt[j][e] - delta_b[c]) * p.scale;
+      }
+
+    // dV += P^T.dO and dK += dS^T.Q, 16 queries a step.
+#pragma unroll
+    for (int ks = 0; ks < kQ / 16; ++ks) {
+      uint32_t pa[4], da[4];
+      c_to_a(pa, st[2 * ks], st[2 * ks + 1]);
+      c_to_a(da, dpt[2 * ks], dpt[2 * ks + 1]);
+#pragma unroll
+      for (int j = 0; j < kNd; j += 2) {
+        uint32_t bd[4], bq[4];
+        load_b_cols(bd, dob, kLd, ks * 16, j * 8, lane);
+        load_b_cols(bq, qb, kLd, ks * 16, j * 8, lane);
+        mma(dv[j], pa, bd[0], bd[1]);
+        mma(dv[j + 1], pa, bd[2], bd[3]);
+        mma(dk[j], da, bq[0], bq[1]);
+        mma(dk[j + 1], da, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this tile's readers are done before it reloads
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = key0 + 8 * i;
+    if (pos >= seq) continue;
+    const long long off =
+        ((static_cast<long long>(b) * seq + pos) * p.heads + h) * dim;
+    bf16* dkg = static_cast<bf16*>(p.out0) + off;
+    bf16* dvg = static_cast<bf16*>(p.out1) + off;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (col >= dim) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dkg + col) =
+          __floats2bfloat162_rn(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvg + col) =
+          __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const Params& p, size_t smem, int threads,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.batch * p.heads, (p.seq + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(const Params& p, bool dkv, cudaStream_t stream) {
-  return p.dim <= 64 ? launch<T, 64>(p, dkv, stream)
-                     : launch<T, 128>(p, dkv, stream);
+// bf16 dK/dV goes to the tensor-core kernel, everything else to the
+// FMA kernels.
+template <int DMAX>
+cudaError_t dispatch(const Params& p, int dtype, bool dkv,
+                     cudaStream_t stream) {
+  const size_t fma_smem = smem_bytes(DMAX);
+  if (dtype == 0)
+    return dkv ? launch(flash_bwd_dkv_kernel<float, DMAX>, p, fma_smem,
+                        kThreads, stream)
+               : launch(flash_bwd_dq_kernel<float, DMAX>, p, fma_smem,
+                        kThreads, stream);
+  if (dtype == 1)
+    return dkv ? launch(flash_bwd_dkv_tc_kernel<DMAX>, p,
+                        DkvTc<DMAX>::smem_bytes(), kTcThreads, stream)
+               : launch(flash_bwd_dq_kernel<bf16, DMAX>, p, fma_smem,
+                        kThreads, stream);
+  return cudaErrorInvalidValue;
 }
 
 int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* out0, void* out1,
         int dtype, int batch, int seq, int heads, int dim,
         const long long* strides, int causal, int window, float scale,
-        void* stream, bool dkv) {
+        int aligned, void* stream, bool dkv) {
   Params p;
   p.q = q;
   p.k = k;
@@ -400,17 +635,18 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
+  p.aligned = aligned;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch_dim<float>(p, dkv, st));
-  if (dtype == 1)
-    return static_cast<int>(dispatch_dim<__nv_bfloat16>(p, dkv, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dim > 64 ? dispatch<128>(p, dtype, dkv, st)
+                                   : dispatch<64>(p, dtype, dkv, st));
 }
 
 }  // namespace
 
 // Both entry points: dtype 0 = float32, 1 = bfloat16; strides in
-// elements, (batch, seq, head) for q, k, v, dO in that order. Return
+// elements, (batch, seq, head) for q, k, v, dO in that order; aligned
+// = 1 when every q/k/v/dO row starts on 16 bytes (read by the bf16
+// dK/dV kernel, which stages by 2-byte loads otherwise). Return
 // the cudaError_t of the launch (0 = success); the caller raises on
 // anything else. The wrapper has checked shapes, types, the head dim
 // (<= 128, multiple of 8) and that it is contiguous, and that lse and
@@ -422,7 +658,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
       long long q_sh, long long k_sb, long long k_ss, long long k_sh,        \
       long long v_sb, long long v_ss, long long v_sh, long long do_sb,       \
       long long do_ss, long long do_sh, int causal, int window, float scale, \
-      void *stream
+      int aligned, void *stream
 
 #define CEA_BWD_STRIDES                                                   \
   const long long strides[12] = {q_sb,  q_ss,  q_sh,  k_sb, k_ss, k_sh, \
@@ -432,12 +668,12 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 extern "C" int cea_flash_bwd_dq(CEA_BWD_ARGS) {
   CEA_BWD_STRIDES;
   return run(q, k, v, dout, lse, delta, out0, out1, dtype, batch, seq, heads,
-             dim, strides, causal, window, scale, stream, false);
+             dim, strides, causal, window, scale, aligned, stream, false);
 }
 
 // dK into out0, dV into out1.
 extern "C" int cea_flash_bwd_dkv(CEA_BWD_ARGS) {
   CEA_BWD_STRIDES;
   return run(q, k, v, dout, lse, delta, out0, out1, dtype, batch, seq, heads,
-             dim, strides, causal, window, scale, stream, true);
+             dim, strides, causal, window, scale, aligned, stream, true);
 }

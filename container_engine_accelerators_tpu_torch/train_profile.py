@@ -40,9 +40,9 @@ import torch
 from . import train
 
 _CATEGORIES = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_f32_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
     ("xent_fwd", ("xent_fwd_kernel",)),
     ("xent_bwd", ("xent_bwd_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "splitK")),

@@ -143,6 +143,28 @@ def test_kernel_build_has_no_fallback(monkeypatch):
         _build.build("flash_fwd")
 
 
+def test_rows_aligned_reads_pointer_and_strides():
+    """The flag that picks 16-byte cp.async staging in the bf16 kernels:
+    slices of a fused projection (the transformer's q/k/v) are aligned;
+    a row stride of an odd element count, or a pointer off 16 bytes, is
+    not; the stride of a size-1 dim is never stepped and does not
+    count."""
+    h, d = 4, 64
+    fused = torch.zeros((2, 10, 3 * h * d), dtype=torch.bfloat16)
+    q, k, v = (fused[:, :, i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+               for i in range(3))
+    assert attn.rows_aligned(q, k, v) == 1
+    odd = torch.zeros((2, 10, h * d + 1), dtype=torch.bfloat16)
+    assert attn.rows_aligned(odd[:, :, :h * d].unflatten(-1, (h, d))) == 0
+    assert attn.rows_aligned(q, fused.view(-1)[8:8 + q.numel()].view(
+        q.shape)) == 1
+    assert attn.rows_aligned(fused.view(-1)[1:1 + q.numel()].view(
+        q.shape)) == 0
+    single = torch.zeros((1, 10, h, d), dtype=torch.bfloat16).as_strided(
+        (1, 10, h, d), (3, h * d, d, 1))
+    assert attn.rows_aligned(single) == 1
+
+
 def test_kernel_sources_and_library_names():
     assert _build.sources() == ["flash_bwd", "flash_fwd", "xent"]
     for name in _build.sources():

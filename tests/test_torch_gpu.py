@@ -24,7 +24,8 @@ the card and no JAX it runs as
 Each kernel is held to its plain PyTorch version on the same inputs:
 bf16 at 2e-2 (outputs rounded to 8 bits; the backward and the
 cross-entropy relative to the largest reference value), f32 at 1e-4
-(summation order).
+(summation order). bf16 flash forward and dK/dV run on the tensor
+cores, f32 on the FMA kernels.
 """
 
 import math
@@ -67,6 +68,8 @@ def _qkv(shape, dtype, seed, device):
     ((1, 16, 8, 64), torch.bfloat16, True, 0),
     ((1, 200, 8, 64), torch.bfloat16, True, 0),
     ((2, 333, 4, 128), torch.bfloat16, True, 0),
+    ((2, 200, 4, 40), torch.bfloat16, False, 0),
+    ((1, 300, 4, 64), torch.bfloat16, True, 64),
     ((2, 200, 4, 32), torch.float32, False, 0),
     ((1, 300, 4, 64), torch.float32, True, 64),
     ((1, 1, 2, 8), torch.float32, False, 0),
@@ -156,6 +159,8 @@ def _assert_near(got, want, dtype, what):
     ((1, 16, 8, 64), torch.bfloat16, True, 0),
     ((1, 200, 8, 64), torch.bfloat16, True, 0),
     ((2, 333, 4, 128), torch.bfloat16, True, 0),
+    ((2, 200, 4, 40), torch.bfloat16, False, 0),
+    ((1, 300, 4, 64), torch.bfloat16, True, 64),
     ((1, 512, 8, 64), torch.bfloat16, True, 256),
     ((2, 200, 4, 32), torch.float32, False, 0),
     ((1, 300, 4, 64), torch.float32, True, 64),
@@ -181,6 +186,58 @@ def test_backward_kernels_match_plain_versions(cuda, shape, dtype, causal,
                                                 causal, window)
     for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         _assert_near(got, want, dtype, name)
+
+
+def _bwd_args(shape, dtype, causal, window, device, seed=7):
+    """q, k, v, dO, lse, delta as the autograd function hands them to
+    the backward kernels (delta from the plain forward's O, with an lse
+    cotangent)."""
+    q, k, v = _qkv(shape, dtype, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    g_lse = torch.randn(shape[:3], generator=gen, device=device)
+    o, lse = attn.flash_attention_reference(q, k, v, causal, window)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1) - g_lse
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 64)])
+def test_tensor_core_kernels_read_misaligned_rows(cuda, causal, window):
+    """bf16 q/k/v/dO as slices of one fused projection whose rows are
+    an odd number of elements apart (no row but the first starts on 16
+    bytes): the tensor-core kernels stage them with narrow loads and
+    agree with the plain versions."""
+    b, s, h, d = 2, 150, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    fused = torch.randn((b, s, 4 * h * d + 1), generator=gen, device=cuda,
+                        dtype=torch.bfloat16)
+    q, k, v, do = (fused[:, :, 1 + i * h * d:1 + (i + 1) * h * d]
+                   .unflatten(-1, (h, d)) for i in range(4))
+    assert attn.rows_aligned(q, k, v, do) == 0
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    ro, rl = attn.flash_attention_reference(q, k, v, causal, window)
+    _assert_near(o, ro, torch.bfloat16, "o")
+    torch.testing.assert_close(lse, rl, rtol=2e-2, atol=2e-2)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, do, rl, delta, causal, window)
+    rk, rv = attn.flash_attention_dkv_reference(q, k, v, do, rl, delta,
+                                                causal, window)
+    _assert_near(dk, rk, torch.bfloat16, "dk")
+    _assert_near(dv, rv, torch.bfloat16, "dv")
+
+
+def test_tensor_core_kernels_are_deterministic(cuda):
+    """Two launches on the same inputs give bitwise-equal outputs: every
+    output tile is owned by one block, with no atomics."""
+    shape = (2, 333, 4, 64)
+    args = _bwd_args(shape, torch.bfloat16, True, 0, cuda)
+    q, k, v = args[:3]
+    first = attn.flash_fwd(q, k, v, True, 0)
+    second = attn.flash_fwd(q, k, v, True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first = attn.flash_bwd_dkv(*args, True, 0)
+    second = attn.flash_bwd_dkv(*args, True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_autograd_runs_the_three_kernels(cuda):

@@ -355,3 +355,25 @@ def test_cuda_device_without_a_card_raises():
                          "--vocab-size", "16", "--embed-dim", "16",
                          "--num-layers", "1", "--num-heads", "2",
                          "--steps", "1"])
+
+
+@pytest.mark.parametrize("kernel,label", [
+    ("void (anonymous namespace)::flash_fwd_tc_kernel<64>("
+     "(anonymous namespace)::Params)", "flash_fwd"),
+    ("void (anonymous namespace)::flash_fwd_f32_kernel<128>("
+     "(anonymous namespace)::Params)", "flash_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64>("
+     "(anonymous namespace)::Params)", "flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dkv_tc_kernel<64>("
+     "(anonymous namespace)::Params)", "flash_bwd_dkv"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64>("
+     "(anonymous namespace)::Params)", "flash_bwd_dkv"),
+    ("void (anonymous namespace)::xent_bwd_kernel<float>(...)", "xent_bwd"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "matmul"),
+])
+def test_profile_names_each_kernel_of_the_port(kernel, label):
+    """The step profile files every flash kernel of the port (the
+    tensor-core and the FMA ones) under its wrapper's name."""
+    from container_engine_accelerators_tpu_torch import train_profile
+    assert train_profile.category(kernel) == label
