@@ -19,15 +19,16 @@
 
 1. prints the card (name, count, power limit);
 2. builds every CUDA kernel of the port from ops/csrc (one nvcc per
-   source, all at once);
+   source, all at once) and reads each kernel's registers and spills
+   from ``-Xptxas -v``: a tensor-core kernel must not spill;
 3. holds each kernel against its plain PyTorch version on the card
    (flash forward, dQ, dK/dV, cross-entropy forward and backward; the
    cross-entropy gradient element by element, scaled by its mean),
-   the bf16 flash forward and dK/dV also on q/k/v/dO rows that do not
-   start on 16 bytes; launches the two tensor-core kernels (bf16 flash
-   forward, dK/dV) twice on the same inputs and requires bitwise-equal
-   outputs; and counts the tensor-core instructions (HMMA/HGMMA) in
-   their SASS (cuobjdump), which must not be 0;
+   the bf16 flash forward, dQ and dK/dV also on q/k/v/dO rows that do
+   not start on 16 bytes; launches the three tensor-core kernels (bf16
+   flash forward, dQ, dK/dV) twice on the same inputs and requires
+   bitwise-equal outputs; and counts the tensor-core instructions
+   (HMMA/HGMMA) in their SASS (cuobjdump), which must not be 0;
 4. times each kernel at its path's shapes beside its bound, its plain
    version and one PyTorch library call (flash forward at the serving
    prefill widths and at the training shape; the backward and the
@@ -204,8 +205,9 @@ def attn_operands(torch, shape, dtype, n, gen, misaligned=False):
 
 
 # Phase 3's attention cases: (shape, dtype, causal, window, misaligned
-# rows). bf16 runs the tensor-core forward and dK/dV (D 128, D 40 not a
-# multiple of 16, the window band, narrow loads), f32 the FMA kernels.
+# rows). bf16 runs the tensor-core forward, dQ and dK/dV (D 128, D 40
+# not a multiple of 16, the window band, narrow loads), f32 the FMA
+# kernels.
 BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
                  ((2, 200, 4, 40), "bfloat16", False, 0, False),
                  ((1, 300, 4, 64), "bfloat16", True, 64, False),
@@ -333,8 +335,8 @@ def check_backward(torch, attn):
 
 
 def check_repeat(torch, attn):
-    """Phase 3: the tensor-core kernels (bf16 flash forward, dK/dV) at
-    the training shape, launched twice on the same inputs, give
+    """Phase 3: the tensor-core kernels (bf16 flash forward, dQ, dK/dV)
+    at the training shape, launched twice on the same inputs, give
     bitwise-equal outputs (each output tile has one owner block and
     there are no atomics)."""
     shape = (TRAIN_BATCH, TRAIN_SEQ, MODEL["num_heads"],
@@ -345,6 +347,8 @@ def check_repeat(torch, attn):
     out = {}
     for name, run in (
             ("flash_fwd", lambda: attn.flash_fwd.launch(*args[:3], True, 0)),
+            ("flash_bwd_dq",
+             lambda: attn.flash_bwd_dq.launch(*args, True, 0)),
             ("flash_bwd_dkv",
              lambda: attn.flash_bwd_dkv.launch(*args, True, 0))):
         first, second = run(), run()
@@ -354,6 +358,64 @@ def check_repeat(torch, attn):
     if not all(out.values()):
         raise AssertionError(f"two launches on the same inputs differ: {out}")
     return out
+
+
+def kernel_key(symbol):
+    """A kernel's short name from its mangled or demangled symbol:
+    "flash_bwd_dq_tc_kernel<64>", "xent_fwd_kernel f32"; None for a
+    function that is not one of the port's kernels."""
+    # Mangled: ...22flash_bwd_dq_tc_kernelILi64EE...; demangled:
+    # ...::flash_bwd_dq_tc_kernel<64>(...).
+    name = re.search(r"(?:\d|::)((?:flash|xent)_\w+?_kernel)", symbol)
+    if name is None:
+        return None
+    key = name.group(1)
+    dmax = re.search(r"Li(\d+)E|<(\d+)>", symbol)
+    if dmax:
+        key += f"<{dmax.group(1) or dmax.group(2)}>"
+    if "bfloat16" in symbol:
+        key += " bf16"
+    elif "kernelIf" in symbol or "<float" in symbol:
+        key += " f32"
+    return key
+
+
+def ptxas_report(compiler):
+    """Registers and spilled bytes of each kernel from the build's
+    ``-Xptxas -v`` output: {"flash_bwd_dq_tc_kernel<64>": {"registers":
+    n, "spill_bytes": n}, ...} (a library that was already built has
+    no output and adds nothing). Fails if a tensor-core kernel
+    (``*_tc_kernel``) spills, or if a flash library was compiled and
+    none of its tensor-core kernels is in the output."""
+    report = {}
+    for lib, text in sorted(compiler.items()):
+        key = None
+        for line in text.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                key = kernel_key(entry.group(1))
+                if key:
+                    report[key] = {}
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if key and spill:
+                report[key]["spill_bytes"] = (int(spill.group(1))
+                                              + int(spill.group(2)))
+            if key and regs:
+                report[key]["registers"] = int(regs.group(1))
+        if text and lib.startswith("flash") and not any(
+                k.startswith(lib) and "_tc_kernel" in k for k in report):
+            raise AssertionError(f"no tensor-core kernel in {lib}'s "
+                                 f"ptxas output:\n{text}")
+    log("registers and spills (ptxas -v):", json.dumps(report))
+    spills = {k: v for k, v in report.items()
+              if "_tc_kernel" in k and v.get("spill_bytes", 1)}
+    if spills:
+        raise AssertionError(f"tensor-core kernels spill (or ptxas "
+                             f"reported no spill line): {spills}")
+    return report
 
 
 def tensor_core_counts(build):
@@ -375,19 +437,9 @@ def tensor_core_counts(build):
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
         for section in sass.split("Function : ")[1:]:
-            header = section.split("\n", 1)[0]
-            # Mangled: ...19flash_fwd_tc_kernelILi64EE...; demangled:
-            # ...::flash_fwd_tc_kernel<64>(...).
-            name = re.search(r"(?:\d|::)(flash_\w+?_kernel)", header)
-            dmax = re.search(r"Li(\d+)E|(\d+)>", header)
-            if name is None:
+            key = kernel_key(section.split("\n", 1)[0])
+            if key is None:
                 continue
-            key = (f"{name.group(1)}"
-                   f"<{(dmax.group(1) or dmax.group(2)) if dmax else '?'}>")
-            if "bfloat16" in header:
-                key += " bf16"
-            elif "IfLi" in header or "<float" in header:
-                key += " f32"
             counts[key] = sum(("HMMA" in line or "HGMMA" in line)
                               for line in section.splitlines())
     log("tensor-core instructions (SASS HMMA/HGMMA):", json.dumps(counts))
@@ -855,10 +907,7 @@ def main():
     compiler = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {sorted(compiler)} in {report['build_s']:.2f} s")
-    for name, text in compiler.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    report["ptxas"] = ptxas_report(compiler)
 
     # Phases 3 and 4: each kernel against its plain version, then times.
     report["tensor_core_instructions"] = tensor_core_counts(_build)

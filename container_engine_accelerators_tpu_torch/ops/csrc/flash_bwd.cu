@@ -13,7 +13,8 @@
 // limitations under the License.
 
 // Flash-attention backward for Hopper (sm_90a), plain C interface:
-// one dQ kernel and one dK/dV kernel.
+// dQ and dK/dV, each by a tensor-core kernel (bf16) and an FMA kernel
+// (f32).
 //
 // Replaces the four Pallas TPU backward kernels of
 // container_engine_accelerators_tpu/ops/attention.py: `_dq_kernel` and
@@ -41,38 +42,55 @@
 // ([8, 2048, 8, 64] bf16, causal) dQ does 6*D and dK/dV 8*D
 // operations per kept (query, key) pair, about 52 and 69 GFLOP, against
 // 85-101 MB of traffic, so the tensor cores' rate bounds both (about
-// 0.05-0.07 ms at 989 TFLOP/s).
+// 0.05-0.07 ms at 989 TFLOP/s), and what keeps a kernel from that
+// bound is feeding them.
 //
-// dK/dV, bf16: the tensor-core kernel (`flash_bwd_dkv_tc_kernel`).
-//   One 128-thread block per (batch*head, 64-key tile), each warp
-//   owning 16 keys; K and V staged once in bf16; Q and dO tiles (64
-//   queries, 32 at D > 64 to keep the accumulators in registers)
-//   double-buffered by 16-byte cp.async between the causal lower bound
-//   and the window's upper bound (`_dkv_kernel`, attention.py:212-215),
-//   with their lse and delta rows. Per tile, transposed (rows are the
-//   block's keys): S^T = K.Q^T and dP^T = V.dO^T by mma.m16n8k16 with
-//   f32 accumulators; P^T = exp(S^T * scale - lse) and dS^T = P^T *
-//   (dP^T - delta) * scale on the fragments, masked only on the tiles
-//   a mask can touch; then dV += P^T.dO and dK += dS^T.Q with P^T and
-//   dS^T rounded to bf16 as A operands straight from the registers
-//   (dO and Q through ldmatrix.trans). dK and dV stay in f32 registers
-//   for the whole loop. Rounding P^T and dS^T to bf16 before the two
-//   products is the change of numerics against the f32 kernel (as in
-//   FlashAttention-2). Misaligned rows are staged by 2-byte loads.
-// dK/dV, f32, and dQ (both types): FMA kernels on the CUDA cores (67
-//   TFLOP/s at most), built to be right and simple; f32 stays there
-//   because the tensor cores would round it to TF32, outside the f32
-//   limit of 1e-4:
-//   dQ: one 256-thread block per (batch*head, 64-row Q tile); Q, dO,
-//       lse, delta staged once; K/V tiles of 64 keys from the window's
-//       lower edge to the causal diagonal (the bounds of `_dq_kernel`,
-//       attention.py:183-185, at this tile size); per tile, scores and
-//       dp by 4x4 register tiles, ds through shared memory, dQ by
-//       4 x D/16 register tiles.
-//   dK/dV: one 256-thread block per (batch*head, 64-key tile); K, V
-//       staged once; Q/dO tiles from the causal lower bound to the
-//       window's upper bound; p^T and ds^T through shared memory, dK
-//       and dV by 4 x D/16 register tiles each.
+// Four kernels, two per role, chosen by the input type. bf16 runs on
+// the tensor cores (mma.m16n8k16 bf16 with f32 accumulators, the
+// helpers of mma_bf16.cuh), with 128-thread blocks of 4 warps, each
+// warp owning 16 rows of the block's tile; partner tiles come in
+// double-buffered by 16-byte cp.async (2-byte loads where a row does
+// not start on 16 bytes); masks are evaluated only on the tiles a mask
+// can touch (the diagonal, the window edge, the ragged end), and
+// scores run in log2 units (exp2, scale * log2 e folded in).
+//
+// dQ, bf16 (`flash_bwd_dq_tc_kernel`): the forward's structure with two
+//   products before the softmax step. One block per (batch*head,
+//   64-row Q tile); Q and dO staged once and held as A fragments in
+//   registers (re-read from shared memory at each step at DMAX 128,
+//   where dQ's accumulators leave no room for them); this lane's two
+//   rows of lse (in log2 units) and delta in registers; 64-key K/V
+//   tiles from the window's lower edge to the causal diagonal (the
+//   bounds of `_dq_kernel`, attention.py:183-185, at this tile size).
+//   Per tile: S = Q.K^T and dP = dO.V^T (K and V as B operands);
+//   P = exp2(S * scale * log2 e - lse * log2 e) and dS = P * (dP -
+//   delta) * scale on the fragments; then dQ += dS.K with dS rounded to
+//   bf16 as the A operand straight from the registers and K through
+//   ldmatrix.trans. dQ stays in f32 registers for the whole loop and is
+//   written once.
+// dK/dV, bf16 (`flash_bwd_dkv_tc_kernel`): one block per (batch*head,
+//   64-key tile); K and V staged once; Q and dO tiles (64 queries, 32
+//   at D > 64 to keep the accumulators in registers) with their lse
+//   and delta rows, between the causal lower bound and the window's
+//   upper bound (`_dkv_kernel`, attention.py:212-215). Per tile,
+//   transposed (rows are the block's keys): S^T = K.Q^T and dP^T =
+//   V.dO^T; P^T and dS^T on the fragments; then dV += P^T.dO and dK +=
+//   dS^T.Q with P^T and dS^T rounded to bf16 as A operands from the
+//   registers (dO and Q through ldmatrix.trans). dK and dV stay in f32
+//   registers for the whole loop.
+// Rounding P^T and dS^T (dK/dV) and dS (dQ) to bf16 before the second
+// product is the change of numerics against the f32 kernels (as in
+// FlashAttention-2); lse, delta, the row terms and every accumulator
+// stay f32.
+//
+// f32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): exact FMA
+// kernels on the CUDA cores (67 TFLOP/s at most); the tensor cores
+// would round f32 inputs to TF32, outside the f32 limit of 1e-4. One
+// 256-thread block per (batch*head, 64-row tile) with the same tile
+// bounds; partner tiles staged as f32; scores by 4x4 register tiles,
+// ds (dQ) or p^T and ds^T (dK/dV) through shared memory, the outputs
+// by 4 x D/16 register tiles.
+//
 // Causal tiles run heaviest first. No atomics anywhere: each output
 // tile is owned by one block, so every result is deterministic.
 
@@ -109,15 +127,8 @@ struct Params {
   int aligned;  // every q/k/v/dO row starts on 16 bytes
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
-}
+// ---------------------------------------------------------------------
+// f32: the exact FMA kernels.
 
 // Whether query q_pos sees key k_pos (both already known < seq).
 __device__ __forceinline__ bool sees(const Params& p, int q_pos, int k_pos) {
@@ -127,9 +138,9 @@ __device__ __forceinline__ bool sees(const Params& p, int q_pos, int k_pos) {
 }
 
 // Stage rows [r0, r0 + kTile) of a [B, S, H, D] operand into shared
-// memory as f32 [kTile][DMAX + 1], zero past the true length and dim.
-template <typename T, int DMAX>
-__device__ __forceinline__ void stage(float* dst, const T* base,
+// memory as [kTile][DMAX + 1], zero past the true length and dim.
+template <int DMAX>
+__device__ __forceinline__ void stage(float* dst, const float* base,
                                       long long row_stride, int r0,
                                       int seq, int dim) {
   constexpr int kLd = DMAX + 1;
@@ -137,7 +148,7 @@ __device__ __forceinline__ void stage(float* dst, const T* base,
     const int r = i / DMAX, c = i % DMAX;
     const int pos = r0 + r;
     dst[r * kLd + c] =
-        (pos < seq && c < dim) ? to_f32(base[pos * row_stride + c]) : 0.f;
+        (pos < seq && c < dim) ? base[pos * row_stride + c] : 0.f;
   }
 }
 
@@ -190,7 +201,7 @@ __device__ __forceinline__ void accumulate(float (&out)[kPer][DMAX / kThreadsX],
 
 // Write rows ty + 16a of a tile starting at r0 into a contiguous
 // [B, S, H, D] output.
-template <typename T, int DMAX>
+template <int DMAX>
 __device__ __forceinline__ void write_tile(
     void* out, const float (&acc)[kPer][DMAX / kThreadsX], const Params& p,
     int b, int h, int r0, int ty, int tx) {
@@ -201,24 +212,25 @@ __device__ __forceinline__ void write_tile(
     if (pos >= p.seq) continue;
     const long long row =
         (static_cast<long long>(b) * p.seq + pos) * p.heads + h;
-    T* dst = static_cast<T*>(out) + row * p.dim;
+    float* dst = static_cast<float*>(out) + row * p.dim;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + kThreadsX * c;
-      if (col < p.dim) store(dst + col, acc[a][c]);
+      if (col < p.dim) dst[col] = acc[a][c];
     }
   }
 }
 
-constexpr size_t smem_bytes(int dmax) {
+constexpr size_t f32_smem_bytes(int dmax) {
   // Four [kTile][dmax + 1] operand tiles, two [kTile][kTile + 1] weight
   // tiles, and two rows of kTile (lse, delta).
   return sizeof(float) * (size_t)(4 * kTile * (dmax + 1) +
                                   2 * kTile * kLdT + 2 * kTile);
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const Params p) {
   constexpr int kLd = DMAX + 1;
   constexpr int kCols = DMAX / kThreadsX;
   extern __shared__ float smem[];
@@ -237,14 +249,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int seq = p.seq;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
-  const T* dog =
-      static_cast<const T*>(p.dout) + b * p.do_stride[0] + h * p.do_stride[2];
+  const float* qg =
+      static_cast<const float*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
+  const float* kg =
+      static_cast<const float*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
+  const float* vg =
+      static_cast<const float*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
+  const float* dog = static_cast<const float*>(p.dout) + b * p.do_stride[0] +
+                     h * p.do_stride[2];
 
-  stage<T, DMAX>(q_s, qg, p.q_stride[1], q0, seq, p.dim);
-  stage<T, DMAX>(do_s, dog, p.do_stride[1], q0, seq, p.dim);
+  stage<DMAX>(q_s, qg, p.q_stride[1], q0, seq, p.dim);
+  stage<DMAX>(do_s, dog, p.do_stride[1], q0, seq, p.dim);
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const int pos = q0 + r;
     const long long row = (static_cast<long long>(b) * seq + pos) * p.heads + h;
@@ -266,8 +281,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   for (int kt = k_lo / kTile; kt <= k_hi / kTile; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // Q/dO staged; the previous tile's readers are done
-    stage<T, DMAX>(k_s, kg, p.k_stride[1], k0, seq, p.dim);
-    stage<T, DMAX>(v_s, vg, p.v_stride[1], k0, seq, p.dim);
+    stage<DMAX>(k_s, kg, p.k_stride[1], k0, seq, p.dim);
+    stage<DMAX>(v_s, vg, p.v_stride[1], k0, seq, p.dim);
     __syncthreads();
 
     float s[kPer][kPer], dp[kPer][kPer];
@@ -290,11 +305,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
     __syncthreads();
     accumulate<DMAX>(dq, ds_s, k_s, ty, tx);
   }
-  write_tile<T, DMAX>(p.out0, dq, p, b, h, q0, ty, tx);
+  write_tile<DMAX>(p.out0, dq, p, b, h, q0, ty, tx);
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p) {
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const Params p) {
   constexpr int kLd = DMAX + 1;
   constexpr int kCols = DMAX / kThreadsX;
   extern __shared__ float smem[];
@@ -315,14 +331,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   const int k0 = (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * kTile;
   const int seq = p.seq;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
-  const T* dog =
-      static_cast<const T*>(p.dout) + b * p.do_stride[0] + h * p.do_stride[2];
+  const float* qg =
+      static_cast<const float*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
+  const float* kg =
+      static_cast<const float*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
+  const float* vg =
+      static_cast<const float*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
+  const float* dog = static_cast<const float*>(p.dout) + b * p.do_stride[0] +
+                     h * p.do_stride[2];
 
-  stage<T, DMAX>(k_s, kg, p.k_stride[1], k0, seq, p.dim);
-  stage<T, DMAX>(v_s, vg, p.v_stride[1], k0, seq, p.dim);
+  stage<DMAX>(k_s, kg, p.k_stride[1], k0, seq, p.dim);
+  stage<DMAX>(v_s, vg, p.v_stride[1], k0, seq, p.dim);
 
   // The query range that sees this key tile: from the causal diagonal
   // to the window's reach of its last real key.
@@ -340,8 +359,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   for (int qt = q_lo / kTile; qt <= q_hi / kTile; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // K/V staged; the previous tile's readers are done
-    stage<T, DMAX>(q_s, qg, p.q_stride[1], q0, seq, p.dim);
-    stage<T, DMAX>(do_s, dog, p.do_stride[1], q0, seq, p.dim);
+    stage<DMAX>(q_s, qg, p.q_stride[1], q0, seq, p.dim);
+    stage<DMAX>(do_s, dog, p.do_stride[1], q0, seq, p.dim);
     for (int r = threadIdx.x; r < kTile; r += kThreads) {
       const int pos = q0 + r;
       const long long row =
@@ -373,13 +392,219 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
     accumulate<DMAX>(dv, pt_s, do_s, ty, tx);
     accumulate<DMAX>(dk, dst_s, q_s, ty, tx);
   }
-  write_tile<T, DMAX>(p.out0, dk, p, b, h, k0, ty, tx);
-  write_tile<T, DMAX>(p.out1, dv, p, b, h, k0, ty, tx);
+  write_tile<DMAX>(p.out0, dk, p, b, h, k0, ty, tx);
+  write_tile<DMAX>(p.out1, dv, p, b, h, k0, ty, tx);
 }
 
-// dK/dV for bf16 on the tensor cores. kQ queries a partner tile: 64,
-// or 32 at DMAX 128 (dK and dV take 2 * DMAX / 8 * 4 f32 registers).
-constexpr int kTcThreads = 128;  // 4 warps, 16 keys each
+// ---------------------------------------------------------------------
+// bf16: the tensor-core kernels.
+
+constexpr int kTcThreads = 128;  // 4 warps, 16 rows of the own tile each
+
+// dQ. The Q and dO A fragments (2 * DMAX / 16 * 4 registers) stay in
+// registers across the loop at DMAX 64; at DMAX 128 they would take 64
+// of the registers that dQ, S and dP (128) leave, so they are re-read
+// from shared memory at each step.
+template <int DMAX>
+struct DqTc {
+  static constexpr int kLd = DMAX + 8;
+  static constexpr bool kHoldA = DMAX <= 64;
+  static constexpr size_t smem_bytes() {
+    // Q and dO tiles, then two K and two V tiles, [kTile][kLd] bf16.
+    return sizeof(bf16) * (size_t)6 * kTile * kLd;
+  }
+};
+
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const Params p) {
+  using namespace cea_mma;
+  constexpr int kLd = DqTc<DMAX>::kLd;
+  constexpr bool kHoldA = DqTc<DMAX>::kHoldA;
+  constexpr int kSteps = DMAX / 16;  // 16-deep steps over the head dim
+  constexpr int kNb = kTile / 8;     // 8-key blocks of a score tile
+  constexpr int kNd = DMAX / 8;      // 8-column blocks of dQ
+  constexpr int kTileSz = kTile * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][kLd]
+  bf16* do_s = q_s + kTileSz;                     // [kTile][kLd]
+  bf16* k_s = do_s + kTileSz;                     // [2][kTile][kLd]
+  bf16* v_s = k_s + 2 * kTileSz;                  // [2][kTile][kLd]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.heads;
+  const int h = blockIdx.x % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int seq = p.seq;
+  const int dim = p.dim;
+  const bool aligned = p.aligned;
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
+                   h * p.q_stride[2];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_stride[0] +
+                   h * p.k_stride[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_stride[0] +
+                   h * p.v_stride[2];
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.do_stride[0] +
+                    h * p.do_stride[2];
+
+  // The key range this Q tile sees, as in the f32 kernel.
+  const int q_last = min(q0 + kTile, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+  const int kt_lo = k_lo / kTile, kt_hi = k_hi / kTile;
+
+  stage_rows<kTile, DMAX, kTcThreads>(q_s, qg, p.q_stride[1], q0, seq, dim,
+                                      aligned);
+  stage_rows<kTile, DMAX, kTcThreads>(do_s, dog, p.do_stride[1], q0, seq,
+                                      dim, aligned);
+  stage_rows<kTile, DMAX, kTcThreads>(k_s, kg, p.k_stride[1], kt_lo * kTile,
+                                      seq, dim, aligned);
+  stage_rows<kTile, DMAX, kTcThreads>(v_s, vg, p.v_stride[1], kt_lo * kTile,
+                                      seq, dim, aligned);
+  cp_async_commit();
+
+  // This lane's rows row0 and row0 + 8: lse in log2 units, and delta.
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = row0 + 8 * i;
+    const long long row =
+        (static_cast<long long>(b) * seq + pos) * p.heads + h;
+    lse2[i] = pos < seq ? p.lse[row] * kLog2e : 0.f;
+    delta[i] = pos < seq ? p.delta[row] : 0.f;
+  }
+
+  const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+  const bf16* qw = q_s + warp * 16 * kLd;  // this warp's Q and dO rows
+  const bf16* dow = do_s + warp * 16 * kLd;
+  uint32_t qf[kHoldA ? kSteps : 1][4], df[kHoldA ? kSteps : 1][4];
+  float dq[kNd][4];
+#pragma unroll
+  for (int j = 0; j < kNd; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int buf = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {  // the next tile loads while this one computes
+      const int next = (kt + 1) * kTile;
+      stage_rows<kTile, DMAX, kTcThreads>(k_s + (buf ^ 1) * kTileSz, kg,
+                                          p.k_stride[1], next, seq, dim,
+                                          aligned);
+      stage_rows<kTile, DMAX, kTcThreads>(v_s + (buf ^ 1) * kTileSz, vg,
+                                          p.v_stride[1], next, seq, dim,
+                                          aligned);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kHoldA) {
+      if (kt == kt_lo) {
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          load_a(qf[ks], qw, kLd, ks * 16, lane);
+          load_a(df[ks], dow, kLd, ks * 16, lane);
+        }
+      }
+    }
+    const bf16* kb = k_s + buf * kTileSz;
+    const bf16* vb = v_s + buf * kTileSz;
+
+    // S = Q.K^T and dP = dO.V^T for this warp's 16 rows.
+    float s[kNb][4], dp[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      uint32_t qa[4], da[4];
+      if constexpr (kHoldA) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[ks][e];
+          da[e] = df[ks][e];
+        }
+      } else {
+        load_a(qa, qw, kLd, ks * 16, lane);
+        load_a(da, dow, kLd, ks * 16, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < kNb; j += 2) {
+        uint32_t bk[4], bv[4];
+        load_b_rows(bk, kb, kLd, j * 8, ks * 16, lane);
+        load_b_rows(bv, vb, kLd, j * 8, ks * 16, lane);
+        mma(s[j], qa, bk[0], bk[1]);
+        mma(s[j + 1], qa, bk[2], bk[3]);
+        mma(dp[j], da, bv[0], bv[1]);
+        mma(dp[j + 1], da, bv[2], bv[3]);
+      }
+    }
+
+    // P and dS on the fragments: element e of block j is row row0 +
+    // 8 * (e >> 1), key k0 + j * 8 + 2t + (e & 1). dS overwrites S.
+    const int k0 = kt * kTile;
+    const bool masked =
+        k0 + kTile > seq ||
+        (p.causal && (k0 + kTile - 1 > q0 ||
+                      (p.window && k0 <= q0 + kTile - 1 - p.window)));
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr = exp2f(fmaf(s[j][e], scale2, -lse2[i]));
+        if (masked) {
+          const int q_pos = row0 + 8 * i;
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          bool keep = k_pos < seq;
+          if (p.causal) {
+            keep = keep && q_pos >= k_pos;
+            if (p.window) keep = keep && k_pos > q_pos - p.window;
+          }
+          pr = keep ? pr : 0.f;
+        }
+        s[j][e] = pr * (dp[j][e] - delta[i]) * p.scale;
+      }
+
+    // dQ += dS.K, dS in bf16 as the A operand, 16 keys a step.
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * ks], s[2 * ks + 1]);
+#pragma unroll
+      for (int j = 0; j < kNd; j += 2) {
+        uint32_t bk[4];
+        load_b_cols(bk, kb, kLd, ks * 16, j * 8, lane);
+        mma(dq[j], a, bk[0], bk[1]);
+        mma(dq[j + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this tile's readers are done before it reloads
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = row0 + 8 * i;
+    if (pos >= seq) continue;
+    bf16* dqg = static_cast<bf16*>(p.out0) +
+                ((static_cast<long long>(b) * seq + pos) * p.heads + h) * dim;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (col < dim)
+        *reinterpret_cast<__nv_bfloat162*>(dqg + col) =
+            __floats2bfloat162_rn(dq[j][2 * i], dq[j][2 * i + 1]);
+    }
+  }
+}
+
+// dK/dV. kQ queries a partner tile: 64, or 32 at DMAX 128 (dK and dV
+// take 2 * DMAX / 8 * 4 f32 registers).
 
 template <int DMAX>
 struct DkvTc {
@@ -589,22 +814,20 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem, int threads,
   return cudaGetLastError();
 }
 
-// bf16 dK/dV goes to the tensor-core kernel, everything else to the
-// FMA kernels.
+// bf16 goes to the tensor-core kernels, f32 to the FMA kernels.
 template <int DMAX>
 cudaError_t dispatch(const Params& p, int dtype, bool dkv,
                      cudaStream_t stream) {
-  const size_t fma_smem = smem_bytes(DMAX);
   if (dtype == 0)
-    return dkv ? launch(flash_bwd_dkv_kernel<float, DMAX>, p, fma_smem,
-                        kThreads, stream)
-               : launch(flash_bwd_dq_kernel<float, DMAX>, p, fma_smem,
-                        kThreads, stream);
+    return dkv ? launch(flash_bwd_dkv_kernel<DMAX>, p,
+                        f32_smem_bytes(DMAX), kThreads, stream)
+               : launch(flash_bwd_dq_kernel<DMAX>, p,
+                        f32_smem_bytes(DMAX), kThreads, stream);
   if (dtype == 1)
     return dkv ? launch(flash_bwd_dkv_tc_kernel<DMAX>, p,
                         DkvTc<DMAX>::smem_bytes(), kTcThreads, stream)
-               : launch(flash_bwd_dq_kernel<bf16, DMAX>, p, fma_smem,
-                        kThreads, stream);
+               : launch(flash_bwd_dq_tc_kernel<DMAX>, p,
+                        DqTc<DMAX>::smem_bytes(), kTcThreads, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -646,7 +869,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 // Both entry points: dtype 0 = float32, 1 = bfloat16; strides in
 // elements, (batch, seq, head) for q, k, v, dO in that order; aligned
 // = 1 when every q/k/v/dO row starts on 16 bytes (read by the bf16
-// dK/dV kernel, which stages by 2-byte loads otherwise). Return
+// kernels, which stage by 2-byte loads otherwise). Return
 // the cudaError_t of the launch (0 = success); the caller raises on
 // anything else. The wrapper has checked shapes, types, the head dim
 // (<= 128, multiple of 8) and that it is contiguous, and that lse and

@@ -20,8 +20,10 @@
 
 Builds the trainer as ``train.py`` does (same flags and defaults;
 ``--steps`` is the number of profiled steps, after ``--warmup-steps``
-unprofiled ones), profiles the steps with torch.profiler (CPU and
-CUDA activity), and prints one JSON line: the window's wall time, the
+unprofiled ones), times as many steps without the profiler, profiles
+the steps with torch.profiler (CPU and CUDA activity), and prints one
+JSON line: the window's wall time beside the unprofiled steps' (host
+clock around synced work; the gap is the profiler's host cost), the
 device's busy time (the sum of kernel times; one stream, so kernels do
 not overlap) and idle share, and kernel time per step by category
 (the port's five kernels by name, matrix products, elementwise,
@@ -41,7 +43,7 @@ from . import train
 
 _CATEGORIES = (
     ("flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_f32_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
     ("xent_fwd", ("xent_fwd_kernel",)),
     ("xent_bwd", ("xent_bwd_kernel",)),
@@ -82,6 +84,13 @@ def main(argv=None):
     for _ in range(max(args.warmup_steps, 1)):
         state, loss = trainer.train_step(state, next(loader))
     torch.cuda.synchronize()
+    # The same number of steps without the profiler: its per-operation
+    # host cost can leave the device idle where the plain run does not.
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        state, loss = trainer.train_step(state, next(loader))
+    torch.cuda.synchronize()
+    unprofiled_ms = 1e3 * (time.perf_counter() - t0)
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -103,6 +112,7 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(device),
         "steps": args.steps, "global_batch": args.batch_size,
         "seq_len": args.seq_len, "wall_ms_per_step": wall_ms / args.steps,
+        "wall_ms_per_step_unprofiled": unprofiled_ms / args.steps,
         "busy_ms_per_step": busy_ms / args.steps,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "ms_per_step_by_category": dict(sorted(

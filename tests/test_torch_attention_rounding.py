@@ -17,9 +17,9 @@ plain torch and held against the JAX package's Pallas kernels.
 
 The CUDA kernels for bf16 inputs (``ops/csrc/flash_fwd.cu``,
 ``ops/csrc/flash_bwd.cu``) round the probabilities to bf16 before the
-second product of each pass: P before P.V in the forward, P^T and
-dS^T before dV = P^T.dO and dK = dS^T.Q in the dK/dV backward (dQ stays
-on the f32-exact FMA kernel). Those kernels run only on the card; this
+second product of each pass: P before P.V in the forward, dS before
+dQ = dS.K in the dQ backward, P^T and dS^T before dV = P^T.dO and dK =
+dS^T.Q in the dK/dV backward. Those kernels run only on the card; this
 file emulates their rounding points (not their tile order) in f32
 arithmetic and shows on the CPU that the numerics fit the bf16 limit
 the card checks use: 2e-2 on O and lse, 2e-2 of the largest gradient.
@@ -98,9 +98,9 @@ def emulated_forward(q, k, v, causal, window):
 def emulated_gradients(q, k, v, g_o, g_lse, causal, window):
     """dQ, dK, dV of sum(o * g_o) + sum(lse * g_lse) as the bf16
     kernels compute them: delta = rowsum(dO * O) - g_lse from the
-    emulated forward's bf16 O; dQ = dS.K in f32 (the FMA kernel);
-    dV = bf16(P)^T.dO and dK = bf16(dS)^T.Q (the tensor-core kernel);
-    each written in bf16."""
+    emulated forward's bf16 O; dQ = bf16(dS).K (the tensor-core dQ
+    kernel); dV = bf16(P)^T.dO and dK = bf16(dS)^T.Q (the tensor-core
+    dK/dV kernel); each written in bf16."""
     o, lse = emulated_forward(q, k, v, causal, window)
     qf, kf, vf, dof = _heads_first(q, k, v, g_o)
     delta = ((dof * o.transpose(1, 2)).sum(-1)
@@ -109,7 +109,7 @@ def emulated_gradients(q, k, v, g_o, g_lse, causal, window):
     p = torch.exp(s - lse.transpose(1, 2)[..., None])
     dp = dof @ vf.transpose(-1, -2)
     ds = p * (dp - delta[..., None]) / math.sqrt(qf.shape[-1])
-    dq = ds @ kf
+    dq = _bf16(ds) @ kf
     dk = _bf16(ds).transpose(-1, -2) @ qf
     dv = _bf16(p).transpose(-1, -2) @ dof
     return [_bf16(x).transpose(1, 2).numpy() for x in (dq, dk, dv)]
@@ -138,7 +138,7 @@ def test_forward_rounding_fits_pallas(causal, window, d):
                                rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("d", [32, 40])
+@pytest.mark.parametrize("d", [32, 40, 64])
 @pytest.mark.parametrize("causal,window", CASES)
 def test_backward_rounding_fits_pallas(causal, window, d):
     """dQ, dK, dV (an lse cotangent folded into delta) against the

@@ -24,7 +24,7 @@ the card and no JAX it runs as
 Each kernel is held to its plain PyTorch version on the same inputs:
 bf16 at 2e-2 (outputs rounded to 8 bits; the backward and the
 cross-entropy relative to the largest reference value), f32 at 1e-4
-(summation order). bf16 flash forward and dK/dV run on the tensor
+(summation order). bf16 flash forward, dQ and dK/dV run on the tensor
 cores, f32 on the FMA kernels.
 """
 
@@ -162,6 +162,7 @@ def _assert_near(got, want, dtype, what):
     ((2, 200, 4, 40), torch.bfloat16, False, 0),
     ((1, 300, 4, 64), torch.bfloat16, True, 64),
     ((1, 512, 8, 64), torch.bfloat16, True, 256),
+    ((2, 300, 4, 128), torch.bfloat16, True, 100),
     ((2, 200, 4, 32), torch.float32, False, 0),
     ((1, 300, 4, 64), torch.float32, True, 64),
     ((1, 1, 2, 8), torch.float32, False, 0),
@@ -219,6 +220,10 @@ def test_tensor_core_kernels_read_misaligned_rows(cuda, causal, window):
     _assert_near(o, ro, torch.bfloat16, "o")
     torch.testing.assert_close(lse, rl, rtol=2e-2, atol=2e-2)
     delta = (do.float() * ro.float()).sum(-1)
+    dq = attn.flash_bwd_dq(q, k, v, do, rl, delta, causal, window)
+    rq = attn.flash_attention_dq_reference(q, k, v, do, rl, delta, causal,
+                                           window)
+    _assert_near(dq, rq, torch.bfloat16, "dq")
     dk, dv = attn.flash_bwd_dkv(q, k, v, do, rl, delta, causal, window)
     rk, rv = attn.flash_attention_dkv_reference(q, k, v, do, rl, delta,
                                                 causal, window)
@@ -235,6 +240,9 @@ def test_tensor_core_kernels_are_deterministic(cuda):
     first = attn.flash_fwd(q, k, v, True, 0)
     second = attn.flash_fwd(q, k, v, True, 0)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first = attn.flash_bwd_dq(*args, True, 0)
+    second = attn.flash_bwd_dq(*args, True, 0)
+    assert torch.equal(first, second)
     first = attn.flash_bwd_dkv(*args, True, 0)
     second = attn.flash_bwd_dkv(*args, True, 0)
     assert all(torch.equal(a, b) for a, b in zip(first, second))

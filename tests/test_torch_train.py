@@ -364,6 +364,14 @@ def test_cuda_device_without_a_card_raises():
      "(anonymous namespace)::Params)", "flash_fwd"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64>("
      "(anonymous namespace)::Params)", "flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dq_tc_kernel<64>("
+     "(anonymous namespace)::Params)", "flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dq_tc_kernel<128>("
+     "(anonymous namespace)::Params)", "flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<64>("
+     "(anonymous namespace)::Params)", "flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<128>("
+     "(anonymous namespace)::Params)", "flash_bwd_dkv"),
     ("void (anonymous namespace)::flash_bwd_dkv_tc_kernel<64>("
      "(anonymous namespace)::Params)", "flash_bwd_dkv"),
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64>("
