@@ -32,8 +32,9 @@
 4. times each kernel at its path's shapes beside its bound, its plain
    version and one PyTorch library call (flash forward at the serving
    prefill widths and at the training shape; the backward and the
-   cross-entropy at the training shapes), and the next-token
-   objective's logits copy alone;
+   cross-entropy at the training shapes, the cross-entropy also at
+   ResNet-50's logits), and the next-token objective's logits copy
+   alone;
 5. serves the full-width LM (the architecture of
    demo/serving/lm-serving.yaml without its int8 options: vocab 32000,
    E 512, 8 layers, 8 heads, 2 KV heads, rope, max_seq_len 2048; bf16,
@@ -47,14 +48,28 @@
 7. trains the same architecture at full width and depth (f32
    parameters, bf16 compute, f32 logits, sequence 2048, the demo
    driver's SGD defaults; global batch 8, cut from 256) for 12 steps
-   through the driver's ``main`` (what ``python -m
-   container_engine_accelerators_tpu_torch.train`` runs): every loss
-   finite, the last below the first, exactly 8 flash_fwd, 8 dQ,
-   8 dK/dV, 1 cross-entropy forward and 1 backward launch per step,
+   through the driver's ``run`` (what ``python -m
+   container_engine_accelerators_tpu_torch.train`` runs before it
+   prints its result line): every loss finite, the last below the
+   first, exactly 8 flash_fwd, 8 dQ, 8 dK/dV, 1 cross-entropy
+   forward and 1 backward launch per step,
    and the driver's JSON result in agreement; then one batch-2 step
    held against the same step through the plain versions (plain
    attention_fn and plain loss): loss and every gradient's relative
-   L2 error.
+   L2 error;
+8. trains the image models through the same driver: ResNet-50 at full
+   width (224x224x3, 1000 classes, bf16 compute, f32 parameters and
+   logits, batch 128, bench.py's configuration) for 12 steps: every
+   loss finite, the last below the first, exactly 1 cross-entropy
+   forward and 1 backward launch a step and no attention launch, every
+   BN's running statistics moved, the eval step's logits finite; then
+   one step through the fused loss held against the same step through
+   the plain loss (and against itself, bitwise or not, reported);
+   MNIST at the demo's shapes (28x28x1, 10 classes, batch 256) for a
+   few steps with the same launch counts; Inception-v3 at 299x299,
+   batch 32, 3 steps on the plain loss (no kernel launch). Phases 3
+   and 4 also hold and time the cross-entropy kernels at the image
+   logits' shapes ([128, 1000] and [256, 10] f32).
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -105,6 +120,30 @@ PLAIN_BATCH = 2  # the plain attention's [B, H, S, S] f32 scores fit
 # O(1).
 STEP_LOSS_TOL = 1e-3
 STEP_GRAD_TOL = 5e-2
+
+# The image slice (phase 8): bench.py's ResNet-50 at full width, the
+# demo driver's MNIST, Inception-v3 at its 299 input with the batch
+# cut from 256 to 32 and 3 steps to keep the phase short.
+RESNET_BATCH = 128
+RESNET_SIZE = 224
+RESNET_CLASSES = 1000
+RESNET_STEPS = 12
+RESNET_WARMUP = 2
+MNIST_BATCH = 256
+MNIST_STEPS = 5
+INCEPTION_BATCH = 32
+INCEPTION_STEPS = 3
+# The fused-loss step against the plain-loss step, same weights and
+# batch: the forward is the same cuDNN work on the same inputs, so the
+# logits agree and the two losses differ only in the f32 summation
+# order of 1000-class rows (a few f32 units): 1e-5 relative. The
+# gradients enter the bf16 backward from dlogits that differ by f32
+# units, so a bf16 rounding flips here and there and cuDNN's backward
+# algorithms may sum in another order; each gradient within 5e-2
+# relative L2, as the LM step (a wrong softmax or label moves them by
+# O(1)).
+IMAGE_LOSS_TOL = 1e-5
+IMAGE_GRAD_TOL = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by
 # input type (bf16 on the tensor cores, f32 outside them).
@@ -482,11 +521,14 @@ def check_xent(torch, xent):
     """Phase 3: the cross-entropy kernels against their plain
     versions: at the training shape and at a ragged C % 4 == 0 shape
     (16-byte loads, 513 float4s a row) and a ragged C % 4 != 0 one
-    (scalar loads)."""
+    (scalar loads); at ResNet's logits [128, 1000] (16-byte loads; not
+    a multiple of the Pallas kernel's 128 lanes) and MNIST's [256, 10]
+    (C % 4 != 0: scalar loads)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     results = []
     for n, c in (((TRAIN_SEQ - 1) * TRAIN_BATCH, MODEL["vocab_size"]),
-                 (300, 2052), (200, 333)):
+                 (300, 2052), (200, 333), (RESNET_BATCH, RESNET_CLASSES),
+                 (MNIST_BATCH, 10)):
         logits, labels, g = xent_inputs(torch, n, c, gen)
         loss = xent.xent_fwd(logits, labels)
         dlogits = xent.xent_bwd(logits, labels, g)
@@ -565,10 +607,32 @@ def time_training_kernels(torch, attn, xent):
     torch.cuda.empty_cache()
 
     n, c = (TRAIN_SEQ - 1) * TRAIN_BATCH, MODEL["vocab_size"]
+    rows.update(time_xent(torch, xent, n, c, gen, 20))
+    # The next-token objective's copy of logits[:, :-1] (a view that
+    # does not merge to [N, V]), timed alone at the slice's shape.
+    full = torch.randn((TRAIN_BATCH, TRAIN_SEQ, c), generator=gen,
+                       device="cuda")
+    rows["logits_copy_ms"] = cuda_ms(
+        lambda: full[:, :-1].reshape(-1, c), 20)
+    del full
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log("train kernel time", name, json.dumps(row))
+    return rows
+
+
+def time_xent(torch, xent, n, c, gen, iters):
+    """The cross-entropy kernels on f32 logits [n, c]: {"xent_fwd":
+    row, "xent_bwd": row}, each with the kernel's time over ``iters``
+    launches, its plain version's (over a quarter as many), one
+    library call's (F.cross_entropy, reduction none; its autograd
+    backward), the error and the bound."""
+    import torch.nn.functional as F
     logits, labels, g = xent_inputs(torch, n, c, gen)
     lib_logits = logits.detach().requires_grad_()
     lib_loss = F.cross_entropy(lib_logits, labels.clamp(0, c - 1),
                                reduction="none")
+    rows = {}
     for name, launch, plain, lib, role in (
             ("xent_fwd", lambda: xent.xent_fwd.launch(logits, labels),
              lambda: xent.softmax_cross_entropy_reference(logits, labels),
@@ -580,23 +644,25 @@ def time_training_kernels(torch, attn, xent):
              lambda: torch.autograd.grad(lib_loss, lib_logits, g,
                                          retain_graph=True), "bwd")):
         row = dict(shape=[n, c], dtype="torch.float32")
-        row["kernel_ms"] = cuda_ms(launch, 20)
-        row["plain_ms"] = cuda_ms(plain, 5)
-        row["library_ms"] = cuda_ms(lib, 20)
+        row["kernel_ms"] = cuda_ms(launch, iters)
+        row["plain_ms"] = cuda_ms(plain, max(5, iters // 4))
+        row["library_ms"] = cuda_ms(lib, iters)
         row["max_abs_err"] = (launch().float() - plain().float()).abs(
         ).max().item()
         row["bound_ms"], row["bound_by"] = xent_bound_ms(n, c, role)
         rows[name] = row
-    # The next-token objective's copy of logits[:, :-1] (a view that
-    # does not merge to [N, V]), timed alone at the slice's shape.
-    full = torch.randn((TRAIN_BATCH, TRAIN_SEQ, c), generator=gen,
-                       device="cuda")
-    rows["logits_copy_ms"] = cuda_ms(
-        lambda: full[:, :-1].reshape(-1, c), 20)
-    del logits, lib_logits, lib_loss, full
+    del logits, lib_logits, lib_loss
     torch.cuda.empty_cache()
+    return rows
+
+
+def time_image_xent(torch, xent):
+    """Phase 4 at ResNet-50's logits [128, 1000] f32 (a few µs a
+    launch, so 200 launches back to back)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = time_xent(torch, xent, RESNET_BATCH, RESNET_CLASSES, gen, 200)
     for name, row in rows.items():
-        log("train kernel time", name, json.dumps(row))
+        log("image kernel time", name, json.dumps(row))
     return rows
 
 
@@ -745,16 +811,15 @@ def train_argv(steps, warmup, batch=TRAIN_BATCH):
             "--seed", str(SEED)]
 
 
-def drive_training(torch, train, kernels):
-    """Phase 7's main path: TRAIN_STEPS steps through the port's
-    training driver (``train.main``, what ``python -m
-    container_engine_accelerators_tpu_torch.train`` runs). A per-step
-    hook reads the launch counts and records a CUDA event after each
-    step. Returns the summary and the launch counts of the run (counts
-    set to 0 just before it)."""
-    import contextlib
-    import io
-    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+def drive(torch, train, kernels, argv, per_step, warmup):
+    """One run of the port's training driver (``train.run``, what
+    ``python -m container_engine_accelerators_tpu_torch.train`` runs
+    before it prints) on ``argv``, with every launch count set to 0
+    just before it. A per-step hook records a CUDA event after each
+    step and checks that step's launches against ``per_step`` (one
+    count per kernel of ``kernels``). Fails on a step with other
+    launches, a driver count that disagrees, or a non-finite loss.
+    Returns (summary, launches, trainer, state)."""
     losses, events, bad = [], [], []
     prev = [0] * len(kernels)
 
@@ -769,43 +834,186 @@ def drive_training(torch, train, kernels):
             bad.append((step, got))
         prev[:] = counts
 
+    args = train.parse_args(argv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.launches = 0
-    # The driver prints its JSON result on stdout; keep this script's
-    # stdout to its own result lines (the result is logged below).
-    with contextlib.redirect_stdout(io.StringIO()):
-        result = train.main(train_argv(TRAIN_STEPS, TRAIN_WARMUP),
-                            on_step=on_step)
+    t0 = time.perf_counter()
+    result, trainer, state = train.run(args, on_step=on_step)
     torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
     launches = {kern.name: kern.launches for kern in kernels}
     losses = [float(x) for x in losses]
     # Step i's time: from the event after step i - 1 to the one after
     # step i (step 0 has no start event, and is warm-up).
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    timed = step_ms[TRAIN_WARMUP - 1:]
+    timed = step_ms[warmup - 1:]
     summary = dict(
         losses=losses, step_ms=step_ms,
-        step_ms_mean=sum(timed) / len(timed),
-        tokens_per_s=result["tokens_per_sec"],
+        step_ms_mean=sum(timed) / len(timed), wall_s=wall_s,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         per_step_launches_expected=per_step, bad_steps=bad,
         driver_result=result)
-    log("train:", json.dumps(summary))
-    want = {kern.name: TRAIN_STEPS * n for kern, n in zip(kernels, per_step)}
-    if bad or len(losses) != TRAIN_STEPS:
-        raise AssertionError(f"steps with other launch counts than "
-                             f"{per_step}: {bad}")
+    want = {kern.name: args.steps * n for kern, n in zip(kernels, per_step)}
+    if bad or len(losses) != args.steps:
+        raise AssertionError(f"{args.model}: steps with other launch counts "
+                             f"than {per_step}: {bad}")
     if result["kernel_launches"] != want or launches != want:
-        raise AssertionError(f"driver launches {result['kernel_launches']}, "
-                             f"counted {launches}, want {want}")
+        raise AssertionError(f"{args.model}: driver launches "
+                             f"{result['kernel_launches']}, counted "
+                             f"{launches}, want {want}")
     if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not (losses[-1] < losses[0] and result["final_loss"] == losses[-1]
-            and result["tokens_per_sec"] > 0):
-        raise AssertionError(f"loss did not fall, or the driver's result "
+        raise AssertionError(f"{args.model}: non-finite loss: {losses}")
+    if not (result["final_loss"] == losses[-1]
+            and result["images_per_sec"] > 0):
+        raise AssertionError(f"{args.model}: the driver's result "
                              f"disagrees: {losses} {result}")
+    return summary, launches, trainer, state
+
+
+def image_argv(model, batch, steps, warmup, size=RESNET_SIZE,
+               classes=RESNET_CLASSES):
+    """The driver's flags for an image model on the card, with the
+    demo's optimizer defaults (SGD lr 0.1, momentum 0.9, weight decay
+    1e-4 on conv and dense kernels)."""
+    return ["--model", model, "--device", "cuda", "--depth", "50",
+            "--image-size", str(size), "--num-classes", str(classes),
+            "--batch-size", str(batch), "--steps", str(steps),
+            "--warmup-steps", str(warmup), "--seed", str(SEED)]
+
+
+def drive_resnet(torch, train, kernels):
+    """Phase 8's main path: ResNet-50 at full width through the driver.
+    The loss falls, each step launches the two cross-entropy kernels
+    once and no attention kernel, every BN's running statistics moved
+    from their init (mean 0, var 1), and the eval step (running
+    statistics, no gradient) gives finite logits."""
+    from container_engine_accelerators_tpu_torch.models.layers import (
+        BatchNorm,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        SyntheticLoader,
+    )
+    per_step = (0, 0, 0, 1, 1)
+    summary, launches, trainer, state = drive(
+        torch, train, kernels,
+        image_argv("resnet", RESNET_BATCH, RESNET_STEPS, RESNET_WARMUP),
+        per_step, RESNET_WARMUP)
+    losses = summary["losses"]
+    norms = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
+    still = [i for i, m in enumerate(norms)
+             if not ((m.running_mean != 0).any() and
+                     (m.running_var != 1).any())]
+    images, _ = next(SyntheticLoader(RESNET_BATCH, (RESNET_SIZE,) * 2 + (3,),
+                                     RESNET_CLASSES, device="cuda"))
+    logits = trainer.eval_step(state, images)
+    torch.cuda.synchronize()
+    summary.update(images_per_s=summary["driver_result"]["images_per_sec"],
+                   batch_norms=len(norms), stats_unmoved=still,
+                   eval_logits_shape=list(logits.shape),
+                   eval_logits_finite=bool(torch.isfinite(logits).all()))
+    log("resnet:", json.dumps(summary))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet: the loss did not fall: {losses}")
+    if not norms or still:
+        raise AssertionError(f"resnet: BN running statistics of layers "
+                             f"{still} did not move")
+    if not (summary["eval_logits_finite"] and summary["eval_logits_shape"]
+            == [RESNET_BATCH, RESNET_CLASSES]):
+        raise AssertionError(f"resnet: bad eval logits {summary}")
+    del trainer, state, logits
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def check_image_plain_step(torch, train):
+    """One ResNet-50 step (forward and backward, batch 128) through the
+    fused loss against the same step through the plain
+    ``cross_entropy_loss``, on the same weights and batch: loss and
+    every gradient's relative L2 error. The fused step also runs twice
+    and reports whether it repeats bitwise (cuDNN may pick backward
+    algorithms that sum in another order; not a gate)."""
+    from container_engine_accelerators_tpu_torch.ops.xent import (
+        mean_cross_entropy_loss,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        SyntheticLoader,
+        cross_entropy_loss,
+    )
+    args = train.parse_args(image_argv("resnet", RESNET_BATCH, 1, 0))
+    model, shape, classes = train.build_model(args, "cuda")
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+    images, labels = next(SyntheticLoader(RESNET_BATCH, shape, classes,
+                                          device="cuda"))
+
+    def step(loss_fn):
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        value = loss_fn(model(images), labels)
+        value.backward()
+        return value.item(), {n: p.grad.clone()
+                              for n, p in model.named_parameters()}
+
+    kernel_loss, kernel_grads = step(mean_cross_entropy_loss)
+    again_loss, again_grads = step(mean_cross_entropy_loss)
+    plain_loss, plain_grads = step(cross_entropy_loss)
+    rel = {n: ((kernel_grads[n] - g).norm() / g.norm().clamp_min(1e-30)
+               ).item() for n, g in plain_grads.items()}
+    worst = max(rel, key=rel.get)
+    differ = sorted(n for n, g in again_grads.items()
+                    if not torch.equal(g, kernel_grads[n]))
+    out = dict(kernel_loss=kernel_loss, plain_loss=plain_loss,
+               loss_rel_err=abs(kernel_loss - plain_loss) / abs(plain_loss),
+               grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
+               grad_rel_l2_median=sorted(rel.values())[len(rel) // 2],
+               loss_tol=IMAGE_LOSS_TOL, grad_tol=IMAGE_GRAD_TOL,
+               repeat_loss_bitwise=again_loss == kernel_loss,
+               repeat_grads_bitwise=not differ,
+               repeat_grads_differing=len(differ), grads=len(rel))
+    log("resnet kernel step vs plain step:", json.dumps(out))
+    if out["loss_rel_err"] > IMAGE_LOSS_TOL or rel[worst] > IMAGE_GRAD_TOL:
+        raise AssertionError(f"resnet: the fused-loss step differs from "
+                             f"the plain step: {out}")
+    del model, start, kernel_grads, again_grads, plain_grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_small_images(torch, train, kernels):
+    """Phase 8's other models: MNIST at the demo's shapes (fused loss,
+    one cross-entropy forward and backward a step) and Inception-v3 at
+    299 (the plain loss, as the demo: no kernel launch)."""
+    out, launches = {}, {}
+    for name, argv, per_step, warmup in (
+            ("mnist", image_argv("mnist", MNIST_BATCH, MNIST_STEPS, 1),
+             (0, 0, 0, 1, 1), 1),
+            ("inception", image_argv("inception", INCEPTION_BATCH,
+                                     INCEPTION_STEPS, 1, size=299),
+             (0,) * 5, 1)):
+        summary, launches[name], _, _ = drive(
+            torch, train, kernels, argv, per_step, warmup)
+        summary["images_per_s"] = summary["driver_result"]["images_per_sec"]
+        log(f"{name}:", json.dumps(summary))
+        out[name] = summary
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def drive_training(torch, train, kernels):
+    """Phase 7's main path: TRAIN_STEPS steps of the LM through the
+    port's training driver (``drive``): 8 flash_fwd, 8 dQ, 8 dK/dV, 1
+    cross-entropy forward and 1 backward launch a step, and the loss
+    falls. Returns the summary and the launch counts of the run."""
+    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+    summary, launches, _, _ = drive(torch, train, kernels,
+                                    train_argv(TRAIN_STEPS, TRAIN_WARMUP),
+                                    per_step, TRAIN_WARMUP)
+    losses, result = summary["losses"], summary["driver_result"]
+    summary["tokens_per_s"] = result["tokens_per_sec"]
+    log("train:", json.dumps(summary))
+    if not (losses[-1] < losses[0] and result["tokens_per_sec"] > 0):
+        raise AssertionError(f"loss did not fall: {losses} {result}")
     torch.cuda.empty_cache()
     return summary, launches
 
@@ -919,6 +1127,7 @@ def main():
     report["flash_times"] = time_flash(torch, attention, widths)
     report["train_kernel_times"] = time_training_kernels(torch, attention,
                                                          xent)
+    report["image_kernel_times"] = time_image_xent(torch, xent)
 
     # Phase 5: the server at full width.
     tree = init_flax_layout_params(MODEL, SEED)
@@ -982,8 +1191,16 @@ def main():
     report["train_plain_step"] = check_plain_step(torch, attention,
                                                   convert, train)
 
+    # Phase 8: image classification; ResNet-50 is this slice's main path.
+    report["resnet"], resnet_launches = drive_resnet(torch, train,
+                                                     all_kernels)
+    report["resnet_plain_step"] = check_image_plain_step(torch, train)
+    small, small_launches = drive_small_images(torch, train, all_kernels)
+    report.update(small)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
+    ik = report["image_kernel_times"]
     src = "container_engine_accelerators_tpu_torch/ops/csrc/"
     ref = "container_engine_accelerators_tpu/ops/"
     checks = {
@@ -1014,20 +1231,28 @@ def main():
         # ported; its time at the training shape goes under train_*.
         # The other kernels run on the training path alone.
         row = big if name == "flash_fwd" else tk[name]
+        by_path = {"training": train_launches[name],
+                   "resnet_training": resnet_launches[name],
+                   "mnist_training": small_launches["mnist"][name],
+                   "inception_training": small_launches["inception"][name]}
+        if name == "flash_fwd":
+            by_path["serving"] = launches
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
             "replaces": f"{ref}{replaces[name]}",
-            "launches": train_launches[name] + (
-                launches if name == "flash_fwd" else 0),
+            "launches": sum(by_path.values()),
             "max_abs_err": checks[name],
         }
         entry.update({key: row["kernel_ms" if key == "ms" else key]
                       for key in timed})
-        entry["launches_by_path"] = {"training": train_launches[name]}
+        entry["launches_by_path"] = by_path
         if name == "flash_fwd":
-            entry["launches_by_path"]["serving"] = launches
             entry.update({f"train_{key}": tk[name][
+                "kernel_ms" if key == "ms" else key] for key in timed})
+        if name in ik:
+            # The cross-entropy at ResNet-50's logits, [128, 1000].
+            entry.update({f"image_{key}": ik[name][
                 "kernel_ms" if key == "ms" else key] for key in timed})
         kernels.append(entry)
     report["kernels"] = kernels
@@ -1039,7 +1264,9 @@ def main():
         f"{summary['concurrent_tokens_per_s']:.1f} tokens/s, time to "
         f"first token {summary['ttft_ms']} ms (16-token prompt); "
         f"training {report['train']['tokens_per_s']:.0f} tokens/s, "
-        f"{report['train']['step_ms_mean']:.2f} ms a step")
+        f"{report['train']['step_ms_mean']:.2f} ms a step; ResNet-50 "
+        f"batch {RESNET_BATCH}: {report['resnet']['images_per_s']:.1f} "
+        f"images/s, {report['resnet']['step_ms_mean']:.2f} ms a step")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Carry TransformerLM weights between the flax layout and the port.
+"""Carry TransformerLM and image-model weights between the flax layout
+and the port.
 
 The flax tree (numpy leaves, f32) names each parameter by module path:
 ``tok_embed/embedding``, ``pos_embed/embedding`` (learned positions),
@@ -27,11 +28,19 @@ inverse, and ``flax_shapes`` the table of every leaf's flax path and
 shape behind both; the weight-decay mask of the trainer reads the
 flax ranks from it (the attention biases are rank 2-3 in flax and
 rank 1 here).
+
+The image models (ResNet, MnistMLP, InceptionV3) name their modules by
+their flax paths, so ``image_layout`` reads the table from the model
+itself: Conv HWIO <-> OIHW, Dense [in, out] <-> Linear [out, in], BN
+``scale``/``bias`` <-> weight/bias in ``params``, and ``mean``/``var``
+in ``batch_stats`` <-> the running-statistic buffers. Their flax ranks
+are the torch ranks.
 """
 
 import numpy as np
 import torch
 
+from .layers import _TRUNC_STD, BatchNorm, Conv
 from .transformer import TransformerLM
 
 
@@ -181,6 +190,133 @@ def init_flax_layout_params(config, seed):
             node = node.setdefault(key, {})
         node[leaf] = 1.0 + value if leaf == "scale" else value
     return tree
+
+
+def image_layout(model):
+    """{state_dict name: (flax collection, flax path, flax shape)} for
+    an image model of the port (ResNet, MnistMLP, InceptionV3), read
+    from its modules, whose names are the flax module paths: a Conv's
+    weight [O, I, kh, kw] is the ``params`` kernel [kh, kw, I, O]; a
+    Linear's weight [out, in] the Dense kernel [in, out] and its bias
+    the bias; a BatchNorm's weight and bias are ``params`` scale and
+    bias, its running_mean and running_var ``batch_stats`` mean and
+    var."""
+    out = {}
+    for prefix, module in model.named_modules():
+        path = tuple(prefix.split(".")) if prefix else ()
+
+        def put(suffix, collection, leaf, shape):
+            out[f"{prefix}.{suffix}"] = (collection, path + (leaf,),
+                                         tuple(shape))
+
+        if isinstance(module, Conv):
+            o, i, kh, kw = module.weight.shape
+            put("weight", "params", "kernel", (kh, kw, i, o))
+        elif isinstance(module, torch.nn.Linear):
+            o, i = module.weight.shape
+            put("weight", "params", "kernel", (i, o))
+            put("bias", "params", "bias", (o,))
+        elif isinstance(module, BatchNorm):
+            shape = tuple(module.weight.shape)
+            put("weight", "params", "scale", shape)
+            put("bias", "params", "bias", shape)
+            put("running_mean", "batch_stats", "mean", shape)
+            put("running_var", "batch_stats", "var", shape)
+    names = set(model.state_dict())
+    if set(out) != names:
+        raise ValueError(f"modules without a flax counterpart: "
+                         f"{sorted(names ^ set(out))}")
+    return out
+
+
+def image_variables_from_flax(model, variables):
+    """flax variables of an image model (``{"params": ...,
+    "batch_stats": ...}``, nested mappings of arrays) -> a state_dict
+    for the port's ``model`` (f32 CPU tensors). Raises if a leaf is
+    missing, has another shape, or is one the model does not have."""
+    out = {}
+    for name, (collection, path, shape) in image_layout(model).items():
+        node = variables
+        try:
+            for key in (collection,) + path:
+                node = node[key]
+        except KeyError:
+            raise ValueError(f"flax variables lack {collection}/"
+                             f"{'/'.join(path)}") from None
+        value = np.array(node, np.float32)
+        if value.shape != shape:
+            raise ValueError(f"{collection}/{'/'.join(path)}: shape "
+                             f"{value.shape}, want {shape}")
+        if path[-1] == "kernel":
+            # HWIO -> OIHW; Dense [in, out] -> Linear [out, in].
+            value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                     else value.T)
+        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    if len(out) != _count_leaves(variables):
+        raise ValueError(
+            f"flax variables have {_count_leaves(variables)} leaves, "
+            f"converted {len(out)}: not this model's tree")
+    return out
+
+
+def image_variables_to_flax(model):
+    """The inverse of ``image_variables_from_flax``: the port's
+    parameters and running statistics as ``{"params": ...,
+    "batch_stats": ...}`` of f32 numpy arrays (no ``batch_stats`` for a
+    model without BN)."""
+    state = model.state_dict()
+    tree = {}
+    for name, (collection, path, _) in image_layout(model).items():
+        value = state[name].detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            value = (value.transpose(2, 3, 1, 0) if value.ndim == 4
+                     else value.T)
+        node = tree.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+    return tree
+
+
+def init_flax_layout_image(model, seed):
+    """Random variables in the flax layout of the image ``model``
+    (which may live on the meta device), made from ``seed`` with numpy
+    alone and flax's initializers: lecun-normal kernels (a normal cut
+    at two standard deviations, scaled to std 1/sqrt(fan_in)), zero
+    biases, BN scale ones, or zeros where the module has flax's
+    ``scale_init=zeros``, running mean 0 and var 1."""
+    rng = np.random.default_rng(seed)
+    modules = dict(model.named_modules())
+    tree = {}
+    for name, (collection, path, shape) in image_layout(model).items():
+        leaf = path[-1]
+        if leaf == "kernel":
+            value = rng.standard_normal(shape)
+            while True:
+                out = np.abs(value) > 2.0
+                if not out.any():
+                    break
+                value[out] = rng.standard_normal(int(out.sum()))
+            value *= np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNC_STD
+        elif leaf == "scale":
+            zero = modules[name.rsplit(".", 1)[0]].zero_scale
+            value = np.zeros(shape) if zero else np.ones(shape)
+        elif leaf == "var":
+            value = np.ones(shape)
+        else:
+            value = np.zeros(shape)
+        node = tree.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf] = value.astype(np.float32)
+    return tree
+
+
+def load_image_model(model, variables):
+    """Load flax-layout variables into the port's image ``model`` (in
+    place, on the model's device and memory format); returns it."""
+    model.load_state_dict(image_variables_from_flax(model, variables))
+    return model
 
 
 def load_lm(config, tree, device="cuda", dtype=torch.bfloat16,

@@ -18,8 +18,8 @@ its synthetic data. Counterpart of
 container_engine_accelerators_tpu/parallel/ (mesh, sharding and the
 distributed forms are not ported yet)."""
 
-from .data import SyntheticTokenLoader
+from .data import SyntheticLoader, SyntheticTokenLoader
 from .train import Sgd, TrainState, Trainer, cross_entropy_loss
 
-__all__ = ["Sgd", "SyntheticTokenLoader", "TrainState", "Trainer",
-           "cross_entropy_loss"]
+__all__ = ["Sgd", "SyntheticLoader", "SyntheticTokenLoader", "TrainState",
+           "Trainer", "cross_entropy_loss"]

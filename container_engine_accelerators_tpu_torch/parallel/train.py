@@ -29,28 +29,42 @@ chain: optional ``clip_by_global_norm``, then ``add_decayed_weights``
 with a mask, then ``sgd`` with momentum and a learning-rate schedule
 read at the update count before the update, as optax reads it.
 
-Options of the JAX Trainer that this slice does not carry (a mesh,
-remat, gradient accumulation, augmentation, EMA, FSDP, straggler and
-MFU/goodput telemetry, the eval step) raise "not yet ported".
+remat, gradient accumulation, augmentation, EMA and the eval step
+follow the JAX Trainer (``Trainer``'s docstring). Its options that
+this port does not carry (a mesh, FSDP, straggler and MFU/goodput
+telemetry, a step without state donation) raise "not yet ported".
 """
 
+import contextlib
 import dataclasses
+import inspect
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
-from ..utils import not_ported
+from ..models.layers import BatchNorm
+from ..utils import not_ported, step_generator
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a step carries: ``step`` is the host count of updates
-    applied; ``model`` holds the parameters and ``optimizer`` the
-    momentum traces, both updated in place."""
+    applied; ``model`` holds the parameters and the BN running
+    statistics (its buffers, updated by the train-mode forward),
+    ``optimizer`` the momentum traces, all updated in place; ``ema``
+    the EMA shadow {name: tensor} (None when EMA is off)."""
 
     step: int
     model: Any
     optimizer: Any
+    ema: Any = None
+
+    @property
+    def batch_stats(self):
+        """{name: tensor}: the model's buffers (the BN running mean and
+        variance; empty for a model without BN)."""
+        return dict(self.model.named_buffers())
 
 
 class Sgd:
@@ -142,11 +156,35 @@ def cross_entropy_loss(logits, labels, label_smoothing=0.0):
     return -torch.mean(torch.sum(onehot.float() * logp, dim=-1))
 
 
-class Trainer:
-    """Owns one model's train step on one device.
+AUGMENT_KEY = 17  # the JAX step's PRNGKey(17) for augment_fn
 
-    ``model(inputs) -> logits``; ``loss_fn(logits, labels) -> scalar``;
-    ``optimizer``: an ``Sgd``."""
+
+class Trainer:
+    """Owns one model's train and eval steps on one device.
+
+    ``model(inputs) -> logits``, or ``model(inputs, step=...)`` for a
+    model with step-keyed randomness (Inception's dropout; detected
+    from the forward's signature, as the JAX Trainer detects a ``step``
+    argument of its apply function); ``loss_fn(logits, labels) ->
+    scalar``; ``optimizer``: an ``Sgd``.
+
+    - ``remat``: the forward runs under ``torch.utils.checkpoint``
+      (non-reentrant) and is recomputed in the backward, as
+      ``jax.checkpoint`` on the apply function. The recomputation
+      leaves the BN running statistics alone, so a step with remat
+      gives the loss, gradients and statistics of the step without it.
+    - ``grad_accum``: the batch is cut into that many equal chunks, run
+      one after another with one optimizer update: the gradient and
+      the loss are the means over the chunks, the BN running
+      statistics pass from chunk to chunk, and chunk ``idx`` sees the
+      virtual step ``step * grad_accum + idx``.
+    - ``augment_fn(generator, images) -> images`` runs in train steps
+      only, with a generator seeded from (17, step) on the batch's
+      device: a step repeats its augmentation.
+    - ``ema_decay``: an EMA shadow of the parameters, seeded as their
+      copy, becomes ``e * d + p * (1 - d)`` after each update;
+      ``eval_params`` reads it.
+    """
 
     def __init__(self, model, loss_fn, optimizer, mesh=None,
                  donate_state=True, remat=False, grad_accum=1,
@@ -158,10 +196,7 @@ class Trainer:
             raise ValueError(f"ema_decay must be in [0, 1): {ema_decay}")
         for option, value, default in (
                 ("mesh", mesh, None), ("donate_state", donate_state, True),
-                ("remat", remat, False), ("grad_accum", grad_accum, 1),
-                ("augment_fn", augment_fn, None),
-                ("ema_decay", ema_decay, 0.0), ("fsdp", fsdp, False),
-                ("straggler", straggler, None),
+                ("fsdp", fsdp, False), ("straggler", straggler, None),
                 ("mfu_source", mfu_source, "off"),
                 ("goodput", goodput, None)):
             if value != default:
@@ -169,24 +204,113 @@ class Trainer:
         self.model = model
         self._loss = loss_fn
         self._tx = optimizer
+        self._remat = bool(remat)
+        self._grad_accum = int(grad_accum)
+        self._augment = augment_fn
+        self._ema_decay = float(ema_decay)
+        self._wants_step = "step" in inspect.signature(
+            model.forward).parameters
 
     def init_state(self):
-        """A TrainState at step 0 with fresh momentum traces."""
-        return TrainState(step=0, model=self.model,
-                          optimizer=self._tx.init(self.model))
+        """A TrainState at step 0 with fresh momentum traces (and the
+        EMA shadow when ``ema_decay`` is on)."""
+        return self.ensure_ema(TrainState(
+            step=0, model=self.model, optimizer=self._tx.init(self.model)))
+
+    def _forward(self, images, step):
+        def forward(x):
+            if self._wants_step:
+                return self.model(x, step=step)
+            return self.model(x)
+
+        if not self._remat:
+            return forward(images)
+        return torch.utils.checkpoint.checkpoint(
+            forward, images, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                _frozen_running_stats(self.model)))
 
     def train_step(self, state, batch):
         """One step: (inputs, labels) -> (state, loss). ``state`` is
         updated in place and returned; the loss is a 0-d device
         tensor."""
-        inputs, labels = batch
+        images, labels = batch
+        if self._augment is not None:
+            images = self._augment(step_generator(
+                AUGMENT_KEY, state.step, images.device), images)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(state.model(inputs), labels)
-        loss.backward()
+        accum = self._grad_accum
+        if accum == 1:
+            loss = self._loss(self._forward(images, state.step), labels)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            if images.shape[0] % accum:
+                raise ValueError(
+                    f"global batch {images.shape[0]} not divisible into "
+                    f"grad_accum={accum} microbatches")
+            loss = torch.zeros((), dtype=torch.float32, device=images.device)
+            chunks = zip(images.chunk(accum), labels.chunk(accum))
+            for idx, (images_c, labels_c) in enumerate(chunks):
+                chunk_loss = self._loss(
+                    self._forward(images_c, state.step * accum + idx),
+                    labels_c)
+                (chunk_loss / accum).backward()
+                loss = loss + chunk_loss.detach().float() / accum
         self._tx.update(state.optimizer, state.step)
+        if self._ema_decay:
+            self._update_ema(state)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
-    @property
-    def eval_step(self):
-        raise not_ported("Trainer.eval_step")
+    @torch.no_grad()
+    def _update_ema(self, state):
+        d = self._ema_decay
+        shadow = list(state.ema.values())
+        params = [state.model.get_parameter(n) for n in state.ema]
+        torch._foreach_mul_(shadow, d)
+        torch._foreach_add_(shadow, torch._foreach_mul(params, 1.0 - d))
+
+    def eval_params(self, state):
+        """{name: tensor}: the weights eval should read, the EMA shadow
+        when it is tracked, the live parameters otherwise."""
+        if self._ema_decay and state.ema is not None:
+            return state.ema
+        return dict(state.model.named_parameters())
+
+    def ensure_ema(self, state):
+        """Seed the EMA shadow from the parameters if it is missing."""
+        if self._ema_decay and state.ema is None:
+            state.ema = {n: p.detach().clone()
+                         for n, p in state.model.named_parameters()
+                         if p.requires_grad}
+        return state
+
+    def eval_step(self, state, images):
+        """Logits of ``images`` in eval mode (BN on its running
+        statistics, no dropout, no augmentation) with ``eval_params``,
+        without gradients. The model's mode is restored afterwards."""
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                return torch.func.functional_call(
+                    model, self.eval_params(state), (images,))
+        finally:
+            model.train(was_training)
+
+
+@contextlib.contextmanager
+def _frozen_running_stats(model):
+    """While remat recomputes a forward: the BN layers normalise as
+    before but leave their running statistics as the first forward
+    left them (jax.checkpoint returns the new statistics once)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True

@@ -13,26 +13,33 @@
 # limitations under the License.
 
 
-"""Training driver of the port: LM training on one card.
+"""Training driver of the port: image classification and LM training
+on one card.
 
+    python -m container_engine_accelerators_tpu_torch.train \
+        --model resnet --depth 50 --batch-size 128 --steps 12
     python -m container_engine_accelerators_tpu_torch.train \
         --model transformer --seq-len 2048 --batch-size 8 --steps 12
 
-Counterpart of demo/tpu-training/train.py for ``--model transformer``:
-the same flag names and defaults (``--model`` defaults to transformer,
-the one model ported), plus ``--device`` (cuda unless the caller asks
-for cpu; no fallback). Weights are random, made from ``--seed`` with
-numpy in the flax layout (``models/convert.py``); data is the
-synthetic token loader. The optimizer is the demo's ``build_tx``:
---grad-clip, weight decay on the leaves that are rank >= 2 in the flax
-tree, SGD with momentum under one of three --lr-schedule's.
+Counterpart of demo/tpu-training/train.py: the same flag names and
+defaults (``--model`` defaults to resnet), plus ``--device`` (cuda
+unless the caller asks for cpu; no fallback). Weights are random, made
+from ``--seed`` with numpy in the flax layout (``models/convert.py``);
+data is the synthetic image or token loader. The optimizer is the
+demo's ``build_tx``: --grad-clip, weight decay on the leaves that are
+rank >= 2 in the flax tree, SGD with momentum under one of three
+--lr-schedule's. mnist and resnet train on the fused cross-entropy,
+inception on the plain loss, as the demo does. --remat, --grad-accum,
+--augment (image models; the LM ignores it with a message),
+--ema-decay and --eval-batches (top-1/top-5 through the eval step)
+follow the demo.
 
-Prints the demo's JSON result line (model, devices, global_batch,
-steps, images_per_sec, images_per_sec_per_chip, tokens_per_sec,
-final_loss) with the kernels' launch counts added. Every flag of the
-demo's other paths (other models, parallelism, checkpoints, profiles,
-eval, augmentation, EMA, remat, gradient accumulation, the attention
-window) raises "not yet ported".
+Prints the demo's JSON result line (model, depth, devices,
+global_batch, steps, images_per_sec, images_per_sec_per_chip,
+final_loss, tokens_per_sec for the LM, eval accuracies) with the
+kernels' launch counts added. The flags of the demo's other paths
+(moe, parallelism, checkpoints, profiles, real data, the attention
+window) raise "not yet ported".
 """
 
 import argparse
@@ -45,23 +52,34 @@ import time
 
 import torch
 
-from .models import convert
+from .models import convert, mlp
+from .models.inception import InceptionV3
+from .models.resnet import resnet
 from .models.transformer import next_token_loss_fn
 from .ops import attention, xent
+from .ops.augment import make_augment_fn
 from .ops.xent import mean_cross_entropy_loss
-from .parallel import Sgd, SyntheticTokenLoader, Trainer, cross_entropy_loss
+from .parallel import (
+    Sgd,
+    SyntheticLoader,
+    SyntheticTokenLoader,
+    Trainer,
+    cross_entropy_loss,
+)
 from .utils import not_ported, wall_sync
+
+IMAGE_MODELS = ("mnist", "resnet", "inception")
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="LM training on one card "
+    p = argparse.ArgumentParser(description="Training on one card "
                                             "(PyTorch port)")
     p.add_argument("--model",
                    choices=["mnist", "resnet", "inception",
                             "transformer", "moe"],
-                   default="transformer")
+                   default="resnet")
     p.add_argument("--depth", type=int, default=50,
-                   help="ResNet depth (not ported)")
+                   help="ResNet depth (18/34/50/101/152)")
     p.add_argument("--seq-len", type=int, default=512,
                    help="LM sequence length")
     p.add_argument("--vocab-size", type=int, default=32000)
@@ -141,11 +159,10 @@ def parse_args(argv=None):
 
 
 def check_ported(args):
-    """Raise "not yet ported" for every flag of a path this slice does
+    """Raise "not yet ported" for every flag of a path the port does
     not carry."""
-    if args.model != "transformer":
-        raise not_ported(f"--model {args.model}")
     unported = {
+        "--model moe": args.model == "moe",
         "--attention-window": args.attention_window > 0,
         "--expert-parallelism": args.expert_parallelism > 1,
         "--context-parallelism": args.context_parallelism > 1,
@@ -153,15 +170,10 @@ def check_ported(args):
         "--model-parallelism": args.model_parallelism > 1,
         "--pipeline-parallelism": args.pipeline_parallelism > 1,
         "--dcn-granules": args.dcn_granules > 1,
-        "--remat": args.remat,
         "--fsdp": args.fsdp,
-        "--grad-accum": args.grad_accum > 1,
-        "--augment": args.augment,
-        "--ema-decay": args.ema_decay > 0,
         "--data-dir": bool(args.data_dir),
         "--model-dir": bool(args.model_dir),
         "--profile-dir": bool(args.profile_dir),
-        "--eval-batches": args.eval_batches > 0,
     }
     on = [flag for flag, bad in unported.items() if bad]
     if on:
@@ -219,7 +231,9 @@ def build_tx(args, config=None):
     """The demo's optimizer (--lr-schedule + --grad-clip + weight decay
     on flax-rank >= 2 leaves + SGD/momentum) as an ``Sgd``. ``config``:
     the TransformerLM config the decay mask reads the flax ranks of
-    (default: from the flags)."""
+    (default: from the flags). An image model's flax ranks are its
+    torch ranks: conv and linear weights decay, BN and biases do
+    not."""
     if args.lr_schedule == "constant":
         lr = args.lr
     elif args.lr_schedule == "cosine":
@@ -236,12 +250,17 @@ def build_tx(args, config=None):
              linear_schedule(args.lr, 0.0,
                              max(args.steps - args.lr_warmup_steps, 1))],
             [args.lr_warmup_steps])
-    shapes = convert.flax_shapes(config or lm_config(args))
+    if args.model in IMAGE_MODELS:
+        def decay_mask(_name, param):
+            return param.dim() >= 2
+    else:
+        shapes = convert.flax_shapes(config or lm_config(args))
 
-    def decay_mask(name, _param):
-        # The flax leaf's rank, not the torch tensor's: the attention
-        # biases are [3, H, D] / [H, D] / [2, Hkv, D] there and decay.
-        return len(shapes[name][1]) >= 2
+        def decay_mask(name, _param):
+            # The flax leaf's rank, not the torch tensor's: the
+            # attention biases are [3, H, D] / [H, D] / [2, Hkv, D]
+            # there and decay.
+            return len(shapes[name][1]) >= 2
 
     return Sgd(lr, momentum=args.momentum,
                weight_decay=args.weight_decay, decay_mask=decay_mask,
@@ -261,19 +280,66 @@ def build_lm(args, device):
     return model, next_token_loss_fn(loss)
 
 
+def build_model(args, device):
+    """(model, image_shape, num_classes) of an image model, as the
+    demo's build_model (MnistMLP at 28x28x1 and 10 classes, whatever
+    --image-size and --num-classes say; Inception-v3; ResNet at
+    --depth), with random weights from --seed in the flax layout, in
+    train mode."""
+    # Built on the meta device: the flax-layout tree sets every weight
+    # and statistic, so the modules' own initializers need not run.
+    if args.model == "mnist":
+        shape, classes = mlp.IMAGE_SHAPE, 10
+        model = mlp.MnistMLP(num_classes=classes, device="meta")
+    else:
+        shape = (args.image_size, args.image_size, 3)
+        classes = args.num_classes
+        if args.model == "inception":
+            model = InceptionV3(num_classes=classes, device="meta")
+        else:
+            model = resnet(args.depth, classes, device="meta")
+    variables = convert.init_flax_layout_image(model, args.seed)
+    model = convert.load_image_model(model.to_empty(device=device),
+                                     variables)
+    return model.train(), shape, classes
+
+
 def build_trainer(args, device):
     """(trainer, state, loader) from the flags, after checking that
-    they name the ported path and that ``device`` exists."""
+    they name a ported path and that ``device`` exists."""
     check_ported(args)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() "
                            "is False (pass --device cpu to run the plain "
                            "versions on the CPU)")
-    model, loss_fn = build_lm(args, device)
-    trainer = Trainer(model, loss_fn, build_tx(args))
-    loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
-                                  args.vocab_size, device=device)
+    if device.type == "cuda":
+        # cuDNN picks each convolution's algorithm by timing in the
+        # first steps (XLA autotunes at compile); --warmup-steps keeps
+        # them out of the throughput.
+        torch.backends.cudnn.benchmark = True
+    augment_fn = None
+    if args.model in IMAGE_MODELS:
+        model, shape, classes = build_model(args, device)
+        fused = args.pallas_loss and args.model != "inception"
+        loss_fn = functools.partial(
+            mean_cross_entropy_loss if fused else cross_entropy_loss,
+            label_smoothing=args.label_smoothing)
+        loader = SyntheticLoader(args.batch_size, shape, classes,
+                                 device=device)
+        if args.augment:
+            augment_fn = make_augment_fn(flip=True,
+                                         crop_padding=args.crop_padding)
+    else:
+        model, loss_fn = build_lm(args, device)
+        loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
+                                      args.vocab_size, device=device)
+        if args.augment:
+            print("--augment only applies to image models; ignoring",
+                  file=sys.stderr)
+    trainer = Trainer(model, loss_fn, build_tx(args), remat=args.remat,
+                      grad_accum=args.grad_accum, augment_fn=augment_fn,
+                      ema_decay=args.ema_decay)
     return trainer, trainer.init_state(), loader
 
 
@@ -281,11 +347,34 @@ def kernel_launches():
     return {k.name: k.launches for k in attention.KERNELS + xent.KERNELS}
 
 
-def main(argv=None, on_step=None):
-    """Train and print the JSON result line; returns it as a dict.
+def evaluate(trainer, state, loader, args):
+    """Top-1 and top-5 accuracy over --eval-batches through the eval
+    step (next-token accuracy for the LM). The counts stay on the
+    device until the end. Returns (top1, top5)."""
+    correct = correct5 = None
+    total = 0
+    for _, (inputs, labels) in zip(range(args.eval_batches), loader):
+        logits = trainer.eval_step(state, inputs)
+        if args.model in IMAGE_MODELS:
+            want = labels
+        else:
+            logits, want = logits[:, :-1], labels[:, 1:]
+        k = min(5, logits.shape[-1])
+        top = logits.topk(k, dim=-1).indices
+        hit1 = (top[..., 0] == want).sum()
+        hit5 = (top == want[..., None]).any(-1).sum()
+        correct = hit1 if correct is None else correct + hit1
+        correct5 = hit5 if correct5 is None else correct5 + hit5
+        total += want.numel()
+    if not total:
+        return 0.0, 0.0
+    return int(correct) / total, int(correct5) / total
+
+
+def run(args, on_step=None):
+    """Train as the flags say; returns (result dict, trainer, state).
     ``on_step(step, loss)``, if given, is called after every step with
     the step's loss as a device tensor (no host sync)."""
-    args = parse_args(argv)
     device = torch.device(args.device)
     trainer, state, loader = build_trainer(args, device)
     before = kernel_launches()
@@ -307,27 +396,41 @@ def main(argv=None, on_step=None):
     t_end = time.perf_counter()
     timed_steps = max(args.steps - warmup, 0)
     if t_start is None or timed_steps == 0:
-        seqs_per_sec = 0.0
+        per_sec = 0.0
     else:
         elapsed = t_end - t_start
-        seqs_per_sec = (args.batch_size * timed_steps / elapsed
-                        if elapsed > 0 else 0.0)
+        per_sec = (args.batch_size * timed_steps / elapsed
+                   if elapsed > 0 else 0.0)
     after = kernel_launches()
     result = {
         "model": args.model,
-        "depth": None,
+        "depth": args.depth if args.model == "resnet" else None,
         "devices": 1,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else device.type),
         "global_batch": args.batch_size,
         "steps": args.steps,
-        "images_per_sec": round(seqs_per_sec, 2),
-        "images_per_sec_per_chip": round(seqs_per_sec, 2),
+        "images_per_sec": round(per_sec, 2),
+        "images_per_sec_per_chip": round(per_sec, 2),
         "final_loss": losses[-1] if losses else None,
-        "tokens_per_sec": round(seqs_per_sec * args.seq_len, 2),
-        "kernel_launches": {name: after[name] - before[name]
-                            for name in after},
     }
+    if args.model not in IMAGE_MODELS:
+        result["tokens_per_sec"] = round(per_sec * args.seq_len, 2)
+    result["kernel_launches"] = {name: after[name] - before[name]
+                                 for name in after}
+    if args.eval_batches:
+        top1, top5 = evaluate(trainer, state, loader, args)
+        result["eval_accuracy"] = round(top1, 4)
+        result["eval_top5_accuracy"] = round(top5, 4)
+        print(f"eval accuracy top1 {result['eval_accuracy']} "
+              f"top5 {result['eval_top5_accuracy']}", file=sys.stderr)
+    return result, trainer, state
+
+
+def main(argv=None, on_step=None):
+    """Train and print the JSON result line; returns it as a dict.
+    ``on_step`` as in ``run``."""
+    result, _, _ = run(parse_args(argv), on_step)
     print(json.dumps(result))
     return result
 

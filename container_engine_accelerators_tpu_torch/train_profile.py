@@ -26,8 +26,13 @@ JSON line: the window's wall time beside the unprofiled steps' (host
 clock around synced work; the gap is the profiler's host cost), the
 device's busy time (the sum of kernel times; one stream, so kernels do
 not overlap) and idle share, and kernel time per step by category
-(the port's five kernels by name, matrix products, elementwise,
-reductions, copies, other) with the top kernels by time. Details go to
+(cuDNN's convolutions, the port's five kernels by name, matrix
+products, elementwise, reductions, copies, other) with the top kernels
+by time. Any model of the driver: ``--model resnet`` (the default)
+profiles the image step, whose BatchNorm is plain PyTorch and lands in
+the reductions (its statistics) and elementwise work (its
+normalisation, beside ReLU, the residual adds and the SGD update);
+``--model transformer`` the LM's. Details go to
 chiprun_out/train_profile.json. Runs on the card; it fails if the
 profiler records no device time.
 """
@@ -42,6 +47,12 @@ import torch
 from . import train
 
 _CATEGORIES = (
+    # cuDNN's convolutions (forward, data and weight gradients) and
+    # their layout transforms come before the products: both have
+    # sm90_/xmma in their names.
+    ("convolution", ("fprop", "dgrad", "wgrad", "implicit_convolve",
+                     "conv2d", "convolve", "nchwToNhwc", "nhwcToNchw",
+                     "cudnn")),
     ("flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_f32_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
@@ -99,6 +110,11 @@ def main(argv=None):
             state, loss = trainer.train_step(state, next(loader))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    if args.model in train.IMAGE_MODELS:
+        shape = {"image_size": args.image_size,
+                 "depth": args.depth if args.model == "resnet" else None}
+    else:
+        shape = {"seq_len": args.seq_len}
     kernels = device_kernels(prof)
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
@@ -110,8 +126,10 @@ def main(argv=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "device": torch.cuda.get_device_name(device),
-        "steps": args.steps, "global_batch": args.batch_size,
-        "seq_len": args.seq_len, "wall_ms_per_step": wall_ms / args.steps,
+        "model": args.model, "steps": args.steps,
+        "global_batch": args.batch_size,
+        **shape,
+        "wall_ms_per_step": wall_ms / args.steps,
         "wall_ms_per_step_unprofiled": unprofiled_ms / args.steps,
         "busy_ms_per_step": busy_ms / args.steps,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),

@@ -13,12 +13,14 @@
 # limitations under the License.
 
 """Env-var knob parsing and ``wall_sync`` (own copies of the JAX
-package's helpers) and the error every option of the JAX package that
-the port does not carry yet raises."""
+package's helpers), the step-keyed generator behind augmentation and
+dropout, and the error every option of the JAX package that the port
+does not carry yet raises."""
 
 import logging
 import os
 
+import numpy as np
 import torch
 
 log = logging.getLogger(__name__)
@@ -50,6 +52,17 @@ def not_ported(what):
     """The ValueError for an option or mode not ported yet: raised,
     never silently ignored."""
     return ValueError(f"{what} is not yet ported to the PyTorch package")
+
+
+def step_generator(key, step, device):
+    """A ``torch.Generator`` on ``device`` seeded from (``key``,
+    ``step``): the port's counterpart of ``jax.random.fold_in(
+    PRNGKey(key), step)`` for randomness keyed by the training step
+    (augmentation, dropout). The same pair gives the same stream on the
+    same device; jax's bits are not reproduced."""
+    seed = np.random.SeedSequence([int(key), int(step)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def _env_flag(env_name, default):

@@ -51,7 +51,9 @@ def test_port_has_the_slice_modules():
     for mod in ("utils", "ops", "ops.attention", "ops.xent", "ops._build",
                 "models.transformer", "models.convert", "models.decode",
                 "serving.server", "serving.serve", "parallel",
-                "parallel.data", "parallel.train", "train"):
+                "parallel.data", "parallel.train", "train",
+                "train_profile", "bench", "models.layers", "models.resnet",
+                "models.mlp", "models.inception", "ops.augment"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",

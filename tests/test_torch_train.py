@@ -284,30 +284,91 @@ def test_wall_sync_reads_the_first_tensor():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(remat=True), dict(grad_accum=2),
-    dict(augment_fn=lambda x: x), dict(ema_decay=0.9), dict(fsdp=True),
-    dict(straggler=object()), dict(mfu_source="auto"),
-    dict(donate_state=False)])
+    dict(mesh=object()), dict(fsdp=True), dict(straggler=object()),
+    dict(mfu_source="auto"), dict(donate_state=False)])
 def test_unported_trainer_options_raise(option):
     with pytest.raises(ValueError, match="not yet ported"):
         Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1), **option)
-    with pytest.raises(ValueError, match="not yet ported"):
-        Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1)).eval_step
+
+
+def _lm_trainer(**option):
+    _, tree, config = torch_parity.flax_lm("rope_gqa", "f32")
+    model = convert.load_lm(config, tree, device="cpu",
+                            dtype=torch.float32, trainable=True)
+    loss = transformer.next_token_loss_fn(xent.mean_cross_entropy_loss)
+    trainer = Trainer(model, loss, Sgd(0.1, momentum=0.9), **option)
+    batches = SyntheticTokenLoader(BATCH, SEQ, config["vocab_size"],
+                                   device="cpu")
+    return trainer, trainer.init_state(), batches
+
+
+@pytest.mark.parametrize("option", [
+    dict(remat=True), dict(grad_accum=2),
+    dict(augment_fn=lambda generator, x: x), dict(ema_decay=0.9)])
+def test_ported_trainer_options_train_the_lm(option):
+    """Each option the image slice ported also runs the LM's step
+    (flash attention under remat's recomputation, the chunked batch,
+    an augmentation that leaves tokens alone, the EMA shadow) and
+    leaves the first step's loss as the plain step gives it."""
+    trainer, state, batches = _lm_trainer(**option)
+    plain, plain_state, plain_batches = _lm_trainer()
+    for _ in range(2):
+        state, loss = trainer.train_step(state, next(batches))
+        plain_state, want = plain.train_step(plain_state,
+                                             next(plain_batches))
+        assert loss.dim() == 0 and torch.isfinite(loss)
+        np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    assert state.step == 2
+    if "ema_decay" in option:
+        assert set(state.ema) == {n for n, _ in
+                                  state.model.named_parameters()}
+
+
+def test_eval_step_gives_the_lm_logits():
+    trainer, state, batches = _lm_trainer()
+    tokens = next(batches)[0]
+    logits = trainer.eval_step(state, tokens)
+    with torch.no_grad():
+        want = state.model(tokens)
+    torch.testing.assert_close(logits, want, rtol=0, atol=0)
+    assert not logits.requires_grad and state.model.training
+    assert state.batch_stats == {}
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model", "resnet"], ["--model", "mnist"], ["--model", "inception"],
     ["--model", "moe"], ["--attention-window", "64"],
     ["--model-parallelism", "2"], ["--context-parallelism", "2"],
     ["--attention", "ring"], ["--expert-parallelism", "2"],
     ["--pipeline-parallelism", "2"], ["--dcn-granules", "2"], ["--fsdp"],
-    ["--remat"], ["--grad-accum", "2"], ["--ema-decay", "0.99"],
-    ["--augment"], ["--data-dir", "d"], ["--model-dir", "m"],
-    ["--profile-dir", "p"], ["--eval-batches", "2"]])
+    ["--data-dir", "d"], ["--model-dir", "m"], ["--profile-dir", "p"]])
 def test_unported_flags_raise(flags):
     argv = ["--device", "cpu", "--model", "transformer"] + flags
     with pytest.raises(ValueError, match="not yet ported"):
         port_train.main(argv)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "resnet", "--depth", "18", "--image-size", "16",
+     "--num-classes", "10"],
+    ["--model", "mnist"],
+    ["--model", "inception", "--image-size", "75", "--num-classes", "10"],
+    ["--remat"], ["--grad-accum", "2"], ["--ema-decay", "0.99"],
+    ["--augment"], ["--eval-batches", "2"]])
+def test_ported_flags_train(flags, capsys):
+    """The flags this slice ported run through the driver: the image
+    models, and remat, accumulation, EMA, augmentation (the LM ignores
+    it with a message) and eval on the LM."""
+    argv = ["--device", "cpu", "--model", "transformer", "--vocab-size",
+            "32", "--embed-dim", "16", "--num-layers", "1", "--num-heads",
+            "2", "--seq-len", "8", "--batch-size", "2", "--steps", "2",
+            "--warmup-steps", "1"] + flags
+    result = port_train.main(argv)
+    assert np.isfinite(result["final_loss"]) and result["steps"] == 2
+    err = capsys.readouterr().err
+    if flags == ["--augment"]:
+        assert "--augment only applies to image models" in err
+    if flags == ["--eval-batches", "2"]:
+        assert 0.0 <= result["eval_accuracy"] <= 1.0
 
 
 def test_cpu_run_prints_the_result_line_and_the_loss_falls():
@@ -316,7 +377,8 @@ def test_cpu_run_prints_the_result_line_and_the_loss_falls():
     env["OMP_NUM_THREADS"] = "2"
     proc = subprocess.run(
         [sys.executable, "-m", "container_engine_accelerators_tpu_torch.train",
-         "--device", "cpu", "--vocab-size", "64", "--embed-dim", "32",
+         "--model", "transformer", "--device", "cpu", "--vocab-size", "64",
+         "--embed-dim", "32",
          "--num-layers", "2", "--num-heads", "4", "--num-kv-heads", "2",
          "--pos-embedding", "rope", "--seq-len", "16", "--batch-size", "4",
          "--steps", "21", "--warmup-steps", "1", "--lr", "0.05"],
@@ -338,8 +400,9 @@ def test_cpu_run_prints_the_result_line_and_the_loss_falls():
 def test_on_step_hook_sees_every_step():
     seen = []
     result = port_train.main(
-        ["--device", "cpu", "--vocab-size", "32", "--embed-dim", "16",
-         "--num-layers", "1", "--num-heads", "2", "--seq-len", "8",
+        ["--model", "transformer", "--device", "cpu", "--vocab-size", "32",
+         "--embed-dim", "16", "--num-layers", "1", "--num-heads", "2",
+         "--seq-len", "8",
          "--batch-size", "2", "--steps", "3", "--warmup-steps", "1"],
         on_step=lambda step, loss: seen.append((step, loss)))
     assert [step for step, _ in seen] == [0, 1, 2]
@@ -351,7 +414,8 @@ def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        port_train.main(["--seq-len", "8", "--batch-size", "1",
+        port_train.main(["--model", "transformer", "--seq-len", "8",
+                         "--batch-size", "1",
                          "--vocab-size", "16", "--embed-dim", "16",
                          "--num-layers", "1", "--num-heads", "2",
                          "--steps", "1"])
@@ -379,9 +443,23 @@ def test_cuda_device_without_a_card_raises():
     ("void (anonymous namespace)::xent_bwd_kernel<float>(...)", "xent_bwd"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "matmul"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1_execute_kernel__5x_cudnn",
+     "convolution"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1_execute_kernel__5x_cudnn",
+     "convolution"),
+    ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1_execute_kernel__5x_cudnn",
+     "convolution"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, "
+     "__nv_bfloat16, float, false, true, (cudnnKernelDataType_t)0>(...)",
+     "convolution"),
 ])
 def test_profile_names_each_kernel_of_the_port(kernel, label):
     """The step profile files every flash kernel of the port (the
-    tensor-core and the FMA ones) under its wrapper's name."""
+    tensor-core and the FMA ones) under its wrapper's name, and cuDNN's
+    convolutions (forward, data and weight gradients, their layout
+    transforms) under convolution, not under the matrix products."""
     from container_engine_accelerators_tpu_torch import train_profile
     assert train_profile.category(kernel) == label

@@ -87,6 +87,27 @@ def test_loss_and_gradient_match_pallas(out_of_range):
     _close(tl.grad, want_grad)
 
 
+@pytest.mark.parametrize("n,c", [(128, 1000), (256, 10)])
+def test_image_shapes_match_pallas(n, c):
+    """The image path's logits: ResNet's [128, 1000] (C not a multiple of
+    the Pallas kernel's 128 lanes, so it pads) and MNIST's [256, 10] (C
+    not a multiple of 4: the CUDA kernel's scalar loads), f32."""
+    rng = np.random.default_rng(c)
+    logits = (3 * rng.standard_normal((n, c))).astype(np.float32)
+    labels = rng.integers(0, c, n).astype(np.int32)
+    g = rng.standard_normal(n).astype(np.float32)
+    want = jax_xent.softmax_cross_entropy(jnp.asarray(logits),
+                                          jnp.asarray(labels))
+    want_grad = jax.grad(lambda x: jnp.sum(
+        jax_xent.softmax_cross_entropy(x, jnp.asarray(labels)) * g))(
+            jnp.asarray(logits))
+    tl = torch.from_numpy(logits).requires_grad_()
+    got = xent.softmax_cross_entropy(tl, torch.from_numpy(labels))
+    (got * torch.from_numpy(g)).sum().backward()
+    _close(got.detach(), want)
+    _close(tl.grad, want_grad)
+
+
 def test_out_of_range_label_matches_no_class():
     """Labels -1, C (inside the Pallas padding) and 10**6: the loss is
     the shifted log-sum-exp and the gradient is softmax * g."""

@@ -66,3 +66,86 @@ def port_lm(config, tree, dtype="f32"):
 def tokens(seed, shape, vocab=TINY["vocab_size"]):
     return np.random.default_rng(seed).integers(
         0, vocab, shape).astype(np.int32)
+
+
+# -- image models ---------------------------------------------------------
+# ResNet at width 8 (18: basic blocks, 50: bottlenecks), the MNIST MLP at
+# hidden 32, Inception-v3 (fixed widths) at 10 classes.
+IMAGE_TINY = {
+    "resnet18": dict(depth=18, num_classes=10, width=8),
+    "resnet50": dict(depth=50, num_classes=10, width=8),
+    "mlp": dict(hidden=32, num_classes=10),
+    "inception": dict(num_classes=10),
+}
+IMAGE_SHAPES = {"mlp": (28, 28, 1), "inception": (75, 75, 3)}
+
+
+def flax_image_model(kind, dtype="f32", **overrides):
+    """The JAX package's model of ``kind`` at its tiny config."""
+    from container_engine_accelerators_tpu.models.inception import (
+        InceptionV3,
+    )
+    from container_engine_accelerators_tpu.models.mlp import MnistMLP
+    from container_engine_accelerators_tpu.models.resnet import resnet
+    config = dict(IMAGE_TINY[kind], dtype=DTYPES[dtype][0], **overrides)
+    if kind == "mlp":
+        return MnistMLP(**config)
+    if kind == "inception":
+        return InceptionV3(**config)
+    return resnet(**config)
+
+
+def port_image_model(kind, dtype="f32", device="cpu", **overrides):
+    """The port's model of ``kind`` at its tiny config, built on the
+    meta device and given uninitialised memory on ``device``: load a
+    flax tree into it (``convert.load_image_model``)."""
+    from container_engine_accelerators_tpu_torch.models import inception
+    from container_engine_accelerators_tpu_torch.models import mlp, resnet
+    config = dict(IMAGE_TINY[kind], dtype=DTYPES[dtype][1], device="meta",
+                  **overrides)
+    if kind == "mlp":
+        model = mlp.MnistMLP(**config)
+    elif kind == "inception":
+        model = inception.InceptionV3(**config)
+    else:
+        model = resnet.resnet(**config)
+    return model if device == "meta" else model.to_empty(device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_variables(kind, seed):
+    tree = convert.init_flax_layout_image(
+        port_image_model(kind, device="meta"), seed)
+    # flax's init leaves BN scales at 1 (0 on the last BN of a block),
+    # biases and means at 0 and variances at 1: values a converter
+    # could misplace unseen. Spread every non-kernel leaf.
+    rng = np.random.default_rng(seed + 100)
+
+    def spread(path, leaf):
+        name = path[-1].key
+        noise = rng.standard_normal(leaf.shape).astype(np.float32)
+        if name == "scale":
+            return 1.0 + 0.2 * noise
+        if name == "var":
+            return (1.0 + 0.5 * rng.random(leaf.shape)).astype(np.float32)
+        if name in ("bias", "mean"):
+            return 0.1 * noise
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(spread, tree)
+
+
+def flax_image(kind, dtype="f32", seed=0):
+    """(flax model, a fresh copy of the variables as a numpy tree, the
+    port's model on the CPU loaded with them). The variables are the
+    port's numpy init in the flax layout (its names and shapes are held
+    to flax's own in test_torch_resnet.py) with every scale, bias and
+    running statistic spread away from 0 and 1."""
+    tree = jax.tree_util.tree_map(np.copy, _image_variables(kind, seed))
+    port = convert.load_image_model(port_image_model(kind, dtype), tree)
+    return flax_image_model(kind, dtype), tree, port
+
+
+def images(seed, batch, shape):
+    return np.random.default_rng(seed).standard_normal(
+        (batch, *shape)).astype(np.float32)
