@@ -39,12 +39,29 @@
    demo/serving/lm-serving.yaml without its int8 options: vocab 32000,
    E 512, 8 layers, 8 heads, 2 KV heads, rope, max_seq_len 2048; bf16,
    random weights from a seed) through the port's GenerationServer on
-   a localhost port: greedy requests in several buckets, concurrent
-   requests that batch in the slots, one sampled request. Every
-   greedy response must equal greedy_decode on the same prompt, and
-   the flash kernel must have launched once per layer per admission;
+   a localhost port, on the dense pool (``CEA_TPU_PAGED_KV=0`` while
+   the server is built): greedy requests in several buckets,
+   concurrent requests that batch in the slots, one sampled request.
+   Every greedy response must equal greedy_decode on the same prompt,
+   and the flash kernel must have launched once per layer per
+   admission;
 6. times the engine's admission prefill at four bucket widths and one
    decode step with every slot active (host clock around synced work);
+   then serves the same model on the paged pool, the server's default
+   (slot_len 2048, block 16: 1024 usable blocks and the trash block):
+   a 1000-token system prompt, 8 concurrent requests of that prefix
+   and a 3-30-token suffix, 4 cold prompts, the prefix again once
+   every row is released (a revival). /stats must say "paged" with at
+   least 8 prefix hits, every hit row admits at a width of at most 32,
+   no flash kernel launches (the paged prefill attends the cache, as
+   the JAX engine's does), and the pool is clean when the server is
+   idle. Each greedy stream must equal greedy_decode's or first differ
+   where the oracle's top two logits lie within 2e-2 of its largest
+   logit (the bf16 limit: the paged prefill rounds at other points than
+   the flash prefill). An engine with a small arena spills the prefix
+   to the host tier and rehydrates it bitwise. Informational: a decode
+   step with 8 rows on the paged and the dense pool, the admission of
+   a 1003-token prompt cold and on a prefix hit, the rehydrate;
 7. trains the same architecture at full width and depth (f32
    parameters, bf16 compute, f32 logits, sequence 2048, the demo
    driver's SGD defaults; global batch 8, cut from 256) for 12 steps
@@ -101,6 +118,11 @@ MODEL = dict(vocab_size=32000, embed_dim=512, num_layers=8, num_heads=8,
 MAX_NEW = 128
 MAX_BATCH = 8
 SEED = 0
+# The paged phase: a 1000-token system prompt (62 full blocks of 16 and
+# 8 tokens, so the boundary block forks) and 64 new tokens a request.
+PAGED_PREFIX = 1000
+PAGED_NEW = 64
+PAGED_COLD = (100, 700)   # cold prompt lengths
 # The training slice: sequence 2048 at global batch 8 (the demo
 # driver's default batch, 256, cut to keep the run short).
 TRAIN_SEQ = 2048
@@ -796,6 +818,244 @@ def time_engine(torch, engine, rng):
     return out
 
 
+def drive_paged_server(server, rng):
+    """The paged phase's traffic through the HTTP server: the system
+    prompt alone, then 8 concurrent requests of prefix + a distinct
+    3-30-token suffix (totals not block-aligned; the boundary block
+    forks), then 4 cold prompts of 100-700 tokens, then the prefix
+    again once every row is released. Returns (greedy [(prompt, new,
+    sequence)], the system prompt)."""
+    port, vocab = server.port, MODEL["vocab_size"]
+    prefix = rng.integers(0, vocab, PAGED_PREFIX).tolist()
+    greedy = []
+
+    def run(prompt, new):
+        status, body = post(port, {"prompts": [prompt],
+                                   "max_new_tokens": new})
+        seq = body.get("sequences", [[]])[0]
+        if status != 200 or len(seq) != len(prompt) + new or not all(
+                0 <= t < vocab for t in seq):
+            raise AssertionError(f"bad response {status}: {body}")
+        greedy.append((prompt, new, seq))
+
+    run(prefix, PAGED_NEW)
+    suffixes = 3 + rng.permutation(28)[:8]
+    errors = []
+
+    def client(n):
+        try:
+            run(prefix + rng_suffix[n], PAGED_NEW)
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    rng_suffix = {int(n): rng.integers(0, vocab, int(n)).tolist()
+                  for n in suffixes}
+    threads = [threading.Thread(target=client, args=(int(n),))
+               for n in suffixes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent paged requests failed: {errors}")
+    for n in rng.integers(PAGED_COLD[0], PAGED_COLD[1] + 1, 4):
+        run(rng.integers(0, vocab, int(n)).tolist(), PAGED_NEW)
+    run(prefix, PAGED_NEW)
+    return greedy, prefix
+
+
+def stream_divergence(torch, model, prompt, new, seq):
+    """None when ``seq`` equals greedy_decode's stream, else where it
+    first differs and the oracle's margin there: the gap between its
+    top two logits against 2e-2 of its largest logit (the logits of
+    greedy_decode's own path, fed its own tokens up to that point)."""
+    from container_engine_accelerators_tpu_torch.models.decode import (
+        greedy_decode,
+    )
+    want = greedy_decode(model, torch.tensor([prompt], device="cuda"),
+                         new)[0].tolist()
+    if want == seq:
+        return None
+    first = next(i for i, (a, b) in enumerate(zip(want, seq)) if a != b)
+    p = len(prompt)
+    with torch.inference_mode():
+        cache = model.init_cache(1, len(want))
+        logits = model(torch.tensor([prompt], device="cuda"), cache,
+                       0)[0, -1]
+        for t in range(p, first):
+            logits = model(torch.tensor([[want[t]]], device="cuda"),
+                           cache, t)[0, 0]
+    top = logits.float().topk(2).values
+    gap = (top[0] - top[1]).item()
+    limit = 2e-2 * logits.float().abs().max().item()
+    return dict(prompt_len=p, first_diff=first - p, top2_gap=gap,
+                limit=limit, near_tie=gap <= limit)
+
+
+def spill_round_trip(torch, model, rng):
+    """An engine whose arena holds one row (128 usable blocks): admit
+    the 1000-token prefix and snapshot its blocks, churn two other
+    prompts through the arena until the prefix's blocks are reused
+    (spilled to the host tier), admit the prefix again: its blocks must
+    come back bitwise (the full blocks, and the boundary block's rows
+    below the re-prefilled last token). Returns a summary with the
+    rehydrate's time."""
+    from container_engine_accelerators_tpu_torch.models.decode import (
+        SlotDecodeEngine,
+    )
+    bs = 16
+    eng = SlotDecodeEngine(model, 1, MODEL["max_seq_len"], paged=True,
+                           kv_block_size=bs,
+                           kv_blocks=MODEL["max_seq_len"] // bs + 1,
+                           kv_spill=True)
+    vocab = MODEL["vocab_size"]
+    prefix = rng.integers(0, vocab, PAGED_PREFIX)
+    full = PAGED_PREFIX // bs
+
+    def blocks(slot, n):
+        ids = torch.as_tensor(eng._tables[slot, :n], device="cuda")
+        return torch.stack([a[ids] for layer in eng._cache for a in layer])
+
+    slot = eng.admit(prefix, PAGED_PREFIX, max_new=8)[0]
+    snap = blocks(slot, full + 1)
+    eng.release(slot)
+    churned = 0
+    while eng.kv_block_stats()["kv_spill_blocks"] == 0 and churned < 4:
+        eng.release(eng.admit(rng.integers(0, vocab, PAGED_PREFIX),
+                              PAGED_PREFIX, max_new=8)[0])
+        churned += 1
+    spilled = eng.kv_block_stats()["kv_spill_blocks"]
+    slot = eng.admit(prefix, PAGED_PREFIX, max_new=8)[0]
+    back = blocks(slot, full + 1)
+    stats = eng.kv_block_stats()
+    tail = PAGED_PREFIX - full * bs - 1     # boundary rows kept as copied
+    out = dict(churned=churned, spill_blocks=spilled,
+               rehydrated_blocks=stats["kv_rehydrated_blocks"],
+               spill_hits=stats["kv_spill_hits"],
+               full_blocks_equal=bool(torch.equal(back[:, :full],
+                                                  snap[:, :full])),
+               boundary_rows_equal=bool(torch.equal(
+                   back[:, full, :tail], snap[:, full, :tail])),
+               rehydrate_ms=[1e3 * t for t in eng.drain_rehydrate_events()])
+    eng.release(slot)
+    out["leaks"] = eng.pool_leak_report()
+    log("spill round trip:", json.dumps(out))
+    if not (spilled and out["rehydrated_blocks"] > 0
+            and out["full_blocks_equal"] and out["boundary_rows_equal"]
+            and out["leaks"] is None):
+        raise AssertionError(f"spill round trip failed: {out}")
+    del eng, snap, back
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_paged(torch, paged, dense, rng):
+    """Host-clock times (each ending in a device sync) on the paged
+    engine against the dense one: one decode step with 8 rows of 16
+    tokens active, each pool twice in turns (dense, paged, paged,
+    dense); the admission of a 1003-token prompt cold (width 1024)
+    and on a hit of a resident 1000-token prefix (width 16): the
+    least of the last three of four."""
+    import numpy as np
+    vocab = MODEL["vocab_size"]
+
+    def step_ms(eng):
+        slots = [eng.admit(rng.integers(0, vocab, 16), 16)[0]
+                 for _ in range(eng.slots)]
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng.step()
+        ms = 1e3 * (time.perf_counter() - t0) / 20
+        for slot in slots:
+            eng.release(slot)
+        return ms
+
+    out = {"step_ms": {"dense": [], "paged": []}}
+    for eng, name in ((dense, "dense"), (paged, "paged"), (paged, "paged"),
+                      (dense, "dense")):
+        out["step_ms"][name].append(step_ms(eng))
+
+    def admit_ms(row):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = paged.admit(row, len(row), max_new=8)[0]
+        ms = 1e3 * (time.perf_counter() - t0)
+        paged.release(slot)
+        return ms
+
+    prefix = rng.integers(0, vocab, PAGED_PREFIX)
+    cold = [admit_ms(rng.integers(0, vocab, PAGED_PREFIX + 3))
+            for _ in range(4)]
+    admit_ms(prefix)
+    hit = [admit_ms(np.concatenate([prefix, rng.integers(0, vocab, 3)]))
+           for _ in range(4)]
+    out["prefill_prompt_len"] = PAGED_PREFIX + 3
+    out["prefill_cold_ms"], out["prefill_hit_ms"] = min(cold[1:]), min(hit[1:])
+    out["prefill_cold_all_ms"], out["prefill_hit_all_ms"] = cold, hit
+    log("paged times:", json.dumps(out))
+    return out
+
+
+def drive_paged(torch, model, engine_dense, kernels, rng):
+    """The paged phase (see the module docstring): the server's default
+    pool at full width, with every launch count set to 0 just before
+    the traffic and read just after. Returns (report, launches)."""
+    from container_engine_accelerators_tpu_torch.serving.server import (
+        GenerationServer,
+    )
+    server = GenerationServer("lm", model, port=0, max_new_tokens=MAX_NEW,
+                              max_batch=MAX_BATCH, host="127.0.0.1")
+    eng = server.engine
+    if not eng.paged:
+        raise AssertionError("the server's default pool is not paged")
+    server.start()
+    try:
+        widths0 = dict(eng.prefill_widths)
+        for kern in kernels:
+            kern.launches = 0
+        greedy, _ = drive_paged_server(server, rng)
+        launches = {kern.name: kern.launches for kern in kernels}
+        stats = get(server.port, "/stats")
+    finally:
+        server.stop()
+    leaks = eng.pool_leak_report()
+    widths = {w: n - widths0.get(w, 0) for w, n in eng.prefill_widths.items()
+              if n != widths0.get(w, 0)}
+    narrow = sum(n for w, n in widths.items() if w <= 32)
+    report = dict(stats=stats, widths=widths, leaks=leaks,
+                  launches=launches, arena_bytes=eng.kv_arena_bytes)
+    log("paged server:", json.dumps(report))
+    if stats["kv_pool"] != "paged" or stats["prefix_hits"] < 8:
+        raise AssertionError(f"paged server: {stats}")
+    if narrow != stats["prefix_hits"]:
+        raise AssertionError(f"hit rows admitted wider than 32: {widths}, "
+                             f"{stats['prefix_hits']} hits")
+    if any(launches.values()):
+        raise AssertionError(f"the paged pool launched kernels: {launches}")
+    if leaks is not None:
+        raise AssertionError(f"paged pool not clean when idle: {leaks}")
+    diverged = []
+    for p, new, seq in greedy:
+        d = stream_divergence(torch, model, p, new, seq)
+        if d is not None:
+            diverged.append(d)
+    report["greedy_checked"] = len(greedy)
+    report["greedy_exact"] = len(greedy) - len(diverged)
+    report["greedy_diverged"] = diverged
+    log(f"paged greedy: {report['greedy_exact']} of {len(greedy)} streams "
+        f"equal greedy_decode; diverged {diverged}")
+    if not all(d["near_tie"] for d in diverged):
+        raise AssertionError(f"paged streams diverge off a near tie: "
+                             f"{diverged}")
+    report["spill"] = spill_round_trip(torch, model, rng)
+    report["times"] = time_paged(torch, eng, engine_dense, rng)
+    report["times"]["rehydrate_ms"] = report["spill"]["rehydrate_ms"]
+    return report, launches
+
+
 def train_argv(steps, warmup, batch=TRAIN_BATCH):
     """The training slice's flags for the port's driver: MODEL at full
     width, sequence 2048, the demo's optimizer defaults."""
@@ -1132,9 +1392,17 @@ def main():
     # Phase 5: the server at full width.
     tree = init_flax_layout_params(MODEL, SEED)
     model = load_lm(MODEL, tree, device="cuda")
-    server = GenerationServer("lm", model, port=0,
-                              max_new_tokens=MAX_NEW,
-                              max_batch=MAX_BATCH, host="127.0.0.1")
+    # The dense pool, whose admission prefill runs the flash kernel; the
+    # server's default, the paged pool, is the paged phase's.
+    os.environ["CEA_TPU_PAGED_KV"] = "0"
+    try:
+        server = GenerationServer("lm", model, port=0,
+                                  max_new_tokens=MAX_NEW,
+                                  max_batch=MAX_BATCH, host="127.0.0.1")
+    finally:
+        del os.environ["CEA_TPU_PAGED_KV"]
+    if server.engine.paged:
+        raise AssertionError("CEA_TPU_PAGED_KV=0 built a paged engine")
     server.start()
     try:
         if get(server.port, "/healthz")["status"] != "ok":
@@ -1184,8 +1452,14 @@ def main():
     report["engine_times"] = time_engine(torch, server.engine, rng)
     log("engine times:", json.dumps(report["engine_times"]))
 
-    # Phase 7: training at full width.
+    # The paged phase: the server's default pool.
     all_kernels = attention.KERNELS + xent.KERNELS
+    report["paged"], paged_launches = drive_paged(
+        torch, model, server.engine, all_kernels, rng)
+    del server
+    torch.cuda.empty_cache()
+
+    # Phase 7: training at full width.
     report["train"], train_launches = drive_training(torch, train,
                                                      all_kernels)
     report["train_plain_step"] = check_plain_step(torch, attention,
@@ -1237,6 +1511,7 @@ def main():
                    "inception_training": small_launches["inception"][name]}
         if name == "flash_fwd":
             by_path["serving"] = launches
+        by_path["paged_serving"] = paged_launches[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -1266,7 +1541,8 @@ def main():
         f"training {report['train']['tokens_per_s']:.0f} tokens/s, "
         f"{report['train']['step_ms_mean']:.2f} ms a step; ResNet-50 "
         f"batch {RESNET_BATCH}: {report['resnet']['images_per_s']:.1f} "
-        f"images/s, {report['resnet']['step_ms_mean']:.2f} ms a step")
+        f"images/s, {report['resnet']['step_ms_mean']:.2f} ms a step; "
+        f"paged: {json.dumps(report['paged']['times'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

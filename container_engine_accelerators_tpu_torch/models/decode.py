@@ -14,42 +14,61 @@
 
 """Autoregressive decoding: the greedy oracle and the slot engine.
 
-Counterpart of container_engine_accelerators_tpu/models/decode.py for
-the dense KV cache:
+Counterpart of container_engine_accelerators_tpu/models/decode.py:
 
 - ``greedy_decode``: the single-request oracle. One-shot prefill of the
   prompt (the flash kernel on the raw chunk), then single-token steps,
   as ``decode()``'s greedy fast-prefill path.
-- ``SlotDecodeEngine`` with the dense slot pool: ``admit`` prefills a
-  bucket-padded prompt into a free slot's cache row and returns the
-  first token, ``step`` advances every slot one token with per-row
-  sampling knobs, ``release`` frees a slot. The paged block pool,
-  quantized caches and speculation are not ported yet and raise.
+- ``SlotDecodeEngine``: ``admit`` prefills a prompt into a free slot
+  and returns the first token, ``step`` advances every slot one token
+  with per-row sampling knobs, ``release`` frees a slot. Two pools, as
+  in the JAX engine: the paged block pool (the default) with its
+  content-keyed prefix index, copy-on-write forks of the partial
+  boundary block and the host spill tier; and the dense slot pool
+  (``CEA_TPU_PAGED_KV=0`` or ``paged=False``), whose admission
+  prefill runs the flash kernel. Quantized caches and speculation are
+  not ported yet and raise.
 
 JAX's programs are pure; here the engine's cache is updated in place
-(the admission prefill writes straight into its slot's row instead of
-into a batch-1 cache that is then copied in), which saves the copy and
-a second slot-sized buffer. Sampling draws from one
-``torch.Generator`` per row, seeded from the request's ``seed``: the
-same distribution as the JAX engine's threefry keys, not the same
-numbers.
+(the dense admission prefill writes straight into its slot's row
+instead of into a batch-1 cache that is then copied in, and the paged
+pool's copy-on-write, insert and rehydrate are in-place scatters into
+the arena). Sampling draws from one ``torch.Generator`` per row,
+seeded from the request's ``seed``: the same distribution as the JAX
+engine's threefry keys, not the same numbers.
+
+The paged pool's bookkeeping (refcounts, free list, reservations, the
+prefix index, the spill tier's LRU) is host Python, copied from the
+JAX engine line for line: on the same script the port holds the same
+block ids, tables, keys and counters as the JAX engine. The device
+sees only block tables and index vectors; there is no fallback, so a
+CUDA engine's arena never leaves the card except as the spill tier's
+explicit host copies.
 """
 
 import collections
+import time
 
 import numpy as np
 import torch
 
-from ..utils import _env_flag, env_str, not_ported
+from ..serving.affinity import KV_BLOCK_ENV, chain_digest
+from ..utils import _env_flag, env_number, env_str, not_ported
 
 PAGED_KV_ENV = "CEA_TPU_PAGED_KV"
+KV_BLOCKS_ENV = "CEA_TPU_KV_BLOCKS"
 KV_QUANT_ENV = "CEA_TPU_KV_QUANT"
+KV_SPILL_ENV = "CEA_TPU_KV_SPILL"
+KV_SPILL_BYTES_ENV = "CEA_TPU_KV_SPILL_BYTES"
+
+# Host spill tier's default byte budget (256 MiB): the LRU evicts past
+# it, and an evicted prefix is a true miss that re-prefills.
+DEFAULT_SPILL_BYTES = 256 * 1024 * 1024
 
 
-def paged_kv_enabled(default=False):
-    """CEA_TPU_PAGED_KV gate. The port defaults to the dense pool (the
-    only one it has); turning the paged pool on raises at engine
-    construction."""
+def paged_kv_enabled(default=True):
+    """CEA_TPU_PAGED_KV gate: unset/empty -> ``default`` (the paged
+    pool); 0/false/off/no -> the dense pool."""
     return _env_flag(PAGED_KV_ENV, default)
 
 
@@ -62,6 +81,40 @@ def kv_quant_mode(explicit=None):
         raise ValueError(
             f"{KV_QUANT_ENV} must be one of bf16|int8|int4: {mode!r}")
     return mode
+
+
+def kv_spill_enabled(default=True):
+    """CEA_TPU_KV_SPILL gate: unset/empty -> ``default`` (spill on for
+    paged pools); 0/false/off/no -> evicted cold blocks are recycled
+    (re-prefill on the next miss)."""
+    return _env_flag(KV_SPILL_ENV, default)
+
+
+def _model_quant_mode(model):
+    """The cache-dtype mode a model serves ("bf16" = its compute
+    dtype)."""
+    native = getattr(model, "kv_cache_dtype", None)
+    if native in ("int8", "int4"):
+        return native
+    return "bf16"
+
+
+def kv_token_bytes(model, mode="bf16"):
+    """Per-token per-layer KV-cache bytes (K + V, per-(token, head) f32
+    scales included) for one cache mode: the basis of the paged arena's
+    equal-memory sizing. ``mode="bf16"`` means the model's own mode."""
+    heads = int(model.num_heads)
+    kv_heads = int(getattr(model, "num_kv_heads", None) or heads)
+    d = int(model.embed_dim) // heads
+    if mode == "bf16":
+        mode = _model_quant_mode(model)
+    if mode == "int8":
+        per_head = d + 4.0          # 1 byte/value + one f32 scale
+    elif mode == "int4":
+        per_head = d / 2 + 4.0      # packed value pairs + f32 scale
+    else:
+        per_head = float(d * model.dtype.itemsize)
+    return 2.0 * kv_heads * per_head
 
 
 # --------------------------------------------------------------------
@@ -205,73 +258,500 @@ def greedy_decode(model, prompt, max_new_tokens):
     return torch.cat(out, dim=1)
 
 
+
+
 # --------------------------------------------------------------------
-# The slot engine (dense pool).
+# The paged pool's host-side allocator.
+# --------------------------------------------------------------------
+
+
+class _BlockPool:
+    """Host-side allocator for the paged KV arena.
+
+    Blocks are refcounted: a row's table entry holds one reference;
+    identical prompt prefixes share blocks by incref. Freed blocks
+    (refcount 0) join the free list but keep their prefix-index keys
+    until REUSED (lazy purge): a later admission with the same prefix
+    revives the block instead of re-prefilling it, so sequential
+    same-system-prompt traffic hits, not only overlapping rows.
+
+    ``committed`` counts blocks reserved for admitted rows' worst-case
+    remaining growth but not yet allocated: admission gates on free -
+    committed, so a mid-generation block-boundary allocation never
+    fails. Exhaustion queues an admission; it never corrupts a table.
+    """
+
+    def __init__(self, num_blocks, block_size):
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # The last block is the TRASH block: never allocated, the
+        # gather/scatter target of every unallocated table entry and
+        # every free row. Its junk is masked by the per-row horizon,
+        # so a free row's write never touches a live block.
+        self.trash = self.num_blocks - 1
+        self.usable = self.num_blocks - 1
+        self.ref = np.zeros((self.num_blocks,), np.int64)
+        self._free_order = collections.deque(range(self.usable))
+        self._free_set = set(range(self.usable))
+        self._index = {}        # content key -> block id
+        self._block_keys = {}   # block id -> [keys] (purged on reuse)
+        self.committed = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.shared_tokens = 0
+        # Host spill tier (off until configure_spill): when a
+        # registered free block is about to be reused, its contents
+        # are copied to host memory under the same content keys; a
+        # later admission whose chain misses the device index but hits
+        # here rehydrates (upload + table splice) instead of
+        # re-prefilling. LRU over entries, bounded by a byte budget.
+        self.spill_bytes_limit = 0
+        self._fetch_block = None
+        self._spill_lru = collections.OrderedDict()   # seq -> entry
+        self._spill_index = {}                        # key -> entry
+        self._spill_seq = 0
+        self.spill_bytes_used = 0
+        self.spill_hits = 0
+        self.spill_probes = 0
+        self.spill_captures = 0
+        self.spill_evictions = 0
+        self.rehydrated_blocks = 0
+        self.rehydrate_seconds_total = 0.0
+        self._rehydrate_events = []
+
+    def free_count(self):
+        return len(self._free_set)
+
+    def available(self):
+        """Blocks an admission may claim without endangering any
+        admitted row's reserved growth."""
+        return self.free_count() - self.committed
+
+    def shared_count(self):
+        return int((self.ref > 1).sum())
+
+    def _purge(self, bid):
+        for key in self._block_keys.pop(bid, ()):
+            if self._index.get(key) == bid:
+                del self._index[key]
+
+    def alloc(self):
+        while self._free_order:
+            bid = self._free_order.popleft()
+            if bid in self._free_set:
+                self._free_set.discard(bid)
+                if self.spill_enabled() and self._block_keys.get(bid):
+                    # The block's registered content is about to be
+                    # destroyed: evict it to the host tier first.
+                    self._spill_out(bid)
+                self._purge(bid)  # content is about to be overwritten
+                self.ref[bid] = 1
+                return bid
+        raise RuntimeError(
+            "KV block pool exhausted: admission accounting should have "
+            "queued this request (engine invariant violated)")
+
+    def incref(self, bid):
+        if self.ref[bid] == 0:
+            # Revival: a free-listed block whose indexed content a new
+            # admission matched goes back to resident, keys kept.
+            self._free_set.discard(bid)
+        self.ref[bid] += 1
+
+    def decref(self, bid):
+        self.ref[bid] -= 1
+        if self.ref[bid] < 0:
+            raise RuntimeError(f"KV block {bid} refcount underflow")
+        if self.ref[bid] == 0:
+            self._free_set.add(bid)
+            self._free_order.append(bid)
+            # Keys stay until reuse (lazy purge) for revival hits.
+
+    # -- host spill tier ----------------------------------------------
+
+    def configure_spill(self, bytes_limit, fetch_block):
+        """Arm the spill tier: ``fetch_block(bid)`` returns the block's
+        contents as one host tensor (the engine's device-to-host copy);
+        ``bytes_limit`` bounds host residency (LRU past it)."""
+        self.spill_bytes_limit = int(bytes_limit)
+        self._fetch_block = fetch_block
+
+    def spill_enabled(self):
+        return self.spill_bytes_limit > 0 and self._fetch_block is not None
+
+    def spill_block_count(self):
+        return len(self._spill_lru)
+
+    def _spill_out(self, bid):
+        """Capture a registered block's contents into the host tier
+        (called by ``alloc`` at the moment of reuse, so the LRU order is
+        free-list order: coldness). Keys whose index pointer moved on to
+        a newer block are skipped; if every key is already host-resident
+        the capture is skipped (same chain key = same content)."""
+        keys = [k for k in self._block_keys.get(bid, ())
+                if self._index.get(k) == bid]
+        if not keys:
+            return
+        fresh = [k for k in keys if k not in self._spill_index]
+        if not fresh:
+            for k in keys:
+                self._spill_lru.move_to_end(self._spill_index[k]["seq"])
+            return
+        data = self._fetch_block(bid)
+        entry = {"keys": keys, "data": data,
+                 "nbytes": int(data.numel() * data.element_size())}
+        self._spill_seq += 1
+        entry["seq"] = self._spill_seq
+        self._spill_lru[entry["seq"]] = entry
+        displaced = {}
+        for k in keys:
+            old = self._spill_index.get(k)
+            if old is not None:
+                displaced[old["seq"]] = old
+            self._spill_index[k] = entry
+        self.spill_bytes_used += entry["nbytes"]
+        self.spill_captures += 1
+        # Drop entries this capture fully displaced: their bytes would
+        # otherwise stay counted against the budget until LRU churn.
+        for old in displaced.values():
+            if not any(self._spill_index.get(k) is old
+                       for k in old["keys"]):
+                self._spill_lru.pop(old["seq"], None)
+                self.spill_bytes_used -= old["nbytes"]
+        self._spill_trim()
+
+    def _spill_trim(self):
+        while (self.spill_bytes_used > self.spill_bytes_limit
+               and self._spill_lru):
+            _, entry = self._spill_lru.popitem(last=False)
+            for k in entry["keys"]:
+                if self._spill_index.get(k) is entry:
+                    del self._spill_index[k]
+            self.spill_bytes_used -= entry["nbytes"]
+            self.spill_evictions += 1
+
+    def _spill_lookup(self, key, count):
+        """Consult the host tier for a chain key that missed the device
+        index (counted probes and hits feed the spill hit rate)."""
+        if not self.spill_enabled():
+            return None
+        entry = self._spill_index.get(key)
+        if count:
+            self.spill_probes += 1
+            if entry is not None:
+                self.spill_hits += 1
+        return entry
+
+    def take_spill(self, key):
+        """Host-tier content for ``key``, for the admitting engine to
+        upload into a freshly allocated block. The entry stays resident
+        (LRU-refreshed): the host copy keeps serving later admissions
+        after the rehydrated device block is recycled again."""
+        entry = self._spill_index[key]
+        self._spill_lru.move_to_end(entry["seq"])
+        return entry["data"]
+
+    def note_rehydrate(self, blocks, seconds):
+        self.rehydrated_blocks += int(blocks)
+        self.rehydrate_seconds_total += float(seconds)
+        self._rehydrate_events.append(float(seconds))
+
+    def drain_rehydrate_events(self):
+        """Rehydrate-latency samples since the last drain."""
+        events, self._rehydrate_events = self._rehydrate_events, []
+        return events
+
+    # -- content-keyed prefix index -----------------------------------
+
+    _chain = staticmethod(chain_digest)
+
+    def lookup(self, tokens, count=True):
+        """Longest indexed prefix of ``tokens`` usable for sharing,
+        clipped to len(tokens) - 1 (at least one suffix token must
+        remain to feed the admission prefill). Full blocks chain-hash
+        block contents; the prompt-tail partial block matches via
+        (chain, partial-tokens) keys and comes back as ``fork_src``: the
+        new row writes inside that block's span, so it forks a copy
+        instead of taking a reference (copy-on-write).
+
+        Two-level: a chain key that misses the device index falls
+        through to the host spill tier; such blocks come back as
+        ("spill", key) sources the admitting engine rehydrates into
+        fresh device blocks. Returns (shared_len, sources, fork_src)
+        where sources is an in-order list of ("dev", block_id) /
+        ("spill", key) and fork_src is None, ("dev", block_id), or
+        ("spill", key)."""
+        if count:
+            self.prefix_lookups += 1
+        bs = self.block_size
+        limit = len(tokens) - 1
+        chain = None
+        sources = []
+        i = 0
+        while (i + 1) * bs <= limit:
+            key = self._chain(chain, tuple(tokens[i * bs:(i + 1) * bs]))
+            bid = self._index.get(key)
+            if bid is not None:
+                sources.append(("dev", bid))
+            elif self._spill_lookup(key, count) is not None:
+                sources.append(("spill", key))
+            else:
+                break
+            chain = key
+            i += 1
+        shared = i * bs
+        fork_src, best_q = None, 0
+        for q in range(1, bs):
+            if shared + q > limit:
+                break
+            pk = self._chain(
+                chain, ("partial", tuple(tokens[shared:shared + q])))
+            bid = self._index.get(pk)
+            if bid is not None:
+                fork_src, best_q = ("dev", bid), q
+            elif self._spill_lookup(pk, count=False) is not None:
+                fork_src, best_q = ("spill", pk), q
+        shared += best_q
+        if count:
+            if shared:
+                self.prefix_hits += 1
+            self.shared_tokens += shared
+            if fork_src is not None and fork_src[0] == "spill":
+                # The partial scan probes every q; count the one match
+                # so the hit rate stays per block, not per q.
+                self.spill_probes += 1
+                self.spill_hits += 1
+        return shared, sources, fork_src
+
+    def register(self, tokens, plen, block_of_index):
+        """Index an admitted row's prompt blocks: one chain key per full
+        prompt block (immutable: the row only writes at positions >=
+        plen) plus partial keys for every prefix of the prompt-tail
+        partial block. ``block_of_index``: logical block index ->
+        physical block id for this row."""
+        bs = self.block_size
+        chain = None
+        full = plen // bs
+        for i in range(full):
+            key = self._chain(chain, tuple(tokens[i * bs:(i + 1) * bs]))
+            self._set_key(key, int(block_of_index[i]))
+            chain = key
+        rem = plen - full * bs
+        if rem:
+            bid = int(block_of_index[full])
+            for q in range(1, rem + 1):
+                pk = self._chain(
+                    chain,
+                    ("partial", tuple(tokens[full * bs:full * bs + q])))
+                self._set_key(pk, bid)
+
+    def _set_key(self, key, bid):
+        if self._index.get(key) == bid:
+            return
+        self._index[key] = bid
+        self._block_keys.setdefault(bid, []).append(key)
+
+    def state(self, max_rows=32):
+        """JSON-safe snapshot of the pool."""
+        free = list(self._free_set)
+        return {
+            "num_blocks": self.num_blocks,
+            "block_size": self.block_size,
+            "free": len(free),
+            "free_list_head": sorted(free)[:max_rows],
+            "committed": int(self.committed),
+            "shared": self.shared_count(),
+            "max_refcount": int(self.ref.max()) if self.usable else 0,
+            "indexed_keys": len(self._index),
+            "prefix_lookups": int(self.prefix_lookups),
+            "prefix_hits": int(self.prefix_hits),
+            "spill": {
+                "enabled": self.spill_enabled(),
+                "bytes_limit": int(self.spill_bytes_limit),
+                "bytes_used": int(self.spill_bytes_used),
+                "blocks": self.spill_block_count(),
+                "hits": int(self.spill_hits),
+                "probes": int(self.spill_probes),
+                "captures": int(self.spill_captures),
+                "evictions": int(self.spill_evictions),
+                "rehydrated_blocks": int(self.rehydrated_blocks),
+            },
+        }
+
+
+# --------------------------------------------------------------------
+# The slot engine.
 # --------------------------------------------------------------------
 
 
 class EngineCapacityError(RuntimeError):
-    """An ``admit`` the pool cannot hold right now (no free slot)."""
+    """An ``admit`` the pool cannot hold right now (no free slot, or
+    the block budget is short): transient, a release frees capacity."""
 
 
-def _slot_prefill(model, row, prompt_len, cache, knobs, generator):
-    """Admission prefill: ONE chunk forward of the bucket-padded row
-    ([1, bucket]) into ``cache`` (a batch-1 view of the slot's rows),
-    the first token sampled from the logits at prompt_len - 1, echo
-    logprobs for the prompt. Padding positions' K/V are junk the
-    position rewind makes unreachable. Returns (first [1],
-    first_lp [1], echo [bucket] f32, seen_row [V] bool)."""
-    logits = model(row, cache, 0)[0]                    # [bucket, V]
+def _prefill_tail(logits, row, valid_len, knobs, generator):
+    """The rest of an admission prefill once the chunk's logits
+    [width, V] are in: echo logprobs of the chunk's tokens (entry 0 =
+    0.0), the seen-token row (the chunk's first ``valid_len`` tokens and
+    the first generated one), and the first token, sampled from the
+    logits at valid_len - 1. Returns (first [1], first_lp [1], echo
+    [width] f32, seen_row [V] bool)."""
     lse = torch.logsumexp(logits[:-1], dim=-1)
     chosen = torch.gather(logits[:-1], 1, row[0, 1:, None])[:, 0]
     echo = torch.cat([torch.zeros(1, device=row.device), chosen - lse])
     seen_row = torch.zeros(logits.shape[-1], dtype=torch.bool,
                            device=row.device)
-    seen_row[row[0, :prompt_len]] = True
-    last = logits[max(prompt_len - 1, 0)]
+    seen_row[row[0, :valid_len]] = True
+    last = logits[max(valid_len - 1, 0)]
     first, first_lp = _slot_sample(last[None], seen_row[None], knobs,
                                    [generator])
     seen_row[first[0]] = True
     return first, first_lp, echo, seen_row
 
 
+def _slot_prefill(model, row, prompt_len, cache, knobs, generator):
+    """Dense admission prefill: ONE chunk forward of the bucket-padded
+    row ([1, bucket]) into ``cache`` (a batch-1 view of the slot's rows),
+    on the flash kernel. Padding positions' K/V are junk the position
+    rewind makes unreachable. Returns (first [1], first_lp [1], echo
+    [bucket] f32, seen_row [V] bool)."""
+    return _prefill_tail(model(row, cache, 0)[0], row, prompt_len, knobs,
+                         generator)
+
+
+def _arena_to_dense(arena, table, slot_len):
+    """Gather a row's (prefix) blocks out of the paged arena into the
+    batch-1 dense cache [1, slot_len, Hkv, D] the admission prefill
+    runs against: ``table`` [n_blk] puts logical position p back at
+    index p. Entries beyond the shared span point at the trash block;
+    their junk sits at positions >= shared_len, which the chunk's
+    causal mask never reaches before the chunk's own writes land. The
+    gather copies, so the prefill never writes the arena."""
+    return [tuple(a[table].flatten(0, 1)[None, :slot_len] for a in layer)
+            for layer in arena]
+
+
+def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
+                        suffix_len, knobs, generator, slot_len):
+    """Admission prefill against resident prefix blocks: gather the
+    shared span's K/V out of the arena, then run the (bucket-padded)
+    suffix as ONE chunk forward that attends the cache at offset
+    ``shared_len``, so the shared span's prefill work is skipped.
+    shared_len 0 (no prefix hit) takes the same path, never the flash
+    kernel, as the JAX engine's chunk_attends_cache clone does. The
+    seen-token row marks the suffix's valid tokens only; the echo
+    covers this chunk. Returns (dense cache, first [1], first_lp [1],
+    echo [width], seen_row [V] bool)."""
+    cache = _arena_to_dense(arena, prefix_table, slot_len)
+    logits = model(row, cache, int(shared_len), chunk_attends_cache=True)
+    return (cache,) + _prefill_tail(logits[0], row, suffix_len, knobs,
+                                    generator)
+
+
 class SlotDecodeEngine:
-    """Persistent decode slot pool with in-flight admission (dense).
+    """Persistent decode slot pool with in-flight admission.
 
     ``admit`` prefills a request into a free slot (and hands back its
     first token), ``step`` advances every slot one token, ``release``
     frees a slot. Retirement policy (EOS, budgets) belongs to the
     caller. All methods must be called from ONE thread; the pool state
     is not synchronized.
+
+    **Paged mode** (the default; ``CEA_TPU_PAGED_KV=0`` or
+    ``paged=False`` gives the dense pool): one [num_blocks, block_size,
+    Hkv, D] arena per layer with per-row block tables. A row holds
+    blocks for its used tokens only; admission is gated on block
+    availability (worst-case remaining growth is reserved, so a step
+    never fails to allocate: exhaustion queues admissions); prompt
+    prefixes resident in the pool are shared. Admission looks the
+    prompt up in the content-keyed prefix index, maps matching full
+    blocks refcounted, copy-on-write-forks the partial boundary block,
+    and prefills only the unshared suffix. ``max_new`` at ``admit``
+    bounds the reservation; ``pin_prefix`` keeps a system prompt's
+    blocks resident. The default arena holds the dense pool's bytes
+    (``slots * ceil(slot_len / block_size)`` usable blocks) plus
+    ``pin_reserve_tokens``' blocks plus the trash block.
+
+    **Spill tier** (``kv_spill`` / ``CEA_TPU_KV_SPILL``, default on;
+    budget ``kv_spill_bytes`` / ``CEA_TPU_KV_SPILL_BYTES``): a
+    registered free block's contents are copied to host memory when
+    the block is reused, and uploaded back (one transfer per admission,
+    table splice, copy-on-write and reservations intact) when a later
+    admission's chain hits them.
     """
 
     def __init__(self, model, slots, slot_len, *, paged=None,
-                 buckets=None, pin_reserve_tokens=0, kv_quant=None,
-                 draft_model=None, spec_k=0):
+                 kv_block_size=None, kv_blocks=None, buckets=None,
+                 pin_reserve_tokens=0, kv_quant=None, kv_spill=None,
+                 kv_spill_bytes=None, draft_model=None, spec_k=0):
         if slot_len > model.max_seq_len:
             raise ValueError(
                 f"slot_len {slot_len} exceeds max_seq_len "
                 f"{model.max_seq_len}")
         if slots < 1 or slot_len < 2:
             raise ValueError("need slots >= 1 and slot_len >= 2")
-        if paged_kv_enabled() if paged is None else paged:
-            raise not_ported(
-                "the paged KV pool (pass paged=False or set "
-                f"{PAGED_KV_ENV}=0)")
-        if kv_quant_mode(kv_quant) != "bf16":
-            raise not_ported(f"kv_quant={kv_quant_mode(kv_quant)!r}")
+        quant = kv_quant_mode(kv_quant)
+        if quant != "bf16":
+            raise not_ported(f"kv_quant={quant!r}")
         if draft_model is not None or spec_k:
             raise not_ported("speculative decoding (draft_model)")
-        if pin_reserve_tokens:
-            raise not_ported("pin_reserve_tokens (prefix pinning)")
-        del buckets  # the paged pool's width choice; dense prefills as given
         self._model = model
         self.device = model.device
         self.slots = int(slots)
         self.slot_len = int(slot_len)
-        self.paged = False
-        self.kv_quant = "bf16"
-        self._cache = model.init_cache(self.slots, self.slot_len)
+        self.kv_quant = _model_quant_mode(model)
+        self.paged = (paged_kv_enabled() if paged is None
+                      else bool(paged))
+        if self.paged:
+            bs = int(kv_block_size
+                     or env_number(KV_BLOCK_ENV, 16, parse=int))
+            if bs < 1:
+                raise ValueError(f"kv_block_size must be >= 1: {bs}")
+            self._block_size = bs
+            self._n_blk = -(-self.slot_len // bs)
+            nb = kv_blocks or env_number(KV_BLOCKS_ENV, None, parse=int)
+            # The pinned prefix's span goes on top of the rows' worst
+            # case: without it a worst-case row on a small pool could
+            # never admit (a queued-forever wedge).
+            pin_blocks = -(-int(pin_reserve_tokens) // bs)
+            # `is not None`: an explicit 0 must hit the too-small guard
+            # below, not select the default arena.
+            if nb is not None:
+                nb = int(nb)
+            else:
+                usable = int(self.slots * self._n_blk
+                             * kv_token_bytes(model)
+                             / kv_token_bytes(model, quant))
+                nb = usable + pin_blocks + 1
+            if nb < self._n_blk + 1:
+                raise ValueError(
+                    f"kv_blocks {nb} cannot hold even one full row "
+                    f"({self._n_blk} blocks) plus the trash block")
+            self._num_blocks = nb
+            self._trash = nb - 1
+            self._pool = _BlockPool(nb, bs)
+            spill_on = (kv_spill if kv_spill is not None
+                        else kv_spill_enabled())
+            spill_bytes = int(
+                kv_spill_bytes if kv_spill_bytes is not None
+                else env_number(KV_SPILL_BYTES_ENV, DEFAULT_SPILL_BYTES,
+                                parse=int))
+            if spill_on and spill_bytes > 0:
+                self._pool.configure_spill(spill_bytes, self._fetch_block)
+            self._tables = np.full((self.slots, self._n_blk), self._trash,
+                                   np.int64)
+            self._slot_blocks = [[] for _ in range(self.slots)]
+            self._committed_slot = np.zeros((self.slots,), np.int64)
+            self._pinned = []
+            self._buckets = (sorted({int(b) for b in buckets})
+                             if buckets else None)
+            self._cache = model.init_paged_cache(nb, bs)
+        else:
+            self._cache = model.init_cache(self.slots, self.slot_len)
+        # Exact resident KV bytes (what kv_block_stats reports).
+        self.kv_arena_bytes = int(sum(t.numel() * t.element_size()
+                                      for layer in self._cache
+                                      for t in layer))
         self._row_pos = np.zeros((self.slots,), np.int64)
         self._seen = torch.zeros((self.slots, model.vocab_size),
                                  dtype=torch.bool, device=self.device)
@@ -307,42 +787,447 @@ class SlotDecodeEngine:
     @torch.inference_mode()
     def score(self, tokens, prompt_len):
         """Prompt echo logprobs only (the max_new_tokens=0 scoring
-        mode): the same prefill into a scratch cache, no slot used.
-        Returns a [len(tokens)] f32 array (entry 0 = 0.0); entries at
-        and beyond prompt_len are padding scratch."""
+        mode): the admission prefill into a scratch cache; no slot used
+        and, paged, no blocks. Returns a [>= prompt_len] f32 array
+        (entry 0 = 0.0); entries at and beyond prompt_len are padding
+        scratch."""
+        if self.paged:
+            _, _, _, echo, _, _ = self._paged_prefill(
+                np.asarray(tokens, np.int64).reshape(-1)[:prompt_len], 0,
+                np.full((self._n_blk,), self._trash, np.int64),
+                SamplingKnobs(1), 0)
+            return echo.cpu().numpy()
         row = self._row(tokens)
-        knobs = SamplingKnobs(1)
         _, _, echo, _ = _slot_prefill(
             self._model, row, int(prompt_len),
-            self._model.init_cache(1, row.shape[1]), knobs,
+            self._model.init_cache(1, row.shape[1]), SamplingKnobs(1),
             torch.Generator(device=self.device))
         return echo.cpu().numpy()
+
+    # ----- paged-pool internals --------------------------------------
+
+    def _pick_width(self, suffix_len, shared_len):
+        """Admission prefill width: the smallest configured bucket that
+        holds the suffix and fits the dense prefill cache after the
+        shared offset; the exact width when none does."""
+        for b in (self._buckets or ()):
+            if b >= suffix_len and shared_len + b <= self.slot_len:
+                return b
+        return suffix_len
+
+    def _paged_plan(self, tokens, prompt_len, max_new, allow_prefix,
+                    repetition_penalty, count=True):
+        """Admission plan: prefix-index lookup + block accounting.
+        ``needed`` counts what this admission must be able to claim:
+        its whole private span (prompt blocks beyond the shared prefix
+        + worst-case generation growth, reserved up front so a step
+        never fails to allocate), any shared device blocks it revives
+        off the free list, and one fresh device block per spilled
+        source it must rehydrate into."""
+        toks = np.asarray(tokens, np.int64).reshape(-1)[:prompt_len]
+        share = (allow_prefix and prompt_len >= 2
+                 and float(repetition_penalty) == 1.0)
+        if share:
+            shared, sources, fork_src = self._pool.lookup(
+                toks, count=count)
+        else:
+            shared, sources, fork_src = 0, [], None
+        if max_new is None:
+            max_new = self.slot_len - prompt_len
+        bs = self._block_size
+        total_span = -(-(prompt_len + int(max_new)) // bs)
+        private_total = total_span - len(sources)
+        revived = sum(1 for kind, b in sources
+                      if kind == "dev" and self._pool.ref[b] == 0)
+        spilled = sum(1 for kind, _ in sources if kind == "spill")
+        # A rehydrating admission pins a free-listed (ref-0) device
+        # fork donor for its duration (see _paged_admit), taking it out
+        # of the free set: one extra block of headroom.
+        pin_donor = (spilled > 0 and fork_src is not None
+                     and fork_src[0] == "dev"
+                     and self._pool.ref[fork_src[1]] == 0)
+        return {"tokens": toks, "shared": shared, "sources": sources,
+                "fork_src": fork_src, "total_span": total_span,
+                "private_total": private_total,
+                "needed": (private_total + revived + spilled
+                           + (1 if pin_donor else 0)),
+                # One authority for lookup and registration.
+                "share_eligible": share}
+
+    def admission_block_cause(self, tokens, prompt_len, max_new=None,
+                              *, allow_prefix=True,
+                              repetition_penalty=1.0,
+                              temperature=0.0):
+        """What an ``admit`` with these arguments is blocked on now:
+        ``"slots"`` (no free slot), ``"kv_blocks"`` (a free slot, but
+        the block budget, free minus other rows' reservations, cannot
+        cover the row's worst-case private span), or None
+        (admissible)."""
+        del temperature  # the draft arena's gate; speculation is not ported
+        if self.free_slots() == 0:
+            return "slots"
+        if not self.paged:
+            return None
+        plan = self._paged_plan(tokens, prompt_len, max_new,
+                                allow_prefix, repetition_penalty,
+                                count=False)
+        if self._pool.available() < plan["needed"]:
+            return "kv_blocks"
+        return None
+
+    def can_admit(self, tokens, prompt_len, max_new=None, *,
+                  allow_prefix=True, repetition_penalty=1.0,
+                  temperature=0.0):
+        """Whether ``admit`` with these arguments would succeed now:
+        a free slot on the dense pool; on the paged pool also the block
+        budget (``admission_block_cause`` names what is short)."""
+        return self.admission_block_cause(
+            tokens, prompt_len, max_new, allow_prefix=allow_prefix,
+            repetition_penalty=repetition_penalty,
+            temperature=temperature) is None
+
+    def block_availability(self):
+        """(available, usable) KV blocks: *available* nets out admitted
+        rows' growth reservations, the budget ``can_admit`` gates on.
+        None on the dense pool."""
+        if not self.paged:
+            return None
+        return self._pool.available(), self._pool.usable
+
+    def _paged_prefill(self, suffix, shared_len, prefix_table, knobs,
+                       seed):
+        width = self._pick_width(max(len(suffix), 1), shared_len)
+        row = np.zeros((width,), np.int64)
+        row[:len(suffix)] = suffix
+        self.prefills += 1
+        self.prefill_widths[int(width)] += 1
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(int(seed))
+        out = _paged_prefill_impl(
+            self._model, self._cache,
+            torch.as_tensor(prefix_table, device=self.device),
+            torch.as_tensor(row, device=self.device)[None],
+            shared_len, len(suffix), knobs, generator, self.slot_len)
+        return out + (generator,)
+
+    def _take_commit(self, slot):
+        if self._committed_slot[slot] > 0:
+            self._committed_slot[slot] -= 1
+            self._pool.committed -= 1
+
+    def _fetch_block(self, bid):
+        """The spill tier's capture: one arena block's K and V of every
+        layer, [2 * layers, block_size, Hkv, D], copied to host memory
+        in one transfer. Called by the pool when a registered block is
+        reused, between forwards on the engine's thread."""
+        return torch.stack([a[bid] for layer in self._cache
+                            for a in layer]).cpu()
+
+    def _copy_block(self, src, dst):
+        """Copy-on-write: arena block ``src`` into ``dst``, every
+        layer's K and V."""
+        for layer in self._cache:
+            for a in layer:
+                a[dst] = a[src]
+
+    def _rehydrate(self, pairs, spill_data):
+        """Upload spilled block contents into freshly allocated arena
+        blocks: one host-to-device transfer per admission, then one
+        scatter per layer's K and V; timed (synchronized on the card)
+        into the pool's rehydrate samples."""
+        t0 = time.perf_counter()
+        dests = torch.as_tensor([bid for bid, _ in pairs],
+                                device=self.device)
+        payload = torch.stack([spill_data[key] for _, key in pairs]).to(
+            self.device)                     # [n, 2 * layers, bs, Hkv, D]
+        arenas = [a for layer in self._cache for a in layer]
+        for i, a in enumerate(arenas):
+            a[dests] = payload[:, i]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._pool.note_rehydrate(len(pairs), time.perf_counter() - t0)
+
+    def _paged_insert(self, pre_cache, shared, prompt_len, block_of_index,
+                      cow=None):
+        """Write a prefilled batch-1 dense cache into arena blocks:
+        first the admission's copy-on-write fork (``cow`` = (src, dst),
+        the shared partial boundary block), then positions [shared,
+        prompt_len) only, so the shared span is not rewritten and the
+        bucket padding past the prompt is dropped."""
+        if cow is not None:
+            self._copy_block(*cow)
+        if prompt_len <= shared:
+            return
+        span = np.arange(shared, prompt_len)
+        blocks = torch.as_tensor(
+            np.asarray(block_of_index)[span // self._block_size],
+            device=self.device)
+        offsets = torch.as_tensor(span % self._block_size,
+                                  device=self.device)
+        for layer, pre in zip(self._cache, pre_cache):
+            for a, p in zip(layer, pre):
+                a[blocks, offsets] = p[0, shared:prompt_len]
+
+    def _paged_admit(self, slot, plan, prompt_len, knobs, seed):
+        pool, bs = self._pool, self._block_size
+        if pool.available() < plan["needed"]:
+            raise EngineCapacityError(
+                f"insufficient free KV blocks "
+                f"(need {plan['needed']}, "
+                f"available {pool.available()}); queue the admission")
+        toks, shared = plan["tokens"], plan["shared"]
+        fork_src = plan["fork_src"]
+        # Snapshot host-tier payloads first: the allocations below can
+        # spill blocks and trim the LRU, and an entry this admission
+        # planned to rehydrate must stay alive.
+        spill_keys = [ref for kind, ref in plan["sources"]
+                      if kind == "spill"]
+        if fork_src is not None and fork_src[0] == "spill":
+            spill_keys.append(fork_src[1])
+        spill_data = {key: pool.take_spill(key) for key in spill_keys}
+        # Materialize the shared span. Device blocks take a reference
+        # before any alloc, so a revived (ref-0 free-listed) shared
+        # block is never popped out from under the plan. Host-tier
+        # blocks allocate fresh device blocks and batch into one
+        # rehydrate upload.
+        table_row = self._tables[slot]
+        slot_blocks = self._slot_blocks[slot]
+        hold = None
+        try:
+            for i, (kind, ref) in enumerate(plan["sources"]):
+                if kind == "dev":
+                    pool.incref(ref)
+                    table_row[i] = ref
+                    slot_blocks.append(ref)
+            if (fork_src is not None and fork_src[0] == "dev"
+                    and any(kind == "spill"
+                            for kind, _ in plan["sources"])):
+                # Pin the fork donor while a rehydrate is in flight: it
+                # may be a free-listed (ref-0 revival) block, and the
+                # hydrate allocations below must never pop it, or an
+                # upload landing in it would destroy the partial
+                # content the prefill gather and the fork still need.
+                hold = fork_src[1]
+                pool.incref(hold)
+            hydrate = []                      # (dest block, key)
+            for i, (kind, ref) in enumerate(plan["sources"]):
+                if kind == "spill":
+                    bid = pool.alloc()
+                    table_row[i] = bid
+                    slot_blocks.append(bid)
+                    hydrate.append((bid, ref))
+            cow = None
+            aligned_idx = shared // bs
+            if fork_src is not None:
+                dst = pool.alloc()
+                table_row[aligned_idx] = dst
+                slot_blocks.append(dst)
+                kind, ref = fork_src
+                if kind == "dev":
+                    cow = (ref, dst)
+                    boundary = ref
+                else:
+                    # A spilled partial boundary block rehydrates
+                    # directly into its fork destination: the upload is
+                    # the copy-on-write copy.
+                    hydrate.append((dst, ref))
+                    boundary = dst
+                fresh_from = aligned_idx + 1
+            else:
+                fresh_from = aligned_idx
+            if hydrate:
+                self._rehydrate(hydrate, spill_data)
+            # Prefill the suffix against the now fully resident prefix:
+            # the full shared blocks, and the partial boundary block
+            # read from its current owner.
+            ptab = np.full((self._n_blk,), self._trash, np.int64)
+            for i in range(len(plan["sources"])):
+                ptab[i] = table_row[i]
+            if fork_src is not None:
+                ptab[len(plan["sources"])] = boundary
+            pre_cache, first, first_lp, echo, seen_row, generator = (
+                self._paged_prefill(toks[shared:], shared, ptab, knobs,
+                                    seed))
+            last_idx = (prompt_len - 1) // bs
+            for bi in range(fresh_from, last_idx + 1):
+                b = pool.alloc()
+                table_row[bi] = b
+                slot_blocks.append(b)
+            remaining = plan["total_span"] - (last_idx + 1)
+            self._committed_slot[slot] = remaining
+            pool.committed += remaining
+            self._paged_insert(pre_cache, shared, prompt_len, table_row,
+                               cow)
+            if hold is not None:
+                # The copy has landed; drop the donor pin (a revival
+                # donor returns to the free list, keys intact).
+                pool.decref(hold)
+                hold = None
+        except BaseException:
+            # A failure mid-admission (a device error or an
+            # interrupt) leaves the pool exactly as it found it: the
+            # serving loop catches admission errors and keeps serving,
+            # so a leaked reference would shrink the budget forever.
+            for b in slot_blocks:
+                pool.decref(b)
+            self._slot_blocks[slot] = []
+            table_row[:] = self._trash
+            pool.committed -= int(self._committed_slot[slot])
+            self._committed_slot[slot] = 0
+            if hold is not None:
+                pool.decref(hold)
+            raise
+        if plan["share_eligible"]:
+            pool.register(toks, prompt_len, table_row)
+        return first, first_lp, echo, seen_row, generator
+
+    @torch.inference_mode()
+    def pin_prefix(self, tokens):
+        """Prefill a shared prompt prefix once into permanently held
+        arena blocks and register it in the prefix index: every later
+        admission whose prompt starts with it maps the blocks and
+        prefills only its own suffix. Consumes no slot. Returns the
+        pinned block count."""
+        if not self.paged:
+            raise ValueError("pin_prefix requires the paged KV pool "
+                             f"({PAGED_KV_ENV}=1)")
+        toks = np.asarray(tokens, np.int64).reshape(-1)
+        plen = int(toks.size)
+        if not 1 <= plen <= self.slot_len - 1:
+            raise ValueError(
+                f"prefix length {plen} must be in "
+                f"1..{self.slot_len - 1}")
+        bs = self._block_size
+        n_need = -(-plen // bs)
+        if self._pool.available() < n_need:
+            raise RuntimeError(
+                f"insufficient free KV blocks to pin a "
+                f"{n_need}-block prefix")
+        if self._pool.usable - n_need < self._n_blk:
+            # What remains must hold one worst-case row, or that row
+            # would queue forever.
+            raise ValueError(
+                f"kv_blocks too small for a pinned "
+                f"{n_need}-block prefix plus one worst-case "
+                f"{self._n_blk}-block row; raise {KV_BLOCKS_ENV} to "
+                f">= {self._n_blk + n_need + 1}")
+        pre_cache = self._paged_prefill(
+            toks, 0, np.full((self._n_blk,), self._trash, np.int64),
+            SamplingKnobs(1), 0)[0]
+        blocks = [self._pool.alloc() for _ in range(n_need)]
+        self._paged_insert(pre_cache, 0, plen, blocks)
+        self._pool.register(toks, plen, blocks)
+        self._pinned.extend(blocks)
+        return n_need
+
+    def kv_block_stats(self):
+        """Block-pool telemetry (None on the dense pool): totals plus
+        the utilization and prefix-hit-rate ratios."""
+        if not self.paged:
+            return None
+        pool = self._pool
+        used = pool.usable - pool.free_count()
+        return {
+            "kv_blocks_total": pool.usable,
+            "kv_blocks_free": pool.free_count(),
+            "kv_blocks_shared": pool.shared_count(),
+            "kv_block_size": pool.block_size,
+            "kv_block_utilization": (round(used / pool.usable, 4)
+                                     if pool.usable else None),
+            "prefix_lookups": pool.prefix_lookups,
+            "prefix_hits": pool.prefix_hits,
+            "prefix_hit_rate": (
+                round(pool.prefix_hits / pool.prefix_lookups, 4)
+                if pool.prefix_lookups else None),
+            "prefix_tokens_shared": pool.shared_tokens,
+            "kv_quant_mode": self.kv_quant,
+            "kv_arena_bytes": self.kv_arena_bytes,
+            "kv_spill_blocks": pool.spill_block_count(),
+            "kv_spill_bytes": int(pool.spill_bytes_used),
+            "kv_spill_hits": int(pool.spill_hits),
+            "kv_spill_hit_rate": (
+                round(pool.spill_hits / pool.spill_probes, 4)
+                if pool.spill_probes else None),
+            "kv_rehydrated_blocks": int(pool.rehydrated_blocks),
+        }
+
+    def reset_prefix_counters(self):
+        """Zero the prefix-sharing counters (no-op on the dense pool),
+        so a published hit rate describes real traffic only."""
+        if self.paged:
+            self._pool.prefix_lookups = 0
+            self._pool.prefix_hits = 0
+            self._pool.shared_tokens = 0
+            self._pool.spill_probes = 0
+            self._pool.spill_hits = 0
+
+    def drain_rehydrate_events(self):
+        """Rehydrate latencies (seconds) since the last call; empty on
+        the dense pool."""
+        if not self.paged:
+            return []
+        return self._pool.drain_rehydrate_events()
+
+    def block_pool_state(self):
+        """The pool's audit snapshot: free list, refcounts, tables of
+        the active rows, reservations."""
+        if not self.paged:
+            return {"paged": False}
+        state = self._pool.state()
+        state["paged"] = True
+        state["kv_quant_mode"] = self.kv_quant
+        state["kv_arena_bytes"] = self.kv_arena_bytes
+        state["pinned_blocks"] = len(self._pinned)
+        state["tables"] = {
+            int(s): [int(b) for b in self._tables[s] if b != self._trash]
+            for s in np.flatnonzero(self._active)[:32]}
+        state["committed_per_slot"] = {
+            int(s): int(self._committed_slot[s])
+            for s in np.flatnonzero(self._committed_slot)[:32]}
+        return state
 
     @torch.inference_mode()
     def admit(self, tokens, prompt_len, *, temperature=0.0, top_k=0,
               top_p=1.0, min_p=0.0, repetition_penalty=1.0, seed=0,
               max_new=None, allow_prefix=True):
-        """Prefill ``tokens`` (a bucket-padded [>= prompt_len] int row)
-        into a free slot. Returns (slot, first_token, first_logprob,
-        echo_logprobs). The first generated token is produced HERE;
-        the next ``step`` yields the second. ``max_new`` and
-        ``allow_prefix`` are paged-pool arguments, accepted and unused
-        by the dense pool."""
-        del max_new, allow_prefix
+        """Prefill ``tokens`` (a [>= prompt_len] int row: bucket-padded
+        on the dense pool, padding ignored on the paged pool) into a
+        free slot. Returns (slot, first_token, first_logprob,
+        echo_logprobs). The first generated token is produced here; the
+        next ``step`` yields the second.
+
+        Paged pool: ``max_new`` bounds the row's block reservation
+        (default: the worst case to slot_len); ``allow_prefix=False``
+        turns off prefix sharing and registration for this row (rows
+        that need full-prompt echo logprobs: a shared span's echo is
+        never computed). Raises EngineCapacityError when the block
+        budget cannot cover the row: callers queue and retry after a
+        release."""
         free = np.flatnonzero(~self._active)
         if free.size == 0:
             raise EngineCapacityError("no free slot; release one first")
         slot = int(free[0])
-        row = self._row(tokens)
         knobs = SamplingKnobs(1)
         knobs.set(0, temperature, top_k, top_p, min_p, repetition_penalty)
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(int(seed))
-        view = [(k[slot:slot + 1], v[slot:slot + 1])
-                for k, v in self._cache]
-        first, first_lp, echo, seen_row = _slot_prefill(
-            self._model, row, int(prompt_len), view, knobs, generator)
-        self._slot_insert(slot, int(prompt_len), seen_row, generator)
+        if self.paged:
+            plan = self._paged_plan(tokens, prompt_len, max_new,
+                                    allow_prefix, repetition_penalty)
+            first, first_lp, echo, seen_row, generator = self._paged_admit(
+                slot, plan, prompt_len, knobs, seed)
+        else:
+            row = self._row(tokens)
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(seed))
+            view = [(k[slot:slot + 1], v[slot:slot + 1])
+                    for k, v in self._cache]
+            first, first_lp, echo, seen_row = _slot_prefill(
+                self._model, row, int(prompt_len), view, knobs, generator)
+        # Rewind the slot's position to its true prompt length (the
+        # generation then overwrites any bucket padding) and install
+        # its seen-token row and generator.
+        self._row_pos[slot] = prompt_len
+        self._seen[slot] = seen_row
+        self._generators[slot] = generator
         first_tok = int(first[0])
         self._tok[slot] = first_tok
         self._active[slot] = True
@@ -350,30 +1235,64 @@ class SlotDecodeEngine:
                         repetition_penalty)
         return slot, first_tok, float(first_lp[0]), echo.cpu().numpy()
 
-    def _slot_insert(self, slot, prompt_len, seen_row, generator):
-        """Rewind the slot's position to its true prompt length (the
-        generation then overwrites the bucket padding) and install
-        its seen-token row and generator."""
-        self._row_pos[slot] = prompt_len
-        self._seen[slot] = seen_row
-        self._generators[slot] = generator
+    def _paged_prestep(self):
+        """Host-side block upkeep before a step: every active row is
+        about to write at its current position. Allocate the block when
+        the row just crossed a block boundary (the reservation
+        guarantees success), and fork copy-on-write when the target is
+        shared (refcount > 1: prompt sharing never writes a shared
+        block by construction; the check keeps any other sharing
+        policy safe). Returns the step's (src, dst) copies."""
+        cows = []
+        bs = self._block_size
+        for slot in np.flatnonzero(self._active):
+            wp = int(self._row_pos[slot])
+            if wp >= self.slot_len:
+                continue  # clamped row; its writes rewrite junk
+            bi = wp // bs
+            cur = int(self._tables[slot, bi])
+            if cur == self._trash:
+                b = self._pool.alloc()
+                self._tables[slot, bi] = b
+                self._slot_blocks[slot].append(b)
+                self._take_commit(slot)
+            elif self._pool.ref[cur] > 1:
+                dst = self._pool.alloc()
+                cows.append((cur, dst))
+                self._tables[slot, bi] = dst
+                self._slot_blocks[slot].remove(cur)
+                self._slot_blocks[slot].append(dst)
+                self._pool.decref(cur)
+                self._take_commit(slot)
+        return cows
 
     @torch.inference_mode()
     def step(self):
         """Advance EVERY slot one token. Returns (tokens [slots] int64,
         logprobs [slots] f32) as numpy; entries for free slots are
-        scratch. None when the pool is empty. Free rows step too, at
-        a position clamped into the row, and their output is
-        ignored."""
+        scratch. None when the pool is empty. Free rows step too, at a
+        position clamped into the row (paged: their tables point at the
+        trash block), and their output is ignored."""
         if not self._active.any():
             return None
-        pos = torch.as_tensor(np.minimum(self._row_pos, self.slot_len - 1),
-                              device=self.device)
-        tok = torch.as_tensor(self._tok, device=self.device)[:, None]
-        raw = self._model(tok, self._cache, pos)[:, 0]
-        nxt, lp = _slot_sample(raw, self._seen, self._knobs,
+        dev = self.device
+        tok = torch.as_tensor(self._tok, device=dev)[:, None]
+        if self.paged:
+            for src, dst in self._paged_prestep():
+                self._copy_block(src, dst)
+            limit = self._n_blk * self._block_size - 1
+            pos = torch.as_tensor(np.minimum(self._row_pos, limit),
+                                  device=dev)
+            raw = self._model(tok, self._cache, pos,
+                              block_table=torch.as_tensor(self._tables,
+                                                          device=dev))
+        else:
+            pos = torch.as_tensor(
+                np.minimum(self._row_pos, self.slot_len - 1), device=dev)
+            raw = self._model(tok, self._cache, pos)
+        nxt, lp = _slot_sample(raw[:, 0], self._seen, self._knobs,
                                self._generators)
-        self._seen[torch.arange(self.slots, device=self.device), nxt] = True
+        self._seen[torch.arange(self.slots, device=dev), nxt] = True
         self._row_pos += self._active
         toks = nxt.cpu().numpy()
         np.copyto(self._tok, toks, where=self._active)
@@ -382,10 +1301,64 @@ class SlotDecodeEngine:
         return toks, lp.cpu().numpy()
 
     def release(self, slot):
-        """Free a slot for the next admission. The row's cache content
-        stays but is unreachable (admission overwrites it, the per-row
-        mask hides it meanwhile); its sampling knobs reset to the
-        no-op values."""
+        """Free a slot for the next admission; its sampling knobs reset
+        to the no-op values. Dense pool: the row's cache content stays
+        but is unreachable (admission overwrites it, the per-row mask
+        hides it meanwhile). Paged pool: every block reference the row
+        holds is dropped (blocks at refcount 0 return to the free list,
+        their prefix keys kept for revival until reuse), its table
+        resets to the trash block and its unspent reservation returns
+        to the budget."""
+        if self.paged:
+            for b in self._slot_blocks[slot]:
+                self._pool.decref(b)
+            self._slot_blocks[slot] = []
+            self._tables[slot, :] = self._trash
+            self._pool.committed -= int(self._committed_slot[slot])
+            self._committed_slot[slot] = 0
+            self._row_pos[slot] = 0
         self._active[slot] = False
         self._generators[slot] = None
         self._knobs.reset(slot)
+
+    def pool_leak_report(self):
+        """Invariant audit for a pool that should be empty (every row
+        failed or released): None when clean, else {violation: detail}.
+        Paged: every non-pinned block free, nothing shared, no
+        outstanding reservation, every table all-trash, refcounts
+        exactly the pinned set. Dense pools only have the active-row
+        check."""
+        problems = {}
+        if self._active.any():
+            problems["active_rows"] = [
+                int(s) for s in np.flatnonzero(self._active)]
+        if not self.paged:
+            return problems or None
+        pool = self._pool
+        pinned = len(self._pinned)
+        if pool.free_count() != pool.usable - pinned:
+            problems["free_blocks"] = {
+                "free": pool.free_count(),
+                "expected": pool.usable - pinned}
+        if pool.shared_count() != 0:
+            problems["shared_blocks"] = pool.shared_count()
+        if pool.committed != 0:
+            problems["committed"] = int(pool.committed)
+        if not bool((self._tables == self._trash).all()):
+            problems["tables"] = [
+                int(s) for s in range(self.slots)
+                if (self._tables[s] != self._trash).any()]
+        refsum = int(np.abs(pool.ref).sum())
+        if refsum != pinned:
+            problems["refcounts"] = {"held": refsum, "pinned": pinned}
+        return problems or None
+
+    def force_reclaim(self):
+        """Pool repair after a failure tore a step or an admission:
+        release every slot (idempotent), so blocks, reservations and
+        tables return to the empty-pool state. Returns the residual
+        ``pool_leak_report()``: None when the reclaim restored the
+        invariants."""
+        for slot in range(self.slots):
+            self.release(slot)
+        return self.pool_leak_report()

@@ -37,11 +37,21 @@ Decode mode keeps a dense KV cache per layer, passed explicitly
 - a scalar ``index`` with a multi-token chunk is the one-shot prefill
   into an empty cache: K/V land at [0, P) and attention runs the flash
   kernel on the raw chunk;
+- the same chunk with ``chunk_attends_cache=True`` (at any offset, 0
+  included) writes at [index, index + P) and attends the cache, as
+  the paged pool's admission prefill does after its shared prefix;
 - otherwise (single-token steps, or a [B] vector of per-row positions
   for the slot engine) each row writes its K/V at its own position and
   attends the cache through the grouped product with the mask
   k_pos <= q_pos, f32 scores and softmax, probabilities cast to the
   compute dtype before the product with V.
+
+The paged cache (``init_paged_cache``, the flax module's ``kv_pages``)
+is one [num_blocks, block_size, Hkv, D] arena per layer; a step's
+``block_table`` [B, n_blk] maps row b's position p to (table[b, p //
+block_size], p % block_size), and the read gathers each row's blocks
+back into position order before the same grouped product. No Pallas
+kernel lies on these cached paths: the JAX package runs them in XLA.
 """
 
 import math
@@ -167,11 +177,16 @@ class CausalSelfAttention(nn.Module):
         kv_out = self.kv(h).view(b, s, 2, kv, d)
         return q, kv_out[:, :, 0], kv_out[:, :, 1]
 
-    def forward(self, x, cache=None, index=None):
+    def forward(self, x, cache=None, index=None, block_table=None,
+                chunk_attends_cache=False):
         """``cache``: None (full causal forward) or this layer's
-        (K, V) buffers [B, L, Hkv, D], updated in place; ``index``:
-        the write offset, an int or a [B] tensor of per-row
-        positions."""
+        (K, V) buffers, updated in place: dense [B, L, Hkv, D], or
+        with ``block_table`` the paged arenas [num_blocks, block_size,
+        Hkv, D]; ``index``: the write offset, an int or a [B] tensor
+        of per-row positions (the only form the paged cache takes).
+        ``chunk_attends_cache``: a multi-token chunk at an int offset
+        attends the cache (the paged admission prefill) instead of
+        running the flash kernel on itself alone."""
         q, k, v = self._project(self.ln(x))
         heads = self.num_heads
         if cache is None:
@@ -181,17 +196,24 @@ class CausalSelfAttention(nn.Module):
             attn = self.attention_fn(q, _expand_kv(k, heads),
                                      _expand_kv(v, heads), causal=True)
         else:
-            attn = self._cached_attention(q, k, v, cache, index)
+            attn = self._cached_attention(q, k, v, cache, index,
+                                          block_table, chunk_attends_cache)
         return x + self.proj(attn.reshape(x.shape))
 
-    def _cached_attention(self, q, k, v, cache, index):
+    def _cached_attention(self, q, k, v, cache, index, block_table,
+                          chunk_attends_cache):
         cache_k, cache_v = cache
         b, q_len, heads, d = q.shape
-        length = cache_k.shape[1]
         steps = torch.arange(q_len, device=q.device)
         if isinstance(index, int):
-            if q_len > 1 and index != 0:
-                raise not_ported("chunk_attends_cache=True")
+            if block_table is not None:
+                raise ValueError("the paged cache takes [B] per-row "
+                                 "positions, not an int offset")
+            if q_len > 1 and index != 0 and not chunk_attends_cache:
+                raise ValueError(
+                    f"a {q_len}-token chunk at offset {index} must "
+                    f"attend the cache (chunk_attends_cache=True)")
+            length = cache_k.shape[1]
             if index + q_len > length:
                 raise ValueError(
                     f"chunk at {index}..{index + q_len} overruns the "
@@ -205,38 +227,78 @@ class CausalSelfAttention(nn.Module):
         if self.rope:
             q, k = apply_rope(q, pos), apply_rope(k, pos)
         # In-place cache writes. Per-row positions must lie inside the
-        # buffer: the slot engine clamps free rows to slot_len - 1.
-        if isinstance(index, int):
-            cache_k[:, index:index + q_len] = k
-            cache_v[:, index:index + q_len] = v
+        # buffer: the slot engine clamps free rows into the row.
+        if block_table is not None:
+            _paged_write(cache_k, block_table, index, k[:, 0])
+            _paged_write(cache_v, block_table, index, v[:, 0])
+            keys = _paged_read(cache_k, block_table)
+            values = _paged_read(cache_v, block_table)
         else:
-            rows = torch.arange(b, device=q.device)
-            cache_k[rows, index] = k[:, 0]
-            cache_v[rows, index] = v[:, 0]
-        if isinstance(index, int) and q_len > 1:
+            if isinstance(index, int):
+                cache_k[:, index:index + q_len] = k
+                cache_v[:, index:index + q_len] = v
+            else:
+                rows = torch.arange(b, device=q.device)
+                cache_k[rows, index] = k[:, 0]
+                cache_v[rows, index] = v[:, 0]
+            keys, values = cache_k, cache_v
+        if isinstance(index, int) and q_len > 1 and not chunk_attends_cache:
             # One-shot prefill into an empty cache: causal attention
             # among the chunk's own tokens, on the flash kernel.
             return flash_attention(q, _expand_kv(k, heads),
                                    _expand_kv(v, heads), causal=True)
-        # Grouped form: queries [B, Hkv, G*Q, D] attend their KV head
-        # directly, with no repeated copy of the cache.
-        kv_heads = cache_k.shape[2]
-        g = heads // kv_heads
-        dt = q.dtype
-        qg = q.reshape(b, q_len, kv_heads, g, d).permute(0, 2, 3, 1, 4)
-        qg = qg.reshape(b, kv_heads, g * q_len, d)
-        keys = cache_k.to(dt).permute(0, 2, 3, 1)              # [B,Hkv,D,L]
-        scores = torch.matmul(qg.float(), keys.float()) / math.sqrt(d)
-        scores = scores.view(b, kv_heads, g, q_len, -1)
-        k_pos = torch.arange(cache_k.shape[1], device=q.device)
-        keep = k_pos[None, None, :] <= pos[:, :, None]          # [B,Q,L]
-        scores = torch.where(keep[:, None, None], scores,
-                             torch.full_like(scores, -1e9))
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        probs = probs.view(b, kv_heads, g * q_len, -1)
-        out = torch.matmul(probs, cache_v.to(dt).transpose(1, 2))
-        out = out.view(b, kv_heads, g, q_len, d).permute(0, 3, 1, 2, 4)
-        return out.reshape(b, q_len, heads, d)
+        return _grouped_attention(q, keys, values, pos)
+
+
+def _paged_write(arena, table, pos, val):
+    """Write ``val`` [B, Hkv, D] at each row's position ``pos`` [B]:
+    row b's position p lands at (table[b, p // bs], p % bs). A position
+    past the table's span is dropped: its row writes back what its
+    clamped cell already holds, since clamping alone would overwrite
+    the row's own live tail. Active rows own the blocks they write
+    (the engine's refcount and copy-on-write invariant), so only free
+    rows, all on the trash block, share a cell."""
+    bs, n_blk = arena.shape[1], table.shape[1]
+    blk = torch.div(pos, bs, rounding_mode="floor")
+    in_span = blk < n_blk
+    phys = torch.gather(table, 1, blk.clamp(max=n_blk - 1)[:, None])[:, 0]
+    off = pos % bs
+    arena[phys, off] = torch.where(in_span[:, None, None],
+                                   val.to(arena.dtype), arena[phys, off])
+
+
+def _paged_read(arena, table):
+    """Each row's blocks gathered back through its table: [B, n_blk *
+    bs, Hkv, D], logical position p at index p. The copy is the paged
+    gather's cost; entries on the trash block are junk the per-row
+    mask never admits."""
+    return arena[table].flatten(1, 2)
+
+
+def _grouped_attention(q, keys, values, pos):
+    """Queries [B, Q, H, D] at positions ``pos`` [B, Q] against the
+    cache [B, L, Hkv, D] with the mask k_pos <= q_pos. Grouped form:
+    queries [B, Hkv, G*Q, D] attend their KV head directly, with no
+    repeated copy of the cache; f32 scores and softmax, probabilities
+    cast to the compute dtype before the product with V."""
+    b, q_len, heads, d = q.shape
+    kv_heads = keys.shape[2]
+    g = heads // kv_heads
+    dt = q.dtype
+    qg = q.reshape(b, q_len, kv_heads, g, d).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(b, kv_heads, g * q_len, d)
+    kt = keys.to(dt).permute(0, 2, 3, 1)                       # [B,Hkv,D,L]
+    scores = torch.matmul(qg.float(), kt.float()) / math.sqrt(d)
+    scores = scores.view(b, kv_heads, g, q_len, -1)
+    k_pos = torch.arange(keys.shape[1], device=q.device)
+    keep = k_pos[None, None, :] <= pos[:, :, None]              # [B,Q,L]
+    scores = torch.where(keep[:, None, None], scores,
+                         torch.full_like(scores, -1e9))
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    probs = probs.view(b, kv_heads, g * q_len, -1)
+    out = torch.matmul(probs, values.to(dt).transpose(1, 2))
+    out = out.view(b, kv_heads, g, q_len, d).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, q_len, heads, d)
 
 
 class Block(nn.Module):
@@ -255,8 +317,9 @@ class Block(nn.Module):
         self.mlp_in = Linear(embed_dim, mlp_ratio * embed_dim, **dd)
         self.mlp_out = Linear(mlp_ratio * embed_dim, embed_dim, **dd)
 
-    def forward(self, x, cache=None, index=None):
-        x = self.attn(x, cache, index)
+    def forward(self, x, cache=None, index=None, block_table=None,
+                chunk_attends_cache=False):
+        x = self.attn(x, cache, index, block_table, chunk_attends_cache)
         h = F.gelu(self.mlp_in(self.ln(x)), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -269,8 +332,10 @@ class TransformerLM(nn.Module):
     module's argument does. ``param_dtype`` is the type the parameters
     are held in (module docstring). Options of the flax module that
     this port does not carry yet (int8/int4 KV cache, sliding window,
-    paged KV, int8 weights, speculative-verify chunks, ring slack)
-    raise ValueError."""
+    int8 weights, ring slack) raise ValueError. The flax module's
+    ``kv_pages`` and ``chunk_attends_cache`` clone flags are arguments
+    of ``forward`` here (``block_table``, ``chunk_attends_cache``), so
+    the constructor refuses them too."""
 
     def __init__(self, vocab_size=32000, embed_dim=512, num_layers=8,
                  num_heads=8, max_seq_len=2048, mlp_ratio=4,
@@ -293,7 +358,10 @@ class TransformerLM(nn.Module):
                 ("ring_slack", ring_slack, 0),
                 ("kv_pages", kv_pages, None)):
             if value != default:
-                raise not_ported(f"{option}={value!r}")
+                raise not_ported(f"{option}={value!r}" + (
+                    " as a module option (pass it to forward)"
+                    if option in ("kv_pages", "chunk_attends_cache")
+                    else ""))
         self.vocab_size, self.embed_dim = vocab_size, embed_dim
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads
@@ -324,10 +392,23 @@ class TransformerLM(nn.Module):
                                   device=self.device) for _ in range(2))
                 for _ in range(self.num_layers)]
 
-    def forward(self, tokens, cache=None, index=None):
-        """``cache``/``index`` as in CausalSelfAttention.forward: None
-        for a full causal forward, or the decode-mode cache and the
-        write offset (int, or [B] per-row positions)."""
+    def init_paged_cache(self, num_blocks, block_size):
+        """Per-layer paged (K, V) arenas [num_blocks, block_size, Hkv,
+        D] in the compute dtype, zero-filled: one arena per layer
+        shared by every row, addressed through a block table."""
+        kv = self.num_kv_heads or self.num_heads
+        shape = (num_blocks, block_size, kv, self.embed_dim // self.num_heads)
+        return [tuple(torch.zeros(shape, dtype=self.dtype,
+                                  device=self.device) for _ in range(2))
+                for _ in range(self.num_layers)]
+
+    def forward(self, tokens, cache=None, index=None, block_table=None,
+                chunk_attends_cache=False):
+        """``cache``/``index``/``block_table``/``chunk_attends_cache``
+        as in CausalSelfAttention.forward: None for a full causal
+        forward, or the decode-mode cache and the write offset (int,
+        or [B] per-row positions); ``block_table`` [B, n_blk] maps
+        each row's logical blocks to arena blocks of a paged cache."""
         s = tokens.shape[1]
         if s > self.max_seq_len:
             raise ValueError(
@@ -345,7 +426,8 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embed(pos)
         layers = cache if cache is not None else [None] * self.num_layers
         for block, layer_cache in zip(self.blocks, layers):
-            x = block(x, layer_cache, index)
+            x = block(x, layer_cache, index, block_table,
+                      chunk_attends_cache)
         return self.lm_head(self.ln_f(x).float())
 
 

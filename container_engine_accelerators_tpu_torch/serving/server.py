@@ -12,7 +12,7 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""HTTP LM generation server on the dense slot engine.
+"""HTTP LM generation server on the slot engine.
 
 Counterpart of the JAX package's ``GenerationServer`` for its
 non-streaming JSON contract:
@@ -27,11 +27,15 @@ non-streaming JSON contract:
 Prompts of one request share a length and are right-padded into a
 fixed set of length buckets. One loop thread owns the engine: at every
 step boundary it retires rows at EOS or their token budget, admits
-queued rows into free slots (each admission is one batch-1 prefill
-through the flash kernel) and runs one decode step over all slots.
-Streaming, drain and quarantine, tracing, the tokenizer, prefix serving
-and speculation are not ported yet; a request asking for streaming or
-text gets a 400 that says so.
+queued rows in FIFO order while the engine has room for the head
+(``admission_block_cause``: a free slot, and on the paged pool the
+blocks of the row's worst-case span), and runs one decode step over
+all slots. The engine's pool is the JAX server's: paged unless
+``CEA_TPU_PAGED_KV=0`` selects the dense pool, whose admission prefill
+runs the flash kernel. Streaming, drain and quarantine, tracing, the
+tokenizer, server-level prefix serving (``prefix_tokens``) and
+speculation are not ported yet; a request asking for streaming or text
+gets a 400 that says so.
 """
 
 import collections
@@ -116,7 +120,11 @@ class _EngineService:
         eng = self._engine
         with self._lock:
             ttft = sorted(self._ttft_s)
+            # The paged pool's block and prefix-sharing counters are
+            # host integers the loop thread updates; absent on the
+            # dense pool.
             return {
+                **(eng.kv_block_stats() or {}),
                 "slots_active": eng.active_count(),
                 "slots_free": eng.free_slots(),
                 "queue_depth": self._queue.qsize() + len(self._pending),
@@ -189,6 +197,8 @@ class _EngineService:
             self._finish(work)
 
     def _admit(self, work):
+        """Admit one row (or score it). False when the engine had no
+        room after all: the row goes back to the head of the queue."""
         eng = self._engine
         try:
             if work.score_only:
@@ -197,18 +207,19 @@ class _EngineService:
                 with self._lock:
                     self._admitted += 1
                 self._finish(work)
-                return
+                return True
             slot, first, first_lp, echo = eng.admit(
                 work.row, work.p_len, temperature=work.temperature,
                 top_k=work.top_k, top_p=work.top_p, min_p=work.min_p,
-                repetition_penalty=work.rep_pen, seed=work.seed)
+                repetition_penalty=work.rep_pen, seed=work.seed,
+                max_new=work.new, allow_prefix=not work.want_lp)
         except EngineCapacityError:
             self._pending.insert(0, work)
-            return
+            return False
         except Exception as e:  # device/runtime failure: fail the row
             log.exception("engine admission failed")
             self._finish(work, error=str(e))
-            return
+            return True
         work.slot = slot
         self._slot_work[slot] = work
         with self._lock:
@@ -216,6 +227,7 @@ class _EngineService:
         if work.want_lp:
             work.lps = list(echo[:work.p_len])
         self._deliver(work, first, first_lp)
+        return True
 
     def _loop(self):
         while not self._stop.is_set():
@@ -234,11 +246,27 @@ class _EngineService:
                 if item is not None:
                     self._pending.append(item)
                 continue  # drain any burst before admitting
-            # FIFO admission into free slots (scoring rows need none).
-            while self._pending and (self._pending[0].score_only
-                                     or self._engine.free_slots()):
-                self._admit(self._pending.pop(0))
+            # FIFO admission: the head waits rather than letting later
+            # small requests starve a big one. Scoring rows need no slot
+            # and no blocks; a row that echoes logprobs neither shares
+            # nor registers a prefix (a shared span's echo is never
+            # computed).
+            while self._pending:
+                head = self._pending[0]
+                if not head.score_only and (
+                        self._engine.admission_block_cause(
+                            head.row, head.p_len, head.new,
+                            allow_prefix=not head.want_lp,
+                            repetition_penalty=head.rep_pen,
+                            temperature=head.temperature) is not None):
+                    break
+                if not self._admit(self._pending.pop(0)):
+                    break
             if not self._slot_work:
+                if self._pending:
+                    # The head is blocked with nothing active: only a
+                    # stop can change that, so wait instead of spinning.
+                    self._stop.wait(0.05)
                 continue
             try:
                 out = self._engine.step()
@@ -246,6 +274,18 @@ class _EngineService:
                 log.exception("engine step failed")
                 for work in list(self._slot_work.values()):
                     self._finish(work, error=str(e))
+                # The failed step may have torn mid-flight (write blocks
+                # allocated, positions not advanced): audit the pool
+                # and reclaim before serving on, so a torn pool does
+                # not shrink every later admission.
+                leaks = self._engine.pool_leak_report()
+                if leaks:
+                    log.error("pool invariants violated after step "
+                              "failure: %s; force-reclaiming", leaks)
+                    residue = self._engine.force_reclaim()
+                    if residue:
+                        log.error("force_reclaim residue: %s (arena "
+                                  "capacity lost)", residue)
                 continue
             if out is None:
                 continue
@@ -255,10 +295,10 @@ class _EngineService:
 
 
 class GenerationServer:
-    """HTTP server for LM generation on the dense slot engine (see the
-    module docstring for the contract). The model is the port's
-    TransformerLM on its device; the engine's slot_len covers the
-    largest bucket plus ``max_new_tokens``."""
+    """HTTP server for LM generation on the slot engine (see the module
+    docstring for the contract). The model is the port's TransformerLM
+    on its device; the engine's slot_len covers the largest bucket plus
+    ``max_new_tokens``, and ``CEA_TPU_PAGED_KV`` picks its pool."""
 
     def __init__(self, model_name, model, port=8500, max_new_tokens=64,
                  max_batch=8, buckets=None, max_queue=None, host=""):
@@ -283,7 +323,7 @@ class GenerationServer:
             raise ValueError("no valid prompt-length buckets")
         self._engine = SlotDecodeEngine(
             model, max_batch, self._buckets[-1] + max_new_tokens,
-            paged=False, buckets=self._buckets)
+            buckets=self._buckets)
         self._service = _EngineService(
             self._engine, 8 * max_batch if max_queue is None else max_queue)
         self._seed = 0
@@ -368,7 +408,7 @@ class GenerationServer:
         with self._stats_lock:
             out = {"requests": self._requests, "shed": self._shed}
         out.update(self._service.stats())
-        out["kv_pool"] = "dense"
+        out["kv_pool"] = "paged" if self._engine.paged else "dense"
         out["flash_fwd_launches"] = flash_fwd.launches
         out["device"] = str(self._engine.device)
         return out

@@ -228,28 +228,46 @@ def test_dense_engine_matches_jax_engine(engines):
 
 
 def test_full_pool_and_unported_options_raise(engines):
+    """A full dense pool refuses another admission; the paged pool and
+    pin_reserve_tokens build (tests/test_torch_paging.py holds them to
+    the JAX engine), while the quantized caches and speculation still
+    raise."""
     _, eng = engines
     row = torch_parity.tokens(14, (8,))
     for _ in range(3):
         eng.admit(row, 8)
+    assert eng.admission_block_cause(row, 8) == "slots"
+    assert not eng.can_admit(row, 8)
     with pytest.raises(decode.EngineCapacityError):
         eng.admit(row, 8)
-    for slot in range(3):
-        eng.release(slot)
+    assert eng.pool_leak_report() == {"active_rows": [0, 1, 2]}
+    assert eng.force_reclaim() is None
+    assert eng.block_availability() is None
     model = eng._model
-    for kwargs, what in ((dict(paged=True), "paged KV pool"),
-                         (dict(kv_quant="int8"), "kv_quant"),
-                         (dict(draft_model=model, spec_k=2), "speculative"),
-                         (dict(pin_reserve_tokens=8), "pin_reserve")):
+    paged = decode.SlotDecodeEngine(model, 2, 16, paged=True,
+                                    pin_reserve_tokens=8)
+    assert paged.paged and paged.block_availability() == (2 + 1, 2 + 1)
+    for kwargs, what in ((dict(kv_quant="int8"), "kv_quant"),
+                         (dict(kv_quant="int4", paged=False), "kv_quant"),
+                         (dict(draft_model=model, spec_k=2), "speculative")):
         with pytest.raises(ValueError, match=f"{what}.*not yet ported"):
             decode.SlotDecodeEngine(model, 2, 16, **kwargs)
 
 
 def test_paged_env_gate_raises(monkeypatch):
+    """CEA_TPU_PAGED_KV selects the pool as in the JAX package: paged
+    when unset or on, dense at 0; an explicit ``paged`` wins."""
     _, tree, config = torch_parity.flax_lm("learned_mha")
     port = torch_parity.port_lm(config, tree)
+    monkeypatch.delenv(decode.PAGED_KV_ENV, raising=False)
+    assert decode.paged_kv_enabled() and decode.kv_spill_enabled()
+    eng = decode.SlotDecodeEngine(port, 2, 16)
+    assert eng.paged and eng._pool.spill_enabled()
+    assert eng._block_size == 16 and eng._pool.usable == 2
     monkeypatch.setenv(decode.PAGED_KV_ENV, "1")
-    with pytest.raises(ValueError, match="paged KV pool"):
-        decode.SlotDecodeEngine(port, 2, 16)
+    assert decode.SlotDecodeEngine(port, 2, 16).paged
     monkeypatch.setenv(decode.PAGED_KV_ENV, "0")
     assert not decode.SlotDecodeEngine(port, 2, 16).paged
+    assert decode.SlotDecodeEngine(port, 2, 16, paged=True).paged
+    with pytest.raises(ValueError, match="kv_blocks"):
+        decode.SlotDecodeEngine(port, 2, 16, paged=True, kv_blocks=1)

@@ -30,6 +30,7 @@ cores, f32 on the FMA kernels.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -143,6 +144,68 @@ def test_engine_on_the_card_launches_the_kernel(cuda):
         want = decode.greedy_decode(model, p[None], 7)[0, len(p):]
         assert want.tolist() == seq
     assert math.isfinite(float(eng.step()[1][0]))
+
+
+def _card_lm():
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64)
+    return convert.load_lm(config, convert.init_flax_layout_params(
+        config, 0), device="cuda")
+
+
+def test_paged_arena_write_and_gather_on_the_card(cuda):
+    """The paged cache on CUDA tensors: a step through block tables
+    writes each row's K/V at (table[b, p // bs], p % bs), and the
+    gather puts every row back in position order, so the step's logits
+    equal the dense step's on the same rows bitwise."""
+    model = _card_lm()
+    arena = model.init_paged_cache(9, 8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for k, v in arena:
+        k.copy_(torch.randn(k.shape, generator=gen, device="cuda"))
+        v.copy_(torch.randn(v.shape, generator=gen, device="cuda"))
+    tables = torch.tensor([[3, 0, 6], [8, 8, 8]], device="cuda")
+    dense = [tuple(a[tables].flatten(1, 2).clone() for a in layer)
+             for layer in arena]
+    tok = torch.tensor([[5], [9]], device="cuda")
+    pos = torch.tensor([13, 2], device="cuda")
+    with torch.inference_mode():
+        want = model(tok, dense, pos)
+        got = model(tok, arena, pos, block_table=tables)
+    assert torch.equal(got, want)
+    for layer, dense_layer in zip(arena, dense):
+        for a, d in zip(layer, dense_layer):
+            assert torch.equal(a[0, 5], d[0, 13])
+            assert torch.equal(a[tables[0]].flatten(0, 1), d[0])
+
+
+def test_paged_engine_copy_on_write_on_the_card(cuda):
+    """A second row sharing a resident prompt's full block and forking
+    its partial boundary block on the card: the full block is mapped,
+    not copied; the fork holds the donor's prompt rows bitwise; the
+    paged admissions launch no flash kernel; the pool is clean after
+    both rows retire."""
+    model = _card_lm()
+    eng = decode.SlotDecodeEngine(model, slots=2, slot_len=32, paged=True,
+                                  kv_block_size=8)
+    prompt = torch.randint(0, 128, (12,), generator=torch.Generator()
+                           .manual_seed(1)).numpy()
+    before = attn.flash_fwd.launches
+    a = eng.admit(prompt, 12)[0]
+    eng.step()
+    b = eng.admit(np.concatenate([prompt, [7]]), 13)[0]
+    assert attn.flash_fwd.launches == before
+    assert eng.kv_block_stats()["prefix_hits"] == 1
+    assert eng._tables[a, 0] == eng._tables[b, 0]
+    src, dst = eng._tables[a, 1], eng._tables[b, 1]
+    assert src != dst
+    for layer in eng._cache:
+        for arena in layer:
+            assert torch.equal(arena[dst, :4], arena[src, :4])
+    eng.step()
+    eng.release(a)
+    eng.release(b)
+    assert eng.pool_leak_report() is None
 
 
 def _assert_near(got, want, dtype, what):

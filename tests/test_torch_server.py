@@ -14,13 +14,17 @@
 
 """The port's GenerationServer on the CPU (device="cpu", port 0).
 
-Greedy responses must equal the port's greedy_decode and the JAX
-package's decode() token for token (f32 model); logprob rows agree
-with decode(return_logprobs=True) at 1e-4 (the server rounds them to
-six decimals). Invalid requests get the JAX server's 400 bodies.
+The server builds its engine as the JAX server does, so it serves the
+paged pool unless ``CEA_TPU_PAGED_KV=0`` selects the dense one; both
+are served here. Greedy responses must equal the port's greedy_decode
+and the JAX package's decode() token for token (f32 model); logprob
+rows agree with decode(return_logprobs=True) at 1e-4 (the server rounds
+them to six decimals). Invalid requests get the JAX server's 400
+bodies.
 """
 
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -54,12 +58,34 @@ def lm():
     return model, tree, torch_parity.port_lm(config, tree)
 
 
+def _server(port_model, paged_env):
+    """A started server, built with CEA_TPU_PAGED_KV set to
+    ``paged_env`` (None: unset, the default pool)."""
+    prev = os.environ.pop(decode.PAGED_KV_ENV, None)
+    if paged_env is not None:
+        os.environ[decode.PAGED_KV_ENV] = paged_env
+    try:
+        s = server.GenerationServer("lm", port_model, port=0,
+                                    max_new_tokens=MAX_NEW, max_batch=4,
+                                    host="127.0.0.1")
+    finally:
+        os.environ.pop(decode.PAGED_KV_ENV, None)
+        if prev is not None:
+            os.environ[decode.PAGED_KV_ENV] = prev
+    s.start()
+    return s
+
+
 @pytest.fixture(scope="module")
 def srv(lm):
-    s = server.GenerationServer("lm", lm[2], port=0,
-                                max_new_tokens=MAX_NEW, max_batch=4,
-                                host="127.0.0.1")
-    s.start()
+    s = _server(lm[2], None)
+    yield s
+    s.stop()
+
+
+@pytest.fixture(scope="module")
+def dense_srv(lm):
+    s = _server(lm[2], "0")
     yield s
     s.stop()
 
@@ -193,16 +219,34 @@ def test_unported_request_options_and_routes(srv):
     assert _call(srv, "/nope")[0] == 404
 
 
-def test_healthz_stats_and_metadata(srv):
+_BLOCK_KEYS = ("kv_blocks_total", "kv_blocks_free", "kv_blocks_shared",
+               "kv_block_size", "kv_block_utilization", "prefix_lookups",
+               "prefix_hits", "prefix_hit_rate", "prefix_tokens_shared",
+               "kv_quant_mode", "kv_arena_bytes", "kv_spill_blocks",
+               "kv_spill_bytes", "kv_spill_hits", "kv_spill_hit_rate",
+               "kv_rehydrated_blocks")
+
+
+@pytest.mark.parametrize("pool", ["paged", "dense"])
+def test_healthz_stats_and_metadata(request, pool):
+    srv = request.getfixturevalue("srv" if pool == "paged" else "dense_srv")
     assert _call(srv, "/healthz") == (200, {"status": "ok", "model": "lm"})
     code, stats = _call(srv, "/stats")
     assert code == 200
-    assert stats["kv_pool"] == "dense" and stats["device"] == "cpu"
+    assert stats["kv_pool"] == pool and stats["device"] == "cpu"
     # CPU tensors take the plain version: no kernel launches here.
     assert stats["flash_fwd_launches"] == 0
     for key in ("requests", "slots_active", "slots_free", "queue_depth",
                 "engine_prefills", "engine_steps", "tokens_generated"):
         assert key in stats
+    if pool == "paged":
+        assert set(_BLOCK_KEYS) <= set(stats)
+        assert stats == dict(stats, **srv.engine.kv_block_stats())
+        # 4 slots of ceil(48 / 16) blocks: the dense pool's bytes.
+        assert stats["kv_blocks_total"] == 12
+        assert stats["kv_block_size"] == 16
+    else:
+        assert not set(_BLOCK_KEYS) & set(stats)
     code, meta = _call(srv, "/v1/models/lm")
     assert code == 200
     info = meta["model_version_status"][0]["metadata"]
@@ -234,3 +278,40 @@ def test_launcher_builds_a_cpu_server_and_refuses_the_rest():
     with pytest.raises(SystemExit, match="model-dir"):
         serve.build_server(parser.parse_args(
             flags + ["--device", "cpu", "--model-dir", "/ckpt"]))
+
+
+def test_paged_server_shares_a_resident_prefix(srv, lm):
+    """A prompt sent twice: the second admission maps the first's
+    blocks (a prefix hit, only its last token prefilled) and streams
+    the same tokens as JAX decode(); a logprobs request neither shares
+    nor registers. The pool is clean once the server is idle."""
+    model, tree, _ = lm
+    prompt = torch_parity.tokens(25, (1, 21))
+    want = np.asarray(jax_decode.decode(model, tree, jnp.asarray(prompt),
+                                        MAX_NEW)).tolist()
+    before = srv.engine.kv_block_stats()
+    for _ in range(2):
+        code, body = _generate(srv, {"prompts": prompt.tolist(),
+                                     "max_new_tokens": MAX_NEW})
+        assert code == 200 and body["sequences"] == want
+    stats = _call(srv, "/stats")[1]
+    assert stats["prefix_hits"] >= before["prefix_hits"] + 1
+    assert stats["prefix_tokens_shared"] >= (
+        before["prefix_tokens_shared"] + 20)
+    lookups = stats["prefix_lookups"]
+    code, body = _generate(srv, {"prompts": prompt.tolist(),
+                                 "max_new_tokens": 2, "logprobs": True})
+    assert code == 200 and body["sequences"][0] == want[0][:23]
+    assert _call(srv, "/stats")[1]["prefix_lookups"] == lookups
+    assert srv.engine.pool_leak_report() is None
+
+
+def test_dense_pool_serves_the_same_streams(dense_srv, lm):
+    model, tree, _ = lm
+    prompt = torch_parity.tokens(26, (2, 11))
+    want = np.asarray(jax_decode.decode(model, tree, jnp.asarray(prompt),
+                                        MAX_NEW))
+    code, body = _generate(dense_srv, {"prompts": prompt.tolist(),
+                                       "max_new_tokens": MAX_NEW})
+    assert code == 200 and body["sequences"] == want.tolist()
+    assert dense_srv.engine.pool_leak_report() is None
