@@ -61,7 +61,23 @@
    the flash prefill). An engine with a small arena spills the prefix
    to the host tier and rehydrates it bitwise. Informational: a decode
    step with 8 rows on the paged and the dense pool, the admission of
-   a 1003-token prompt cold and on a prefix hit, the rehydrate;
+   a 1003-token prompt cold and on a prefix hit, the rehydrate. Then
+   the deployment phase: demo/serving/lm-serving.yaml's command line
+   as written (int8 KV cache, int8 weights, byte tokenizer, --warm),
+   with --port=0 added, through the port's launcher. /healthz must
+   answer 503 first and 200 once warm-up is done; text, token-id and
+   ndjson-stream requests (the stream equal to the same request
+   unstreamed) and the demo's load generator, plain and --stream, are
+   served with no kernel launch and the pool clean after; each greedy
+   stream equals greedy_decode on the int8 model or first differs at a
+   near tie (the rule above). The same command line on the dense pool
+   (CEA_TPU_PAGED_KV=0): 8 flash launches an admission and every
+   greedy response equal to greedy_decode. Reported: arena bytes and
+   usable blocks (the deployed pool, and at equal memory in bf16, int8
+   and int4), projection weight bytes, an engine-level int4 run, and
+   in turns the paged step (bf16, int8 cache, the deployment), the
+   dense admission (bf16 against int8) and one projection at decode
+   width (Int8Linear against the bf16 Linear);
 7. trains the same architecture at full width and depth (f32
    parameters, bf16 compute, f32 logits, sequence 2048, the demo
    driver's SGD defaults; global batch 8, cut from 256) for 12 steps
@@ -107,6 +123,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -123,6 +140,12 @@ SEED = 0
 PAGED_PREFIX = 1000
 PAGED_NEW = 64
 PAGED_COLD = (100, 700)   # cold prompt lengths
+# The deployment phase: demo/serving/lm-serving.yaml's command line as
+# written, through the port's launcher, with --port=0 added.
+MANIFEST = os.path.join(REPO_ROOT, "demo", "serving", "lm-serving.yaml")
+DEPLOY_NEW = 32                      # new tokens a greedy request
+DEPLOY_PROMPTS = (16, 100, 700, 1500)
+PREFILL_WIDTHS = (16, 128, 1024, 1920)   # timed admission widths
 # The training slice: sequence 2048 at global batch 8 (the demo
 # driver's default batch, 256, cut to keep the run short).
 TRAIN_SEQ = 2048
@@ -872,7 +895,7 @@ def stream_divergence(torch, model, prompt, new, seq):
     from container_engine_accelerators_tpu_torch.models.decode import (
         greedy_decode,
     )
-    want = greedy_decode(model, torch.tensor([prompt], device="cuda"),
+    want = greedy_decode(model, torch.tensor([prompt], device=model.device),
                          new)[0].tolist()
     if want == seq:
         return None
@@ -880,10 +903,10 @@ def stream_divergence(torch, model, prompt, new, seq):
     p = len(prompt)
     with torch.inference_mode():
         cache = model.init_cache(1, len(want))
-        logits = model(torch.tensor([prompt], device="cuda"), cache,
+        logits = model(torch.tensor([prompt], device=model.device), cache,
                        0)[0, -1]
         for t in range(p, first):
-            logits = model(torch.tensor([[want[t]]], device="cuda"),
+            logits = model(torch.tensor([[want[t]]], device=model.device),
                            cache, t)[0, 0]
     top = logits.float().topk(2).values
     gap = (top[0] - top[1]).item()
@@ -1053,6 +1076,410 @@ def drive_paged(torch, model, engine_dense, kernels, rng):
     report["spill"] = spill_round_trip(torch, model, rng)
     report["times"] = time_paged(torch, eng, engine_dense, rng)
     report["times"]["rehydrate_ms"] = report["spill"]["rehydrate_ms"]
+    return report, launches
+
+
+def manifest_argv():
+    """The serving container's arguments in lm-serving.yaml (after the
+    interpreter and the script), read as plain text: the "- " items
+    under the first "command:" key, comments skipped."""
+    args, indent = [], None
+    with open(MANIFEST) as f:
+        for line in f:
+            stripped = line.strip()
+            depth = len(line) - len(line.lstrip())
+            if indent is None:
+                if stripped == "command:":
+                    indent = depth
+                continue
+            if not stripped or stripped.startswith("#"):
+                continue
+            if depth < indent or not stripped.startswith("- "):
+                break
+            args.append(stripped[2:].strip())
+    if args[:2] != ["python3", "/demos/serving/serve.py"]:
+        raise AssertionError(f"unexpected command in {MANIFEST}: {args}")
+    return args[2:]
+
+
+def healthz(port):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def launch_deployed(serve, paged=True):
+    """The port's launcher on the manifest's arguments and --port=0
+    (CEA_TPU_PAGED_KV=0 while it builds when not ``paged``); polls
+    /healthz from the first moment until warm-up is done. Returns
+    (server, {"health": first codes, "ready_s": launch to 200})."""
+    t0 = time.perf_counter()
+    if not paged:
+        os.environ["CEA_TPU_PAGED_KV"] = "0"
+    try:
+        server = serve.build_server(
+            serve.build_parser().parse_args(manifest_argv() + ["--port=0"]))
+    finally:
+        os.environ.pop("CEA_TPU_PAGED_KV", None)
+    server.start()
+    codes = []
+    while True:
+        codes.append(healthz(server.port))
+        if codes[-1] == 200:
+            break
+        if codes[-1] != 503 or time.perf_counter() - t0 > 600:
+            server.stop()
+            raise AssertionError(f"/healthz during warm-up: {codes[-20:]}")
+        time.sleep(0.02)
+    return server, {"health_503": len(codes) - 1, "health_first": codes[0],
+                    "ready_s": time.perf_counter() - t0,
+                    "warm_s": server.warm_seconds}
+
+
+def post_stream(port, payload):
+    """(Content-Type, ndjson lines) of a streamed request."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/models/lm:generate",
+        data=json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return (resp.headers["Content-Type"],
+                [json.loads(line) for line in resp.read().splitlines()])
+
+
+def run_load_generator(port, stream):
+    """demo/serving/load_generator.py --mode generate against the
+    server (16 requests, 4 clients, 32 new tokens), in its own process;
+    returns its summary line."""
+    argv = [sys.executable, os.path.join(REPO_ROOT, "demo", "serving",
+                                         "load_generator.py"),
+            "--mode", "generate", "--model-name", "lm", "--host",
+            "127.0.0.1", "--port", str(port), "-n", "16", "--parallelism",
+            "4", "--max-new-tokens", str(DEPLOY_NEW), "--vocab-size",
+            str(MODEL["vocab_size"])]
+    out = subprocess.run(argv + (["--stream"] if stream else []),
+                         capture_output=True, text=True, check=True,
+                         timeout=600)
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    if summary["requests"] != 16 or summary["errors"]:
+        raise AssertionError(f"load generator: {summary}")
+    return summary
+
+
+def drive_deployed_traffic(server, rng):
+    """Text, token-id and ndjson-stream requests on the deployed server.
+    Returns (greedy [(prompt ids, new, sequence)], summary)."""
+    port, vocab = server.port, MODEL["vocab_size"]
+    greedy, summary = [], {}
+    texts = ["The quick brown fox jumps over the lazy dog.",
+             "Kubernetes schedules pods onto nodes with accelerators: "
+             "naïve placement fragments a slice."]
+    status, body = post(port, {"text": texts, "max_new_tokens": DEPLOY_NEW})
+    ids = [list(t.encode("utf-8")) for t in texts]
+    if (status != 200 or len(body["completions"]) != 2
+            or not all(isinstance(c, str) for c in body["completions"])):
+        raise AssertionError(f"text request: {status} {body}")
+    for row, seq in zip(ids, body["sequences"]):
+        if seq[:len(row)] != row or len(seq) != len(row) + DEPLOY_NEW:
+            raise AssertionError("text request: bad sequence")
+        greedy.append((row, DEPLOY_NEW, seq))
+    summary["completions"] = body["completions"]
+    prompts = [rng.integers(0, vocab, n).tolist() for n in DEPLOY_PROMPTS]
+    results, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            results[i] = post(port, {"prompts": [prompts[i]],
+                                     "max_new_tokens": DEPLOY_NEW})
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent deployed requests failed: {errors}")
+    for p, (status, body) in zip(prompts, results):
+        seq = body["sequences"][0]
+        if status != 200 or len(seq) != len(p) + DEPLOY_NEW or not all(
+                0 <= t < vocab for t in seq):
+            raise AssertionError(f"bad response {status}: {body}")
+        greedy.append((p, DEPLOY_NEW, seq))
+    # The stream of a greedy request against the same request unstreamed.
+    p = rng.integers(0, vocab, 64).tolist()
+    status, body = post(port, {"prompts": [p], "max_new_tokens": DEPLOY_NEW})
+    want = body["sequences"][0][len(p):]
+    kind, lines = post_stream(port, {"prompts": [p], "stream": True,
+                                     "max_new_tokens": DEPLOY_NEW})
+    got = [line["tokens"][0] for line in lines[:-1]]
+    if (kind != "application/x-ndjson" or lines[-1] != {"done": True}
+            or got != want):
+        raise AssertionError(f"stream differs: {kind} {got} != {want}, "
+                             f"last {lines[-1]}")
+    greedy.append((p, DEPLOY_NEW, body["sequences"][0]))
+    _, lines = post_stream(port, {"text": [texts[0]], "stream": True,
+                                  "max_new_tokens": 8})
+    if lines[-1] != {"done": True} or not all(
+            "completion_delta" in line for line in lines[:-1]):
+        raise AssertionError(f"text stream: {lines}")
+    summary["stream_tokens"] = len(got)
+    summary["load_generator"] = run_load_generator(port, stream=False)
+    summary["load_generator_stream"] = run_load_generator(port, stream=True)
+    return greedy, summary
+
+
+def quant_layout(torch, model):
+    """Bytes of the model's projection weights (int8 values and f32
+    scales, or the native weights) and their parameter count."""
+    from container_engine_accelerators_tpu_torch.models.quantized import (
+        Int8Linear,
+    )
+    names = ("qkv", "q", "kv", "proj", "mlp_in", "mlp_out")
+    out = {"params": 0, "weight_bytes": 0, "scale_bytes": 0}
+    for name, mod in model.named_modules():
+        if name.rsplit(".", 1)[-1] not in names:
+            continue
+        out["params"] += mod.weight.numel()
+        out["weight_bytes"] += mod.weight.numel() * mod.weight.element_size()
+        if isinstance(mod, Int8Linear):
+            out["scale_bytes"] += mod.scale.numel() * 4
+    return out
+
+
+def arena_sizes(torch, decode, model_bf16):
+    """Usable blocks and arena bytes of the paged pool (8 slots of
+    2048, block 16) at equal memory: the engine asked for bf16, int8
+    and int4 on the bf16-cache model."""
+    out = {}
+    for mode in ("bf16", "int8", "int4"):
+        eng = decode.SlotDecodeEngine(model_bf16, MAX_BATCH,
+                                      MODEL["max_seq_len"], paged=True,
+                                      kv_block_size=16, kv_quant=mode)
+        out[mode] = {"usable_blocks": eng._pool.usable,
+                     "arena_bytes": eng.kv_arena_bytes}
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def int4_engine_run(torch, decode, model, rng):
+    """An engine-level int4 run (the paged pool, 4 slots, kv_quant int4
+    on the bf16 model): three greedy requests (16, 100 and 700 tokens)
+    admitted and stepped
+    together; each stream against greedy_decode with an int4 cache
+    (informational: the paged prefill attends the quantized prompt,
+    the oracle's prefill the raw one)."""
+    eng = decode.SlotDecodeEngine(model, 4, MODEL["max_seq_len"], paged=True,
+                                  kv_block_size=16, kv_quant="int4")
+    vocab = MODEL["vocab_size"]
+    prompts = [rng.integers(0, vocab, n).tolist()
+               for n in DEPLOY_PROMPTS[:3]]
+    rows = {}
+    for p in prompts:
+        slot, first, _, _ = eng.admit(p, len(p), max_new=DEPLOY_NEW)
+        rows[slot] = [first]
+    for _ in range(DEPLOY_NEW - 1):
+        toks, _ = eng.step()
+        for slot, out in rows.items():
+            out.append(int(toks[slot]))
+    for slot in rows:
+        eng.release(slot)
+    out = {"leaks": eng.pool_leak_report(), "usable_blocks": eng._pool.usable,
+           "exact": 0, "diverged": []}
+    for p, (slot, toks) in zip(prompts, rows.items()):
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"int4 engine: bad tokens {toks}")
+        want = decode.greedy_decode(model, torch.tensor([p]), DEPLOY_NEW,
+                                    kv_quant="int4")[0, len(p):]
+        want = want.tolist()
+        if want == toks:
+            out["exact"] += 1
+        else:
+            out["diverged"].append(next(
+                i for i, (a, b) in enumerate(zip(want, toks)) if a != b))
+    if out["leaks"] is not None:
+        raise AssertionError(f"int4 engine not clean: {out['leaks']}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_deployment(torch, decode, deployed, dense_int8, model_bf16,
+                    dense_bf16, rng):
+    """Host-clock times in turns within this call: the paged decode step
+    with 8 rows of 16 tokens (bf16 model and cache; bf16 model, int8
+    cache; the deployed int8 weights and cache: A B C C B A), the dense
+    admission at 16/128/1024/1920 tokens on the bf16 and the int8
+    model (least of the last three of four, bf16 int8 int8 bf16), and
+    one projection at decode width (8 rows, mlp_in 512 -> 2048) as
+    Int8Linear and as the bf16 Linear (CUDA events)."""
+    vocab = MODEL["vocab_size"]
+
+    def step_ms(eng):
+        slots = [eng.admit(rng.integers(0, vocab, 16), 16)[0]
+                 for _ in range(eng.slots)]
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng.step()
+        ms = 1e3 * (time.perf_counter() - t0) / 20
+        for slot in slots:
+            eng.release(slot)
+        return ms
+
+    kv8 = decode.SlotDecodeEngine(model_bf16, MAX_BATCH, MODEL["max_seq_len"],
+                                  paged=True, kv_quant="int8")
+    bf16 = decode.SlotDecodeEngine(model_bf16, MAX_BATCH,
+                                   MODEL["max_seq_len"], paged=True)
+    engines = {"bf16": bf16, "int8_kv": kv8, "deployed": deployed}
+    out = {"step_ms": {k: [] for k in engines}}
+    for name in ("bf16", "int8_kv", "deployed", "deployed", "int8_kv",
+                 "bf16"):
+        out["step_ms"][name].append(step_ms(engines[name]))
+    del kv8, bf16, engines
+
+    def admit_ms(eng, width):
+        times = []
+        for _ in range(4):
+            row = rng.integers(0, vocab, width)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot = eng.admit(row, width)[0]
+            times.append(1e3 * (time.perf_counter() - t0))
+            eng.release(slot)
+        return min(times[1:])
+
+    out["dense_prefill_ms"] = {}
+    for width in PREFILL_WIDTHS:
+        out["dense_prefill_ms"][width] = {
+            "bf16": [admit_ms(dense_bf16, width)],
+            "int8": [admit_ms(dense_int8, width)]}
+        out["dense_prefill_ms"][width]["int8"].append(
+            admit_ms(dense_int8, width))
+        out["dense_prefill_ms"][width]["bf16"].append(
+            admit_ms(dense_bf16, width))
+    x = torch.randn((MAX_BATCH, 1, MODEL["embed_dim"]),
+                    device=model_bf16.device, dtype=torch.bfloat16)
+    int8_layer = deployed._model.blocks[0].mlp_in
+    bf16_layer = model_bf16.blocks[0].mlp_in
+    with torch.inference_mode():
+        out["mlp_in_ms"] = {"int8": cuda_ms(lambda: int8_layer(x), 200),
+                            "bf16": cuda_ms(lambda: bf16_layer(x), 200)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_deployment(torch, kernels, model_bf16, dense_bf16, rng):
+    """The deployment phase (see the module docstring). Returns
+    (report, launches summed over its two servers' traffic)."""
+    from container_engine_accelerators_tpu_torch.models import decode
+    from container_engine_accelerators_tpu_torch.serving import serve
+    report = {"argv": manifest_argv() + ["--port=0"]}
+    # The deployment as written: the paged pool, int8 cache and weights.
+    server, report["launch"] = launch_deployed(serve)
+    eng, model = server.engine, server.engine._model
+    if not (eng.paged and eng.kv_quant == "int8" and model.weights == "int8"
+            and model.kv_cache_dtype == "int8"):
+        raise AssertionError("the launcher did not build the int8 server")
+    try:
+        if report["launch"]["health_first"] != 503:
+            raise AssertionError("/healthz answered 200 before warm-up")
+        for kern in kernels:
+            kern.launches = 0
+        greedy, report["traffic"] = drive_deployed_traffic(server, rng)
+        launches = {kern.name: kern.launches for kern in kernels}
+        stats = get(server.port, "/stats")
+    finally:
+        server.stop()
+    leaks = eng.pool_leak_report()
+    report.update(stats=stats, launches=launches, leaks=leaks,
+                  usable_blocks=eng._pool.usable,
+                  arena_bytes=eng.kv_arena_bytes,
+                  weights=quant_layout(torch, model),
+                  weights_bf16=quant_layout(torch, model_bf16))
+    log("deployed server:", json.dumps({k: report[k] for k in (
+        "launch", "launches", "leaks", "usable_blocks", "arena_bytes",
+        "weights")}))
+    if (stats["kv_quant_mode"] != "int8" or stats["kv_pool"] != "paged"
+            or leaks is not None or any(launches.values())):
+        raise AssertionError(f"deployed server: {stats}, {launches}, "
+                             f"{leaks}")
+    diverged = []
+    for p, new, seq in greedy:
+        d = stream_divergence(torch, model, p, new, seq)
+        if d is not None:
+            diverged.append(d)
+    report["greedy_checked"] = len(greedy)
+    report["greedy_exact"] = len(greedy) - len(diverged)
+    report["greedy_diverged"] = diverged
+    log(f"deployed greedy (paged int8): {report['greedy_exact']} of "
+        f"{len(greedy)} streams equal greedy_decode; diverged {diverged}")
+    if not all(d["near_tie"] for d in diverged):
+        raise AssertionError(f"deployed streams diverge off a near tie: "
+                             f"{diverged}")
+
+    # The same command line on the dense pool: its admission prefill
+    # runs the flash kernel on the raw prompt and writes the int8 cache.
+    dense, report["dense_launch"] = launch_deployed(serve, paged=False)
+    deng = dense.engine
+    if deng.paged or deng.kv_quant != "int8":
+        raise AssertionError("CEA_TPU_PAGED_KV=0 did not build a dense "
+                             "int8 engine")
+    try:
+        prefills0 = deng.prefills
+        for kern in kernels:
+            kern.launches = 0
+        dense_greedy = []
+        for n in DEPLOY_PROMPTS:
+            p = rng.integers(0, MODEL["vocab_size"], n).tolist()
+            status, body = post(dense.port, {"prompts": [p],
+                                             "max_new_tokens": DEPLOY_NEW})
+            if status != 200:
+                raise AssertionError(f"dense int8: {status} {body}")
+            dense_greedy.append((p, body["sequences"][0]))
+        dense_launches = {kern.name: kern.launches for kern in kernels}
+        admissions = deng.prefills - prefills0
+    finally:
+        dense.stop()
+    mismatches = []
+    for p, seq in dense_greedy:
+        want = decode.greedy_decode(dense.engine._model, torch.tensor([p]),
+                                    DEPLOY_NEW)[0].tolist()
+        if want != seq:
+            mismatches.append(dict(prompt_len=len(p), first_diff=next(
+                i for i, (a, b) in enumerate(zip(want, seq)) if a != b)
+                - len(p)))
+    report["dense"] = dict(launches=dense_launches, admissions=admissions,
+                           greedy_checked=len(dense_greedy),
+                           mismatches=mismatches,
+                           leaks=deng.pool_leak_report())
+    log("deployed dense int8:", json.dumps(report["dense"]))
+    layers = MODEL["num_layers"]
+    if (dense_launches["flash_fwd"] != layers * admissions
+            or admissions != len(dense_greedy)
+            or any(n for k, n in dense_launches.items() if k != "flash_fwd")):
+        raise AssertionError(f"dense int8 launches: {dense_launches} for "
+                             f"{admissions} admissions")
+    if mismatches:
+        raise AssertionError(f"dense int8 greedy differs: {mismatches}")
+    launches = {k: launches[k] + dense_launches[k] for k in launches}
+
+    report["arenas"] = arena_sizes(torch, decode, model_bf16)
+    report["int4"] = int4_engine_run(torch, decode, model_bf16, rng)
+    log("deployed arenas:", json.dumps(report["arenas"]), "int4 run:",
+        json.dumps(report["int4"]))
+    report["times"] = time_deployment(torch, decode, eng, deng, model_bf16,
+                                      dense_bf16, rng)
+    log("deployed times:", json.dumps(report["times"]))
+    del server, dense, eng, deng, model
+    torch.cuda.empty_cache()
     return report, launches
 
 
@@ -1456,6 +1883,10 @@ def main():
     all_kernels = attention.KERNELS + xent.KERNELS
     report["paged"], paged_launches = drive_paged(
         torch, model, server.engine, all_kernels, rng)
+
+    # The deployment phase: lm-serving.yaml's command line.
+    report["deployed"], deployed_launches = drive_deployment(
+        torch, all_kernels, model, server.engine, rng)
     del server
     torch.cuda.empty_cache()
 
@@ -1512,6 +1943,7 @@ def main():
         if name == "flash_fwd":
             by_path["serving"] = launches
         by_path["paged_serving"] = paged_launches[name]
+        by_path["deployed_serving"] = deployed_launches[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",

@@ -29,6 +29,12 @@ shape behind both; the weight-decay mask of the trainer reads the
 flax ranks from it (the attention biases are rank 2-3 in flax and
 rank 1 here).
 
+A ``weights="int8"`` tree (``models.quantized.convert_params_int8``,
+or ``quantize_lm`` here) holds ``kernel_q`` int8 [in, *out], ``scale``
+f32 [*out] and ``bias`` [*out] at the attention and MLP projections;
+they become ``Int8Linear``'s int8 ``weight`` [out, in], ``scale`` [out]
+and ``bias`` [out], which ``load_lm`` casts to the compute dtype.
+
 The image models (ResNet, MnistMLP, InceptionV3) name their modules by
 their flax paths, so ``image_layout`` reads the table from the model
 itself: Conv HWIO <-> OIHW, Dense [in, out] <-> Linear [out, in], BN
@@ -41,23 +47,32 @@ import numpy as np
 import torch
 
 from .layers import _TRUNC_STD, BatchNorm, Conv
+from .quantized import convert_params_int8
 from .transformer import TransformerLM
 
 
 def _dense(tree, path):
-    """flax Dense/DenseGeneral leaf -> (Linear weight, bias)."""
+    """flax Dense/DenseGeneral leaf -> {suffix: value}: (weight, bias)
+    of a Linear, or (weight, scale, bias) of an Int8Linear for an
+    Int8DenseGeneral node (``kernel_q`` int8)."""
     node = tree
     for key in path:
         node = node[key]
+    if "kernel_q" in node:
+        kernel = np.asarray(node["kernel_q"])
+        return {"weight": kernel.reshape(kernel.shape[0], -1).T,
+                "scale": np.asarray(node["scale"]).reshape(-1),
+                "bias": np.asarray(node["bias"]).reshape(-1)}
     kernel = np.asarray(node["kernel"])
-    return kernel.reshape(kernel.shape[0], -1).T, node["bias"].reshape(-1)
+    return {"weight": kernel.reshape(kernel.shape[0], -1).T,
+            "bias": np.asarray(node["bias"]).reshape(-1)}
 
 
 def _norm(tree, path):
     node = tree
     for key in path:
         node = node[key]
-    return node["scale"], node["bias"]
+    return {"weight": node["scale"], "bias": node["bias"]}
 
 
 def _count_leaves(tree):
@@ -68,8 +83,11 @@ def _count_leaves(tree):
 
 def flax_shapes(config):
     """{port state_dict name: (flax leaf path, flax shape)} for a
-    TransformerLM ``config`` (its keyword arguments)."""
+    TransformerLM ``config`` (its keyword arguments); with
+    ``weights="int8"`` the projections' ``kernel_q``, ``scale`` and
+    ``bias``."""
     e, v = config["embed_dim"], config["vocab_size"]
+    quant = config.get("weights", "native") == "int8"
     heads = config["num_heads"]
     kv = config.get("num_kv_heads") or heads
     d = e // heads
@@ -79,8 +97,11 @@ def flax_shapes(config):
         out["pos_embed.weight"] = (("pos_embed", "embedding"),
                                    (config["max_seq_len"], e))
 
-    def dense(name, path, in_dim, out_shape):
-        out[f"{name}.weight"] = (path + ("kernel",), (in_dim, *out_shape))
+    def dense(name, path, in_dim, out_shape, quantized=quant):
+        kernel = "kernel_q" if quantized else "kernel"
+        out[f"{name}.weight"] = (path + (kernel,), (in_dim, *out_shape))
+        if quantized:
+            out[f"{name}.scale"] = (path + ("scale",), tuple(out_shape))
         out[f"{name}.bias"] = (path + ("bias",), tuple(out_shape))
 
     def norm(name, path):
@@ -100,7 +121,7 @@ def flax_shapes(config):
         dense(f"{name}.mlp_in", (blk, "Dense_0"), e, (hidden,))
         dense(f"{name}.mlp_out", (blk, "Dense_1"), hidden, (e,))
     norm("ln_f", ("LayerNorm_0",))
-    dense("lm_head", ("lm_head",), e, (v,))
+    dense("lm_head", ("lm_head",), e, (v,), quantized=False)
     return out
 
 
@@ -118,8 +139,10 @@ def params_to_flax(model_or_state_dict, config):
             f"{sorted(set(state) ^ set(shapes))}")
     tree = {}
     for name, (path, shape) in shapes.items():
-        value = state[name].detach().to("cpu", torch.float32).numpy()
-        if path[-1] == "kernel":
+        value = state[name].detach().cpu()
+        value = (value.numpy() if path[-1] == "kernel_q"
+                 else value.to(torch.float32).numpy())
+        if path[-1] in ("kernel", "kernel_q"):
             value = value.T  # Linear [out, in] -> Dense [in, out]
         node = tree
         for key in path[:-1]:
@@ -129,16 +152,19 @@ def params_to_flax(model_or_state_dict, config):
 
 
 def params_from_flax(tree):
-    """flax TransformerLM params (a nested mapping of arrays) ->
-    a state_dict for the port's TransformerLM (f32 CPU tensors)."""
+    """flax TransformerLM params (a nested mapping of arrays, native or
+    weights="int8") -> a state_dict for the port's TransformerLM (CPU
+    tensors: int8 quantized weights, f32 everything else)."""
     out = {}
 
     def tensor(value):
         # np.array copies: the tree's arrays may be read-only views.
+        if np.asarray(value).dtype == np.int8:
+            return torch.from_numpy(np.array(value))
         return torch.from_numpy(np.array(value, np.float32))
 
-    def put(name, pair, suffixes=("weight", "bias")):
-        for suffix, value in zip(suffixes, pair):
+    def put(name, leaves):
+        for suffix, value in leaves.items():
             out[f"{name}.{suffix}"] = tensor(value)
 
     out["tok_embed.weight"] = tensor(tree["tok_embed"]["embedding"])
@@ -163,24 +189,25 @@ def params_from_flax(tree):
     put("ln_f", _norm(tree, ("LayerNorm_0",)))
     put("lm_head", _dense(tree, ("lm_head",)))
     if len(out) != _count_leaves(tree):
-        # A leaf this converter does not know (int8 weights carry
-        # scales, for one) must not be dropped silently.
+        # A leaf this converter does not know must not be dropped
+        # silently.
         raise ValueError(
             f"flax tree has {_count_leaves(tree)} leaves, converted "
-            f"{len(out)}: not a native-weights TransformerLM tree")
+            f"{len(out)}: not a TransformerLM tree")
     return out
 
 
 def init_flax_layout_params(config, seed):
-    """A random numpy tree in the flax TransformerLM layout, made from
-    ``seed`` with numpy alone (no JAX). Kernels are lecun-normal
+    """A random numpy tree in the flax TransformerLM layout of the
+    native weights (``quantize_lm`` makes the int8 tree from it), made
+    from ``seed`` with numpy alone (no JAX). Kernels are lecun-normal
     (std 1/sqrt(fan_in)), embeddings normal with std 1/sqrt(E);
     biases and norm affines get small random values so that a
     conversion that drops or misplaces them shows."""
     rng = np.random.default_rng(seed)
     e = config["embed_dim"]
     tree = {}
-    for path, shape in flax_shapes(config).values():
+    for path, shape in flax_shapes(dict(config, weights="native")).values():
         leaf = path[-1]
         std = {"embedding": e ** -0.5,
                "kernel": shape[0] ** -0.5}.get(leaf, 0.02)
@@ -319,16 +346,37 @@ def load_image_model(model, variables):
     return model
 
 
+def quantize_lm(config, tree):
+    """A native flax-layout tree -> the ``weights="int8"`` tree of the
+    same ``config``, through ``convert_params_int8`` (numpy alone), as
+    the demo launcher's ``--quantize-weights=int8`` converts. The
+    template's biases are f32 (numpy has no bfloat16): ``load_lm``
+    rounds them to the compute dtype, where the flax conversion
+    rounds them to bf16."""
+    template = {}
+    for path, shape in flax_shapes(dict(config, weights="int8")).values():
+        node = template
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.zeros(
+            shape, np.int8 if path[-1] == "kernel_q" else np.float32)
+    return convert_params_int8(template, tree)
+
+
 def load_lm(config, tree, device="cuda", dtype=torch.bfloat16,
             trainable=False, attention_fn=None):
     """Build the port's TransformerLM from ``config`` (TransformerLM
     keyword arguments) on ``device`` and load a flax-layout tree into
-    it. Runs on the card unless the caller asks for ``device="cpu"``.
+    it (native, or int8 with ``weights="int8"`` in ``config``). Runs on
+    the card unless the caller asks for ``device="cpu"``.
 
     For serving (the default) the parameters are held in the compute
     ``dtype`` and frozen, in eval mode. ``trainable=True`` holds them
     in f32 (flax's param_dtype), with ``requires_grad``, in train
-    mode."""
+    mode; int8 weights serve only."""
+    if trainable and config.get("weights", "native") != "native":
+        raise ValueError("int8 weights are for serving; "
+                         "trainable=True needs native weights")
     param_dtype = torch.float32 if trainable else dtype
     model = TransformerLM(**config, dtype=dtype, device=device,
                           param_dtype=param_dtype,

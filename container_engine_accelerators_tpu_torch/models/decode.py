@@ -26,8 +26,10 @@ Counterpart of container_engine_accelerators_tpu/models/decode.py:
   content-keyed prefix index, copy-on-write forks of the partial
   boundary block and the host spill tier; and the dense slot pool
   (``CEA_TPU_PAGED_KV=0`` or ``paged=False``), whose admission
-  prefill runs the flash kernel. Quantized caches and speculation are
-  not ported yet and raise.
+  prefill runs the flash kernel. Either pool holds its cache in the
+  mode ``kv_quant`` / ``CEA_TPU_KV_QUANT`` asks for (bf16, int8, int4)
+  with the model's weights as they are; speculation is not ported yet
+  and raises.
 
 JAX's programs are pure; here the engine's cache is updated in place
 (the dense admission prefill writes straight into its slot's row
@@ -238,16 +240,18 @@ def _slot_sample(raw, seen, knobs, generators):
 
 
 @torch.inference_mode()
-def greedy_decode(model, prompt, max_new_tokens):
+def greedy_decode(model, prompt, max_new_tokens, kv_quant=None):
     """Greedy generation of ``max_new_tokens`` after ``prompt``
     ([B, P] ints). Returns the [B, P + max_new_tokens] int64 sequence
     (prompt included) on the model's device: one forward pass fills
-    the cache with the whole prompt, then one step per new token."""
+    the cache with the whole prompt, then one step per new token. The
+    cache is in the model's kv_cache_dtype, or in ``kv_quant`` ("bf16",
+    "int8", "int4") as decode() on a ``kv_cache_dtype`` clone."""
     prompt = torch.as_tensor(prompt, device=model.device).long()
     b, p = prompt.shape
     if max_new_tokens <= 0:
         return prompt.clone()
-    cache = model.init_cache(b, p + max_new_tokens)
+    cache = model.init_cache(b, p + max_new_tokens, quant=kv_quant)
     logits = model(prompt, cache, 0)
     tok = torch.argmax(logits[:, -1], dim=-1)
     out = [prompt, tok[:, None]]
@@ -371,8 +375,8 @@ class _BlockPool:
 
     def configure_spill(self, bytes_limit, fetch_block):
         """Arm the spill tier: ``fetch_block(bid)`` returns the block's
-        contents as one host tensor (the engine's device-to-host copy);
-        ``bytes_limit`` bounds host residency (LRU past it)."""
+        contents as a tuple of host tensors (the engine's device-to-host
+        copy); ``bytes_limit`` bounds host residency (LRU past it)."""
         self.spill_bytes_limit = int(bytes_limit)
         self._fetch_block = fetch_block
 
@@ -399,7 +403,8 @@ class _BlockPool:
             return
         data = self._fetch_block(bid)
         entry = {"keys": keys, "data": data,
-                 "nbytes": int(data.numel() * data.element_size())}
+                 "nbytes": int(sum(a.numel() * a.element_size()
+                                   for a in data))}
         self._spill_seq += 1
         entry["seq"] = self._spill_seq
         self._spill_lru[entry["seq"]] = entry
@@ -672,6 +677,14 @@ class SlotDecodeEngine:
     (``slots * ceil(slot_len / block_size)`` usable blocks) plus
     ``pin_reserve_tokens``' blocks plus the trash block.
 
+    **Quantized KV** (``kv_quant`` / ``CEA_TPU_KV_QUANT``: bf16, int8,
+    int4): the arena (or the dense pool) holds the cache in that mode,
+    whatever the model's own ``kv_cache_dtype`` (bf16 keeps it), with
+    the model's weights unchanged; the default block count is the
+    dense pool's bytes in the model's own mode divided by the served
+    mode's bytes a token, so int8 and int4 hold ~2x and ~4x the bf16
+    blocks.
+
     **Spill tier** (``kv_spill`` / ``CEA_TPU_KV_SPILL``, default on;
     budget ``kv_spill_bytes`` / ``CEA_TPU_KV_SPILL_BYTES``): a
     registered free block's contents are copied to host memory when
@@ -690,16 +703,17 @@ class SlotDecodeEngine:
                 f"{model.max_seq_len}")
         if slots < 1 or slot_len < 2:
             raise ValueError("need slots >= 1 and slot_len >= 2")
-        quant = kv_quant_mode(kv_quant)
-        if quant != "bf16":
-            raise not_ported(f"kv_quant={quant!r}")
         if draft_model is not None or spec_k:
             raise not_ported("speculative decoding (draft_model)")
+        # The requested mode wins over the model's own ("bf16" keeps
+        # the model's); the caches are made in it, so the weights are
+        # shared, where the JAX engine clones the module.
+        quant = kv_quant_mode(kv_quant)
         self._model = model
         self.device = model.device
         self.slots = int(slots)
         self.slot_len = int(slot_len)
-        self.kv_quant = _model_quant_mode(model)
+        self.kv_quant = _model_quant_mode(model) if quant == "bf16" else quant
         self.paged = (paged_kv_enabled() if paged is None
                       else bool(paged))
         if self.paged:
@@ -719,6 +733,8 @@ class SlotDecodeEngine:
             if nb is not None:
                 nb = int(nb)
             else:
+                # Equal memory: the dense pool's bytes in the model's
+                # own mode buy this many blocks in the served mode.
                 usable = int(self.slots * self._n_blk
                              * kv_token_bytes(model)
                              / kv_token_bytes(model, quant))
@@ -745,9 +761,10 @@ class SlotDecodeEngine:
             self._pinned = []
             self._buckets = (sorted({int(b) for b in buckets})
                              if buckets else None)
-            self._cache = model.init_paged_cache(nb, bs)
+            self._cache = model.init_paged_cache(nb, bs, self.kv_quant)
         else:
-            self._cache = model.init_cache(self.slots, self.slot_len)
+            self._cache = model.init_cache(self.slots, self.slot_len,
+                                           self.kv_quant)
         # Exact resident KV bytes (what kv_block_stats reports).
         self.kv_arena_bytes = int(sum(t.numel() * t.element_size()
                                       for layer in self._cache
@@ -800,7 +817,8 @@ class SlotDecodeEngine:
         row = self._row(tokens)
         _, _, echo, _ = _slot_prefill(
             self._model, row, int(prompt_len),
-            self._model.init_cache(1, row.shape[1]), SamplingKnobs(1),
+            self._model.init_cache(1, row.shape[1], self.kv_quant),
+            SamplingKnobs(1),
             torch.Generator(device=self.device))
         return echo.cpu().numpy()
 
@@ -916,33 +934,36 @@ class SlotDecodeEngine:
             self._pool.committed -= 1
 
     def _fetch_block(self, bid):
-        """The spill tier's capture: one arena block's K and V of every
-        layer, [2 * layers, block_size, Hkv, D], copied to host memory
-        in one transfer. Called by the pool when a registered block is
-        reused, between forwards on the engine's thread."""
-        return torch.stack([a[bid] for layer in self._cache
-                            for a in layer]).cpu()
+        """The spill tier's capture: one arena block of every layer,
+        one host tensor per cache leaf (K, V and, quantized, their
+        scales; their dtypes and widths differ), each [layers,
+        block_size, Hkv, ...] and copied in one transfer. Called by the
+        pool when a registered block is reused, between forwards on the
+        engine's thread."""
+        return tuple(torch.stack([layer[i][bid] for layer in self._cache])
+                     .cpu() for i in range(len(self._cache[0])))
 
     def _copy_block(self, src, dst):
         """Copy-on-write: arena block ``src`` into ``dst``, every
-        layer's K and V."""
+        layer's K and V (and scales)."""
         for layer in self._cache:
             for a in layer:
                 a[dst] = a[src]
 
     def _rehydrate(self, pairs, spill_data):
         """Upload spilled block contents into freshly allocated arena
-        blocks: one host-to-device transfer per admission, then one
-        scatter per layer's K and V; timed (synchronized on the card)
-        into the pool's rehydrate samples."""
+        blocks: one host-to-device transfer per cache leaf and
+        admission, then one scatter per layer and leaf; timed
+        (synchronized on the card) into the pool's rehydrate
+        samples."""
         t0 = time.perf_counter()
         dests = torch.as_tensor([bid for bid, _ in pairs],
                                 device=self.device)
-        payload = torch.stack([spill_data[key] for _, key in pairs]).to(
-            self.device)                     # [n, 2 * layers, bs, Hkv, D]
-        arenas = [a for layer in self._cache for a in layer]
-        for i, a in enumerate(arenas):
-            a[dests] = payload[:, i]
+        for i in range(len(self._cache[0])):
+            payload = torch.stack([spill_data[key][i] for _, key in pairs]
+                                  ).to(self.device)  # [n, layers, bs, ...]
+            for li, layer in enumerate(self._cache):
+                layer[i][dests] = payload[:, li]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._pool.note_rehydrate(len(pairs), time.perf_counter() - t0)
@@ -1218,8 +1239,8 @@ class SlotDecodeEngine:
             row = self._row(tokens)
             generator = torch.Generator(device=self.device)
             generator.manual_seed(int(seed))
-            view = [(k[slot:slot + 1], v[slot:slot + 1])
-                    for k, v in self._cache]
+            view = [tuple(a[slot:slot + 1] for a in layer)
+                    for layer in self._cache]
             first, first_lp, echo, seen_row = _slot_prefill(
                 self._model, row, int(prompt_len), view, knobs, generator)
         # Rewind the slot's position to its true prompt length (the

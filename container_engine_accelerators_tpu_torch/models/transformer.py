@@ -52,6 +52,20 @@ is one [num_blocks, block_size, Hkv, D] arena per layer; a step's
 block_size], p % block_size), and the read gathers each row's blocks
 back into position order before the same grouped product. No Pallas
 kernel lies on these cached paths: the JAX package runs them in XLA.
+
+A quantized cache (``kv_cache_dtype`` "int8" or "int4", or the mode a
+cache is made in, ``init_cache(..., quant=)``) holds four buffers a
+layer: K and V as symmetric int8 rows (int4: two values a byte, uint8
+[..., D/2]) and one f32 scale per (position, head) for each, [..., Hkv,
+1]. A step quantizes its K/V before the write; the grouped product
+converts the integers to the compute dtype at the product and folds
+the K scales into the scores and the V scales into the probabilities,
+as the flax module does. The mode travels with the cache, so the
+engine serves a mode other than the model's own with the same weights.
+
+``weights="int8"`` replaces the attention and MLP projections with
+``models.quantized.Int8Linear`` (embeddings, norms and the f32 lm_head
+stay native), as the flax module's ``weights="int8"`` does.
 """
 
 import math
@@ -62,8 +76,59 @@ from torch import nn
 
 from ..ops.attention import flash_attention
 from ..utils import not_ported
+from .quantized import Int8Linear
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+
+def _quantize_rows_int8(x):
+    """Symmetric int8 quantization per trailing-dim row: (int8 values,
+    f32 scale with a keepdim trailing axis); x ~= values * scale. The
+    flax module's arithmetic: divide (never multiply by a reciprocal),
+    round half to even, clip to [-127, 127]. The divisors are tensors:
+    on CUDA torch turns a division by a Python number into a product
+    with its reciprocal, which rounds differently."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_rows_int4(x):
+    """Symmetric int4 quantization per trailing-dim row, packed two
+    values a byte along the (even) head dim: (uint8 [..., D/2], f32
+    scale [..., 1]). Pair (x[2i], x[2i+1]) sits in the low and high
+    nibbles of byte i, biased by +8 so [-7, 7] stores as [1, 15]. The
+    divisions are ``_quantize_rows_int8``'s."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 7.0)
+    q = torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int32) + 8
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    return (lo | (hi << 4)).to(torch.uint8), scale
+
+
+def _unpack_int4(packed):
+    """Inverse of the ``_quantize_rows_int4`` pack: uint8 [..., D/2] ->
+    int8 [..., D] in [-7, 7], integer arithmetic only."""
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(
+        packed.shape[:-1] + (2 * packed.shape[-1],))
+
+
+def check_kv_cache_dtype(kv_cache_dtype, head_dim):
+    """The flax module's checks of a cache mode: None, "int8" or
+    "int4", and int4 only with an even head dim."""
+    if kv_cache_dtype not in (None, "int8", "int4"):
+        raise ValueError(
+            f"unsupported kv_cache_dtype {kv_cache_dtype!r}; "
+            f"use None, \"int8\", or \"int4\"")
+    if kv_cache_dtype == "int4" and head_dim % 2:
+        raise ValueError(
+            f"kv_cache_dtype=\"int4\" packs value pairs along the "
+            f"head dim and needs it even, got {head_dim}")
 
 
 def apply_rope(x, positions, base=10000.0):
@@ -107,6 +172,15 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def _linear(quantized, in_features, out_features, dtype, param_dtype,
+            device):
+    """``Linear``, or its weight-only int8 counterpart (the flax
+    module's ``_linear``)."""
+    if quantized:
+        return Int8Linear(in_features, out_features, dtype, device)
+    return Linear(in_features, out_features, dtype, param_dtype, device)
+
+
 class Embedding(nn.Embedding):
     """flax ``nn.Embed(dtype=...)``: the looked-up rows in the compute
     dtype. Gathering first and casting the rows is the same lookup as
@@ -147,7 +221,8 @@ class CausalSelfAttention(nn.Module):
 
     def __init__(self, embed_dim, num_heads, num_kv_heads=None,
                  rope=False, dtype=torch.bfloat16, device=None,
-                 param_dtype=torch.float32, attention_fn=None):
+                 param_dtype=torch.float32, attention_fn=None,
+                 weights="native"):
         super().__init__()
         kv = num_kv_heads or num_heads
         if num_heads % kv:
@@ -159,13 +234,14 @@ class CausalSelfAttention(nn.Module):
         self.attention_fn = attention_fn or flash_attention
         d = self.head_dim
         dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        quant = weights == "int8"
         self.ln = LayerNorm(embed_dim, dtype, device)
         if kv == num_heads:
-            self.qkv = Linear(embed_dim, 3 * num_heads * d, **dd)
+            self.qkv = _linear(quant, embed_dim, 3 * num_heads * d, **dd)
         else:
-            self.q = Linear(embed_dim, num_heads * d, **dd)
-            self.kv = Linear(embed_dim, 2 * kv * d, **dd)
-        self.proj = Linear(embed_dim, embed_dim, **dd)
+            self.q = _linear(quant, embed_dim, num_heads * d, **dd)
+            self.kv = _linear(quant, embed_dim, 2 * kv * d, **dd)
+        self.proj = _linear(quant, embed_dim, embed_dim, **dd)
 
     def _project(self, h):
         b, s, _ = h.shape
@@ -182,7 +258,8 @@ class CausalSelfAttention(nn.Module):
         """``cache``: None (full causal forward) or this layer's
         (K, V) buffers, updated in place: dense [B, L, Hkv, D], or
         with ``block_table`` the paged arenas [num_blocks, block_size,
-        Hkv, D]; ``index``: the write offset, an int or a [B] tensor
+        Hkv, D]; a quantized cache adds the K and V scales, (K, V,
+        K scale, V scale); ``index``: the write offset, an int or a [B] tensor
         of per-row positions (the only form the paged cache takes).
         ``chunk_attends_cache``: a multi-token chunk at an int offset
         attends the cache (the paged admission prefill) instead of
@@ -202,7 +279,7 @@ class CausalSelfAttention(nn.Module):
 
     def _cached_attention(self, q, k, v, cache, index, block_table,
                           chunk_attends_cache):
-        cache_k, cache_v = cache
+        cache_k = cache[0]
         b, q_len, heads, d = q.shape
         steps = torch.arange(q_len, device=q.device)
         if isinstance(index, int):
@@ -226,28 +303,38 @@ class CausalSelfAttention(nn.Module):
             pos = index[:, None]                               # [B, 1]
         if self.rope:
             q, k = apply_rope(q, pos), apply_rope(k, pos)
+        if len(cache) == 4:
+            quantize = (_quantize_rows_int4 if cache_k.dtype == torch.uint8
+                        else _quantize_rows_int8)
+            kq, ks = quantize(k)
+            vq, vs = quantize(v)
+            writes = (kq, vq, ks, vs)
+        else:
+            writes = (k, v)
         # In-place cache writes. Per-row positions must lie inside the
         # buffer: the slot engine clamps free rows into the row.
         if block_table is not None:
-            _paged_write(cache_k, block_table, index, k[:, 0])
-            _paged_write(cache_v, block_table, index, v[:, 0])
-            keys = _paged_read(cache_k, block_table)
-            values = _paged_read(cache_v, block_table)
+            for buf, val in zip(cache, writes):
+                _paged_write(buf, block_table, index, val[:, 0])
+            reads = [_paged_read(buf, block_table) for buf in cache]
         else:
             if isinstance(index, int):
-                cache_k[:, index:index + q_len] = k
-                cache_v[:, index:index + q_len] = v
+                for buf, val in zip(cache, writes):
+                    buf[:, index:index + q_len] = val
             else:
                 rows = torch.arange(b, device=q.device)
-                cache_k[rows, index] = k[:, 0]
-                cache_v[rows, index] = v[:, 0]
-            keys, values = cache_k, cache_v
+                for buf, val in zip(cache, writes):
+                    buf[rows, index] = val[:, 0]
+            reads = list(cache)
         if isinstance(index, int) and q_len > 1 and not chunk_attends_cache:
             # One-shot prefill into an empty cache: causal attention
-            # among the chunk's own tokens, on the flash kernel.
+            # among the chunk's own tokens, on the flash kernel (no
+            # int8 round trip for the chunk's own scores).
             return flash_attention(q, _expand_kv(k, heads),
                                    _expand_kv(v, heads), causal=True)
-        return _grouped_attention(q, keys, values, pos)
+        if cache_k.dtype == torch.uint8:
+            reads[:2] = [_unpack_int4(r) for r in reads[:2]]
+        return _grouped_attention(q, pos, *reads)
 
 
 def _paged_write(arena, table, pos, val):
@@ -275,12 +362,15 @@ def _paged_read(arena, table):
     return arena[table].flatten(1, 2)
 
 
-def _grouped_attention(q, keys, values, pos):
+def _grouped_attention(q, pos, keys, values, k_scale=None, v_scale=None):
     """Queries [B, Q, H, D] at positions ``pos`` [B, Q] against the
     cache [B, L, Hkv, D] with the mask k_pos <= q_pos. Grouped form:
     queries [B, Hkv, G*Q, D] attend their KV head directly, with no
     repeated copy of the cache; f32 scores and softmax, probabilities
-    cast to the compute dtype before the product with V."""
+    cast to the compute dtype before the product with V. A quantized
+    cache's integer K/V convert to the compute dtype at the products
+    (exact up to 127 in bf16); its scales [B, L, Hkv, 1] multiply the
+    scaled scores (K) and the f32 probabilities (V)."""
     b, q_len, heads, d = q.shape
     kv_heads = keys.shape[2]
     g = heads // kv_heads
@@ -290,12 +380,17 @@ def _grouped_attention(q, keys, values, pos):
     kt = keys.to(dt).permute(0, 2, 3, 1)                       # [B,Hkv,D,L]
     scores = torch.matmul(qg.float(), kt.float()) / math.sqrt(d)
     scores = scores.view(b, kv_heads, g, q_len, -1)
+    if k_scale is not None:
+        # [B, L, Hkv, 1] -> [B, Hkv, 1, 1, L] over (group, query).
+        scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None, None]
     k_pos = torch.arange(keys.shape[1], device=q.device)
     keep = k_pos[None, None, :] <= pos[:, :, None]              # [B,Q,L]
     scores = torch.where(keep[:, None, None], scores,
                          torch.full_like(scores, -1e9))
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    probs = probs.view(b, kv_heads, g * q_len, -1)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[..., 0].permute(0, 2, 1)[:, :, None, None]
+    probs = probs.to(dt).view(b, kv_heads, g * q_len, -1)
     out = torch.matmul(probs, values.to(dt).transpose(1, 2))
     out = out.view(b, kv_heads, g, q_len, d).permute(0, 3, 1, 2, 4)
     return out.reshape(b, q_len, heads, d)
@@ -307,15 +402,16 @@ class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, mlp_ratio=4,
                  num_kv_heads=None, rope=False, dtype=torch.bfloat16,
                  device=None, param_dtype=torch.float32,
-                 attention_fn=None):
+                 attention_fn=None, weights="native"):
         super().__init__()
         self.attn = CausalSelfAttention(embed_dim, num_heads,
                                         num_kv_heads, rope, dtype, device,
-                                        param_dtype, attention_fn)
+                                        param_dtype, attention_fn, weights)
         self.ln = LayerNorm(embed_dim, dtype, device)
         dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.mlp_in = Linear(embed_dim, mlp_ratio * embed_dim, **dd)
-        self.mlp_out = Linear(mlp_ratio * embed_dim, embed_dim, **dd)
+        quant = weights == "int8"
+        self.mlp_in = _linear(quant, embed_dim, mlp_ratio * embed_dim, **dd)
+        self.mlp_out = _linear(quant, mlp_ratio * embed_dim, embed_dim, **dd)
 
     def forward(self, x, cache=None, index=None, block_table=None,
                 chunk_attends_cache=False):
@@ -330,9 +426,12 @@ class TransformerLM(nn.Module):
     ``attention_fn(q, k, v, causal=True)`` replaces the flash attention
     of the full causal forward (None: ``flash_attention``), as the flax
     module's argument does. ``param_dtype`` is the type the parameters
-    are held in (module docstring). Options of the flax module that
-    this port does not carry yet (int8/int4 KV cache, sliding window,
-    int8 weights, ring slack) raise ValueError. The flax module's
+    are held in (module docstring). ``kv_cache_dtype`` (None, "int8",
+    "int4") is the mode of the caches ``init_cache`` and
+    ``init_paged_cache`` make by default; ``weights="int8"`` holds the
+    projections as ``Int8Linear``. Options of the flax module that this
+    port does not carry yet (sliding window, ring slack) raise
+    ValueError. The flax module's
     ``kv_pages`` and ``chunk_attends_cache`` clone flags are arguments
     of ``forward`` here (``block_table``, ``chunk_attends_cache``), so
     the constructor refuses them too."""
@@ -350,10 +449,12 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 f"pos_embedding must be 'learned' or 'rope': "
                 f"{pos_embedding!r}")
+        if weights not in ("native", "int8"):
+            raise ValueError(
+                f"weights must be 'native' or 'int8': {weights!r}")
+        check_kv_cache_dtype(kv_cache_dtype, embed_dim // num_heads)
         for option, value, default in (
-                ("kv_cache_dtype", kv_cache_dtype, None),
                 ("attention_window", attention_window, 0),
-                ("weights", weights, "native"),
                 ("chunk_attends_cache", chunk_attends_cache, False),
                 ("ring_slack", ring_slack, 0),
                 ("kv_pages", kv_pages, None)):
@@ -367,6 +468,7 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.max_seq_len, self.mlp_ratio = max_seq_len, mlp_ratio
         self.pos_embedding, self.dtype = pos_embedding, dtype
+        self.kv_cache_dtype, self.weights = kv_cache_dtype, weights
         dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.tok_embed = Embedding(vocab_size, embed_dim, **dd)
         if pos_embedding == "learned":
@@ -374,7 +476,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, num_kv_heads,
                   pos_embedding == "rope", dtype, device, param_dtype,
-                  attention_fn)
+                  attention_fn, weights)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(embed_dim, dtype, device)
         self.lm_head = nn.Linear(embed_dim, vocab_size, device=device)
@@ -383,24 +485,40 @@ class TransformerLM(nn.Module):
     def device(self):
         return self.tok_embed.weight.device
 
-    def init_cache(self, batch, length):
-        """Per-layer dense (K, V) buffers [batch, length, Hkv, D] in
-        the compute dtype, zero-filled."""
+    def _cache_buffers(self, lead, quant):
+        """Every layer's zero-filled cache buffers of leading shape
+        ``lead``: (K, V) [*lead, Hkv, D] in the compute dtype, or in the
+        quantized modes (K, V, K scale, V scale) with int8 [*lead, Hkv,
+        D] (int4: uint8 [*lead, Hkv, D/2]) values and f32 [*lead, Hkv,
+        1] scales. ``quant``: None for the model's own kv_cache_dtype,
+        or the engine's mode name ("bf16" is the compute dtype)."""
         kv = self.num_kv_heads or self.num_heads
-        shape = (batch, length, kv, self.embed_dim // self.num_heads)
-        return [tuple(torch.zeros(shape, dtype=self.dtype,
-                                  device=self.device) for _ in range(2))
+        d = self.embed_dim // self.num_heads
+        mode = (self.kv_cache_dtype if quant is None
+                else None if quant == "bf16" else quant)
+        check_kv_cache_dtype(mode, d)
+        if mode is None:
+            specs = [(d, self.dtype)] * 2
+        else:
+            width = d // 2 if mode == "int4" else d
+            values = torch.uint8 if mode == "int4" else torch.int8
+            specs = [(width, values)] * 2 + [(1, torch.float32)] * 2
+        return [tuple(torch.zeros(tuple(lead) + (kv, w), dtype=dt,
+                                  device=self.device) for w, dt in specs)
                 for _ in range(self.num_layers)]
 
-    def init_paged_cache(self, num_blocks, block_size):
-        """Per-layer paged (K, V) arenas [num_blocks, block_size, Hkv,
-        D] in the compute dtype, zero-filled: one arena per layer
-        shared by every row, addressed through a block table."""
-        kv = self.num_kv_heads or self.num_heads
-        shape = (num_blocks, block_size, kv, self.embed_dim // self.num_heads)
-        return [tuple(torch.zeros(shape, dtype=self.dtype,
-                                  device=self.device) for _ in range(2))
-                for _ in range(self.num_layers)]
+    def init_cache(self, batch, length, quant=None):
+        """Per-layer dense cache buffers [batch, length, ...], zero-
+        filled, in the model's kv_cache_dtype or the mode ``quant``
+        ("bf16", "int8", "int4"; see ``_cache_buffers``)."""
+        return self._cache_buffers((batch, length), quant)
+
+    def init_paged_cache(self, num_blocks, block_size, quant=None):
+        """Per-layer paged arenas [num_blocks, block_size, ...], zero-
+        filled, in the model's kv_cache_dtype or the mode ``quant``: one
+        arena per layer shared by every row, addressed through a block
+        table."""
+        return self._cache_buffers((num_blocks, block_size), quant)
 
     def forward(self, tokens, cache=None, index=None, block_table=None,
                 chunk_attends_cache=False):

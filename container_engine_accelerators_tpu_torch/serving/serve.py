@@ -15,26 +15,32 @@
 """Launch the PyTorch LM generation server.
 
     python -m container_engine_accelerators_tpu_torch.serving.serve \
-        --device cuda --num-kv-heads 2 --pos-embedding rope \
-        --max-new-tokens 128 --port 8500
+        --model=transformer --model-name=lm --port=8500 \
+        --max-seq-len=2048 --max-new-tokens=128 --kv-cache-dtype=int8 \
+        --num-kv-heads=2 --pos-embedding=rope --quantize-weights=int8 \
+        --tokenizer=byte --warm
 
 The ``--model transformer`` flags of demo/serving/serve.py that the
-port supports, plus ``--device`` (cuda by default; there is no CPU
-fallback) and ``--seed`` for the random weights. Weights are made in
-the flax layout from the seed and carried over by models/convert.py;
-loading a checkpoint (``--model-dir``) waits for the checkpoint-format
-port, as do the int8 KV cache and int8 weights.
+port supports (the line above is demo/serving/lm-serving.yaml's), plus
+``--device`` (cuda by default; there is no CPU fallback) and ``--seed``
+for the random weights. Weights are made in the flax layout from the
+seed and carried over by models/convert.py; ``--quantize-weights=int8``
+quantizes that tree at load, as the demo launcher does. Loading a
+checkpoint (``--model-dir``) waits for the checkpoint-format port, and
+``--warm-filters`` is validated and then ignored, as in the demo.
 """
 
 import argparse
+import json
 import signal
 import sys
 import threading
 
 import torch
 
-from ..models.convert import init_flax_layout_params, load_lm
+from ..models.convert import init_flax_layout_params, load_lm, quantize_lm
 from .server import GenerationServer
+from .tokenizer import load_tokenizer
 
 
 def build_parser():
@@ -58,11 +64,25 @@ def build_parser():
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--warm", action="store_true",
+                   help="warm every bucket up in the background; "
+                        "/healthz answers 503 until done")
+    p.add_argument("--warm-filters", default="",
+                   help="JSON list of sampling-option dicts, accepted "
+                        "for the demo launcher's command line and "
+                        "ignored (every variant runs the warm rows' "
+                        "kernels)")
     p.add_argument("--kv-cache-dtype", choices=["bfloat16", "int8"],
                    default="bfloat16",
-                   help="int8 is not yet ported")
+                   help="int8 halves KV-cache residency per replica")
+    p.add_argument("--tokenizer", default="",
+                   help="'byte' serves text in and out (a Hugging Face "
+                        "tokenizer path is not yet ported); empty "
+                        "serves token ids only")
     p.add_argument("--quantize-weights", choices=["native", "int8"],
-                   default="native", help="int8 is not yet ported")
+                   default="native",
+                   help="int8: weight-only quantization of the "
+                        "attention and MLP kernels at load time")
     p.add_argument("--model-dir", default="",
                    help="checkpoint restore is not yet ported; empty "
                         "serves random weights made from --seed")
@@ -77,23 +97,37 @@ def build_server(args):
     if args.model_dir:
         raise SystemExit("--model-dir is not yet ported to the PyTorch "
                          "server; omit it to serve random weights")
+    warm_filters = None
+    if args.warm_filters:
+        warm_filters = json.loads(args.warm_filters)
+        # A malformed spec fails startup, not the warm-up thread.
+        if (not isinstance(warm_filters, list)
+                or not all(isinstance(f, dict) for f in warm_filters)):
+            raise SystemExit("--warm-filters must be a JSON list of "
+                             f"dicts, got: {args.warm_filters!r}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
     config = dict(vocab_size=args.vocab_size, embed_dim=args.embed_dim,
                   num_layers=args.num_layers, num_heads=args.num_heads,
                   num_kv_heads=args.num_kv_heads or None,
                   pos_embedding=args.pos_embedding,
                   max_seq_len=args.max_seq_len)
+    tree = init_flax_layout_params(config, args.seed)
+    if args.quantize_weights == "int8":
+        tree = quantize_lm(config, tree)
     model = load_lm(
         dict(config, attention_window=args.attention_window,
              kv_cache_dtype=(None if args.kv_cache_dtype == "bfloat16"
                              else args.kv_cache_dtype),
              weights=args.quantize_weights),
-        init_flax_layout_params(config, args.seed), device=args.device)
+        tree, device=args.device)
     return GenerationServer(args.model_name or args.model, model,
                             port=args.port,
                             max_new_tokens=args.max_new_tokens,
-                            max_batch=args.max_batch)
+                            max_batch=args.max_batch, tokenizer=tokenizer,
+                            warm=args.warm, warm_async=True,
+                            warm_filters=warm_filters)
 
 
 def main(argv=None):

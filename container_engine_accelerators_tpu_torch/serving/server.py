@@ -14,15 +14,20 @@
 
 """HTTP LM generation server on the slot engine.
 
-Counterpart of the JAX package's ``GenerationServer`` for its
-non-streaming JSON contract:
+Counterpart of the JAX package's engine-mode ``GenerationServer``:
 
   POST /v1/models/<name>:generate
-    {"prompts": [[ids...], ...], "max_new_tokens": N,
-     "temperature": T, "top_k": K, "top_p": P, "min_p": M,
-     "repetition_penalty": R, "eos_id": E, "logprobs": bool}
-    -> {"sequences": [[...], ...][, "logprobs": [[...], ...]]}
-  GET /healthz, GET /stats, GET /v1/models/<name>
+    {"prompts": [[ids...], ...] | "text": ["...", ...],
+     "max_new_tokens": N, "temperature": T, "top_k": K, "top_p": P,
+     "min_p": M, "repetition_penalty": R, "eos_id": E,
+     "logprobs": bool, "stream": bool}
+    -> {"sequences": [[...], ...][, "logprobs": [[...], ...]]
+        [, "completions": ["...", ...]]}
+    or, with "stream": true, ndjson lines {"tokens": [t]
+    (, "completion_delta": "...")} then {"done": true} or the error
+    envelope {"error", "retryable", "request_id"}
+  GET /healthz (503 {"status": "warming"} until warm-up is done),
+  GET /stats, GET /v1/models/<name>
 
 Prompts of one request share a length and are right-padded into a
 fixed set of length buckets. One loop thread owns the engine: at every
@@ -32,10 +37,20 @@ queued rows in FIFO order while the engine has room for the head
 blocks of the row's worst-case span), and runs one decode step over
 all slots. The engine's pool is the JAX server's: paged unless
 ``CEA_TPU_PAGED_KV=0`` selects the dense pool, whose admission prefill
-runs the flash kernel. Streaming, drain and quarantine, tracing, the
-tokenizer, server-level prefix serving (``prefix_tokens``) and
-speculation are not ported yet; a request asking for streaming or text
-gets a 400 that says so.
+runs the flash kernel.
+
+With a ``tokenizer`` requests may carry text (ragged rows, each with
+its own prompt length) and responses gain the decoded generated region,
+trimmed at ``eos_id``. ``warm=True`` sends one warm row per bucket
+through the engine (the admission prefill of each width and the step,
+so the first use of every kernel, its build included, and the library
+set-up happen before traffic), drops them from the counters and only
+then lets /healthz answer 200; a failed warm-up leaves the server
+unready. A stream is one prompt whose tokens reach the client as each
+step lands; a client that leaves cancels its row, which the loop
+retires at the next step boundary. Drain and quarantine, tracing,
+server-level prefix serving (``prefix_tokens``) and speculation are
+not ported yet.
 """
 
 import collections
@@ -44,6 +59,7 @@ import logging
 import queue
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -54,16 +70,50 @@ from ..ops.attention import flash_fwd
 log = logging.getLogger(__name__)
 
 
+class _StreamBody:
+    """Iterator over a streaming response that owns its row: ``close``
+    cancels the row exactly once however far iteration got (a
+    generator never iterated runs no ``finally`` on close), and the
+    HTTP handler calls it in its own ``finally``."""
+
+    def __init__(self, gen, release, request_id):
+        self._gen = gen
+        self._release = release
+        self._released = False
+        self.request_id = request_id
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._gen)
+
+    def close(self):
+        try:
+            self._gen.close()
+        finally:
+            if not self._released:
+                self._released = True
+                self._release()
+
+
 class _Work:
     """One request row through the engine: queued -> admitted (first
-    token from the admission prefill) -> stepped -> retired."""
+    token from the admission prefill) -> stepped -> retired (EOS,
+    budget or cancel). A streamed row reports each token on
+    ``stream_q``; a warm row (``account=False``) stays out of the
+    latency and token counters, and ``no_prefix`` keeps it out of the
+    prefix index."""
 
     __slots__ = ("row", "p_len", "new", "temperature", "top_k", "top_p",
                  "min_p", "rep_pen", "eos_id", "want_lp", "seed", "done",
-                 "slot", "tokens", "lps", "score_only", "submit_t")
+                 "slot", "tokens", "lps", "score_only", "submit_t",
+                 "stream_q", "cancel", "account", "no_prefix",
+                 "request_id")
 
     def __init__(self, row, p_len, new, temperature, top_k, top_p,
-                 min_p, rep_pen, eos_id, want_lp, seed):
+                 min_p, rep_pen, eos_id, want_lp, seed, stream_q=None,
+                 account=True, no_prefix=False):
         self.row = row
         self.p_len = p_len
         self.new = new
@@ -75,12 +125,45 @@ class _Work:
         self.eos_id = eos_id
         self.want_lp = want_lp
         self.seed = seed
-        self.done = queue.Queue(maxsize=1)
+        self.stream_q = stream_q
+        self.done = queue.Queue(maxsize=1) if stream_q is None else None
+        self.cancel = threading.Event()
+        self.account = account
+        self.no_prefix = no_prefix
+        self.request_id = uuid.uuid4().hex[:12]
         self.slot = None
         self.tokens = []
         self.lps = []
         self.score_only = new == 0
         self.submit_t = time.perf_counter()
+
+
+def _stream_lines(work, decode_text, eos_id):
+    """The ndjson lines of a streamed row: {"tokens": [t]} per step
+    (with "completion_delta", the token decoded, empty at eos_id, for a
+    text request), then {"done": true}, or the error envelope
+    {"error", "retryable", "request_id"} in place of the rest."""
+    while True:
+        try:
+            item = work.stream_q.get(timeout=120)
+        except queue.Empty:
+            yield {"error": "decode timed out", "retryable": True,
+                   "request_id": work.request_id}
+            return
+        if item[0] == "tok":
+            tok = item[1]
+            line = {"tokens": [tok]}
+            if decode_text is not None:
+                line["completion_delta"] = decode_text(
+                    [] if eos_id >= 0 and tok == eos_id else [tok])
+            yield line
+        elif item[0] == "end":
+            yield {"done": True}
+            return
+        else:
+            yield {"error": item[1], "retryable": bool(item[2]),
+                   "request_id": work.request_id}
+            return
 
 
 class _EngineService:
@@ -138,6 +221,21 @@ class _EngineService:
                                 if ttft else None),
             }
 
+    def reset_counters(self):
+        """Drop warm-up's rows from the counters /stats reads: the
+        engine's steps, prefills and prefix counters, and the service's
+        admissions, retirements, tokens and first-token latencies."""
+        eng = self._engine
+        with self._lock:
+            eng.steps = 0
+            eng.row_steps = 0
+            eng.prefills = 0
+            eng.reset_prefix_counters()
+            self._admitted = 0
+            self._retired = 0
+            self._tokens = 0
+            self._ttft_s.clear()
+
     def stop(self):
         with self._lock:
             self._stop.set()
@@ -157,10 +255,10 @@ class _EngineService:
             if item is not None:
                 leftovers.append(item)
         for work in leftovers:
-            self._finish(work, error="server stopped")
+            self._finish(work, error="server stopped", retryable=True)
         self._pending.clear()
 
-    def _finish(self, work, error=None):
+    def _finish(self, work, error=None, retryable=False):
         if work.slot is not None:
             self._engine.release(work.slot)
             self._slot_work.pop(work.slot, None)
@@ -168,6 +266,13 @@ class _EngineService:
         with self._lock:
             self._inflight -= 1
             self._retired += 1
+        if work.stream_q is not None:
+            # A stream ends with its done line or its error envelope,
+            # whose retryable flag tells a recovering service from a
+            # permanent failure.
+            work.stream_q.put(("error", error, retryable) if error
+                              else ("end",))
+            return
         if error is not None:
             work.done.put(("error", error))
             return
@@ -186,15 +291,23 @@ class _EngineService:
         work.tokens.append(tok)
         if work.want_lp:
             work.lps.append(lp)
-        if len(work.tokens) == 1:
-            ttft = time.perf_counter() - work.submit_t
+        if work.account:
             with self._lock:
-                self._ttft_s.append(ttft)
-        with self._lock:
-            self._tokens += 1
+                if len(work.tokens) == 1:
+                    self._ttft_s.append(time.perf_counter() - work.submit_t)
+                self._tokens += 1
+        if work.stream_q is not None:
+            work.stream_q.put(("tok", tok))
         if (work.eos_id >= 0 and tok == work.eos_id) or (
                 len(work.tokens) >= work.new):
             self._finish(work)
+
+    @staticmethod
+    def _allow_prefix(work):
+        """Whether a row may share and register prompt-prefix blocks:
+        not a row that echoes logprobs (a shared span's echo is never
+        computed), nor a warm row."""
+        return not (work.want_lp or work.no_prefix)
 
     def _admit(self, work):
         """Admit one row (or score it). False when the engine had no
@@ -212,7 +325,7 @@ class _EngineService:
                 work.row, work.p_len, temperature=work.temperature,
                 top_k=work.top_k, top_p=work.top_p, min_p=work.min_p,
                 repetition_penalty=work.rep_pen, seed=work.seed,
-                max_new=work.new, allow_prefix=not work.want_lp)
+                max_new=work.new, allow_prefix=self._allow_prefix(work))
         except EngineCapacityError:
             self._pending.insert(0, work)
             return False
@@ -238,6 +351,14 @@ class _EngineService:
                     break
                 if item is not None:
                     self._pending.append(item)
+            # A client that left while queued gives its place back now
+            # and is never prefilled.
+            cancelled = [w for w in self._pending if w.cancel.is_set()]
+            if cancelled:
+                self._pending[:] = [w for w in self._pending
+                                    if not w.cancel.is_set()]
+                for work in cancelled:
+                    self._finish(work, error="cancelled")
             if not self._pending and not self._slot_work:
                 try:
                     item = self._queue.get(timeout=0.2)
@@ -246,17 +367,20 @@ class _EngineService:
                 if item is not None:
                     self._pending.append(item)
                 continue  # drain any burst before admitting
+            # Cancelled streams retire first: their slots admit queued
+            # rows at this boundary.
+            for work in list(self._slot_work.values()):
+                if work.cancel.is_set():
+                    self._finish(work, error="cancelled")
             # FIFO admission: the head waits rather than letting later
             # small requests starve a big one. Scoring rows need no slot
-            # and no blocks; a row that echoes logprobs neither shares
-            # nor registers a prefix (a shared span's echo is never
-            # computed).
+            # and no blocks.
             while self._pending:
                 head = self._pending[0]
                 if not head.score_only and (
                         self._engine.admission_block_cause(
                             head.row, head.p_len, head.new,
-                            allow_prefix=not head.want_lp,
+                            allow_prefix=self._allow_prefix(head),
                             repetition_penalty=head.rep_pen,
                             temperature=head.temperature) is not None):
                     break
@@ -298,10 +422,24 @@ class GenerationServer:
     """HTTP server for LM generation on the slot engine (see the module
     docstring for the contract). The model is the port's TransformerLM
     on its device; the engine's slot_len covers the largest bucket plus
-    ``max_new_tokens``, and ``CEA_TPU_PAGED_KV`` picks its pool."""
+    ``max_new_tokens``, and ``CEA_TPU_PAGED_KV`` picks its pool.
+    ``tokenizer``: a text codec (``serving.tokenizer``) whose vocab
+    fits the model's. ``warm``: warm up before /healthz answers 200, in
+    the constructor or, with ``warm_async``, on a background thread;
+    ``warm_filters`` (sampling-option dicts) are accepted and ignored
+    as in the JAX server, since every sampling variant runs the same
+    kernels as the warm rows."""
 
     def __init__(self, model_name, model, port=8500, max_new_tokens=64,
-                 max_batch=8, buckets=None, max_queue=None, host=""):
+                 max_batch=8, buckets=None, max_queue=None, host="",
+                 tokenizer=None, warm=False, warm_async=False,
+                 warm_filters=None):
+        if (tokenizer is not None
+                and tokenizer.vocab_size > model.vocab_size):
+            raise ValueError(
+                f"tokenizer vocab {tokenizer.vocab_size} exceeds "
+                f"model vocab {model.vocab_size}")
+        self._tokenizer = tokenizer
         self._name = model_name
         self._model = model
         self._max_new = max_new_tokens
@@ -333,6 +471,56 @@ class GenerationServer:
         self._httpd = ThreadingHTTPServer((host, port),
                                           self._handler_class())
         self._http_thread = None
+        self._ready = threading.Event()
+        self._ready.set()
+        del warm_filters  # accepted and ignored, as in the JAX server
+        self.warm_seconds = None
+        if warm:
+            self._ready.clear()
+            if warm_async:
+                threading.Thread(target=self._warm_in_background,
+                                 name="serving-warmup", daemon=True).start()
+            else:
+                try:
+                    self._warm_up()
+                except BaseException:
+                    self._httpd.server_close()
+                    self._service.stop()
+                    raise
+
+    def _warm_in_background(self):
+        try:
+            self._warm_up()
+        except Exception:
+            # Stay unready: the readiness probe keeps traffic away and
+            # the startup probe restarts the replica.
+            log.exception("warm-up failed; server stays unready")
+
+    def _warm_up(self):
+        """One greedy warm row per bucket (zeros, no prefix sharing,
+        two new tokens where max_new_tokens allows): each width's
+        admission prefill and the decode step run once before traffic.
+        Then the counters drop the warm rows and /healthz turns 200."""
+        t0 = time.perf_counter()
+        warm_new = min(2, self._max_new)
+        for b in self._buckets:
+            work = _Work(np.zeros((b,), np.int32), b, warm_new, 0.0, 0,
+                         1.0, 0.0, 1.0, -1, False, 0, account=False,
+                         no_prefix=True)
+            if not self._service.submit_many([work]):
+                raise RuntimeError("warm-up shed by admission control")
+            status, out = work.done.get(timeout=600)
+            if status != "ok":
+                raise RuntimeError(f"warm-up decode failed: {out}")
+        self._service.reset_counters()
+        self.warm_seconds = time.perf_counter() - t0
+        self._ready.set()
+        log.info("warm-up complete: %d buckets in %.2f s",
+                 len(self._buckets), self.warm_seconds)
+
+    @property
+    def ready(self):
+        return self._ready.is_set()
 
     @property
     def port(self):
@@ -357,10 +545,39 @@ class GenerationServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _stream(self, body):
+                """ndjson, one line per item; HTTP/1.0 and the closed
+                connection frame the body. A failure of the stream
+                machinery itself ends with a final error line; close()
+                cancels the row however the stream ended (a client
+                that left shows as a failed write)."""
+                try:
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/x-ndjson")
+                    self.end_headers()
+                    for item in body:
+                        self.wfile.write((json.dumps(item) + "\n").encode())
+                        self.wfile.flush()
+                except Exception as e:  # client gone or stream broken
+                    log.info("stream ended early: %r", e)
+                    try:
+                        self.wfile.write((json.dumps(
+                            {"error": str(e), "retryable": False,
+                             "request_id": body.request_id}) + "\n"
+                        ).encode())
+                    except OSError:
+                        pass  # the client went away
+                finally:
+                    body.close()
+
             def do_GET(self):
                 if self.path == "/healthz":
-                    self._reply(200, {"status": "ok",
-                                      "model": server._name})
+                    if server._ready.is_set():
+                        self._reply(200, {"status": "ok",
+                                          "model": server._name})
+                    else:
+                        self._reply(503, {"status": "warming",
+                                          "model": server._name})
                 elif self.path == "/stats":
                     self._reply(200, server.stats())
                 elif self.path == f"/v1/models/{server._name}":
@@ -392,7 +609,10 @@ class GenerationServer:
                 if code == 200:
                     with server._stats_lock:
                         server._requests += 1
-                self._reply(code, resp)
+                if isinstance(resp, _StreamBody):
+                    self._stream(resp)
+                else:
+                    self._reply(code, resp)
 
         return Handler
 
@@ -414,12 +634,27 @@ class GenerationServer:
         return out
 
     def _handle_post(self, payload):
-        """Validate one request (the JAX server's rules and 400
-        messages) and run it on the engine. Returns (code, body)."""
+        """Validate one request (the JAX server's rules, order and 400
+        messages) and run it on the engine. Returns (code, body); a
+        stream's body is a ``_StreamBody``."""
         try:
-            if payload.get("text") is not None:
-                return 400, {"error": "server has no tokenizer; "
-                                      "send token id prompts"}
+            texts = payload.get("text")
+            if texts is not None:
+                if self._tokenizer is None:
+                    return 400, {"error": "server has no tokenizer; "
+                                          "send token id prompts"}
+                if "prompts" in payload:
+                    return 400, {"error": "send text or prompts, "
+                                          "not both"}
+                if (not isinstance(texts, list)
+                        or not all(isinstance(t, str) for t in texts)):
+                    return 400, {"error": "text must be a list of "
+                                          "strings"}
+                prompts = [self._tokenizer.encode(t) for t in texts]
+                if any(not p for p in prompts):
+                    return 400, {"error": "text rows must encode to "
+                                          "at least one token"}
+                payload = dict(payload, prompts=prompts)
             prompts = payload["prompts"]
             new = int(payload.get("max_new_tokens", self._max_new))
             temperature = float(payload.get("temperature", 0.0))
@@ -432,9 +667,9 @@ class GenerationServer:
             stream = bool(payload.get("stream", False))
         except (KeyError, TypeError, ValueError) as e:
             return 400, {"error": f"bad request: {e}"}
-        if stream:
-            return 400, {"error": "stream is not yet ported to the "
-                                  "PyTorch server"}
+        if stream and (want_lp or rep_pen != 1.0):
+            return 400, {"error": "stream does not support logprobs "
+                                  "or repetition_penalty"}
         vocab = self._model.vocab_size
         if not -1 <= eos_id < vocab:
             return 400, {"error": f"eos_id must be -1 (off) or in "
@@ -455,7 +690,7 @@ class GenerationServer:
                                   "temperature > 0"}
         if not prompts or len(prompts) > self._max_batch:
             return 400, {"error": f"need 1..{self._max_batch} prompts"}
-        if len({len(p) for p in prompts}) != 1:
+        if texts is None and len({len(p) for p in prompts}) != 1:
             return 400, {"error": "prompts must share one length"}
         if new == 0 and not want_lp:
             return 400, {"error": "max_new_tokens 0 (scoring mode) "
@@ -464,7 +699,17 @@ class GenerationServer:
             return 400, {"error": f"max_new_tokens must be in "
                                   f"0..{self._max_new}"}
         try:
-            arr = np.asarray(prompts, dtype=np.int32)
+            if texts is not None:
+                # Text rows may be ragged: right-padded to the widest,
+                # each with its own prompt length.
+                width = max(len(p) for p in prompts)
+                arr = np.zeros((len(prompts), width), np.int32)
+                for r, p in enumerate(prompts):
+                    arr[r, :len(p)] = np.asarray(p, np.int32)
+                p_lens = [len(p) for p in prompts]
+            else:
+                arr = np.asarray(prompts, dtype=np.int32)
+                p_lens = [arr.shape[1]] * arr.shape[0]
         except (ValueError, TypeError) as e:
             return 400, {"error": f"bad prompt tokens: {e}"}
         if arr.ndim != 2 or arr.shape[1] < 1:
@@ -481,9 +726,13 @@ class GenerationServer:
         with self._stats_lock:
             seed = self._seed + 1
             self._seed += len(padded)
-        works = [_Work(row, p_len, new, temperature, top_k, top_p, min_p,
+        if stream:
+            return self._stream_post(padded[0], p_lens, new, temperature,
+                                     top_k, top_p, min_p, eos_id, seed,
+                                     texts)
+        works = [_Work(row, pl, new, temperature, top_k, top_p, min_p,
                        rep_pen, eos_id, want_lp, seed + i)
-                 for i, row in enumerate(padded)]
+                 for i, (row, pl) in enumerate(zip(padded, p_lens))]
         if not self._service.submit_many(works):
             with self._stats_lock:
                 self._shed += 1
@@ -497,13 +746,39 @@ class GenerationServer:
             if status != "ok":
                 return 500, {"error": out}
             rows.append(out)
-        resp = {"sequences": [seq[:p_len + new].tolist()
-                              for seq, _ in rows]}
+        resp = {"sequences": [seq[:pl + new].tolist()
+                              for (seq, _), pl in zip(rows, p_lens)]}
         if want_lp:
-            resp["logprobs"] = [[round(float(x), 6)
-                                 for x in lps[:p_len + new]]
-                                for _, lps in rows]
+            resp["logprobs"] = [[round(float(x), 6) for x in lps[:pl + new]]
+                                for (_, lps), pl in zip(rows, p_lens)]
+        if texts is not None:
+            # The decoded generated region, trimmed at eos_id.
+            comps = []
+            for (seq, _), pl in zip(rows, p_lens):
+                ids = seq[pl:pl + new].tolist()
+                if eos_id >= 0 and eos_id in ids:
+                    ids = ids[:ids.index(eos_id)]
+                comps.append(self._tokenizer.decode(ids))
+            resp["completions"] = comps
         return 200, resp
+
+    def _stream_post(self, row, p_lens, new, temperature, top_k, top_p,
+                     min_p, eos_id, seed, texts):
+        """One streamed row: queue it and hand back the ndjson body,
+        whose close cancels the row."""
+        if len(p_lens) != 1:
+            return 400, {"error": "stream requires exactly one prompt"}
+        if new < 1:
+            return 400, {"error": "stream requires max_new_tokens >= 1"}
+        work = _Work(row, p_lens[0], new, temperature, top_k, top_p, min_p,
+                     1.0, eos_id, False, seed, stream_q=queue.Queue())
+        if not self._service.submit_many([work]):
+            with self._stats_lock:
+                self._shed += 1
+            return 503, {"error": "server overloaded; retry"}
+        decode_text = self._tokenizer.decode if texts is not None else None
+        return 200, _StreamBody(_stream_lines(work, decode_text, eos_id),
+                                work.cancel.set, work.request_id)
 
     def serve_forever(self):
         log.info("serving model %r on :%d", self._name, self.port)

@@ -228,10 +228,10 @@ def test_dense_engine_matches_jax_engine(engines):
 
 
 def test_full_pool_and_unported_options_raise(engines):
-    """A full dense pool refuses another admission; the paged pool and
-    pin_reserve_tokens build (tests/test_torch_paging.py holds them to
-    the JAX engine), while the quantized caches and speculation still
-    raise."""
+    """A full dense pool refuses another admission; the paged pool,
+    pin_reserve_tokens and the quantized caches build
+    (tests/test_torch_paging.py and tests/test_torch_quant.py hold them
+    to the JAX engine), while speculation still raises."""
     _, eng = engines
     row = torch_parity.tokens(14, (8,))
     for _ in range(3):
@@ -247,11 +247,12 @@ def test_full_pool_and_unported_options_raise(engines):
     paged = decode.SlotDecodeEngine(model, 2, 16, paged=True,
                                     pin_reserve_tokens=8)
     assert paged.paged and paged.block_availability() == (2 + 1, 2 + 1)
-    for kwargs, what in ((dict(kv_quant="int8"), "kv_quant"),
-                         (dict(kv_quant="int4", paged=False), "kv_quant"),
-                         (dict(draft_model=model, spec_k=2), "speculative")):
-        with pytest.raises(ValueError, match=f"{what}.*not yet ported"):
-            decode.SlotDecodeEngine(model, 2, 16, **kwargs)
+    for kwargs in (dict(kv_quant="int8"), dict(kv_quant="int4", paged=False)):
+        quantized = decode.SlotDecodeEngine(model, 2, 16, **kwargs)
+        assert quantized.kv_quant == kwargs["kv_quant"]
+        assert len(quantized._cache[0]) == 4
+    with pytest.raises(ValueError, match="speculative.*not yet ported"):
+        decode.SlotDecodeEngine(model, 2, 16, draft_model=model, spec_k=2)
 
 
 def test_paged_env_gate_raises(monkeypatch):

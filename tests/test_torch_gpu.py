@@ -208,6 +208,30 @@ def test_paged_engine_copy_on_write_on_the_card(cuda):
     assert eng.pool_leak_report() is None
 
 
+@pytest.mark.parametrize("name", ["_quantize_rows_int8",
+                                  "_quantize_rows_int4"])
+def test_kv_quantizers_bitwise_card_against_cpu(cuda, name):
+    """The KV-cache quantizers on the card give the CPU's bits (values,
+    packed bytes, scales; the CPU ones are bitwise JAX's,
+    tests/test_torch_quant.py), on bf16 rows at the deployed head dim
+    with .5 ties (scale exactly 1), and the int4 unpack round-trips."""
+    gen = torch.Generator().manual_seed(2)
+    x = 3.0 * torch.randn((4, 16, 2, 64), generator=gen)
+    x[0, 0, 0] = 0.0
+    x[0, 0, 0, :5] = torch.tensor([127.0, 2.5, -3.5, 0.5, 126.5])
+    x[0, 0, 1] = 0.0
+    x[0, 0, 1, :5] = torch.tensor([7.0, 2.5, -1.5, 0.5, -6.5])
+    x = x.to(torch.bfloat16)
+    quantize = getattr(transformer, name)
+    want_q, want_s = quantize(x)
+    got_q, got_s = quantize(x.to(cuda))
+    assert torch.equal(got_q.cpu(), want_q)
+    assert torch.equal(got_s.cpu(), want_s)
+    if name.endswith("int4"):
+        assert torch.equal(transformer._unpack_int4(got_q).cpu(),
+                           transformer._unpack_int4(want_q))
+
+
 def _assert_near(got, want, dtype, what):
     """bf16: 2e-2 of the reference's largest magnitude; f32: 1e-4,
     relative once values exceed 1."""

@@ -54,7 +54,8 @@ def test_port_has_the_slice_modules():
                 "parallel.data", "parallel.train", "train",
                 "train_profile", "bench", "models.layers", "models.resnet",
                 "models.mlp", "models.inception", "ops.augment",
-                "serving.affinity"):
+                "serving.affinity", "models.quantized",
+                "serving.tokenizer"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",

@@ -20,12 +20,20 @@ are served here. Greedy responses must equal the port's greedy_decode
 and the JAX package's decode() token for token (f32 model); logprob
 rows agree with decode(return_logprobs=True) at 1e-4 (the server rounds
 them to six decimals). Invalid requests get the JAX server's 400
-bodies.
+bodies. Text requests (the byte tokenizer, on a model of vocab 256)
+get the JAX server's bodies; an ndjson stream carries the tokens of
+the same request unstreamed; warm-up holds /healthz at 503 and leaves
+no trace in /stats; the launcher takes demo/serving/lm-serving.yaml's
+command line as written, and the demo's load generator runs against
+the server.
 """
 
+import importlib.util
 import json
 import os
+import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -33,13 +41,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from container_engine_accelerators_tpu.models import decode as jax_decode
 from container_engine_accelerators_tpu.serving import server as jax_server
+from container_engine_accelerators_tpu.serving import (
+    tokenizer as jax_tokenizer,
+)
 from container_engine_accelerators_tpu_torch.models import decode
+from container_engine_accelerators_tpu_torch.models import quantized
 from container_engine_accelerators_tpu_torch.serving import serve
 from container_engine_accelerators_tpu_torch.serving import server
+from container_engine_accelerators_tpu_torch.serving import tokenizer
 from tests import torch_parity
+from tests.conftest import REPO_ROOT
 
 MAX_NEW = 8
 
@@ -58,7 +73,7 @@ def lm():
     return model, tree, torch_parity.port_lm(config, tree)
 
 
-def _server(port_model, paged_env):
+def _server(port_model, paged_env, **kwargs):
     """A started server, built with CEA_TPU_PAGED_KV set to
     ``paged_env`` (None: unset, the default pool)."""
     prev = os.environ.pop(decode.PAGED_KV_ENV, None)
@@ -67,7 +82,7 @@ def _server(port_model, paged_env):
     try:
         s = server.GenerationServer("lm", port_model, port=0,
                                     max_new_tokens=MAX_NEW, max_batch=4,
-                                    host="127.0.0.1")
+                                    host="127.0.0.1", **kwargs)
     finally:
         os.environ.pop(decode.PAGED_KV_ENV, None)
         if prev is not None:
@@ -193,6 +208,11 @@ _BAD = [
     {"max_new_tokens": 2},
     {"prompts": [[1, 2]], "max_new_tokens": "many"},
     {"text": ["hi"]},
+    {"prompts": [[1, 2]], "stream": True, "logprobs": True},
+    {"prompts": [[1, 2]], "stream": True, "repetition_penalty": 1.2},
+    {"prompts": [[1, 2], [3, 4]], "stream": True},
+    {"prompts": [[1, 2]], "stream": True, "max_new_tokens": 0},
+    {"prompts": [[1, 2]], "stream": True, "max_new_tokens": -1},
 ]
 
 
@@ -213,8 +233,11 @@ def test_bad_requests_get_the_jax_servers_400s(srv, jax_srv, case):
 
 
 def test_unported_request_options_and_routes(srv):
-    code, body = _generate(srv, {"prompts": [[1, 2]], "stream": True})
-    assert code == 400 and "not yet ported" in body["error"]
+    """Streaming is served now (see the stream tests below); a stream
+    the contract refuses gets its 400, and unknown routes 404."""
+    code, body = _generate(srv, {"prompts": [[1, 2]], "stream": True,
+                                 "logprobs": True})
+    assert code == 400 and "stream does not support" in body["error"]
     assert _call(srv, "/v1/models/other:generate", {})[0] == 404
     assert _call(srv, "/nope")[0] == 404
 
@@ -261,23 +284,34 @@ def test_launcher_builds_a_cpu_server_and_refuses_the_rest():
              "--max-new-tokens", "4", "--max-batch", "2", "--port", "0"]
     parser = serve.build_parser()
     assert parser.parse_args([]).device == "cuda"
-    s = serve.build_server(parser.parse_args(flags + ["--device", "cpu"]))
-    try:
-        assert s.engine.slots == 2 and s.engine.device.type == "cpu"
-    finally:
-        s.stop()
+    for extra, kv_quant, int8_layers in (
+            ([], "bf16", 0), (["--kv-cache-dtype", "int8"], "int8", 0),
+            (["--quantize-weights", "int8"], "bf16", 5)):
+        s = serve.build_server(parser.parse_args(
+            flags + ["--device", "cpu"] + extra))
+        try:
+            assert s.engine.slots == 2 and s.engine.device.type == "cpu"
+            assert s.engine.kv_quant == kv_quant
+            assert int8_layers == sum(
+                isinstance(m, quantized.Int8Linear)
+                for m in s.engine._model.modules())
+        finally:
+            s.stop()
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             serve.build_server(parser.parse_args(flags))
-    for extra in (["--kv-cache-dtype", "int8"],
-                  ["--quantize-weights", "int8"],
-                  ["--attention-window", "16"]):
+    for extra in (["--attention-window", "16"],
+                  ["--tokenizer", "/models/tok"]):
         with pytest.raises(ValueError, match="not yet ported"):
             serve.build_server(parser.parse_args(
                 flags + ["--device", "cpu"] + extra))
     with pytest.raises(SystemExit, match="model-dir"):
         serve.build_server(parser.parse_args(
             flags + ["--device", "cpu", "--model-dir", "/ckpt"]))
+    for bad in ('{"top_k": 40}', '[1, 2]', '[{"top_k": 40}, 3]'):
+        with pytest.raises(SystemExit, match="list of dicts"):
+            serve.build_server(parser.parse_args(
+                flags + ["--device", "cpu", "--warm-filters", bad]))
 
 
 def test_paged_server_shares_a_resident_prefix(srv, lm):
@@ -315,3 +349,338 @@ def test_dense_pool_serves_the_same_streams(dense_srv, lm):
                                        "max_new_tokens": MAX_NEW})
     assert code == 200 and body["sequences"] == want.tolist()
     assert dense_srv.engine.pool_leak_report() is None
+
+
+# -- text in and out: the byte tokenizer ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def byte_lm():
+    model, tree, config = torch_parity.flax_lm("rope_gqa", vocab=256)
+    return model, tree, torch_parity.port_lm(config, tree)
+
+
+@pytest.fixture(scope="module")
+def byte_srv(byte_lm):
+    s = _server(byte_lm[2], None, tokenizer=tokenizer.ByteTokenizer())
+    yield s
+    s.stop()
+
+
+@pytest.fixture(scope="module")
+def jax_byte_srv(byte_lm):
+    model, tree, _ = byte_lm
+    s = jax_server.GenerationServer("lm", model, tree, port=0,
+                                    max_new_tokens=MAX_NEW, max_batch=4,
+                                    tokenizer=jax_tokenizer.ByteTokenizer())
+    yield s
+    s.stop()
+
+
+def test_byte_tokenizer_is_the_jax_codec():
+    ours, theirs = tokenizer.ByteTokenizer(), jax_tokenizer.ByteTokenizer()
+    assert ours.vocab_size == theirs.vocab_size == 256
+    for text in ("Hello, world", "", "naïve 東京 ✓", "a\nb\tc"):
+        assert ours.encode(text) == theirs.encode(text)
+        assert ours.decode(ours.encode(text)) == text
+    for ids in ([72, 105, 300, 195, 169, -1, 65], [226, 156], [999]):
+        assert ours.decode(ids) == theirs.decode(ids)
+    assert isinstance(tokenizer.load_tokenizer("byte"),
+                      tokenizer.ByteTokenizer)
+    with pytest.raises(ValueError, match="not yet ported"):
+        tokenizer.load_tokenizer("/models/llama-tokenizer")
+
+
+def test_text_requests_match_the_jax_server(byte_srv, jax_byte_srv):
+    """Ragged text rows, then the same rows with an eos_id the first
+    row generates: sequences and completions (trimmed at eos_id) equal
+    the JAX server's, and the token-id request of the same rows."""
+    texts = ["Hello, world", "hi", "naïve"]
+    payload = {"text": texts, "max_new_tokens": MAX_NEW}
+    code, body = _generate(byte_srv, payload)
+    assert code == 200, body
+    assert (code, body) == jax_byte_srv._handle_post(dict(payload))
+    ids = [list(t.encode()) for t in texts]
+    for row, seq, text in zip(ids, body["sequences"], body["completions"]):
+        assert seq[:len(row)] == row and len(seq) == len(row) + MAX_NEW
+        assert text == tokenizer.ByteTokenizer().decode(seq[len(row):])
+        code, one = _generate(byte_srv, {"prompts": [row],
+                                         "max_new_tokens": MAX_NEW})
+        assert code == 200 and one["sequences"] == [seq]
+    eos = body["sequences"][0][len(ids[0]) + 2]
+    payload = dict(payload, eos_id=eos)
+    code, trimmed = _generate(byte_srv, payload)
+    assert (code, trimmed) == jax_byte_srv._handle_post(dict(payload))
+    first = trimmed["sequences"][0][len(ids[0]):]
+    assert trimmed["completions"][0] == tokenizer.ByteTokenizer().decode(
+        first[:first.index(eos)])
+
+
+_BAD_TEXT = [
+    {"text": ["hi"], "prompts": [[1, 2]]},
+    {"text": "hi"},
+    {"text": ["hi", 3]},
+    {"text": ["hi", ""]},
+    {"text": ["x" * 41]},
+    {"text": ["hi"] * 5},
+    {"text": ["hi"], "stream": True, "logprobs": True},
+    {"text": ["hi", "there"], "stream": True},
+    {"text": ["hi"], "max_new_tokens": 0},
+]
+
+
+@pytest.mark.parametrize("case", range(len(_BAD_TEXT)))
+def test_bad_text_requests_get_the_jax_servers_400s(byte_srv, jax_byte_srv,
+                                                    case):
+    want = jax_byte_srv._handle_post(dict(_BAD_TEXT[case]))
+    assert want[0] == 400
+    assert _generate(byte_srv, _BAD_TEXT[case]) == (want[0], want[1])
+
+
+def test_tokenizer_vocab_must_fit_the_model(lm):
+    with pytest.raises(ValueError,
+                       match="tokenizer vocab 256 exceeds model vocab 64"):
+        server.GenerationServer("lm", lm[2], port=0, host="127.0.0.1",
+                                tokenizer=tokenizer.ByteTokenizer())
+
+
+# -- ndjson streaming --------------------------------------------------------
+
+
+def _stream(srv, payload):
+    """(Content-Type, the ndjson lines) of a streamed request."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/v1/models/lm:generate",
+        data=json.dumps(payload).encode())
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        assert resp.status == 200
+        lines = [json.loads(line) for line in resp.read().splitlines()]
+        return resp.headers["Content-Type"], lines
+
+
+def test_stream_equals_the_unstreamed_response(srv, lm):
+    """One {"tokens": [t]} line a step, then {"done": true}: the tokens
+    of the same greedy request unstreamed (and of JAX decode()); with
+    an eos_id the stream ends at it."""
+    model, tree, _ = lm
+    prompt = torch_parity.tokens(27, (1, 10))
+    want = np.asarray(jax_decode.decode(model, tree, jnp.asarray(prompt),
+                                        MAX_NEW))[0, 10:].tolist()
+    payload = {"prompts": prompt.tolist(), "max_new_tokens": MAX_NEW}
+    code, body = _generate(srv, payload)
+    assert code == 200 and body["sequences"][0][10:] == want
+    kind, lines = _stream(srv, dict(payload, stream=True))
+    assert kind == "application/x-ndjson"
+    assert lines[-1] == {"done": True}
+    assert [line["tokens"] for line in lines[:-1]] == [[t] for t in want]
+    eos = want[3]
+    _, lines = _stream(srv, dict(payload, stream=True, eos_id=eos))
+    cut = want.index(eos) + 1
+    assert lines == [{"tokens": [t]} for t in want[:cut]] + [{"done": True}]
+
+
+def test_text_stream_carries_completion_deltas(byte_srv):
+    payload = {"text": ["Hello"], "max_new_tokens": MAX_NEW}
+    code, body = _generate(byte_srv, payload)
+    assert code == 200
+    gen = body["sequences"][0][5:]
+    _, lines = _stream(byte_srv, dict(payload, stream=True, eos_id=gen[-1]))
+    cut = gen.index(gen[-1])
+    codec = tokenizer.ByteTokenizer()
+    assert lines[:-1] == [
+        {"tokens": [t],
+         "completion_delta": "" if i == cut else codec.decode([t])}
+        for i, t in enumerate(gen[:cut + 1])]
+    assert lines[-1] == {"done": True}
+
+
+def _wait_idle(srv, timeout=60):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        stats = srv.stats()
+        if stats["slots_active"] == 0 and stats["queue_depth"] == 0:
+            return stats
+        time.sleep(0.02)
+    raise AssertionError(f"server not idle: {srv.stats()}")
+
+
+def test_cancelled_stream_frees_its_slot_and_blocks(srv, monkeypatch):
+    """Closing a stream cancels its row: with the step held, the row
+    that has its first token is closed, and the loop retires it at the
+    next step boundary with one more token, slot and blocks returned. A
+    client that hangs up mid-stream leaves no row behind either."""
+    _wait_idle(srv)
+    gate = threading.Event()
+    real_step = srv.engine.step
+
+    def held_step():
+        gate.wait(30)
+        return real_step()
+
+    monkeypatch.setattr(srv.engine, "step", held_step)
+    before = srv.stats()
+    code, body = srv._handle_post({
+        "prompts": torch_parity.tokens(28, (1, 6)).tolist(),
+        "max_new_tokens": MAX_NEW, "stream": True})
+    assert code == 200 and set(next(body)) == {"tokens"}
+    body.close()
+    gate.set()
+    after = _wait_idle(srv)
+    assert after["retired"] == before["retired"] + 1
+    assert after["tokens_generated"] - before["tokens_generated"] == 2
+    assert srv.engine.pool_leak_report() is None
+    monkeypatch.setattr(srv.engine, "step", real_step)
+
+    request = json.dumps({"prompts": torch_parity.tokens(29, (1, 6)).tolist(),
+                          "max_new_tokens": MAX_NEW, "stream": True})
+    with socket.create_connection(("127.0.0.1", srv.port), timeout=30) as c:
+        c.sendall((f"POST /v1/models/lm:generate HTTP/1.0\r\n"
+                   f"Content-Length: {len(request)}\r\n\r\n{request}"
+                   ).encode())
+        seen = b""
+        while b'{"tokens": [' not in seen:
+            chunk = c.recv(4096)
+            assert chunk, seen
+            seen += chunk
+    _wait_idle(srv)
+    assert srv.engine.pool_leak_report() is None
+    assert srv.engine.free_slots() == srv.engine.slots
+
+
+# -- warm-up ------------------------------------------------------------------
+
+
+def test_warm_up_gates_healthz_and_leaves_stats_clean(lm, monkeypatch):
+    """/healthz answers 503 {"status": "warming"} while the warm rows
+    run and 200 after; the rows went through the engine (one prefill
+    per bucket width) but /stats counts none of them, and the prefix
+    index holds none of their blocks."""
+    release = threading.Event()
+    real_warm = server.GenerationServer._warm_up
+
+    def held_warm(self):
+        release.wait(30)
+        real_warm(self)
+
+    monkeypatch.setattr(server.GenerationServer, "_warm_up", held_warm)
+    s = _server(lm[2], None, warm=True, warm_async=True)
+    try:
+        assert not s.ready
+        assert _call(s, "/healthz") == (503, {"status": "warming",
+                                              "model": "lm"})
+        release.set()
+        deadline = time.monotonic() + 60
+        while _call(s, "/healthz")[0] != 200:
+            assert time.monotonic() < deadline, "warm-up did not finish"
+            time.sleep(0.02)
+        assert s.warm_seconds > 0
+        assert dict(s.engine.prefill_widths) == {16: 1, 32: 1, 40: 1}
+        stats = _call(s, "/stats")[1]
+        for key in ("requests_admitted", "retired", "tokens_generated",
+                    "engine_steps", "engine_prefills", "prefix_lookups",
+                    "prefix_hits", "requests"):
+            assert stats[key] == 0, key
+        assert stats["ttft_p50_ms"] is None
+        assert s.engine.block_pool_state()["indexed_keys"] == 0
+        assert s.engine.pool_leak_report() is None
+        code, body = _generate(s, {"prompts": [[1, 2, 3]],
+                                   "max_new_tokens": 2})
+        assert code == 200 and _call(s, "/stats")[1]["retired"] == 1
+    finally:
+        s.stop()
+
+
+def test_failed_warm_up_leaves_the_server_unready(lm, monkeypatch):
+    """An admission that fails during warm-up: the background warm-up
+    logs it and /healthz stays 503; the synchronous one raises from the
+    constructor."""
+
+    def broken_admit(*args, **kwargs):
+        raise RuntimeError("synthetic device failure")
+
+    monkeypatch.setattr(decode.SlotDecodeEngine, "admit", broken_admit)
+    s = _server(lm[2], None, warm=True, warm_async=True)
+    try:
+        for t in threading.enumerate():
+            if t.name == "serving-warmup":
+                t.join(timeout=60)
+                assert not t.is_alive()
+        assert not s.ready
+        assert _call(s, "/healthz")[0] == 503
+    finally:
+        s.stop()
+    with pytest.raises(RuntimeError, match="warm-up decode failed"):
+        server.GenerationServer("lm", lm[2], port=0, host="127.0.0.1",
+                                max_new_tokens=MAX_NEW, warm=True)
+
+
+# -- the deployment's command line and its load generator ---------------------
+
+
+def _manifest_command():
+    with open(os.path.join(REPO_ROOT, "demo", "serving",
+                           "lm-serving.yaml")) as f:
+        deployment = next(yaml.safe_load_all(f))
+    return deployment["spec"]["template"]["spec"]["containers"][0]["command"]
+
+
+def test_launcher_takes_the_deployment_command_line():
+    """lm-serving.yaml's command, read from the file, parses as
+    written; with the widths cut for the CPU (vocab 256 for the byte
+    tokenizer), --device cpu and --port 0 appended, it builds the int8
+    server (int8 KV cache, int8 projections, byte tokenizer) and warms
+    it up in the background before it serves text."""
+    command = _manifest_command()
+    assert command[:2] == ["python3", "/demos/serving/serve.py"]
+    argv = command[2:]
+    args = serve.build_parser().parse_args(argv)
+    assert (args.kv_cache_dtype, args.quantize_weights, args.tokenizer,
+            args.warm, args.num_kv_heads, args.pos_embedding) == (
+                "int8", "int8", "byte", True, 2, "rope")
+    small = ["--vocab-size=256", "--embed-dim=32", "--num-layers=2",
+             "--num-heads=4", "--max-seq-len=64", "--max-new-tokens=8",
+             "--max-batch=2", "--device=cpu", "--port=0"]
+    s = serve.build_server(serve.build_parser().parse_args(argv + small))
+    s.start()
+    try:
+        model = s.engine._model
+        assert model.kv_cache_dtype == "int8" and model.weights == "int8"
+        assert s.engine.kv_quant == "int8" and len(s.engine._cache[0]) == 4
+        assert sum(isinstance(m, quantized.Int8Linear)
+                   for m in model.modules()) == 10
+        deadline = time.monotonic() + 60
+        while _call(s, "/healthz")[0] != 200:
+            assert time.monotonic() < deadline, "warm-up did not finish"
+            time.sleep(0.02)
+        code, body = _generate(s, {"text": ["Hello"], "max_new_tokens": 4})
+        assert code == 200 and len(body["completions"]) == 1
+        stats = _call(s, "/stats")[1]
+        assert stats["kv_quant_mode"] == "int8" and stats["retired"] == 1
+    finally:
+        s.stop()
+
+
+def _load_generator():
+    spec = importlib.util.spec_from_file_location(
+        "load_generator",
+        os.path.join(REPO_ROOT, "demo", "serving", "load_generator.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["json", "ndjson"])
+def test_load_generator_payloads_are_served(srv, capsys, stream):
+    """demo/serving/load_generator.py --mode generate (random prompt
+    lengths, greedy and sampled rows, --stream) against the server:
+    every request answered."""
+    argv = ["--mode", "generate", "--model-name", "lm", "--host",
+            "127.0.0.1", "--port", str(srv.port), "-n", "8",
+            "--parallelism", "2", "--max-prompt-len", "16",
+            "--max-new-tokens", "4", "--vocab-size", "64"]
+    _load_generator().main(argv + (["--stream"] if stream else []))
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["requests"] == 8 and summary["errors"] == 0, summary
+    if stream:
+        assert summary["ttfb_p50_ms"] > 0
+    assert srv.engine.pool_leak_report() is None

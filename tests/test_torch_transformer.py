@@ -159,8 +159,7 @@ def test_converter_layout_and_leaf_count():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("kv_cache_dtype", "int8"), ("kv_cache_dtype", "int4"),
-    ("attention_window", 64), ("kv_pages", (8, 16)), ("weights", "int8"),
+    ("attention_window", 64), ("kv_pages", (8, 16)),
     ("chunk_attends_cache", True), ("ring_slack", 2)])
 def test_unported_options_raise(option, value):
     with pytest.raises(ValueError, match=f"{option}=.*not yet ported"):

@@ -40,20 +40,22 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 
 
 @functools.lru_cache(maxsize=None)
-def _flax_params(variant, seed):
-    model = TransformerLM(**TINY, **VARIANTS[variant])
+def _flax_params(variant, seed, vocab):
+    model = TransformerLM(**dict(TINY, vocab_size=vocab), **VARIANTS[variant])
     params = jax.jit(model.init)(jax.random.PRNGKey(seed),
                                  jnp.zeros((1, 8), jnp.int32))["params"]
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def flax_lm(variant="learned_mha", dtype="f32", seed=1):
+def flax_lm(variant="learned_mha", dtype="f32", seed=1,
+            vocab=TINY["vocab_size"]):
     """(flax model, a fresh copy of its params as a numpy tree, the
     port's config). The params are f32 in both dtypes, as flax keeps
-    them; the model's dtype is its compute dtype."""
-    config = dict(TINY, **VARIANTS[variant])
+    them; the model's dtype is its compute dtype. ``vocab`` 256 fits
+    the byte tokenizer."""
+    config = dict(TINY, vocab_size=vocab, **VARIANTS[variant])
     model = TransformerLM(dtype=DTYPES[dtype][0], **config)
-    tree = jax.tree_util.tree_map(np.copy, _flax_params(variant, seed))
+    tree = jax.tree_util.tree_map(np.copy, _flax_params(variant, seed, vocab))
     return model, tree, config
 
 
