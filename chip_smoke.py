@@ -102,7 +102,28 @@
    few steps with the same launch counts; Inception-v3 at 299x299,
    batch 32, 3 steps on the plain loss (no kernel launch). Phases 3
    and 4 also hold and time the cross-entropy kernels at the image
-   logits' shapes ([128, 1000] and [256, 10] f32).
+   logits' shapes ([128, 1000] and [256, 10] f32);
+9. runs phase 5-7's architecture with a sliding window of W 512: (a)
+   6 training steps through ``train.run`` with ``--attention-window 512``
+   (sequence 2048, batch 8: 8/8/8/1/1 launches a step, the loss falls)
+   and one batch-2 step against the plain step with the band (phase
+   7's limits); on the same weights and tokens, the windowed logits
+   equal the causal model's before position 512 (bf16 limit) and
+   differ after it; (b) ``decode()`` on the ring (prompts of 1500 and
+   16 tokens, 128 new tokens each): 8 flash_fwd launches a call, ring
+   leaves of [1, 512, 2, 64], every greedy token the argmax of one
+   cache-free windowed forward over the generated sequence or at a
+   near tie (PERF.md §2's 2e-2 rule), ``stream_decode`` (chunks of 16)
+   and ``beam_search(num_beams=1)`` equal to decode() or held to the
+   same rule; (c) ``serve.py --attention-window 512`` on the paged
+   pool (2 short and 4 long requests of up to 1500 tokens, concurrent)
+   and on the dense pool (4 requests): no kernel launch, each greedy
+   stream equal to decode() on the ring (greedy_decode, on the ring
+   too) or first differing at a near tie, the pool clean when idle;
+   (d) informational: the three flash kernels at [8, 2048, 8, 64] with
+   the band beside their bounds and SDPA with the band as a boolean
+   mask, the ring's KV bytes a row against the full-length cache, and
+   a decode step on each.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -153,6 +174,19 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 12
 TRAIN_WARMUP = 2
 PLAIN_BATCH = 2  # the plain attention's [B, H, S, S] f32 scores fit
+# The window phase (9): the same architecture with a sliding window of
+# W 512, a quarter of the context. No public configuration of this
+# architecture fixes a width; at 512 the serving buckets 1024 and 1920
+# wrap the ring while 16 and 128 do not, and at S 2048 the band keeps
+# 917 760 of the 2 098 176 causal pairs, so the kernels skip tiles.
+WINDOW = 512
+WINDOW_STEPS = 6
+WINDOW_WARMUP = 2
+WINDOW_PROMPTS = (1500, 16)        # decode() on the ring
+WINDOW_SERVE = (16, 100, 1024, 1200, 1350, 1500)   # 2 short, 4 long
+WINDOW_DENSE = (16, 100, 1024, 1500)
+WINDOW_NEW = 32
+WINDOW_STEP_POS = 1600             # the timed decode step's position
 # The kernel step against the plain step: loss within 1e-3 relative,
 # each gradient within 5e-2 relative L2. Both steps compute in bf16
 # with f32 sums but round at different points (the flash forward's
@@ -596,46 +630,48 @@ def check_xent(torch, xent):
     return results
 
 
-def time_training_kernels(torch, attn, xent):
-    """Phase 4 at the training slice's shapes: the flash forward, dQ
-    and dK/dV at q/k/v [8, 2048, 8, 64] bf16 causal, the cross-entropy
-    at logits [16376, 32000] f32. Library yardsticks (never called by
-    the port): SDPA forward; SDPA's backward for dQ and dK/dV together;
-    F.cross_entropy(reduction="none") and its backward."""
+def time_flash_kernels(torch, attn, window, gen):
+    """The flash forward, dQ and dK/dV at q/k/v [8, 2048, 8, 64] bf16
+    causal (with the ``window`` band when > 0): {name: row} with each
+    kernel's time, its plain version's, the library yardstick's (never
+    called by the port: SDPA forward, causal or with the band as a
+    boolean mask; its backward for dQ and dK/dV together), the error
+    and the bound over the kept pairs."""
     import torch.nn.functional as F
     heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
     shape = (TRAIN_BATCH, TRAIN_SEQ, heads, d)
     bf16 = "torch.bfloat16"
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     q, k, v, do, lse, delta = bwd_inputs(torch, attn, shape, torch.bfloat16,
-                                         True, 0, gen, False)
+                                         True, window, gen, False)
+    mask = (dict(attn_mask=attn._keep_mask(TRAIN_SEQ, window, "cuda"))
+            if window else dict(is_causal=True))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **mask)
     sdpa_g = do.transpose(1, 2)
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, (qt, kt, vt), sdpa_g, retain_graph=True), 20)
     rows = {}
-    row = dict(shape=list(shape), dtype=bf16)
+    row = dict(shape=list(shape), dtype=bf16, window=window)
     row["kernel_ms"] = cuda_ms(lambda: attn.flash_fwd.launch(
-        q, k, v, True, 0), 20)
+        q, k, v, True, window), 20)
     row["plain_ms"] = cuda_ms(lambda: attn.flash_attention_reference(
-        q, k, v, True, 0), 5)
+        q, k, v, True, window), 5)
     row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
-    o, _ = attn.flash_fwd.launch(q, k, v, True, 0)
-    ro, _ = attn.flash_attention_reference(q, k, v, True, 0)
+        qt, kt, vt, **mask), 20)
+    o, _ = attn.flash_fwd.launch(q, k, v, True, window)
+    ro, _ = attn.flash_attention_reference(q, k, v, True, window)
     row["max_abs_err"] = (o.float() - ro.float()).abs().max().item()
     row["bound_ms"], row["bound_by"] = attention_bound_ms(
-        *shape, bf16, True, 0, "fwd")
+        *shape, bf16, True, window, "fwd")
     rows["flash_fwd"] = row
-    args = (q, k, v, do, lse, delta, True, 0)
+    args = (q, k, v, do, lse, delta, True, window)
     for name, kern, plain in (
             ("flash_bwd_dq", attn.flash_bwd_dq,
              attn.flash_attention_dq_reference),
             ("flash_bwd_dkv", attn.flash_bwd_dkv,
              attn.flash_attention_dkv_reference)):
-        row = dict(shape=list(shape), dtype=bf16)
+        row = dict(shape=list(shape), dtype=bf16, window=window)
         row["kernel_ms"] = cuda_ms(lambda: kern.launch(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 5)
         row["library_ms"] = sdpa_bwd_ms
@@ -646,11 +682,21 @@ def time_training_kernels(torch, attn, xent):
         row["max_abs_err"] = max((a.float() - b.float()).abs().max().item()
                                  for a, b in zip(got, want))
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
-            *shape, bf16, True, 0, name.split("_")[-1])
+            *shape, bf16, True, window, name.split("_")[-1])
         rows[name] = row
-    del q, k, v, do, lse, delta, qt, kt, vt, sdpa_out, sdpa_g, o, ro
+    del q, k, v, do, lse, delta, qt, kt, vt, sdpa_out, sdpa_g, o, ro, mask
     torch.cuda.empty_cache()
+    return rows
 
+
+def time_training_kernels(torch, attn, xent):
+    """Phase 4 at the training slice's shapes: the flash forward, dQ
+    and dK/dV at q/k/v [8, 2048, 8, 64] bf16 causal
+    (``time_flash_kernels``), the cross-entropy at logits [16376,
+    32000] f32 against F.cross_entropy(reduction="none") and its
+    backward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = time_flash_kernels(torch, attn, 0, gen)
     n, c = (TRAIN_SEQ - 1) * TRAIN_BATCH, MODEL["vocab_size"]
     rows.update(time_xent(torch, xent, n, c, gen, 20))
     # The next-token objective's copy of logits[:, :-1] (a view that
@@ -1705,11 +1751,11 @@ def drive_training(torch, train, kernels):
     return summary, launches
 
 
-def check_plain_step(torch, attn, convert, train):
+def check_plain_step(torch, attn, convert, train, window=0):
     """One batch-2 step's loss and gradients through the kernels
     against the same step through the plain versions (attention_fn =
-    the plain forward, loss = the plain cross_entropy_loss), on the
-    same weights and batch."""
+    the plain forward, with the band when ``window``; loss = the plain
+    cross_entropy_loss), on the same weights and batch."""
     import functools
 
     from container_engine_accelerators_tpu_torch.models.transformer import (
@@ -1722,14 +1768,15 @@ def check_plain_step(torch, attn, convert, train):
         SyntheticTokenLoader,
         cross_entropy_loss,
     )
-    config = train.lm_config(train.parse_args(train_argv(1, 0, PLAIN_BATCH)))
+    config = train.lm_config(train.parse_args(
+        train_argv(1, 0, PLAIN_BATCH) + ["--attention-window", str(window)]))
     tree = convert.init_flax_layout_params(config, SEED)
     tokens = next(SyntheticTokenLoader(PLAIN_BATCH, TRAIN_SEQ,
                                        config["vocab_size"],
                                        device="cuda"))[0]
 
-    def plain_attention(q, k, v, causal):
-        return attn.flash_attention_reference(q, k, v, causal)[0]
+    def plain_attention(q, k, v, causal, window=0):
+        return attn.flash_attention_reference(q, k, v, causal, window)[0]
 
     def step(attention_fn, loss):
         model = convert.load_lm(config, tree, device="cuda",
@@ -1750,7 +1797,7 @@ def check_plain_step(torch, attn, convert, train):
                loss_rel_err=abs(kernel_loss - plain_loss) / abs(plain_loss),
                grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
                grad_rel_l2_median=sorted(rel.values())[len(rel) // 2],
-               loss_tol=STEP_LOSS_TOL, grad_tol=STEP_GRAD_TOL)
+               loss_tol=STEP_LOSS_TOL, grad_tol=STEP_GRAD_TOL, window=window)
     log("kernel step vs plain step:", json.dumps(out))
     if out["loss_rel_err"] > STEP_LOSS_TOL or rel[worst] > STEP_GRAD_TOL:
         raise AssertionError(f"kernel step differs from the plain step: "
@@ -1758,6 +1805,296 @@ def check_plain_step(torch, attn, convert, train):
     del kernel_grads, plain_grads
     torch.cuda.empty_cache()
     return out
+
+
+def drive_window_training(torch, train, kernels):
+    """Phase 9a: the windowed LM through ``train.run``, as phase
+    7: 8 flash_fwd, 8 dQ, 8 dK/dV, 1 cross-entropy forward and 1
+    backward a step, and the loss falls."""
+    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+    summary, launches, _, state = drive(
+        torch, train, kernels,
+        train_argv(WINDOW_STEPS, WINDOW_WARMUP)
+        + ["--attention-window", str(WINDOW)], per_step, WINDOW_WARMUP)
+    losses, result = summary["losses"], summary["driver_result"]
+    summary["tokens_per_s"] = result["tokens_per_sec"]
+    log("window train:", json.dumps(summary))
+    if state.model.attention_window != WINDOW:
+        raise AssertionError("train.run did not build a windowed LM")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"window train: loss did not fall: {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def check_band(torch, convert, rng):
+    """Phase 9a: one 2048-token row through the windowed and the causal
+    model on the same weights (bf16 serving weights, flash forward).
+    Before position W the band does not bind, so the logits must agree
+    within the bf16 limit (2e-2 of their largest magnitude); after it
+    they must differ by more than that agreement, and by more than 1e-3
+    of that magnitude: the band is applied, not ignored by both."""
+    tree = convert.init_flax_layout_params(MODEL, SEED)
+    toks = torch.as_tensor(rng.integers(0, MODEL["vocab_size"],
+                                        (1, MODEL["max_seq_len"])),
+                           device="cuda")
+    with torch.inference_mode():
+        causal = convert.load_lm(MODEL, tree)(toks)
+        windowed = convert.load_lm(dict(MODEL, attention_window=WINDOW),
+                                   tree)(toks)
+    scale = causal.abs().max().item()
+    early = (windowed[:, :WINDOW] - causal[:, :WINDOW]).abs().max().item()
+    late = (windowed[:, WINDOW:] - causal[:, WINDOW:]).abs().max().item()
+    out = dict(scale=scale, early_max_abs=early, late_max_abs=late,
+               limit=2e-2 * scale)
+    log("window band:", json.dumps(out))
+    if not (early <= 2e-2 * scale and late > max(10 * early, 1e-3 * scale)):
+        raise AssertionError(f"the band is not applied as it should: {out}")
+    del causal, windowed
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_mismatches(torch, model, seq, prompt_len):
+    """Positions where greedy ``seq`` [1, T] disagrees with the argmax
+    of one cache-free forward of the windowed model over it (each
+    position teacher-forced by ``seq`` itself), with the gap between
+    that forward's top two logits against 2e-2 of its largest logit
+    (the bf16 rule of PERF.md §2)."""
+    with torch.inference_mode():
+        logits = model(seq[:, :-1])[0].float()
+    out = []
+    for t in range(prompt_len - 1, seq.shape[1] - 1):
+        if int(logits[t].argmax()) == int(seq[0, t + 1]):
+            continue
+        top = logits[t].topk(2).values
+        gap = (top[0] - top[1]).item()
+        limit = 2e-2 * logits[t].abs().max().item()
+        out.append(dict(position=t + 1 - prompt_len, top2_gap=gap,
+                        limit=limit, near_tie=gap <= limit))
+    return out
+
+
+def window_decode(torch, decode, model, kernels, rng):
+    """Phase 9b: ``decode()`` on the ring: greedy, prompts of 1500 and
+    16 tokens and MAX_NEW new tokens each, counts set to 0 just before
+    and read just after (one 8-launch flash prefill a call, nothing
+    else). The ring holds W slots, not P + MAX_NEW. Each token equals
+    the cache-free forward's argmax or sits at a near tie;
+    ``stream_decode`` in chunks of 16 and ``beam_search(num_beams=1)``
+    give decode()'s tokens (or the same rule holds for theirs)."""
+    import numpy as np
+    vocab = MODEL["vocab_size"]
+    prompts = [torch.as_tensor(rng.integers(0, vocab, (1, n)),
+                               device="cuda") for n in WINDOW_PROMPTS]
+    for kern in kernels:
+        kern.launches = 0
+    seqs = [decode.decode(model, p, MAX_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in kernels}
+    report = {"launches": dict(launches), "calls": len(prompts)}
+    state = decode.prefill_prefix(model, prompts[0],
+                                  max_total_len=WINDOW_PROMPTS[0] + MAX_NEW)
+    ring = state[0]
+    report["ring_leaf_shape"] = list(ring[0][0].shape)
+    report["ring_slot_pos_range"] = [int(ring.slot_pos.min()),
+                                     int(ring.slot_pos.max())]
+    full = model.init_cache(1, MODEL["max_seq_len"], ring=False)
+    report["kv_bytes_per_row"] = {
+        "ring": sum(a.numel() * a.element_size()
+                    for layer in ring for a in layer)
+        + ring.slot_pos.numel() * ring.slot_pos.element_size(),
+        "full_length": sum(a.numel() * a.element_size()
+                           for layer in full for a in layer),
+        "per_token": sum(a[0, 0].numel() * a.element_size()
+                         for layer in full for a in layer)}
+    del state, ring, full
+    checks = []
+    for p, seq in zip(prompts, seqs):
+        n = p.shape[1]
+        entry = dict(prompt_len=n,
+                     mismatches=window_mismatches(torch, model, seq, n))
+        streamed = torch.as_tensor(np.concatenate(
+            list(decode.stream_decode(model, p, MAX_NEW, chunk=16)), axis=1),
+            device="cuda")
+        beam, _ = decode.beam_search(model, p, MAX_NEW, num_beams=1)
+        for name, other in (("stream_decode", torch.cat([p, streamed], 1)),
+                            ("beam_search_1", beam[:, 0])):
+            same = bool(torch.equal(other, seq))
+            entry[f"{name}_equal"] = same
+            if not same:
+                entry[f"{name}_mismatches"] = window_mismatches(
+                    torch, model, other, n)
+        checks.append(entry)
+    report["streams"] = checks
+    log("window decode:", json.dumps(report))
+    layers = MODEL["num_layers"]
+    if (launches["flash_fwd"] != layers * len(prompts)
+            or any(v for k, v in launches.items() if k != "flash_fwd")):
+        raise AssertionError(f"decode() on the ring launched {launches}")
+    kv = MODEL["num_kv_heads"]
+    d = MODEL["embed_dim"] // MODEL["num_heads"]
+    if report["ring_leaf_shape"] != [1, WINDOW, kv, d]:
+        raise AssertionError(f"ring leaves {report['ring_leaf_shape']}")
+    bad = [m for c in checks for key in c if key.endswith("mismatches")
+           for m in c[key] if not m["near_tie"]]
+    if bad:
+        raise AssertionError(f"ring greedy tokens off a near tie: {bad}")
+    return report, launches
+
+
+def time_window_step(torch, model, rng):
+    """Phase 9d: one decode step (batch 1, at WINDOW_STEP_POS) on the
+    ring against the full-length windowed cache (the slot engine's
+    kind), host clock around 20 synced steps, in turns ring, full,
+    full, ring."""
+    caches = {"ring": model.init_cache(1, MODEL["max_seq_len"]),
+              "full": model.init_cache(1, MODEL["max_seq_len"], ring=False)}
+    tok = torch.as_tensor(rng.integers(0, MODEL["vocab_size"], (1, 1)),
+                          device="cuda")
+    out = {"ring": [], "full": []}
+    with torch.inference_mode():
+        for name in ("ring", "full", "full", "ring"):
+            for _ in range(3):
+                model(tok, caches[name], WINDOW_STEP_POS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                model(tok, caches[name], WINDOW_STEP_POS)
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t0) / 20)
+    return out
+
+
+def time_window_kernels(torch, attn):
+    """Phase 9d: the three flash kernels at q/k/v [8, 2048, 8, 64] bf16
+    with the W 512 band (``time_flash_kernels``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = time_flash_kernels(torch, attn, WINDOW, gen)
+    for name, row in rows.items():
+        log("window kernel time", name, json.dumps(row))
+    return rows
+
+
+def window_server_traffic(server, rng, lengths):
+    """Concurrent greedy requests of ``lengths`` tokens, WINDOW_NEW new
+    tokens each. Returns [(prompt, new, sequence)]."""
+    vocab = MODEL["vocab_size"]
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lengths]
+    results, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            results[i] = post(server.port, {"prompts": [prompts[i]],
+                                            "max_new_tokens": WINDOW_NEW})
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"windowed requests failed: {errors}")
+    out = []
+    for p, (status, body) in zip(prompts, results):
+        seq = body["sequences"][0]
+        if status != 200 or len(seq) != len(p) + WINDOW_NEW or not all(
+                0 <= t < vocab for t in seq):
+            raise AssertionError(f"bad windowed response {status}: {body}")
+        out.append((p, WINDOW_NEW, seq))
+    return out
+
+
+def drive_window_serving(torch, kernels, rng):
+    """Phase 9c: ``serve.py --attention-window 512`` (the full-width
+    model, bf16) on the paged pool, then on the dense pool
+    (CEA_TPU_PAGED_KV=0 while it builds): no kernel launch (the
+    admissions ride per-row positions), each greedy stream equal to
+    decode() on the ring (``greedy_decode`` is that path) or first
+    differing at a near tie, the pool clean when idle."""
+    from container_engine_accelerators_tpu_torch.serving import serve
+    argv = ["--model", "transformer", "--model-name", "lm", "--port", "0",
+            "--vocab-size", str(MODEL["vocab_size"]),
+            "--embed-dim", str(MODEL["embed_dim"]),
+            "--num-layers", str(MODEL["num_layers"]),
+            "--num-heads", str(MODEL["num_heads"]),
+            "--num-kv-heads", str(MODEL["num_kv_heads"]),
+            "--pos-embedding", MODEL["pos_embedding"],
+            "--max-seq-len", str(MODEL["max_seq_len"]),
+            "--max-new-tokens", str(MAX_NEW),
+            "--max-batch", str(MAX_BATCH), "--seed", str(SEED),
+            "--attention-window", str(WINDOW)]
+    report, launches = {}, {kern.name: 0 for kern in kernels}
+    for pool, lengths in (("paged", WINDOW_SERVE), ("dense", WINDOW_DENSE)):
+        if pool == "dense":
+            os.environ["CEA_TPU_PAGED_KV"] = "0"
+        try:
+            server = serve.build_server(serve.build_parser().parse_args(argv))
+        finally:
+            os.environ.pop("CEA_TPU_PAGED_KV", None)
+        eng = server.engine
+        if (eng.paged != (pool == "paged")
+                or eng._model.attention_window != WINDOW):
+            raise AssertionError(f"the launcher built the wrong {pool} engine")
+        server.start()
+        try:
+            for kern in kernels:
+                kern.launches = 0
+            greedy = window_server_traffic(server, rng, lengths)
+            counts = {kern.name: kern.launches for kern in kernels}
+        finally:
+            server.stop()
+        diverged = [d for d in (stream_divergence(torch, eng._model, p, new,
+                                                  seq)
+                                for p, new, seq in greedy) if d is not None]
+        entry = dict(launches=counts, requests=len(greedy),
+                     greedy_exact=len(greedy) - len(diverged),
+                     greedy_diverged=diverged, leaks=eng.pool_leak_report(),
+                     arena_bytes=eng.kv_arena_bytes)
+        report[pool] = entry
+        log(f"window serving ({pool}):", json.dumps(entry))
+        if any(counts.values()):
+            raise AssertionError(f"windowed {pool} pool launched kernels: "
+                                 f"{counts}")
+        if entry["leaks"] is not None:
+            raise AssertionError(f"windowed {pool} pool not clean: "
+                                 f"{entry['leaks']}")
+        if not all(d["near_tie"] for d in diverged):
+            raise AssertionError(f"windowed {pool} streams diverge off a "
+                                 f"near tie: {diverged}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        del server, eng
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def drive_window(torch, attn, convert, train, kernels, rng):
+    """Phase 9 (see the module docstring). Returns (report, launches
+    by path)."""
+    from container_engine_accelerators_tpu_torch.models import decode
+    report, launches = {}, {}
+    report["train"], launches["window_training"] = drive_window_training(
+        torch, train, kernels)
+    report["train_plain_step"] = check_plain_step(torch, attn, convert,
+                                                  train, WINDOW)
+    report["band"] = check_band(torch, convert, rng)
+    model = convert.load_lm(dict(MODEL, attention_window=WINDOW),
+                            convert.init_flax_layout_params(MODEL, SEED))
+    report["decode"], launches["window_decode"] = window_decode(
+        torch, decode, model, kernels, rng)
+    report["serving"], launches["window_serving"] = drive_window_serving(
+        torch, kernels, rng)
+    report["step_ms"] = time_window_step(torch, model, rng)
+    log("window step (ring vs full-length cache):",
+        json.dumps(report["step_ms"]))
+    del model
+    torch.cuda.empty_cache()
+    report["kernel_times"] = time_window_kernels(torch, attn)
+    return report, launches
 
 
 def main():
@@ -1903,6 +2240,10 @@ def main():
     small, small_launches = drive_small_images(torch, train, all_kernels)
     report.update(small)
 
+    # Phase 9: the sliding window at full width.
+    report["window"], window_launches = drive_window(
+        torch, attention, convert, train, all_kernels, rng)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -1944,6 +2285,8 @@ def main():
             by_path["serving"] = launches
         by_path["paged_serving"] = paged_launches[name]
         by_path["deployed_serving"] = deployed_launches[name]
+        for path, counts in window_launches.items():
+            by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -1956,6 +2299,11 @@ def main():
         entry["launches_by_path"] = by_path
         if name == "flash_fwd":
             entry.update({f"train_{key}": tk[name][
+                "kernel_ms" if key == "ms" else key] for key in timed})
+        wk = report["window"]["kernel_times"]
+        if name in wk:
+            # The flash kernels at the training shape with the W 512 band.
+            entry.update({f"window_{key}": wk[name][
                 "kernel_ms" if key == "ms" else key] for key in timed})
         if name in ik:
             # The cross-entropy at ResNet-50's logits, [128, 1000].
@@ -1974,7 +2322,9 @@ def main():
         f"{report['train']['step_ms_mean']:.2f} ms a step; ResNet-50 "
         f"batch {RESNET_BATCH}: {report['resnet']['images_per_s']:.1f} "
         f"images/s, {report['resnet']['step_ms_mean']:.2f} ms a step; "
-        f"paged: {json.dumps(report['paged']['times'])}")
+        f"paged: {json.dumps(report['paged']['times'])}; window step "
+        f"{json.dumps(report['window']['step_ms'])} ms, windowed training "
+        f"{report['window']['train']['step_ms_mean']:.2f} ms a step")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

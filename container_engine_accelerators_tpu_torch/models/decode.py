@@ -12,13 +12,20 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Autoregressive decoding: the greedy oracle and the slot engine.
+"""Autoregressive decoding: the single-request functions and the slot
+engine.
 
 Counterpart of container_engine_accelerators_tpu/models/decode.py:
 
 - ``greedy_decode``: the single-request oracle. One-shot prefill of the
   prompt (the flash kernel on the raw chunk), then single-token steps,
   as ``decode()``'s greedy fast-prefill path.
+- ``decode`` (sampling, EOS, ragged ``prompt_len``, logprobs,
+  repetition penalty), ``prefill_prefix``/``decode_with_prefix``,
+  ``stream_decode`` and ``beam_search``, on dense caches and on a
+  sliding-window model's ring alike. Sampling draws Gumbel-max from an
+  explicit ``torch.Generator`` (or injected uniforms): the JAX
+  functions' distribution, not their threefry numbers.
 - ``SlotDecodeEngine``: ``admit`` prefills a prompt into a free slot
   and returns the first token, ``step`` advances every slot one token
   with per-row sampling knobs, ``release`` frees a slot. Two pools, as
@@ -28,8 +35,9 @@ Counterpart of container_engine_accelerators_tpu/models/decode.py:
   (``CEA_TPU_PAGED_KV=0`` or ``paged=False``), whose admission
   prefill runs the flash kernel. Either pool holds its cache in the
   mode ``kv_quant`` / ``CEA_TPU_KV_QUANT`` asks for (bf16, int8, int4)
-  with the model's weights as they are; speculation is not ported yet
-  and raises.
+  with the model's weights as they are; a sliding-window model runs on
+  full-length band-masked caches; speculation is not ported yet and
+  raises.
 
 JAX's programs are pure; here the engine's cache is updated in place
 (the dense admission prefill writes straight into its slot's row
@@ -56,6 +64,7 @@ import torch
 
 from ..serving.affinity import KV_BLOCK_ENV, chain_digest
 from ..utils import _env_flag, env_number, env_str, not_ported
+from .transformer import map_cache
 
 PAGED_KV_ENV = "CEA_TPU_PAGED_KV"
 KV_BLOCKS_ENV = "CEA_TPU_KV_BLOCKS"
@@ -262,6 +271,521 @@ def greedy_decode(model, prompt, max_new_tokens, kv_quant=None):
     return torch.cat(out, dim=1)
 
 
+# --------------------------------------------------------------------
+# Single-request decoding: decode(), prefill_prefix/decode_with_prefix,
+# stream_decode and beam_search. Python loops over the model's steps
+# where the JAX functions scan; the caches are updated in place.
+# --------------------------------------------------------------------
+
+
+def _sampling_flags(temperature, top_k, top_p, min_p):
+    """Host-side validation shared by every sampling entry point.
+    Returns (sample, top_k, use_top_p, use_min_p)."""
+    t_host = np.asarray(temperature, np.float32)
+    if (t_host < 0.0).any():
+        raise ValueError(f"temperature must be >= 0: {temperature}")
+    if t_host.ndim == 0:
+        sample = bool(t_host > 0.0)
+    elif (t_host > 0.0).all():
+        sample = True
+    elif (t_host == 0.0).all():
+        sample = False
+    else:
+        raise ValueError(
+            "per-row temperatures must be all zero (greedy) or all "
+            "positive (sampling); greedy and sampling rows compile "
+            "to different programs")
+    top_k = int(top_k)
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0: {top_k}")
+    p_host = np.asarray(top_p, np.float32)
+    if (p_host <= 0.0).any() or (p_host > 1.0).any():
+        raise ValueError("top_p entries must be in (0, 1]")
+    mp_host = np.asarray(min_p, np.float32)
+    if (mp_host < 0.0).any() or (mp_host >= 1.0).any():
+        raise ValueError("min_p entries must be in [0, 1)")
+    return (sample, top_k, bool((p_host < 1.0).any()),
+            bool((mp_host > 0.0).any()))
+
+
+def _pick_token(logits, draw, temperature, top_p, min_p, *, sample,
+                top_k, use_top_p, use_min_p):
+    """The sampling chain of the single-request paths: temperature
+    (a scalar or [B] tensor), then top_k -> top_p -> min_p, then the
+    Gumbel-max draw on ``draw(shape)``'s uniforms; argmax when
+    greedy."""
+    if not sample:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature.reshape(-1, 1)
+    if top_k:
+        logits = _mask_top_k_rows(logits, torch.full(
+            logits.shape[:1], top_k, device=logits.device))
+    if use_top_p:
+        logits = _mask_top_p(logits, top_p)
+    if use_min_p:
+        logits = _mask_min_p(logits, min_p)
+    return _gumbel_argmax(logits, draw(tuple(logits.shape)))
+
+
+def _uniform_source(generator, uniforms, device):
+    """``draw(shape)``: uniforms in [0, 1) from ``generator`` (a
+    torch.Generator on ``device``; seed 0 when None), or from the
+    ``uniforms(shape)`` callable when given (the JAX chain's own
+    uniforms, to hold the draws to it)."""
+    if uniforms is not None:
+        return lambda shape: torch.tensor(
+            np.asarray(uniforms(shape)), dtype=torch.float32, device=device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return lambda shape: torch.rand(shape, generator=generator,
+                                    device=device)
+
+
+def _advance_token(sampled, padded, t, prompt_len, done, eos_row):
+    """Prompt takeover + EOS freeze (JAX ``_advance_token``): inside
+    the prompt the actual prompt token is fed, and a row whose
+    generated text reached its EOS keeps emitting it (prompt-resident
+    EOS ids don't trigger). Returns (next_token, done)."""
+    forced = padded[:, min(t + 1, padded.shape[1] - 1)]
+    in_prompt = t + 1 < prompt_len
+    nxt = torch.where(in_prompt, forced, sampled)
+    if eos_row is not None:
+        nxt = torch.where(done, eos_row, nxt)
+        done = done | (~in_prompt & (nxt == eos_row))
+    return nxt, done
+
+
+def _token_logprob(raw, tok):
+    """log P(tok) under the RAW logits [B, V] (the scoring quantity)."""
+    lsm = torch.log_softmax(raw.float(), dim=-1)
+    return torch.gather(lsm, 1, tok[:, None])[:, 0]
+
+
+class _Chain:
+    """One request batch's per-step knobs on the device: the sampling
+    chain, EOS and the repetition penalty's seen-token rows."""
+
+    def __init__(self, model, b, temperature, top_k, top_p, min_p,
+                 eos_id, repetition_penalty, generator, uniforms):
+        dev = model.device
+        (self.sample, self.top_k, self.use_top_p,
+         self.use_min_p) = _sampling_flags(temperature, top_k, top_p, min_p)
+        rp_host = np.asarray(repetition_penalty, np.float32)
+        if (rp_host <= 0.0).any():
+            raise ValueError("repetition_penalty entries must be > 0")
+        self.use_rp = bool((rp_host != 1.0).any())
+
+        def knob(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+        self.temps, self.top_p, self.min_p = (
+            knob(temperature), knob(top_p), knob(min_p))
+        self.rep_pen = knob(repetition_penalty)
+        self.eos_row = (None if eos_id is None else torch.as_tensor(
+            np.asarray(eos_id, np.int64), device=dev).reshape(-1))
+        self.rows = torch.arange(b, device=dev)
+        self.seen = (torch.zeros((b, model.vocab_size), dtype=torch.bool,
+                                 device=dev) if self.use_rp else None)
+        self.draw = _uniform_source(generator, uniforms, dev)
+
+    def mark(self, tok):
+        if self.use_rp:
+            self.seen[self.rows, tok] = True
+
+    def pick(self, logits):
+        if self.use_rp:
+            # On raw logits, before temperature and filters (CTRL).
+            logits = _apply_repetition_penalty(logits, self.seen,
+                                               self.rep_pen)
+        return _pick_token(logits, self.draw, self.temps, self.top_p,
+                           self.min_p, sample=self.sample, top_k=self.top_k,
+                           use_top_p=self.use_top_p,
+                           use_min_p=self.use_min_p)
+
+    def first_done(self, first):
+        if self.eos_row is None:
+            return torch.zeros_like(first, dtype=torch.bool)
+        return first == self.eos_row
+
+
+def _generate(model, cache, offset, prompt, prompt_len, max_new_tokens,
+              chain, fast_prefill, logprobs, attend_cache):
+    """The loop behind ``decode`` and ``decode_with_prefix``: the
+    [B, P] ``prompt`` continues a cache holding ``offset`` tokens.
+    Fast prefill runs the prompt as ONE chunk (the one-shot prefill
+    into an empty cache, or with ``attend_cache`` a chunk attending
+    the cache), then one step a new token; stepwise feeds every position, the prompt's own tokens
+    taking over the prediction inside the prompt. Returns the
+    [B, P + max_new_tokens] sequence, and with ``logprobs`` the
+    [B, P + max_new_tokens] f32 logprobs (entry 0 = 0.0; prompt
+    positions score the prompt)."""
+    b, p_pad = prompt.shape
+    total = p_pad + max_new_tokens
+    padded = torch.nn.functional.pad(prompt, (0, max_new_tokens))
+    plen = torch.as_tensor(np.asarray(prompt_len, np.int64),
+                           device=prompt.device).reshape(-1)
+    toks, lps = [], []
+
+    def step(tok, t, done):
+        raw = model(tok[:, None], cache, offset + t)[:, 0]
+        nxt, done = _advance_token(chain.pick(raw), padded, t, plen, done,
+                                   chain.eos_row)
+        if logprobs:
+            lps.append(_token_logprob(raw, nxt))
+        chain.mark(nxt)
+        toks.append(nxt)
+        return nxt, done
+
+    if fast_prefill and max_new_tokens > 0:
+        if chain.use_rp:
+            chain.seen[chain.rows[:, None], prompt] = True
+        pre = model(prompt, cache, offset, chunk_attends_cache=attend_cache)
+        first = chain.pick(pre[:, -1])
+        done = chain.first_done(first)
+        chain.mark(first)
+        tok = first
+        for t in range(p_pad, total - 1):
+            tok, done = step(tok, t, done)
+        seq = torch.cat([prompt, first[:, None]] + [x[:, None] for x in toks],
+                        dim=1)
+        if not logprobs:
+            return seq
+        pl = pre[:, :-1].float()
+        chosen = torch.gather(pl, 2, prompt[:, 1:, None])[..., 0]
+        plp = chosen - torch.logsumexp(pl, dim=-1)
+        first_lp = _token_logprob(pre[:, -1], first)
+        return seq, torch.cat(
+            [torch.zeros((b, 1), device=prompt.device), plp,
+             first_lp[:, None]] + [x[:, None] for x in lps], dim=1)
+    tok = prompt[:, 0]
+    chain.mark(tok)
+    done = torch.zeros((b,), dtype=torch.bool, device=prompt.device)
+    for t in range(total - 1):
+        tok, done = step(tok, t, done)
+    seq = torch.cat([prompt[:, :1]] + [x[:, None] for x in toks], dim=1)
+    if not logprobs:
+        return seq
+    return seq, torch.cat([torch.zeros((b, 1), device=prompt.device)]
+                          + [x[:, None] for x in lps], dim=1)
+
+
+@torch.inference_mode()
+def decode(model, prompt, max_new_tokens, *, temperature=0.0,
+           generator=None, prompt_len=None, fast_prefill=None, top_k=0,
+           top_p=1.0, eos_id=None, repetition_penalty=1.0, min_p=0.0,
+           return_logprobs=False, uniforms=None):
+    """Generate ``max_new_tokens`` after ``prompt`` ([B, P] ints), as
+    the JAX ``decode()``. Returns the [B, P + max_new_tokens] int64
+    sequence (prompt included) on the model's device, and with
+    ``return_logprobs`` also the [B, P + max_new_tokens] f32
+    log-probabilities under the RAW logits (entry 0 is 0.0; prompt
+    positions are the prompt's echo logprobs).
+
+    temperature 0 is greedy argmax; > 0 (a scalar, or a [B] vector of
+    all-positive entries) samples after the ``top_k`` (int), ``top_p``
+    and ``min_p`` (scalars or [B]) filters, drawing by Gumbel-max from
+    ``generator`` (a torch.Generator on the model's device; seed 0
+    when None) or from ``uniforms(shape)``: the same distribution as
+    the JAX function's threefry draws, not its numbers.
+    ``repetition_penalty`` (scalar or [B], 1.0 = off) pushes the row's
+    seen tokens away before temperature and filters. ``eos_id``
+    (scalar or [B]) freezes a row on its EOS once its generated text
+    emits it. ``prompt_len`` (scalar or [B], default P) is where
+    generation takes over from a right-padded prompt.
+
+    The fast prefill (auto-chosen when every row is full width) runs
+    the prompt as one forward: the flash kernel on the raw chunk, with
+    the window on a sliding-window model, whose cache is a ring of
+    min(P + max_new_tokens, window + ring_slack) slots; otherwise every
+    position is one step."""
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    b, p_pad = prompt.shape
+    if prompt_len is None:
+        prompt_len = p_pad
+    full_width = bool((np.asarray(prompt_len) == p_pad).all())
+    if fast_prefill is None:
+        fast_prefill = full_width
+    elif fast_prefill and not full_width:
+        raise ValueError(
+            "fast_prefill=True requires every row's prompt_len to "
+            "equal the prompt width (no right-padding)")
+    chain = _Chain(model, b, temperature, top_k, top_p, min_p, eos_id,
+                   repetition_penalty, generator, uniforms)
+    cache = model.init_cache(b, p_pad + max_new_tokens)
+    return _generate(model, cache, 0, prompt, prompt_len, max_new_tokens,
+                     chain, fast_prefill, bool(return_logprobs), False)
+
+
+@torch.inference_mode()
+def prefill_prefix(model, prefix, *, max_total_len, chunk_slack=0):
+    """Prefill a shared prefix ([Bp, P] ints, full width) ONCE into a
+    cache sized for ``max_total_len`` tokens (a ring on a
+    sliding-window model); returns the state (cache, P,
+    max_total_len) that ``decode_with_prefix`` continues.
+    ``chunk_slack`` (sliding-window models only): ring slots beyond
+    the window, so a suffix of that width can prefill as one chunk."""
+    prefix = torch.as_tensor(prefix, device=model.device).long()
+    if prefix.shape[1] >= max_total_len:
+        raise ValueError(
+            f"max_total_len {max_total_len} leaves no room after the "
+            f"{prefix.shape[1]}-token prefix")
+    slack = None
+    if chunk_slack:
+        if int(chunk_slack) < 0:
+            raise ValueError(f"chunk_slack must be >= 0: {chunk_slack}")
+        if not model.attention_window:
+            raise ValueError(
+                "chunk_slack only applies to sliding-window models "
+                "(dense caches already hold every position)")
+        slack = int(chunk_slack)
+    cache = model.init_cache(prefix.shape[0], int(max_total_len),
+                             ring_slack=slack)
+    model(prefix, cache, 0)
+    return cache, prefix.shape[1], int(max_total_len)
+
+
+def _ring_capacity(cache):
+    """Slot count of the cache's first K buffer (None: no layer)."""
+    return cache[0][0].shape[1] if len(cache) else None
+
+
+def _continue(model, prefix_state, prompt, max_new_tokens, *, temperature,
+              generator, prompt_len, top_k, top_p, min_p, eos_id,
+              fast_prefill, return_state, uniforms, owned):
+    """``decode_with_prefix``; ``owned``: the state's cache may be
+    updated in place (``stream_decode``'s own), else it is copied."""
+    cache, prefix_len, max_total_len = prefix_state
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    prefix_b = cache[0][0].shape[0]
+    b, p_pad = prompt.shape
+    if b % prefix_b != 0:
+        raise ValueError(
+            f"request batch {b} is not a multiple of the prefix "
+            f"batch {prefix_b}")
+    need = prefix_len + p_pad + max_new_tokens
+    if need > max_total_len:
+        raise ValueError(
+            f"prefix state sized for {max_total_len} total tokens; "
+            f"prefix {prefix_len} + prompt {p_pad} + "
+            f"max_new_tokens {max_new_tokens} = {need} overflows it")
+    if prompt_len is None:
+        prompt_len = p_pad
+    full_width = bool((np.asarray(prompt_len) == p_pad).all())
+    # A windowed ring must hold the chunk AND each early query's
+    # pre-chunk window: window + chunk width slots, or never wrap.
+    window = model.attention_window
+    can_chunk = True
+    if window:
+        capacity = _ring_capacity(cache)
+        can_chunk = capacity is not None and (
+            capacity >= window + p_pad or capacity >= max_total_len)
+    if fast_prefill is None:
+        fast_prefill = full_width and max_new_tokens > 0 and can_chunk
+    elif fast_prefill and not (full_width and max_new_tokens > 0
+                               and can_chunk):
+        raise ValueError(
+            "fast_prefill=True requires every row's prompt_len to "
+            "equal the suffix width (no right-padding), "
+            "max_new_tokens > 0, and a model with the "
+            "chunk_attends_cache mid-cache chunk path (for "
+            "sliding-window models the prefix state's ring must "
+            "also hold window + suffix width slots; allocate it "
+            "with prefill_prefix(chunk_slack=...))")
+    chain = _Chain(model, b, temperature, top_k, top_p, min_p, eos_id,
+                   1.0, generator, uniforms)
+    fan_out = b // prefix_b
+    # Request row bp * fan_out + j continues prefix row bp.
+    if fan_out > 1:
+        cache = map_cache(lambda a: a.repeat_interleave(fan_out, dim=0),
+                          cache)
+    elif not owned:
+        cache = map_cache(torch.clone, cache)
+    seq = _generate(model, cache, prefix_len, prompt, prompt_len,
+                    max_new_tokens, chain, bool(fast_prefill), False, True)
+    if not return_state:
+        return seq
+    # Tokens resident in the cache: the final sampled token is not yet
+    # among them (the next call feeds it as its 1-token prompt).
+    return seq, (cache, prefix_len + p_pad + max_new_tokens - 1,
+                 max_total_len)
+
+
+@torch.inference_mode()
+def decode_with_prefix(model, prefix_state, prompt, max_new_tokens, *,
+                       temperature=0.0, generator=None, prompt_len=None,
+                       top_k=0, top_p=1.0, min_p=0.0, eos_id=None,
+                       fast_prefill=None, return_state=False,
+                       uniforms=None):
+    """Continue generation from a ``prefill_prefix`` state, as the JAX
+    function: ``prompt`` [B, P] holds each request's own tokens, B a
+    multiple of the prefix batch Bp, and request row i continues prefix
+    row i // (B / Bp). Returns the [B, P + max_new_tokens] suffix
+    sequences (the prefix is not re-emitted). Knobs as ``decode``
+    (no repetition penalty or logprobs: they need the prefix's tokens).
+    The state is left as it was, so it serves many continuations.
+
+    ``fast_prefill`` (None: auto) runs a full-width suffix as ONE chunk
+    attending the cache; a sliding-window state needs a ring of window
+    + suffix width slots (``prefill_prefix(chunk_slack=)``) or one that
+    never wraps, else the suffix steps. ``return_state=True`` also
+    returns the advanced state: the sequence's last token is not yet
+    in the cache and is the next call's 1-token prompt."""
+    return _continue(model, prefix_state, prompt, max_new_tokens,
+                     temperature=temperature, generator=generator,
+                     prompt_len=prompt_len, top_k=top_k, top_p=top_p,
+                     min_p=min_p, eos_id=eos_id, fast_prefill=fast_prefill,
+                     return_state=return_state, uniforms=uniforms,
+                     owned=False)
+
+
+@torch.inference_mode()
+def stream_decode(model, prompt, max_new_tokens, *, chunk=16,
+                  temperature=0.0, generator=None, top_k=0, top_p=1.0,
+                  min_p=0.0, eos_id=None, uniforms=None):
+    """Incremental generation, as the JAX function: yields [B, <=chunk]
+    int64 numpy token blocks as they are produced. The full-width
+    prompt prefills once (all but its last token, through
+    ``prefill_prefix``); each chunk continues the state with
+    ``decode_with_prefix(return_state=True)``. Greedy chunked output is
+    ``decode``'s; sampling continues the one generator across chunks.
+    ``eos_id`` freezes finished rows across chunk boundaries (host
+    side) and stops early once every row finished."""
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    b, p = prompt.shape
+    if max_new_tokens < 1:
+        raise ValueError("stream_decode needs max_new_tokens >= 1")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1: {chunk}")
+    total = p + max_new_tokens
+    if p >= 2:
+        state = prefill_prefix(model, prompt[:, :-1], max_total_len=total)
+        feed = prompt[:, -1:]
+    else:
+        state = (model.init_cache(b, total), 0, total)
+        feed = prompt
+    if generator is None and uniforms is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+    done = np.zeros((b,), bool)
+    remaining = max_new_tokens
+    while remaining > 0:
+        n = min(chunk, remaining)
+        seq, state = _continue(
+            model, state, feed, n, temperature=temperature,
+            generator=generator, prompt_len=None, top_k=top_k,
+            top_p=top_p, min_p=min_p, eos_id=eos_id, fast_prefill=None,
+            return_state=True, uniforms=uniforms, owned=True)
+        block = seq[:, 1:].cpu().numpy().copy()
+        feed = seq[:, -1:]
+        remaining -= n
+        if eos_id is not None:
+            block[done] = int(eos_id)
+            done |= (block == int(eos_id)).any(axis=1)
+        yield block
+        if eos_id is not None and bool(done.all()):
+            return
+
+
+@torch.inference_mode()
+def beam_search(model, prompt, max_new_tokens, *, num_beams=4,
+                eos_id=None, length_penalty=0.0):
+    """Beam search, as the JAX function: the num_beams highest
+    sum-logprob continuations per batch element. Returns (sequences
+    [B, K, P + max_new_tokens] int64, scores [B, K] f32), best first;
+    num_beams=1 is exactly greedy. The prompt prefills a [B]-row cache
+    once (the flash kernel), the cache fans out to [B*K] beam rows,
+    and each step takes the global top-K (beam, token) pairs (a stable
+    descending sort: ties go to the lower index, as lax.top_k's) and
+    gathers the cache rows (a ring's slot_pos too) onto the survivors.
+    Beams beyond the distinct continuations come back at -inf with
+    token 0. ``eos_id`` (scalar) freezes a finished beam's score (its
+    only continuation is EOS at logprob 0); ``length_penalty`` (GNMT
+    alpha, needs eos_id) ranks finished beams by score / ((5 + len) /
+    6)^alpha, and the returned scores are then that quantity."""
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1: {num_beams}")
+    if max_new_tokens < 1:
+        raise ValueError("beam_search needs max_new_tokens >= 1")
+    use_eos = eos_id is not None
+    if use_eos:
+        eos_host = np.asarray(eos_id)
+        if eos_host.ndim != 0:
+            raise ValueError(
+                "beam_search eos_id must be a scalar (per-row EOS "
+                "vectors are a decode()/stream_decode() feature)")
+        if not 0 <= int(eos_host) < model.vocab_size:
+            raise ValueError(
+                f"eos_id must be in 0..{model.vocab_size - 1}: {eos_id}")
+        eos_id = int(eos_host)
+    use_lp = float(length_penalty) != 0.0
+    if use_lp and not use_eos:
+        raise ValueError(
+            "length_penalty applies to finished beams and therefore "
+            "requires eos_id")
+    dev = model.device
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    b, p = prompt.shape
+    k, n_new = int(num_beams), int(max_new_tokens)
+    alpha = torch.tensor(float(length_penalty), dtype=torch.float32,
+                         device=dev)
+    cache = model.init_cache(b, p + n_new)
+    logprobs = torch.log_softmax(model(prompt, cache, 0)[:, -1].float(), -1)
+    v = logprobs.shape[-1]
+    # Beam rows of one batch element are adjacent (row b * k + j).
+    cache = map_cache(lambda a: a.repeat_interleave(k, dim=0), cache)
+    logprobs = logprobs.repeat_interleave(k, dim=0)
+    # Only beam 0 is live at first, so the first expansion picks K
+    # distinct tokens.
+    scores = torch.full((b, k), float("-inf"), device=dev)
+    scores[:, 0] = 0.0
+    seqs = torch.zeros((b, k, n_new), dtype=torch.long, device=dev)
+    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    gen_len = torch.zeros((b, k), dtype=torch.long, device=dev)
+    base = torch.arange(b, device=dev)[:, None] * k
+    if use_eos:
+        frozen = torch.full((v,), float("-inf"), device=dev)
+        frozen[eos_id] = 0.0
+
+    def select(seqs, scores, finished, gen_len, logprobs, t):
+        if use_eos:
+            logprobs = torch.where(finished.reshape(b * k, 1), frozen[None],
+                                   logprobs)
+        totals = scores[:, :, None] + logprobs.reshape(b, k, v)
+        eff = totals
+        if use_lp:
+            # A candidate ending in EOS competes penalized at its true
+            # length (a live beam's finishes at gen_len + 1).
+            fin_len = torch.where(finished, gen_len, gen_len + 1)
+            eff = totals.clone()
+            eff[:, :, eos_id] = totals[:, :, eos_id] / (
+                (5.0 + fin_len.float()) / 6.0) ** alpha
+        order = torch.sort(eff.reshape(b, k * v), dim=1, descending=True,
+                           stable=True)
+        eff_scores, idx = order.values[:, :k], order.indices[:, :k]
+        new_scores = torch.gather(totals.reshape(b, k * v), 1, idx)
+        parent = idx // v
+        token = torch.where(torch.isfinite(eff_scores), idx % v,
+                            torch.zeros_like(idx))
+        seqs = torch.gather(seqs, 1, parent[..., None].expand_as(seqs))
+        seqs[:, :, t] = token
+        if use_eos:
+            parent_fin = torch.gather(finished, 1, parent)
+            # Generated length counts tokens through the first EOS.
+            gen_len = (torch.gather(gen_len, 1, parent)
+                       + (~parent_fin).long())
+            finished = parent_fin | (token == eos_id)
+        return (seqs, new_scores, finished, gen_len, token,
+                (base + parent).reshape(-1), eff_scores)
+
+    for t in range(n_new - 1):
+        seqs, scores, finished, gen_len, token, flat_parent, _ = select(
+            seqs, scores, finished, gen_len, logprobs, t)
+        cache = map_cache(lambda a: a[flat_parent], cache)
+        logits = model(token.reshape(b * k, 1), cache, p + t)
+        logprobs = torch.log_softmax(logits[:, 0].float(), dim=-1)
+    seqs, scores, _, _, _, _, eff = select(seqs, scores, finished, gen_len,
+                                           logprobs, n_new - 1)
+    full = torch.cat([prompt[:, None].expand(b, k, p), seqs], dim=2)
+    return full, (eff if use_lp else scores)
 
 
 # --------------------------------------------------------------------
@@ -617,11 +1141,16 @@ def _prefill_tail(logits, row, valid_len, knobs, generator):
 def _slot_prefill(model, row, prompt_len, cache, knobs, generator):
     """Dense admission prefill: ONE chunk forward of the bucket-padded
     row ([1, bucket]) into ``cache`` (a batch-1 view of the slot's rows),
-    on the flash kernel. Padding positions' K/V are junk the position
+    on the flash kernel. A sliding-window model's chunk rides per-row
+    positions instead: it attends the full-length cache with the band
+    and launches no kernel, as the JAX engine's ``per_row_index``
+    prefill clone does. Padding positions' K/V are junk the position
     rewind makes unreachable. Returns (first [1], first_lp [1], echo
     [bucket] f32, seen_row [V] bool)."""
-    return _prefill_tail(model(row, cache, 0)[0], row, prompt_len, knobs,
-                         generator)
+    index = (torch.zeros((1,), dtype=torch.long, device=row.device)
+             if model.attention_window else 0)
+    return _prefill_tail(model(row, cache, index)[0], row, prompt_len,
+                         knobs, generator)
 
 
 def _arena_to_dense(arena, table, slot_len):
@@ -643,12 +1172,19 @@ def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
     suffix as ONE chunk forward that attends the cache at offset
     ``shared_len``, so the shared span's prefill work is skipped.
     shared_len 0 (no prefix hit) takes the same path, never the flash
-    kernel, as the JAX engine's chunk_attends_cache clone does. The
+    kernel, as the JAX engine's chunk_attends_cache clone does; a
+    sliding-window model's chunk rides per-row positions (the band on
+    the full-length cache), as its ``per_row_index`` clone. The
     seen-token row marks the suffix's valid tokens only; the echo
     covers this chunk. Returns (dense cache, first [1], first_lp [1],
     echo [width], seen_row [V] bool)."""
     cache = _arena_to_dense(arena, prefix_table, slot_len)
-    logits = model(row, cache, int(shared_len), chunk_attends_cache=True)
+    if model.attention_window:
+        logits = model(row, cache, torch.full((1,), int(shared_len),
+                                              device=row.device))
+    else:
+        logits = model(row, cache, int(shared_len),
+                       chunk_attends_cache=True)
     return (cache,) + _prefill_tail(logits[0], row, suffix_len, knobs,
                                     generator)
 
@@ -676,6 +1212,12 @@ class SlotDecodeEngine:
     blocks resident. The default arena holds the dense pool's bytes
     (``slots * ceil(slot_len / block_size)`` usable blocks) plus
     ``pin_reserve_tokens``' blocks plus the trash block.
+
+    **Windowed models** (``attention_window`` > 0) run in the same
+    slots on full-length band-masked caches, never rings (a reused
+    ring slot's stale position could leak into a rewound row's band);
+    the admission prefill of either pool rides per-row positions, so
+    it launches no kernel. ``ring_slack`` is refused.
 
     **Quantized KV** (``kv_quant`` / ``CEA_TPU_KV_QUANT``: bf16, int8,
     int4): the arena (or the dense pool) holds the cache in that mode,
@@ -705,6 +1247,13 @@ class SlotDecodeEngine:
             raise ValueError("need slots >= 1 and slot_len >= 2")
         if draft_model is not None or spec_k:
             raise not_ported("speculative decoding (draft_model)")
+        if getattr(model, "ring_slack", 0):
+            # The flax per_row_index clone's refusal: slot caches are
+            # full-length and band-masked, never rings.
+            raise ValueError(
+                "per_row_index does not take ring_slack (slot-engine "
+                "windowed caches are full-length and band-masked, "
+                "not rings)")
         # The requested mode wins over the model's own ("bf16" keeps
         # the model's); the caches are made in it, so the weights are
         # shared, where the JAX engine clones the module.
@@ -764,7 +1313,7 @@ class SlotDecodeEngine:
             self._cache = model.init_paged_cache(nb, bs, self.kv_quant)
         else:
             self._cache = model.init_cache(self.slots, self.slot_len,
-                                           self.kv_quant)
+                                           self.kv_quant, ring=False)
         # Exact resident KV bytes (what kv_block_stats reports).
         self.kv_arena_bytes = int(sum(t.numel() * t.element_size()
                                       for layer in self._cache
@@ -817,7 +1366,8 @@ class SlotDecodeEngine:
         row = self._row(tokens)
         _, _, echo, _ = _slot_prefill(
             self._model, row, int(prompt_len),
-            self._model.init_cache(1, row.shape[1], self.kv_quant),
+            self._model.init_cache(1, row.shape[1], self.kv_quant,
+                                   ring=False),
             SamplingKnobs(1),
             torch.Generator(device=self.device))
         return echo.cpu().numpy()

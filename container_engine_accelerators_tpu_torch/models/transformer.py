@@ -29,7 +29,10 @@ dtype (``convert.load_lm``), where the cast is a no-op.
 
 Training mode: ``attention_fn`` replaces the causal flash attention
 (the JAX module's argument of that name), and ``next_token_loss_fn``
-is the shift-by-one objective.
+is the shift-by-one objective. ``attention_window`` W > 0 is sliding-
+window attention: query p sees keys in (p - W, p], passed to the
+attention function as ``window=W`` (one that takes no ``window``
+raises, as the flax module refuses a window on a non-flash schedule).
 
 Decode mode keeps a dense KV cache per layer, passed explicitly
 (``init_cache``) instead of living in a flax variable collection:
@@ -41,10 +44,22 @@ Decode mode keeps a dense KV cache per layer, passed explicitly
   included) writes at [index, index + P) and attends the cache, as
   the paged pool's admission prefill does after its shared prefix;
 - otherwise (single-token steps, or a [B] vector of per-row positions
-  for the slot engine) each row writes its K/V at its own position and
+  for the slot engine, one token or a chunk a row) each row writes its
+  K/V at its own positions (per-row positions past the cache drop) and
   attends the cache through the grouped product with the mask
-  k_pos <= q_pos, f32 scores and softmax, probabilities cast to the
-  compute dtype before the product with V.
+  k_pos <= q_pos (and k_pos > q_pos - W with a window), f32 scores and
+  softmax, probabilities cast to the compute dtype before the product
+  with V.
+
+A sliding-window model's ``init_cache`` makes a ``RingCache``, the
+flax module's ring: min(length, W + ring_slack) slots a layer,
+position p in slot p % c_len, and a per-row ``slot_pos`` [B, c_len]
+(-1: never written) that the mask reads in place of the slot index
+(k_pos >= 0, k_pos <= q_pos, k_pos > q_pos - W). The one-shot prefill
+writes only the chunk's last c_len entries and still runs the flash
+kernel with the window on the raw chunk. Per-row positions (the slot
+engine) take full-length caches only, where the window is the band
+alone, as the flax module's ``per_row_index`` caches are never rings.
 
 The paged cache (``init_paged_cache``, the flax module's ``kv_pages``)
 is one [num_blocks, block_size, Hkv, D] arena per layer; a step's
@@ -68,6 +83,7 @@ engine serves a mode other than the model's own with the same weights.
 stay native), as the flax module's ``weights="int8"`` does.
 """
 
+import inspect
 import math
 
 import torch
@@ -216,21 +232,91 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float()).to(self.compute_dtype)
 
 
+def _takes_window(fn):
+    """Whether ``fn`` accepts a ``window`` keyword."""
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    return any(p.name == "window" or p.kind == p.VAR_KEYWORD
+               for p in params)
+
+
+class RingCache(list):
+    """A sliding-window model's scalar-index cache: the per-layer
+    buffers ``init_cache`` makes, of ``c_len`` ring slots each, and
+    ``slot_pos`` [B, c_len] int64, the global position each slot holds
+    (-1: never written). Every layer writes the same positions, so one
+    ``slot_pos`` serves them all (the flax module keeps an equal copy a
+    layer). Its leaves are batch-major, slot_pos included, so a beam
+    gather or a prefix fan-out maps over ``leaves``."""
+
+    def __init__(self, layers, slot_pos):
+        super().__init__(layers)
+        self.slot_pos = slot_pos
+
+
+def map_cache(fn, cache):
+    """``fn`` applied to every batch-major leaf of a dense or ring
+    cache (the flax cache tree's ``_map_batch_leaves``)."""
+    layers = [tuple(fn(a) for a in layer) for layer in cache]
+    if isinstance(cache, RingCache):
+        return RingCache(layers, fn(cache.slot_pos))
+    return layers
+
+
+def _ring_write(buf, index, val):
+    """Write ``val`` [B, P, ...] at global positions index..index+P-1
+    into the ring ``buf`` [B, c_len, ...]: only the last min(P, c_len)
+    entries land (earlier ones would be overwritten within the chunk),
+    in consecutive slots mod c_len, split in two at the wrap."""
+    c_len, p = buf.shape[1], val.shape[1]
+    n = min(p, c_len)
+    tail = val[:, p - n:]
+    start = (index + p - n) % c_len
+    first = min(n, c_len - start)
+    buf[:, start:start + first] = tail[:, :first]
+    if n > first:
+        buf[:, :n - first] = tail[:, first:]
+
+
+def _write_slot_pos(cache, index, q_len):
+    """Record positions index..index+q_len-1 in a ring's ``slot_pos``."""
+    pos = torch.arange(index, index + q_len,
+                       device=cache.slot_pos.device)
+    _ring_write(cache.slot_pos, index,
+                pos.expand(cache.slot_pos.shape[0], q_len))
+
+
+def _row_write(buf, pos, val):
+    """Per-row chunk write: row b's entries at positions ``pos`` [B, Q]
+    of ``buf`` [B, L, ...]; positions past the row drop (the optimistic
+    tail of a chunk the row cannot hold)."""
+    r, c = (pos < buf.shape[1]).nonzero(as_tuple=True)
+    buf[r, pos[r, c]] = val[r, c].to(buf.dtype)
+
+
 class CausalSelfAttention(nn.Module):
     """Pre-norm causal attention residual, [B, S, E] in/out."""
 
     def __init__(self, embed_dim, num_heads, num_kv_heads=None,
                  rope=False, dtype=torch.bfloat16, device=None,
                  param_dtype=torch.float32, attention_fn=None,
-                 weights="native"):
+                 weights="native", window=0):
         super().__init__()
         kv = num_kv_heads or num_heads
         if num_heads % kv:
             raise ValueError(
                 f"num_kv_heads {kv} must divide num_heads {num_heads}")
+        if window and attention_fn is not None and not _takes_window(
+                attention_fn):
+            raise ValueError(
+                "window (sliding-window attention) needs an attention_fn "
+                "that takes window=; this one does not")
         self.num_heads, self.num_kv_heads = num_heads, kv
         self.head_dim = embed_dim // num_heads
         self.rope = rope
+        self.window = int(window)
         self.attention_fn = attention_fn or flash_attention
         d = self.head_dim
         dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
@@ -254,34 +340,41 @@ class CausalSelfAttention(nn.Module):
         return q, kv_out[:, :, 0], kv_out[:, :, 1]
 
     def forward(self, x, cache=None, index=None, block_table=None,
-                chunk_attends_cache=False):
+                chunk_attends_cache=False, slot_pos=None):
         """``cache``: None (full causal forward) or this layer's
-        (K, V) buffers, updated in place: dense [B, L, Hkv, D], or
-        with ``block_table`` the paged arenas [num_blocks, block_size,
-        Hkv, D]; a quantized cache adds the K and V scales, (K, V,
-        K scale, V scale); ``index``: the write offset, an int or a [B] tensor
-        of per-row positions (the only form the paged cache takes).
+        (K, V) buffers, updated in place: dense [B, L, Hkv, D] (a
+        ring's c_len slots with ``slot_pos``), or with ``block_table``
+        the paged arenas [num_blocks, block_size, Hkv, D]; a quantized
+        cache adds the K and V scales, (K, V, K scale, V scale);
+        ``index``: the write offset, an int or a [B] tensor of per-row
+        positions (the only form the paged cache takes).
         ``chunk_attends_cache``: a multi-token chunk at an int offset
         attends the cache (the paged admission prefill) instead of
-        running the flash kernel on itself alone."""
+        running the flash kernel on itself alone. ``slot_pos``: the
+        ring's [B, c_len] slot positions, already holding this call's
+        (``TransformerLM.forward`` writes them once for every layer)."""
         q, k, v = self._project(self.ln(x))
         heads = self.num_heads
         if cache is None:
             if self.rope:
                 pos = torch.arange(q.shape[1], device=q.device)
                 q, k = apply_rope(q, pos), apply_rope(k, pos)
+            kwargs = {"window": self.window} if self.window else {}
             attn = self.attention_fn(q, _expand_kv(k, heads),
-                                     _expand_kv(v, heads), causal=True)
+                                     _expand_kv(v, heads), causal=True,
+                                     **kwargs)
         else:
             attn = self._cached_attention(q, k, v, cache, index,
-                                          block_table, chunk_attends_cache)
+                                          block_table, chunk_attends_cache,
+                                          slot_pos)
         return x + self.proj(attn.reshape(x.shape))
 
     def _cached_attention(self, q, k, v, cache, index, block_table,
-                          chunk_attends_cache):
+                          chunk_attends_cache, slot_pos):
         cache_k = cache[0]
         b, q_len, heads, d = q.shape
         steps = torch.arange(q_len, device=q.device)
+        ring = slot_pos is not None
         if isinstance(index, int):
             if block_table is not None:
                 raise ValueError("the paged cache takes [B] per-row "
@@ -291,16 +384,13 @@ class CausalSelfAttention(nn.Module):
                     f"a {q_len}-token chunk at offset {index} must "
                     f"attend the cache (chunk_attends_cache=True)")
             length = cache_k.shape[1]
-            if index + q_len > length:
+            if not ring and index + q_len > length:
                 raise ValueError(
                     f"chunk at {index}..{index + q_len} overruns the "
                     f"{length}-position cache")
             pos = (index + steps).expand(b, q_len)
         else:
-            if q_len != 1:
-                raise not_ported(
-                    f"per-row multi-token chunks ({q_len} tokens)")
-            pos = index[:, None]                               # [B, 1]
+            pos = index[:, None] + steps                      # [B, Q]
         if self.rope:
             q, k = apply_rope(q, pos), apply_rope(k, pos)
         if len(cache) == 4:
@@ -311,47 +401,61 @@ class CausalSelfAttention(nn.Module):
             writes = (kq, vq, ks, vs)
         else:
             writes = (k, v)
-        # In-place cache writes. Per-row positions must lie inside the
-        # buffer: the slot engine clamps free rows into the row.
+        # In-place cache writes. Single-token per-row positions must
+        # lie inside the buffer: the slot engine clamps free rows into
+        # the row.
         if block_table is not None:
             for buf, val in zip(cache, writes):
-                _paged_write(buf, block_table, index, val[:, 0])
+                _paged_write(buf, block_table, pos, val)
             reads = [_paged_read(buf, block_table) for buf in cache]
         else:
-            if isinstance(index, int):
-                for buf, val in zip(cache, writes):
+            for buf, val in zip(cache, writes):
+                if ring:
+                    _ring_write(buf, index, val.to(buf.dtype))
+                elif isinstance(index, int):
                     buf[:, index:index + q_len] = val
-            else:
-                rows = torch.arange(b, device=q.device)
-                for buf, val in zip(cache, writes):
+                elif q_len == 1:
+                    rows = torch.arange(b, device=q.device)
                     buf[rows, index] = val[:, 0]
+                else:
+                    _row_write(buf, pos, val)
             reads = list(cache)
         if isinstance(index, int) and q_len > 1 and not chunk_attends_cache:
-            # One-shot prefill into an empty cache: causal attention
-            # among the chunk's own tokens, on the flash kernel (no
-            # int8 round trip for the chunk's own scores).
+            # One-shot prefill into an empty cache: causal (windowed)
+            # attention among the chunk's own tokens, on the flash
+            # kernel (no int8 round trip for the chunk's own scores),
+            # whatever part of the chunk the ring kept.
             return flash_attention(q, _expand_kv(k, heads),
-                                   _expand_kv(v, heads), causal=True)
+                                   _expand_kv(v, heads), causal=True,
+                                   window=self.window or None)
         if cache_k.dtype == torch.uint8:
             reads[:2] = [_unpack_int4(r) for r in reads[:2]]
-        return _grouped_attention(q, pos, *reads)
+        return _grouped_attention(q, pos, *reads, window=self.window,
+                                  slot_pos=slot_pos)
 
 
 def _paged_write(arena, table, pos, val):
-    """Write ``val`` [B, Hkv, D] at each row's position ``pos`` [B]:
-    row b's position p lands at (table[b, p // bs], p % bs). A position
-    past the table's span is dropped: its row writes back what its
-    clamped cell already holds, since clamping alone would overwrite
-    the row's own live tail. Active rows own the blocks they write
-    (the engine's refcount and copy-on-write invariant), so only free
-    rows, all on the trash block, share a cell."""
+    """Write ``val`` [B, Q, Hkv, D] at each row's positions ``pos``
+    [B, Q]: row b's position p lands at (table[b, p // bs], p % bs). A
+    position past the table's span is dropped: a single token writes
+    back what its clamped cell already holds (clamping alone would
+    overwrite the row's own live tail), a chunk skips it. Active rows
+    own the blocks they write (the engine's refcount and copy-on-write
+    invariant), so only free rows, all on the trash block, share a
+    cell."""
     bs, n_blk = arena.shape[1], table.shape[1]
     blk = torch.div(pos, bs, rounding_mode="floor")
     in_span = blk < n_blk
-    phys = torch.gather(table, 1, blk.clamp(max=n_blk - 1)[:, None])[:, 0]
+    phys = torch.gather(table, 1, blk.clamp(max=n_blk - 1))
     off = pos % bs
-    arena[phys, off] = torch.where(in_span[:, None, None],
-                                   val.to(arena.dtype), arena[phys, off])
+    if pos.shape[1] == 1:
+        phys, off, in_span = phys[:, 0], off[:, 0], in_span[:, 0]
+        arena[phys, off] = torch.where(in_span[:, None, None],
+                                       val[:, 0].to(arena.dtype),
+                                       arena[phys, off])
+        return
+    r, c = in_span.nonzero(as_tuple=True)
+    arena[phys[r, c], off[r, c]] = val[r, c].to(arena.dtype)
 
 
 def _paged_read(arena, table):
@@ -362,15 +466,18 @@ def _paged_read(arena, table):
     return arena[table].flatten(1, 2)
 
 
-def _grouped_attention(q, pos, keys, values, k_scale=None, v_scale=None):
+def _grouped_attention(q, pos, keys, values, k_scale=None, v_scale=None,
+                       window=0, slot_pos=None):
     """Queries [B, Q, H, D] at positions ``pos`` [B, Q] against the
-    cache [B, L, Hkv, D] with the mask k_pos <= q_pos. Grouped form:
-    queries [B, Hkv, G*Q, D] attend their KV head directly, with no
-    repeated copy of the cache; f32 scores and softmax, probabilities
-    cast to the compute dtype before the product with V. A quantized
-    cache's integer K/V convert to the compute dtype at the products
-    (exact up to 127 in bf16); its scales [B, L, Hkv, 1] multiply the
-    scaled scores (K) and the f32 probabilities (V)."""
+    cache [B, L, Hkv, D] with the mask k_pos <= q_pos, where k_pos is
+    the index (or a ring's ``slot_pos`` [B, L], which also needs
+    k_pos >= 0), and k_pos > q_pos - window with a window. Grouped
+    form: queries [B, Hkv, G*Q, D] attend their KV head directly, with
+    no repeated copy of the cache; f32 scores and softmax,
+    probabilities cast to the compute dtype before the product with V.
+    A quantized cache's integer K/V convert to the compute dtype at the
+    products (exact up to 127 in bf16); its scales [B, L, Hkv, 1]
+    multiply the scaled scores (K) and the f32 probabilities (V)."""
     b, q_len, heads, d = q.shape
     kv_heads = keys.shape[2]
     g = heads // kv_heads
@@ -383,8 +490,15 @@ def _grouped_attention(q, pos, keys, values, k_scale=None, v_scale=None):
     if k_scale is not None:
         # [B, L, Hkv, 1] -> [B, Hkv, 1, 1, L] over (group, query).
         scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None, None]
-    k_pos = torch.arange(keys.shape[1], device=q.device)
-    keep = k_pos[None, None, :] <= pos[:, :, None]              # [B,Q,L]
+    q_pos = pos[:, :, None]                                     # [B,Q,1]
+    if slot_pos is None:
+        k_pos = torch.arange(keys.shape[1], device=q.device)[None, None]
+        keep = k_pos <= q_pos                                   # [B,Q,L]
+    else:
+        k_pos = slot_pos[:, None, :]
+        keep = (k_pos >= 0) & (k_pos <= q_pos)
+    if window:
+        keep = keep & (k_pos > q_pos - window)
     scores = torch.where(keep[:, None, None], scores,
                          torch.full_like(scores, -1e9))
     probs = torch.softmax(scores, dim=-1)
@@ -402,11 +516,12 @@ class Block(nn.Module):
     def __init__(self, embed_dim, num_heads, mlp_ratio=4,
                  num_kv_heads=None, rope=False, dtype=torch.bfloat16,
                  device=None, param_dtype=torch.float32,
-                 attention_fn=None, weights="native"):
+                 attention_fn=None, weights="native", window=0):
         super().__init__()
         self.attn = CausalSelfAttention(embed_dim, num_heads,
                                         num_kv_heads, rope, dtype, device,
-                                        param_dtype, attention_fn, weights)
+                                        param_dtype, attention_fn, weights,
+                                        window)
         self.ln = LayerNorm(embed_dim, dtype, device)
         dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         quant = weights == "int8"
@@ -414,8 +529,9 @@ class Block(nn.Module):
         self.mlp_out = _linear(quant, mlp_ratio * embed_dim, embed_dim, **dd)
 
     def forward(self, x, cache=None, index=None, block_table=None,
-                chunk_attends_cache=False):
-        x = self.attn(x, cache, index, block_table, chunk_attends_cache)
+                chunk_attends_cache=False, slot_pos=None):
+        x = self.attn(x, cache, index, block_table, chunk_attends_cache,
+                      slot_pos)
         h = F.gelu(self.mlp_in(self.ln(x)), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -425,16 +541,17 @@ class TransformerLM(nn.Module):
 
     ``attention_fn(q, k, v, causal=True)`` replaces the flash attention
     of the full causal forward (None: ``flash_attention``), as the flax
-    module's argument does. ``param_dtype`` is the type the parameters
+    module's argument does; with ``attention_window`` W > 0 it is also
+    passed ``window=W``. ``param_dtype`` is the type the parameters
     are held in (module docstring). ``kv_cache_dtype`` (None, "int8",
     "int4") is the mode of the caches ``init_cache`` and
     ``init_paged_cache`` make by default; ``weights="int8"`` holds the
-    projections as ``Int8Linear``. Options of the flax module that this
-    port does not carry yet (sliding window, ring slack) raise
-    ValueError. The flax module's
-    ``kv_pages`` and ``chunk_attends_cache`` clone flags are arguments
-    of ``forward`` here (``block_table``, ``chunk_attends_cache``), so
-    the constructor refuses them too."""
+    projections as ``Int8Linear``. ``ring_slack`` adds ring slots
+    beyond the window to the caches ``init_cache`` makes (the flax
+    module's: it changes the cache shape only; the slot engine refuses
+    it). The flax module's ``kv_pages`` and ``chunk_attends_cache``
+    clone flags are arguments of ``forward`` here (``block_table``,
+    ``chunk_attends_cache``), so the constructor refuses them."""
 
     def __init__(self, vocab_size=32000, embed_dim=512, num_layers=8,
                  num_heads=8, max_seq_len=2048, mlp_ratio=4,
@@ -454,21 +571,23 @@ class TransformerLM(nn.Module):
                 f"weights must be 'native' or 'int8': {weights!r}")
         check_kv_cache_dtype(kv_cache_dtype, embed_dim // num_heads)
         for option, value, default in (
-                ("attention_window", attention_window, 0),
                 ("chunk_attends_cache", chunk_attends_cache, False),
-                ("ring_slack", ring_slack, 0),
                 ("kv_pages", kv_pages, None)):
             if value != default:
-                raise not_ported(f"{option}={value!r}" + (
-                    " as a module option (pass it to forward)"
-                    if option in ("kv_pages", "chunk_attends_cache")
-                    else ""))
+                raise not_ported(f"{option}={value!r} as a module option "
+                                 f"(pass it to forward)")
+        if attention_window < 0 or ring_slack < 0:
+            raise ValueError(
+                f"attention_window and ring_slack must be >= 0: "
+                f"{attention_window}, {ring_slack}")
         self.vocab_size, self.embed_dim = vocab_size, embed_dim
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads
         self.max_seq_len, self.mlp_ratio = max_seq_len, mlp_ratio
         self.pos_embedding, self.dtype = pos_embedding, dtype
         self.kv_cache_dtype, self.weights = kv_cache_dtype, weights
+        self.attention_window = int(attention_window)
+        self.ring_slack = int(ring_slack)
         dd = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.tok_embed = Embedding(vocab_size, embed_dim, **dd)
         if pos_embedding == "learned":
@@ -476,7 +595,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, num_kv_heads,
                   pos_embedding == "rope", dtype, device, param_dtype,
-                  attention_fn, weights)
+                  attention_fn, weights, self.attention_window)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(embed_dim, dtype, device)
         self.lm_head = nn.Linear(embed_dim, vocab_size, device=device)
@@ -507,11 +626,28 @@ class TransformerLM(nn.Module):
                                   device=self.device) for w, dt in specs)
                 for _ in range(self.num_layers)]
 
-    def init_cache(self, batch, length, quant=None):
+    def init_cache(self, batch, length, quant=None, ring=None,
+                   ring_slack=None):
         """Per-layer dense cache buffers [batch, length, ...], zero-
         filled, in the model's kv_cache_dtype or the mode ``quant``
-        ("bf16", "int8", "int4"; see ``_cache_buffers``)."""
-        return self._cache_buffers((batch, length), quant)
+        ("bf16", "int8", "int4"; see ``_cache_buffers``). A sliding-
+        window model makes a ``RingCache`` of min(length, window +
+        ring_slack) slots (``ring_slack``: the model's unless given)
+        unless ``ring=False`` asks for the full-length cache the slot
+        engine's per-row positions take."""
+        if ring is None:
+            ring = bool(self.attention_window)
+        if not ring:
+            return self._cache_buffers((batch, length), quant)
+        if not self.attention_window:
+            raise ValueError("a ring cache needs attention_window > 0")
+        slack = self.ring_slack if ring_slack is None else int(ring_slack)
+        if slack < 0:
+            raise ValueError(f"ring_slack must be >= 0: {slack}")
+        c_len = min(length, self.attention_window + slack)
+        return RingCache(self._cache_buffers((batch, c_len), quant),
+                         torch.full((batch, c_len), -1, dtype=torch.long,
+                                    device=self.device))
 
     def init_paged_cache(self, num_blocks, block_size, quant=None):
         """Per-layer paged arenas [num_blocks, block_size, ...], zero-
@@ -524,9 +660,10 @@ class TransformerLM(nn.Module):
                 chunk_attends_cache=False):
         """``cache``/``index``/``block_table``/``chunk_attends_cache``
         as in CausalSelfAttention.forward: None for a full causal
-        forward, or the decode-mode cache and the write offset (int,
-        or [B] per-row positions); ``block_table`` [B, n_blk] maps
-        each row's logical blocks to arena blocks of a paged cache."""
+        forward, or the decode-mode cache (a list of layer buffers, or
+        a ``RingCache``) and the write offset (int, or [B] per-row
+        positions); ``block_table`` [B, n_blk] maps each row's logical
+        blocks to arena blocks of a paged cache."""
         s = tokens.shape[1]
         if s > self.max_seq_len:
             raise ValueError(
@@ -543,9 +680,18 @@ class TransformerLM(nn.Module):
                 pos = index[:, None] + steps[None, :]
             x = x + self.pos_embed(pos)
         layers = cache if cache is not None else [None] * self.num_layers
+        slot_pos = None
+        if isinstance(cache, RingCache):
+            if not isinstance(index, int):
+                raise ValueError(
+                    "per-row positions take a full-length cache, not a "
+                    "ring (the slot engine's windowed caches are "
+                    "band-masked, as the flax module's per_row_index)")
+            _write_slot_pos(cache, index, s)
+            slot_pos = cache.slot_pos
         for block, layer_cache in zip(self.blocks, layers):
             x = block(x, layer_cache, index, block_table,
-                      chunk_attends_cache)
+                      chunk_attends_cache, slot_pos)
         return self.lm_head(self.ln_f(x).float())
 
 

@@ -58,8 +58,9 @@ def build_parser():
     p.add_argument("--pos-embedding", choices=["learned", "rope"],
                    default="learned")
     p.add_argument("--attention-window", type=int, default=0,
-                   help="sliding-window attention (not yet ported: "
-                        "only 0 is accepted)")
+                   help="sliding-window attention width (0 = full "
+                        "causal); the engine's slots hold full-length "
+                        "band-masked caches")
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--port", type=int, default=8500)

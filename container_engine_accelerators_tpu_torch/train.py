@@ -37,9 +37,10 @@ follow the demo.
 Prints the demo's JSON result line (model, depth, devices,
 global_batch, steps, images_per_sec, images_per_sec_per_chip,
 final_loss, tokens_per_sec for the LM, eval accuracies) with the
-kernels' launch counts added. The flags of the demo's other paths
-(moe, parallelism, checkpoints, profiles, real data, the attention
-window) raise "not yet ported".
+kernels' launch counts added. ``--attention-window`` trains the LM
+with sliding-window attention (the flash kernels' band). The flags of
+the demo's other paths (moe, parallelism, checkpoints, profiles, real
+data) raise "not yet ported".
 """
 
 import argparse
@@ -91,7 +92,8 @@ def parse_args(argv=None):
     p.add_argument("--pos-embedding", choices=["learned", "rope"],
                    default="learned")
     p.add_argument("--attention-window", type=int, default=0,
-                   help="sliding-window width (not ported)")
+                   help="sliding-window attention width (0 = full "
+                        "causal)")
     p.add_argument("--num-experts", type=int, default=8,
                    help="MoE expert count (moe is not ported)")
     p.add_argument("--expert-parallelism", type=int, default=1)
@@ -163,7 +165,6 @@ def check_ported(args):
     not carry."""
     unported = {
         "--model moe": args.model == "moe",
-        "--attention-window": args.attention_window > 0,
         "--expert-parallelism": args.expert_parallelism > 1,
         "--context-parallelism": args.context_parallelism > 1,
         "--attention ring/ulysses": args.attention != "flash",
@@ -187,6 +188,7 @@ def lm_config(args):
                 num_layers=args.num_layers, num_heads=args.num_heads,
                 num_kv_heads=args.num_kv_heads or None,
                 pos_embedding=args.pos_embedding,
+                attention_window=args.attention_window,
                 max_seq_len=args.seq_len)
 
 

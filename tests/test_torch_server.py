@@ -50,6 +50,7 @@ from container_engine_accelerators_tpu.serving import (
 )
 from container_engine_accelerators_tpu_torch.models import decode
 from container_engine_accelerators_tpu_torch.models import quantized
+from container_engine_accelerators_tpu_torch.models import transformer
 from container_engine_accelerators_tpu_torch.serving import serve
 from container_engine_accelerators_tpu_torch.serving import server
 from container_engine_accelerators_tpu_torch.serving import tokenizer
@@ -277,7 +278,7 @@ def test_healthz_stats_and_metadata(request, pool):
     assert info["max_new_tokens"] == MAX_NEW
 
 
-def test_launcher_builds_a_cpu_server_and_refuses_the_rest():
+def test_launcher_builds_a_cpu_server_and_refuses_the_rest(monkeypatch):
     flags = ["--vocab-size", "64", "--embed-dim", "32", "--num-layers",
              "1", "--num-heads", "4", "--num-kv-heads", "2",
              "--pos-embedding", "rope", "--max-seq-len", "48",
@@ -302,6 +303,22 @@ def test_launcher_builds_a_cpu_server_and_refuses_the_rest():
             serve.build_server(parser.parse_args(flags))
     for extra in (["--attention-window", "16"],
                   ["--tokenizer", "/models/tok"]):
+        if extra[0] == "--attention-window":
+            # Ported: the launcher builds the windowed server, on the
+            # paged pool and at CEA_TPU_PAGED_KV=0 on the dense one.
+            for paged in ("1", "0"):
+                monkeypatch.setenv(decode.PAGED_KV_ENV, paged)
+                s = serve.build_server(parser.parse_args(
+                    flags + ["--device", "cpu"] + extra))
+                try:
+                    assert s.engine.paged == (paged == "1")
+                    assert s.engine._model.attention_window == 16
+                    assert not isinstance(s.engine._cache,
+                                          transformer.RingCache)
+                finally:
+                    s.stop()
+            monkeypatch.delenv(decode.PAGED_KV_ENV)
+            continue
         with pytest.raises(ValueError, match="not yet ported"):
             serve.build_server(parser.parse_args(
                 flags + ["--device", "cpu"] + extra))

@@ -342,7 +342,16 @@ def test_eval_step_gives_the_lm_logits():
     ["--pipeline-parallelism", "2"], ["--dcn-granules", "2"], ["--fsdp"],
     ["--data-dir", "d"], ["--model-dir", "m"], ["--profile-dir", "p"]])
 def test_unported_flags_raise(flags):
+    """Every flag of a path the port does not carry raises; the
+    sliding window is ported and trains a tiny windowed LM instead."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
+    if flags[0] == "--attention-window":
+        result = port_train.main(argv + [
+            "--vocab-size", "32", "--embed-dim", "16", "--num-layers", "1",
+            "--num-heads", "2", "--seq-len", "80", "--batch-size", "2",
+            "--steps", "2", "--warmup-steps", "1"])
+        assert np.isfinite(result["final_loss"]) and result["steps"] == 2
+        return
     with pytest.raises(ValueError, match="not yet ported"):
         port_train.main(argv)
 

@@ -162,9 +162,35 @@ def test_converter_layout_and_leaf_count():
     ("attention_window", 64), ("kv_pages", (8, 16)),
     ("chunk_attends_cache", True), ("ring_slack", 2)])
 def test_unported_options_raise(option, value):
-    with pytest.raises(ValueError, match=f"{option}=.*not yet ported"):
-        transformer.TransformerLM(**torch_parity.TINY, device="cpu",
-                                  **{option: value})
+    """The flax module's clone flags (``kv_pages``,
+    ``chunk_attends_cache``) are forward arguments here and raise as
+    module options. The sliding window and its ring slack are ported:
+    they build, and the window's ring holds window + slack slots (the
+    slack alone, on an unwindowed model, changes no cache, as in
+    flax)."""
+    if option in ("kv_pages", "chunk_attends_cache"):
+        with pytest.raises(ValueError, match=f"{option}=.*not yet ported"):
+            transformer.TransformerLM(**torch_parity.TINY, device="cpu",
+                                      **{option: value})
+        return
+    model = transformer.TransformerLM(**torch_parity.TINY, device="cpu",
+                                      **{option: value})
+    assert getattr(model, option) == value
+    cache = model.init_cache(2, 40)
+    if option == "ring_slack":
+        assert not isinstance(cache, transformer.RingCache)
+        assert cache[0][0].shape[1] == 40
+        windowed = transformer.TransformerLM(
+            **torch_parity.TINY, device="cpu", attention_window=6,
+            ring_slack=value)
+        cache = windowed.init_cache(2, 40)
+        assert cache[0][0].shape[1] == 6 + value
+    else:
+        assert all(b.attn.window == value for b in model.blocks)
+        assert cache[0][0].shape[1] == 40   # min(length, window)
+    assert isinstance(cache, transformer.RingCache)
+    assert (cache.slot_pos == -1).all()
+    assert tuple(cache.slot_pos.shape) == (2, cache[0][0].shape[1])
 
 
 def test_mid_cache_chunk_and_overrun_raise():
