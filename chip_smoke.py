@@ -123,7 +123,28 @@
    (d) informational: the three flash kernels at [8, 2048, 8, 64] with
    the band beside their bounds and SDPA with the band as a boolean
    mask, the ring's KV bytes a row against the full-length cache, and
-   a decode step on each.
+   a decode step on each;
+10. runs speculation at full width, k 4, with two drafts: the demo
+   launcher's default (2 layers, E 128, the target's 8 heads, MHA,
+   rope, seed 1) and the target itself (a self-draft). (a)
+   ``speculative_decode`` on prompts of 1500 and 16 tokens, 128 new
+   tokens each: 16 flash_fwd launches a self-draft call and 10 a
+   demo-draft call (the two one-shot prefills) and nothing else; each
+   greedy stream equal to greedy_decode's or first differing at a near
+   tie (PERF.md §2's 2e-2 rule); self-draft acceptance at least 0.9;
+   one sampled call finite and reproducible from its generator; the
+   windowed target (W 512) with its self-draft on rings of [1, 516, 2,
+   64] under the same rule; (b) ``serve.py --speculative-k 4`` (the
+   demo draft) on the paged pool, 6 concurrent greedy requests and 1
+   sampled: exactly 2 flash_fwd launches a greedy admission (the
+   draft's prefill) and 0 for the sampled one, the streams under the
+   rule, /stats with the speculation fields, pool and draft arena
+   clean when idle; the same flags on the dense pool, 10 launches a
+   greedy admission; an engine with the self-draft driven directly,
+   its acceptance at least 0.5 (the JAX tool's floor); (c)
+   informational: a decode step with 8 rows plain, with the demo draft
+   and with the self-draft, tokens committed a step, the draft arena's
+   bytes.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -187,6 +208,20 @@ WINDOW_SERVE = (16, 100, 1024, 1200, 1350, 1500)   # 2 short, 4 long
 WINDOW_DENSE = (16, 100, 1024, 1500)
 WINDOW_NEW = 32
 WINDOW_STEP_POS = 1600             # the timed decode step's position
+# The speculation phase (10): k 4; the demo launcher's default draft
+# (demo/serving/serve.py: 2 layers, E 128, the target's heads, MHA,
+# rope, the target's vocab and max_seq_len; seed SEED + 1 as the port's
+# launcher makes it) and the self-draft.
+SPEC_K = 4
+SPEC_DRAFT = dict(MODEL, embed_dim=128, num_layers=2, num_kv_heads=None)
+SPEC_PROMPTS = (1500, 16)
+SPEC_SERVE = (16, 64, 100, 300, 700, 1500)     # concurrent greedy
+SPEC_DENSE = (16, 100, 700, 1500)
+SPEC_ENGINE = (16, 32, 64, 100, 200, 300, 500, 700)
+SPEC_ENGINE_NEW = 64
+SPEC_NEW = 32
+SPEC_ACCEPT_SINGLE = 0.9   # single-request self-draft: no draft holes
+SPEC_ACCEPT_ENGINE = 0.5   # tools/bench_serving_occupancy.py's floor
 # The kernel step against the plain step: loss within 1e-3 relative,
 # each gradient within 5e-2 relative L2. Both steps compute in bf16
 # with f32 sums but round at different points (the flash forward's
@@ -2097,6 +2132,321 @@ def drive_window(torch, attn, convert, train, kernels, rng):
     return report, launches
 
 
+def spec_decode_calls(torch, speculative, model, draft, kernels, rng,
+                      name, launches_per_call, window=0):
+    """Phase 10a: greedy ``speculative_decode`` (k SPEC_K) on the
+    SPEC_PROMPTS prompts, MAX_NEW new tokens each, counts set to 0 just
+    before each call and read just after. Returns (entry, launches
+    summed over the calls)."""
+    vocab = MODEL["vocab_size"]
+    entry, total = {"calls": []}, {kern.name: 0 for kern in kernels}
+    accepted = proposed = 0
+    for n in SPEC_PROMPTS:
+        prompt = torch.as_tensor(rng.integers(0, vocab, (1, n)),
+                                 device="cuda")
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        seq, stats = speculative.speculative_decode(
+            model, draft, prompt, MAX_NEW, k=SPEC_K, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in kernels}
+        total = {k: total[k] + counts[k] for k in total}
+        accepted += stats["accepted_drafts"]
+        proposed += stats["rounds"] * (SPEC_K - 1)
+        entry["calls"].append(dict(
+            prompt_len=n, launches=counts, stats=stats, wall_s=wall,
+            divergence=stream_divergence(torch, model, prompt[0].tolist(),
+                                         MAX_NEW, seq[0].tolist())))
+        if (counts["flash_fwd"] != launches_per_call
+                or any(v for k, v in counts.items() if k != "flash_fwd")):
+            raise AssertionError(f"speculative_decode ({name}, prompt {n}) "
+                                 f"launched {counts}")
+    entry["acceptance"] = accepted / max(proposed, 1)
+    bad = [c["divergence"] for c in entry["calls"]
+           if c["divergence"] is not None and not c["divergence"]["near_tie"]]
+    if bad:
+        raise AssertionError(f"speculative_decode ({name}) diverges off a "
+                             f"near tie: {bad}")
+    log(f"speculative_decode ({name}):", json.dumps(entry))
+    return entry, total
+
+
+def drive_spec_decode(torch, speculative, convert, model, draft, kernels,
+                      rng):
+    """Phase 10a (see the module docstring)."""
+    report, launches = {}, {}
+    layers, dlayers = MODEL["num_layers"], SPEC_DRAFT["num_layers"]
+    report["self"], launches["spec_decode_self"] = spec_decode_calls(
+        torch, speculative, model, model, kernels, rng, "self-draft",
+        2 * layers)
+    if report["self"]["acceptance"] < SPEC_ACCEPT_SINGLE:
+        raise AssertionError(f"single-request self-draft acceptance "
+                             f"{report['self']['acceptance']:.4f} < "
+                             f"{SPEC_ACCEPT_SINGLE}")
+    report["demo"], launches["spec_decode_demo"] = spec_decode_calls(
+        torch, speculative, model, draft, kernels, rng, "demo draft",
+        layers + dlayers)
+    # One sampled call, twice from the same generator seed.
+    prompt = torch.as_tensor(rng.integers(0, MODEL["vocab_size"], (1, 16)),
+                             device="cuda")
+    runs = [speculative.speculative_decode(
+        model, draft, prompt, SPEC_NEW, k=SPEC_K, temperature=0.8, top_k=50,
+        top_p=0.9, return_logprobs=True,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 3))
+        for _ in range(2)]
+    (seq, lps), (seq2, lps2) = runs
+    report["sampled"] = dict(
+        reproducible=bool(torch.equal(seq, seq2) and torch.equal(lps, lps2)),
+        finite=bool(torch.isfinite(lps).all()),
+        in_vocab=bool(((seq >= 0) & (seq < MODEL["vocab_size"])).all()))
+    if not all(report["sampled"].values()):
+        raise AssertionError(f"sampled speculation: {report['sampled']}")
+    # The windowed target with its self-draft: rings of W + k slots.
+    windowed = convert.load_lm(dict(MODEL, attention_window=WINDOW),
+                               convert.init_flax_layout_params(MODEL, SEED))
+    shapes = []
+    real = windowed.init_cache
+
+    def spy(*args, **kwargs):
+        cache = real(*args, **kwargs)
+        shapes.append(list(cache[0][0].shape))
+        return cache
+
+    windowed.init_cache = spy
+    report["window"], launches["spec_decode_window"] = spec_decode_calls(
+        torch, speculative, windowed, windowed, kernels, rng,
+        "windowed self-draft", 2 * layers)
+    windowed.init_cache = real
+    report["window"]["ring_leaf_shapes"] = shapes
+    kv = MODEL["num_kv_heads"]
+    d = MODEL["embed_dim"] // MODEL["num_heads"]
+    if shapes[:2] != [[1, WINDOW + SPEC_K, kv, d]] * 2:
+        raise AssertionError(f"speculation's ring leaves {shapes}")
+    del windowed
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def spec_server_traffic(server, rng, lengths):
+    """Concurrent greedy requests of ``lengths`` tokens and one sampled
+    request, SPEC_NEW new tokens each. Returns the greedy [(prompt,
+    new, sequence)]."""
+    vocab = MODEL["vocab_size"]
+    payloads = [{"prompts": [rng.integers(0, vocab, n).tolist()],
+                 "max_new_tokens": SPEC_NEW} for n in lengths]
+    payloads.append({"prompts": [rng.integers(0, vocab, 64).tolist()],
+                     "max_new_tokens": SPEC_NEW, "temperature": 0.8,
+                     "top_k": 50})
+    results, errors = [None] * len(payloads), []
+
+    def client(i):
+        try:
+            results[i] = post(server.port, payloads[i])
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"speculative requests failed: {errors}")
+    greedy = []
+    for pay, (status, body) in zip(payloads, results):
+        p = pay["prompts"][0]
+        seq = body["sequences"][0]
+        if status != 200 or len(seq) != len(p) + SPEC_NEW or not all(
+                0 <= t < vocab for t in seq):
+            raise AssertionError(f"bad speculative response {status}: "
+                                 f"{body}")
+        if "temperature" not in pay:
+            greedy.append((p, SPEC_NEW, seq))
+    return greedy
+
+
+def drive_spec_serving(torch, kernels, rng):
+    """Phase 10b: ``serve.py --speculative-k 4`` (the demo draft) on the
+    paged pool, then on the dense pool (CEA_TPU_PAGED_KV=0 while it
+    builds), counts set to 0 just before the traffic and read just
+    after."""
+    from container_engine_accelerators_tpu_torch.serving import serve
+    argv = ["--model", "transformer", "--model-name", "lm", "--port", "0",
+            "--vocab-size", str(MODEL["vocab_size"]),
+            "--embed-dim", str(MODEL["embed_dim"]),
+            "--num-layers", str(MODEL["num_layers"]),
+            "--num-heads", str(MODEL["num_heads"]),
+            "--num-kv-heads", str(MODEL["num_kv_heads"]),
+            "--pos-embedding", MODEL["pos_embedding"],
+            "--max-seq-len", str(MODEL["max_seq_len"]),
+            "--max-new-tokens", str(MAX_NEW),
+            "--max-batch", str(MAX_BATCH), "--seed", str(SEED),
+            "--speculative-k", str(SPEC_K),
+            "--draft-layers", str(SPEC_DRAFT["num_layers"]),
+            "--draft-embed-dim", str(SPEC_DRAFT["embed_dim"])]
+    report, launches = {}, {kern.name: 0 for kern in kernels}
+    # flash_fwd launches of a greedy and of the sampled admission: the
+    # draft's one-shot prefill, and on the dense pool the target's.
+    per_admission = {
+        "paged": (SPEC_DRAFT["num_layers"], 0),
+        "dense": (MODEL["num_layers"] + SPEC_DRAFT["num_layers"],
+                  MODEL["num_layers"])}
+    for pool, lengths in (("paged", SPEC_SERVE), ("dense", SPEC_DENSE)):
+        if pool == "dense":
+            os.environ["CEA_TPU_PAGED_KV"] = "0"
+        try:
+            server = serve.build_server(serve.build_parser().parse_args(argv))
+        finally:
+            os.environ.pop("CEA_TPU_PAGED_KV", None)
+        eng = server.engine
+        if eng.paged != (pool == "paged") or eng._spec_k != SPEC_K:
+            raise AssertionError(f"the launcher built the wrong {pool} engine")
+        server.start()
+        try:
+            for kern in kernels:
+                kern.launches = 0
+            prefills0 = eng.prefills
+            greedy = spec_server_traffic(server, rng, lengths)
+            counts = {kern.name: kern.launches for kern in kernels}
+            stats = get(server.port, "/stats")
+            admissions = eng.prefills - prefills0
+        finally:
+            server.stop()
+        diverged = [d for d in (stream_divergence(torch, eng._model, p, new,
+                                                  seq)
+                                for p, new, seq in greedy) if d is not None]
+        fields = ("spec_steps", "spec_proposed_tokens",
+                  "spec_accepted_tokens", "draft_prefills",
+                  "speculative_acceptance_rate", "accepted_tokens_per_step")
+        entry = dict(launches=counts, admissions=admissions,
+                     greedy=len(greedy), greedy_exact=len(greedy)
+                     - len(diverged), greedy_diverged=diverged,
+                     leaks=eng.pool_leak_report(),
+                     stats={k: stats.get(k) for k in fields
+                            + ("spec_kv_blocks_total", "spec_kv_blocks_free",
+                               "spec_kv_arena_bytes")},
+                     spec_kv_arena_bytes=eng.spec_kv_arena_bytes)
+        report[pool] = entry
+        log(f"speculative serving ({pool}):", json.dumps(entry))
+        greedy_each, sampled_each = per_admission[pool]
+        want = greedy_each * len(lengths) + sampled_each
+        if (counts["flash_fwd"] != want
+                or any(v for k, v in counts.items() if k != "flash_fwd")
+                or stats["draft_prefills"] != len(lengths)
+                or admissions != len(lengths) + 1):
+            raise AssertionError(
+                f"speculative {pool} serving launched {counts} for "
+                f"{admissions} admissions, {stats['draft_prefills']} "
+                f"drafting; want {want} flash_fwd")
+        if any(k not in stats for k in fields) or not stats["spec_steps"]:
+            raise AssertionError(f"/stats lacks speculation: {stats}")
+        if entry["leaks"] is not None:
+            raise AssertionError(f"speculative {pool} pool not clean: "
+                                 f"{entry['leaks']}")
+        if not all(d["near_tie"] for d in diverged):
+            raise AssertionError(f"speculative {pool} streams diverge off "
+                                 f"a near tie: {diverged}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        del server, eng
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def spec_engine_run(torch, decode, model, draft, rng, slot_len):
+    """Phase 10b/c: SPEC_ENGINE greedy rows (SPEC_ENGINE_NEW new tokens)
+    through a paged engine with ``draft`` (None: plain), all admitted
+    first, stepped until each row has its budget (released there), 10
+    steps with all 8 rows active timed (host clock around synced
+    steps). Returns (engine, report)."""
+    import numpy as np
+    kwargs = {} if draft is None else dict(draft_model=draft, spec_k=SPEC_K)
+    eng = decode.SlotDecodeEngine(model, MAX_BATCH, slot_len, paged=True,
+                                  **kwargs)
+    vocab = MODEL["vocab_size"]
+    rows = {}
+    for n in SPEC_ENGINE:
+        slot, first, _, _ = eng.admit(rng.integers(0, vocab, n), n,
+                                      max_new=SPEC_ENGINE_NEW)
+        rows[slot] = [first]
+    committed, step_ms = [], []
+    while rows:
+        full = len(rows) == MAX_BATCH and len(step_ms) < 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.step()
+        if full:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = out[2] if draft is not None else np.ones(MAX_BATCH, int)
+        for slot in list(rows):
+            c = int(counts[slot])
+            toks = out[0][slot, :c] if draft is not None else [out[0][slot]]
+            rows[slot].extend(int(t) for t in toks)
+            if full:
+                committed.append(c)
+            if len(rows[slot]) >= SPEC_ENGINE_NEW:
+                eng.release(slot)
+                del rows[slot]
+    report = dict(step_ms=step_ms, leaks=eng.pool_leak_report(),
+                  tokens_per_row_step=(sum(committed) / len(committed)
+                                       if committed else None))
+    if draft is not None:
+        report.update(acceptance=eng.spec_accepted / max(eng.spec_proposed,
+                                                         1),
+                      spec_steps=eng.spec_steps,
+                      accepted_tokens_per_step=(
+                          (eng.spec_accepted + eng.spec_row_steps)
+                          / max(eng.spec_row_steps, 1)),
+                      spec_kv_arena_bytes=eng.spec_kv_arena_bytes)
+    return eng, report
+
+
+def drive_spec_engine(torch, decode, model, draft, kernels, rng):
+    """Phase 10b/c: the self-draft engine's acceptance (>= the JAX
+    tool's floor), and the decode step with 8 rows plain, with the demo
+    draft and with the self-draft (informational)."""
+    slot_len = MODEL["max_seq_len"]
+    report = {}
+    for name, d in (("plain", None), ("demo", draft), ("self", model)):
+        eng, report[name] = spec_engine_run(torch, decode, model, d, rng,
+                                            slot_len)
+        log(f"speculative engine ({name}):", json.dumps(report[name]))
+        if report[name]["leaks"] is not None:
+            raise AssertionError(f"speculative engine ({name}) not clean: "
+                                 f"{report[name]['leaks']}")
+        del eng
+    if report["self"]["acceptance"] < SPEC_ACCEPT_ENGINE:
+        raise AssertionError(f"engine self-draft acceptance "
+                             f"{report['self']['acceptance']:.4f} < "
+                             f"{SPEC_ACCEPT_ENGINE}")
+    torch.cuda.empty_cache()
+    return report
+
+
+def drive_spec(torch, convert, kernels, rng):
+    """Phase 10 (see the module docstring). Returns (report, launches by
+    path)."""
+    from container_engine_accelerators_tpu_torch.models import decode
+    from container_engine_accelerators_tpu_torch.models import speculative
+    t0 = time.perf_counter()
+    model = convert.load_lm(MODEL, convert.init_flax_layout_params(MODEL,
+                                                                   SEED))
+    draft = convert.load_lm(SPEC_DRAFT, convert.init_flax_layout_params(
+        SPEC_DRAFT, SEED + 1))
+    report, launches = drive_spec_decode(torch, speculative, convert, model,
+                                         draft, kernels, rng)
+    report["serving"], launches["spec_serving"] = drive_spec_serving(
+        torch, kernels, rng)
+    report["engine"] = drive_spec_engine(torch, decode, model, draft,
+                                         kernels, rng)
+    report["phase_s"] = time.perf_counter() - t0
+    del model, draft
+    torch.cuda.empty_cache()
+    return report, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2244,6 +2594,10 @@ def main():
     report["window"], window_launches = drive_window(
         torch, attention, convert, train, all_kernels, rng)
 
+    # Phase 10: speculation at full width.
+    report["spec"], spec_launches = drive_spec(torch, convert, all_kernels,
+                                               rng)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -2287,6 +2641,8 @@ def main():
         by_path["deployed_serving"] = deployed_launches[name]
         for path, counts in window_launches.items():
             by_path[path] = counts[name]
+        for path, counts in spec_launches.items():
+            by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -2324,7 +2680,8 @@ def main():
         f"images/s, {report['resnet']['step_ms_mean']:.2f} ms a step; "
         f"paged: {json.dumps(report['paged']['times'])}; window step "
         f"{json.dumps(report['window']['step_ms'])} ms, windowed training "
-        f"{report['window']['train']['step_ms_mean']:.2f} ms a step")
+        f"{report['window']['train']['step_ms_mean']:.2f} ms a step; "
+        f"speculation phase {report['spec']['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -36,8 +36,11 @@ Counterpart of container_engine_accelerators_tpu/models/decode.py:
   prefill runs the flash kernel. Either pool holds its cache in the
   mode ``kv_quant`` / ``CEA_TPU_KV_QUANT`` asks for (bf16, int8, int4)
   with the model's weights as they are; a sliding-window model runs on
-  full-length band-masked caches; speculation is not ported yet and
-  raises.
+  full-length band-masked caches. With a draft model (``draft_model``,
+  ``spec_k``) greedy rows speculate: the draft proposes k-1 tokens
+  from its own cache (a dense slot row, or a block span of its own
+  arena on the paged pool) and the target verifies them as one
+  width-k chunk (the ``models/speculative.py`` machinery, per row).
 
 JAX's programs are pure; here the engine's cache is updated in place
 (the dense admission prefill writes straight into its slot's row
@@ -63,7 +66,7 @@ import numpy as np
 import torch
 
 from ..serving.affinity import KV_BLOCK_ENV, chain_digest
-from ..utils import _env_flag, env_number, env_str, not_ported
+from ..utils import _env_flag, env_number, env_str
 from .transformer import map_cache
 
 PAGED_KV_ENV = "CEA_TPU_PAGED_KV"
@@ -71,6 +74,7 @@ KV_BLOCKS_ENV = "CEA_TPU_KV_BLOCKS"
 KV_QUANT_ENV = "CEA_TPU_KV_QUANT"
 KV_SPILL_ENV = "CEA_TPU_KV_SPILL"
 KV_SPILL_BYTES_ENV = "CEA_TPU_KV_SPILL_BYTES"
+SPEC_KV_BLOCKS_ENV = "CEA_TPU_SPEC_KV_BLOCKS"
 
 # Host spill tier's default byte budget (256 MiB): the LRU evicts past
 # it, and an evicted prefix is a true miss that re-prefills.
@@ -1189,6 +1193,51 @@ def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
                                     generator)
 
 
+def _draft_scan(draft, cache, row_pos, tok, k, span, block_table=None):
+    """The draft step over every slot: k-1 greedy single-token steps of
+    the draft model from each row's last committed token, step j at
+    min(row_pos + j, span - 1) (``span``: the row's cache length, or
+    the table's n_blk * block_size on the draft arena). Rows without
+    speculation step too; their writes land in their own unused draft
+    row, or on the trash block. Returns proposals [slots, k-1]."""
+    props = []
+    for j in range(k - 1):
+        pos = torch.clamp(row_pos + j, max=span - 1)
+        logits = draft(tok[:, None], cache, pos, block_table=block_table)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        props.append(tok)
+    return torch.stack(props, dim=1)
+
+
+def _verify_commit(raw, proposals, gate, active, seen, knobs, generators):
+    """The verify step's tail: the chunk's raw logits [slots, k, V] to
+    per-row accepted prefixes. Column 0 goes through the row's full
+    sampling chain (for a gate-off row that IS the single-token step:
+    sampling, penalty, one draw a step); columns 1..k-1 are greedy;
+    ``m`` counts the matched proposals (0 where the gate is off) and
+    ``counts = m + 1`` tokens commit on active rows (0 on free rows).
+    Only the consumed tokens are marked seen. The rejected tail's K/V
+    stay in the cache past row_pos + counts, masked until the next
+    chunk rewrites them. Returns (toks [slots, k], lps [slots, k] f32,
+    counts [slots])."""
+    k = proposals.shape[1] + 1
+    dev = raw.device
+    tok0, lp0 = _slot_sample(raw[:, 0], seen, knobs, generators)
+    toks = torch.cat([tok0[:, None], torch.argmax(raw[:, 1:], dim=-1)],
+                     dim=1)
+    match = (proposals == toks[:, :k - 1]).long()
+    m = torch.cumprod(match, dim=1).sum(dim=1)
+    m = torch.where(gate, m, torch.zeros_like(m))
+    counts = torch.where(active, m + 1, torch.zeros_like(m))
+    lp_all = torch.gather(torch.log_softmax(raw.float(), dim=-1), 2,
+                          toks[..., None])[..., 0]
+    lps = torch.cat([lp0[:, None], lp_all[:, 1:]], dim=1)
+    r, c = (torch.arange(k, device=dev)[None, :] <= m[:, None]).nonzero(
+        as_tuple=True)
+    seen[r, toks[r, c]] = True
+    return toks, lps, counts
+
+
 class SlotDecodeEngine:
     """Persistent decode slot pool with in-flight admission.
 
@@ -1219,6 +1268,24 @@ class SlotDecodeEngine:
     the admission prefill of either pool rides per-row positions, so
     it launches no kernel. ``ring_slack`` is refused.
 
+    **Speculative decoding** (``draft_model``, ``spec_k`` >= 2): a
+    greedy row without repetition penalty mirrors its prompt into the
+    draft's cache at admission (a one-shot prefill through the draft,
+    on the flash kernel, on either pool), and each step the draft
+    proposes k-1 tokens that the target verifies as ONE width-k chunk
+    at the row's position; ``counts[row]`` tokens commit (rejection is
+    a position rewind, never a cache edit). Every other row (sampled,
+    penalized, or within k of its span) takes the single-token path in
+    the same chunk. ``step()`` then returns (toks [slots, k], lps
+    [slots, k], counts [slots]). The paged pool keeps the draft's K/V
+    in an arena of its own: a plain free list (no prefix index,
+    copy-on-write or spill), a trash block, and the row's whole span
+    taken at admission, sized ``slots * n_blk + 1`` blocks or
+    ``spec_kv_blocks`` / ``CEA_TPU_SPEC_KV_BLOCKS``. The draft's cache
+    is in the ``kv_quant`` mode too (its own mode for bf16), with its
+    weights as they are. A windowed target is served; a windowed draft
+    is refused.
+
     **Quantized KV** (``kv_quant`` / ``CEA_TPU_KV_QUANT``: bf16, int8,
     int4): the arena (or the dense pool) holds the cache in that mode,
     whatever the model's own ``kv_cache_dtype`` (bf16 keeps it), with
@@ -1238,15 +1305,39 @@ class SlotDecodeEngine:
     def __init__(self, model, slots, slot_len, *, paged=None,
                  kv_block_size=None, kv_blocks=None, buckets=None,
                  pin_reserve_tokens=0, kv_quant=None, kv_spill=None,
-                 kv_spill_bytes=None, draft_model=None, spec_k=0):
+                 kv_spill_bytes=None, draft_model=None, spec_k=0,
+                 spec_kv_blocks=None):
         if slot_len > model.max_seq_len:
             raise ValueError(
                 f"slot_len {slot_len} exceeds max_seq_len "
                 f"{model.max_seq_len}")
         if slots < 1 or slot_len < 2:
             raise ValueError("need slots >= 1 and slot_len >= 2")
-        if draft_model is not None or spec_k:
-            raise not_ported("speculative decoding (draft_model)")
+        if draft_model is not None:
+            if int(spec_k) < 2:
+                raise ValueError(
+                    f"spec_k must be >= 2 (the verify chunk width; "
+                    f"k-1 draft proposals per step): {spec_k}")
+            if getattr(draft_model, "attention_window", 0):
+                raise ValueError(
+                    "draft model must use a dense cache "
+                    "(attention_window=0); only the TARGET model "
+                    "may be windowed")
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.vocab_size} != "
+                    f"target vocab {model.vocab_size}")
+            if slot_len > draft_model.max_seq_len:
+                raise ValueError(
+                    f"slot_len {slot_len} exceeds draft "
+                    f"max_seq_len {draft_model.max_seq_len}")
+            for m, which in ((model, "target"), (draft_model, "draft")):
+                experts = int(getattr(m, "num_experts", 0) or 0)
+                if experts and m.capacity_factor * m.top_k < experts:
+                    raise ValueError(
+                        f"{which} MoE model can drop tokens "
+                        f"(capacity_factor * top_k < num_experts); "
+                        "verify logits would not be reproducible")
         if getattr(model, "ring_slack", 0):
             # The flax per_row_index clone's refusal: slot caches are
             # full-length and band-masked, never rings.
@@ -1330,6 +1421,54 @@ class SlotDecodeEngine:
         self.prefills = 0
         # {admission width: prefill calls}
         self.prefill_widths = collections.Counter()
+        # Speculation counters exist on every engine; they move only
+        # with a draft configured.
+        self.spec_steps = 0      # step() calls with >= 1 gated row
+        self.spec_row_steps = 0  # gated row-steps (rows that verified)
+        self.spec_proposed = 0   # draft proposals offered (k-1 a row)
+        self.spec_accepted = 0   # draft proposals accepted
+        self.draft_prefills = 0
+        self._draft_model = None
+        self._spec_k = 0
+        if draft_model is not None:
+            self._init_draft(draft_model, int(spec_k), quant,
+                             spec_kv_blocks)
+
+    def _init_draft(self, draft_model, spec_k, quant, spec_kv_blocks):
+        """The draft's cache: a dense slot pool, or on the paged pool an
+        arena of its own (``spec_kv_blocks`` / CEA_TPU_SPEC_KV_BLOCKS
+        blocks, default every slot's full span plus the trash block)."""
+        self._spec_k = spec_k
+        self._draft_model = draft_model
+        self._draft_quant = (_model_quant_mode(draft_model)
+                             if quant == "bf16" else quant)
+        if self.paged:
+            dnb = spec_kv_blocks or env_number(SPEC_KV_BLOCKS_ENV, None,
+                                               parse=int)
+            dnb = (int(dnb) if dnb is not None
+                   else self.slots * self._n_blk + 1)
+            if dnb < self._n_blk + 1:
+                raise ValueError(
+                    f"spec_kv_blocks {dnb} cannot hold even one full row "
+                    f"({self._n_blk} blocks) plus the trash block")
+            self._draft_num_blocks = dnb
+            self._draft_trash = dnb - 1
+            self._draft_free = collections.deque(range(dnb - 1))
+            self._draft_tables = np.full((self.slots, self._n_blk),
+                                         self._draft_trash, np.int64)
+            self._draft_blocks = [[] for _ in range(self.slots)]
+            self._draft_cache = draft_model.init_paged_cache(
+                dnb, self._block_size, self._draft_quant)
+        else:
+            self._draft_cache = draft_model.init_cache(
+                self.slots, self.slot_len, self._draft_quant, ring=False)
+        self.spec_kv_arena_bytes = int(sum(
+            t.numel() * t.element_size() for layer in self._draft_cache
+            for t in layer))
+        # Per-row gate state: whether the row drafts, and the end of
+        # the span its reservation covers.
+        self._spec_row = np.zeros((self.slots,), bool)
+        self._span_limit = np.zeros((self.slots,), np.int64)
 
     def free_slots(self):
         return int((~self._active).sum())
@@ -1422,6 +1561,24 @@ class SlotDecodeEngine:
                 # One authority for lookup and registration.
                 "share_eligible": share}
 
+    def _spec_eligible(self, temperature, repetition_penalty):
+        """Whether a row with these knobs drafts: greedy rows without a
+        repetition penalty (a sampled row's verify column would need
+        per-proposal acceptance sampling, a penalized draft stream the
+        target's seen state); the others take the single-token path in
+        the same chunk."""
+        return (self._draft_model is not None
+                and float(temperature) == 0.0
+                and float(repetition_penalty) == 1.0)
+
+    def _draft_span_blocks(self, prompt_len, max_new):
+        """Draft blocks a row's whole span needs (taken at admission:
+        the draft step never allocates)."""
+        if max_new is None:
+            max_new = self.slot_len - prompt_len
+        limit = min(prompt_len + int(max_new), self.slot_len)
+        return -(-limit // self._block_size)
+
     def admission_block_cause(self, tokens, prompt_len, max_new=None,
                               *, allow_prefix=True,
                               repetition_penalty=1.0,
@@ -1429,9 +1586,9 @@ class SlotDecodeEngine:
         """What an ``admit`` with these arguments is blocked on now:
         ``"slots"`` (no free slot), ``"kv_blocks"`` (a free slot, but
         the block budget, free minus other rows' reservations, cannot
-        cover the row's worst-case private span), or None
-        (admissible)."""
-        del temperature  # the draft arena's gate; speculation is not ported
+        cover the row's worst-case private span), ``"spec_kv_blocks"``
+        (a drafting row's span does not fit the draft arena's free
+        list), or None (admissible)."""
         if self.free_slots() == 0:
             return "slots"
         if not self.paged:
@@ -1441,6 +1598,10 @@ class SlotDecodeEngine:
                                 count=False)
         if self._pool.available() < plan["needed"]:
             return "kv_blocks"
+        if (self._spec_eligible(temperature, repetition_penalty)
+                and len(self._draft_free)
+                < self._draft_span_blocks(prompt_len, max_new)):
+            return "spec_kv_blocks"
         return None
 
     def can_admit(self, tokens, prompt_len, max_new=None, *,
@@ -1698,7 +1859,7 @@ class SlotDecodeEngine:
             return None
         pool = self._pool
         used = pool.usable - pool.free_count()
-        return {
+        stats = {
             "kv_blocks_total": pool.usable,
             "kv_blocks_free": pool.free_count(),
             "kv_blocks_shared": pool.shared_count(),
@@ -1721,6 +1882,11 @@ class SlotDecodeEngine:
                 if pool.spill_probes else None),
             "kv_rehydrated_blocks": int(pool.rehydrated_blocks),
         }
+        if self._draft_model is not None:
+            stats["spec_kv_blocks_total"] = self._draft_num_blocks - 1
+            stats["spec_kv_blocks_free"] = len(self._draft_free)
+            stats["spec_kv_arena_bytes"] = self.spec_kv_arena_bytes
+        return stats
 
     def reset_prefix_counters(self):
         """Zero the prefix-sharing counters (no-op on the dense pool),
@@ -1773,11 +1939,24 @@ class SlotDecodeEngine:
         that need full-prompt echo logprobs: a shared span's echo is
         never computed). Raises EngineCapacityError when the block
         budget cannot cover the row: callers queue and retry after a
-        release."""
+        release.
+
+        With a draft model, a greedy row without penalty also mirrors
+        its prompt into the draft's cache; on the paged pool its whole
+        draft span must fit the draft arena's free list, checked before
+        the pool is touched (EngineCapacityError otherwise)."""
         free = np.flatnonzero(~self._active)
         if free.size == 0:
             raise EngineCapacityError("no free slot; release one first")
         slot = int(free[0])
+        spec = self._spec_eligible(temperature, repetition_penalty)
+        if spec and self.paged:
+            d_need = self._draft_span_blocks(prompt_len, max_new)
+            if len(self._draft_free) < d_need:
+                raise EngineCapacityError(
+                    f"insufficient free draft KV blocks "
+                    f"(need {d_need}, free {len(self._draft_free)});"
+                    " queue the admission")
         knobs = SamplingKnobs(1)
         knobs.set(0, temperature, top_k, top_p, min_p, repetition_penalty)
         if self.paged:
@@ -1799,6 +1978,16 @@ class SlotDecodeEngine:
         self._row_pos[slot] = prompt_len
         self._seen[slot] = seen_row
         self._generators[slot] = generator
+        if self._draft_model is not None:
+            self._spec_row[slot] = spec
+            if spec:
+                self._span_limit[slot] = min(
+                    prompt_len + (int(max_new) if max_new is not None
+                                  else self.slot_len - prompt_len),
+                    self.slot_len)
+                self._admit_draft(slot, tokens, prompt_len)
+            else:
+                self._span_limit[slot] = 0
         first_tok = int(first[0])
         self._tok[slot] = first_tok
         self._active[slot] = True
@@ -1806,36 +1995,136 @@ class SlotDecodeEngine:
                         repetition_penalty)
         return slot, first_tok, float(first_lp[0]), echo.cpu().numpy()
 
-    def _paged_prestep(self):
+    def _admit_draft(self, slot, tokens, prompt_len):
+        """Mirror an admitted greedy row into the draft's cache: take
+        its whole draft span (paged; checked in ``admit``), prefill the
+        full prompt through the draft in one forward on the flash
+        kernel (no prefix sharing: draft blocks are private), padded to
+        ``_pick_width(prompt_len, 0)`` on the paged pool and as given
+        on the dense one, and write it into the slot's draft row (the
+        rest of the row zeroed, as the JAX engine's insert of a fresh
+        batch-1 cache does) or the span's blocks. The blocks are booked
+        before the device work, so a torn admission's release returns
+        them."""
+        row = np.asarray(tokens, np.int64).reshape(-1)
+        if self.paged:
+            bs = self._block_size
+            d_need = -(-int(self._span_limit[slot]) // bs)
+            blocks = [self._draft_free.popleft() for _ in range(d_need)]
+            self._draft_blocks[slot] = blocks
+            self._draft_tables[slot, :d_need] = blocks
+            width = self._pick_width(prompt_len, 0)
+            padded = np.zeros((width,), np.int64)
+            padded[:prompt_len] = row[:prompt_len]
+            row = padded
+        self.draft_prefills += 1
+        chunk = torch.as_tensor(row, device=self.device)[None]
+        if not self.paged:
+            view = [tuple(a[slot:slot + 1] for a in layer)
+                    for layer in self._draft_cache]
+            for layer in view:
+                for a in layer:
+                    a.zero_()
+            self._draft_model(chunk, view, 0)
+            return
+        pre = self._draft_model.init_cache(1, chunk.shape[1],
+                                           self._draft_quant, ring=False)
+        self._draft_model(chunk, pre, 0)
+        span = np.arange(prompt_len)
+        dest = torch.as_tensor(self._draft_tables[slot, span // bs],
+                               device=self.device)
+        offsets = torch.as_tensor(span % bs, device=self.device)
+        for layer, pre_layer in zip(self._draft_cache, pre):
+            for a, p in zip(layer, pre_layer):
+                a[dest, offsets] = p[0, :prompt_len]
+
+    def _paged_prestep(self, gate=None):
         """Host-side block upkeep before a step: every active row is
-        about to write at its current position. Allocate the block when
-        the row just crossed a block boundary (the reservation
-        guarantees success), and fork copy-on-write when the target is
-        shared (refcount > 1: prompt sharing never writes a shared
-        block by construction; the check keeps any other sharing
-        policy safe). Returns the step's (src, dst) copies."""
+        about to write at its current position, and a row of ``gate``
+        (a verify step's speculating rows) its whole [pos, pos + k)
+        span, which can cross a block. Allocate each block of the span
+        that is still the trash block (the reservation guarantees
+        success: the gate keeps a span inside the row's total), and fork
+        copy-on-write each shared one (refcount > 1: prompt sharing
+        never writes a shared block by construction; the check keeps
+        any other sharing policy safe). The other rows' junk proposal
+        columns land on trash or on their own tail, which no mask
+        admits. Returns the step's (src, dst) copies."""
         cows = []
         bs = self._block_size
         for slot in np.flatnonzero(self._active):
             wp = int(self._row_pos[slot])
             if wp >= self.slot_len:
                 continue  # clamped row; its writes rewrite junk
-            bi = wp // bs
-            cur = int(self._tables[slot, bi])
-            if cur == self._trash:
-                b = self._pool.alloc()
-                self._tables[slot, bi] = b
-                self._slot_blocks[slot].append(b)
-                self._take_commit(slot)
-            elif self._pool.ref[cur] > 1:
-                dst = self._pool.alloc()
-                cows.append((cur, dst))
-                self._tables[slot, bi] = dst
-                self._slot_blocks[slot].remove(cur)
-                self._slot_blocks[slot].append(dst)
-                self._pool.decref(cur)
-                self._take_commit(slot)
+            span = self._spec_k if gate is not None and gate[slot] else 1
+            for bi in range(wp // bs,
+                            (min(wp + span, self.slot_len) - 1) // bs + 1):
+                cur = int(self._tables[slot, bi])
+                if cur == self._trash:
+                    b = self._pool.alloc()
+                    self._tables[slot, bi] = b
+                    self._slot_blocks[slot].append(b)
+                    self._take_commit(slot)
+                elif self._pool.ref[cur] > 1:
+                    dst = self._pool.alloc()
+                    cows.append((cur, dst))
+                    self._tables[slot, bi] = dst
+                    self._slot_blocks[slot].remove(cur)
+                    self._slot_blocks[slot].append(dst)
+                    self._pool.decref(cur)
+                    self._take_commit(slot)
         return cows
+
+    def _spec_step(self):
+        """One speculative step: the draft proposes k-1 tokens for
+        every row (when any row is gated: active, drafting, and pos + k
+        within its span), the target verifies [last | proposals] as one
+        width-k chunk at each row's position, and ``counts[row]``
+        tokens commit. Returns (toks [slots, k], lps [slots, k],
+        counts [slots]) as numpy."""
+        k = self._spec_k
+        dev = self.device
+        gate = (self._active & self._spec_row
+                & (self._row_pos + k <= self._span_limit))
+        any_gated = bool(gate.any())
+        tok = torch.as_tensor(self._tok, device=dev)
+        if self.paged:
+            for src, dst in self._paged_prestep(gate):
+                self._copy_block(src, dst)
+            span = self._n_blk * self._block_size
+            tables = torch.as_tensor(self._tables, device=dev)
+            draft_tables = torch.as_tensor(self._draft_tables, device=dev)
+        else:
+            span = self.slot_len
+            tables = draft_tables = None
+        row_pos = torch.as_tensor(self._row_pos, device=dev)
+        if any_gated:
+            props = _draft_scan(self._draft_model, self._draft_cache,
+                                row_pos, tok, k, span, draft_tables)
+        else:
+            props = torch.zeros((self.slots, k - 1), dtype=torch.long,
+                                device=dev)
+        raw = self._model(torch.cat([tok[:, None], props], dim=1),
+                          self._cache, torch.clamp(row_pos, max=span - 1),
+                          block_table=tables)
+        toks, lps, counts = _verify_commit(
+            raw, props, torch.as_tensor(gate, device=dev),
+            torch.as_tensor(self._active, device=dev), self._seen,
+            self._knobs, self._generators)
+        toks, lps = toks.cpu().numpy(), lps.cpu().numpy()
+        counts = counts.cpu().numpy()
+        last = np.maximum(counts, 1) - 1
+        np.copyto(self._tok, toks[np.arange(self.slots), last],
+                  where=self._active)
+        self._row_pos += counts
+        self.steps += 1
+        self.row_steps += int(self._active.sum())
+        if any_gated:
+            self.spec_steps += 1
+            self.spec_row_steps += int(gate.sum())
+            self.spec_proposed += int(gate.sum()) * (k - 1)
+            self.spec_accepted += int((counts[gate] - 1).sum())
+        return toks, lps, counts
 
     @torch.inference_mode()
     def step(self):
@@ -1843,9 +2132,14 @@ class SlotDecodeEngine:
         logprobs [slots] f32) as numpy; entries for free slots are
         scratch. None when the pool is empty. Free rows step too, at a
         position clamped into the row (paged: their tables point at the
-        trash block), and their output is ignored."""
+        trash block), and their output is ignored. With a draft model
+        the step is speculative and returns (toks [slots, k], lps
+        [slots, k], counts [slots]): row r commits its first
+        ``counts[r]`` tokens (``_spec_step``)."""
         if not self._active.any():
             return None
+        if self._draft_model is not None:
+            return self._spec_step()
         dev = self.device
         tok = torch.as_tensor(self._tok, device=dev)[:, None]
         if self.paged:
@@ -1888,6 +2182,13 @@ class SlotDecodeEngine:
             self._pool.committed -= int(self._committed_slot[slot])
             self._committed_slot[slot] = 0
             self._row_pos[slot] = 0
+        if self._draft_model is not None:
+            if self.paged:
+                self._draft_free.extend(self._draft_blocks[slot])
+                self._draft_blocks[slot] = []
+                self._draft_tables[slot, :] = self._draft_trash
+            self._spec_row[slot] = False
+            self._span_limit[slot] = 0
         self._active[slot] = False
         self._generators[slot] = None
         self._knobs.reset(slot)
@@ -1922,6 +2223,15 @@ class SlotDecodeEngine:
         refsum = int(np.abs(pool.ref).sum())
         if refsum != pinned:
             problems["refcounts"] = {"held": refsum, "pinned": pinned}
+        if self._draft_model is not None:
+            free_d = len(self._draft_free)
+            if free_d != self._draft_num_blocks - 1:
+                problems["draft_blocks"] = {
+                    "free": free_d, "expected": self._draft_num_blocks - 1}
+            if not bool((self._draft_tables == self._draft_trash).all()):
+                problems["draft_tables"] = [
+                    int(s) for s in range(self.slots)
+                    if (self._draft_tables[s] != self._draft_trash).any()]
         return problems or None
 
     def force_reclaim(self):

@@ -26,8 +26,16 @@ port supports (the line above is demo/serving/lm-serving.yaml's), plus
 for the random weights. Weights are made in the flax layout from the
 seed and carried over by models/convert.py; ``--quantize-weights=int8``
 quantizes that tree at load, as the demo launcher does. Loading a
-checkpoint (``--model-dir``) waits for the checkpoint-format port, and
-``--warm-filters`` is validated and then ignored, as in the demo.
+checkpoint (``--model-dir``, ``--draft-model-dir``) waits for the
+checkpoint-format port, and ``--warm-filters`` is validated and then
+ignored, as in the demo.
+
+``--speculative-k N`` serves with a draft model, as the demo does: a
+TransformerLM of ``--draft-layers`` layers, ``--draft-embed-dim`` and
+``--draft-num-heads`` heads (0: the target's; MHA), the target's vocab,
+position embedding and max_seq_len, native weights made from seed
+``--seed + 1`` (the target's from ``--seed``). A random draft almost
+never agrees with the target: it shows the path, not the speed-up.
 """
 
 import argparse
@@ -87,8 +95,22 @@ def build_parser():
     p.add_argument("--model-dir", default="",
                    help="checkpoint restore is not yet ported; empty "
                         "serves random weights made from --seed")
+    p.add_argument("--speculative-k", type=int, default=0,
+                   help="N > 0: greedy rows without a repetition penalty "
+                        "decode speculatively in the engine, a draft "
+                        "model proposing N-1 tokens a step (identical "
+                        "output); N 1 serves without a draft")
+    p.add_argument("--draft-layers", type=int, default=2)
+    p.add_argument("--draft-embed-dim", type=int, default=128)
+    p.add_argument("--draft-num-heads", type=int, default=0,
+                   help="0 = the target's --num-heads (must divide "
+                        "--draft-embed-dim)")
+    p.add_argument("--draft-model-dir", default="",
+                   help="checkpoint restore is not yet ported; empty "
+                        "serves a random draft made from --seed + 1")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights")
+                   help="seed of the random weights (the draft's: "
+                        "seed + 1)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -98,6 +120,10 @@ def build_server(args):
     if args.model_dir:
         raise SystemExit("--model-dir is not yet ported to the PyTorch "
                          "server; omit it to serve random weights")
+    if args.draft_model_dir:
+        raise SystemExit("--draft-model-dir is not yet ported to the "
+                         "PyTorch server; omit it to serve a random "
+                         "draft")
     warm_filters = None
     if args.warm_filters:
         warm_filters = json.loads(args.warm_filters)
@@ -123,12 +149,29 @@ def build_server(args):
                              else args.kv_cache_dtype),
              weights=args.quantize_weights),
         tree, device=args.device)
+    draft = None
+    if args.speculative_k:
+        draft_heads = args.draft_num_heads or args.num_heads
+        if args.draft_embed_dim % draft_heads:
+            raise SystemExit(
+                f"--draft-embed-dim {args.draft_embed_dim} not divisible "
+                f"by draft heads {draft_heads}; set --draft-num-heads")
+        draft_config = dict(vocab_size=args.vocab_size,
+                            embed_dim=args.draft_embed_dim,
+                            num_layers=args.draft_layers,
+                            num_heads=draft_heads,
+                            pos_embedding=args.pos_embedding,
+                            max_seq_len=args.max_seq_len)
+        draft = load_lm(draft_config,
+                        init_flax_layout_params(draft_config, args.seed + 1),
+                        device=args.device)
     return GenerationServer(args.model_name or args.model, model,
                             port=args.port,
                             max_new_tokens=args.max_new_tokens,
                             max_batch=args.max_batch, tokenizer=tokenizer,
                             warm=args.warm, warm_async=True,
-                            warm_filters=warm_filters)
+                            warm_filters=warm_filters, draft_model=draft,
+                            speculative_k=args.speculative_k)
 
 
 def main(argv=None):

@@ -48,9 +48,17 @@ set-up happen before traffic), drops them from the counters and only
 then lets /healthz answer 200; a failed warm-up leaves the server
 unready. A stream is one prompt whose tokens reach the client as each
 step lands; a client that leaves cancels its row, which the loop
-retires at the next step boundary. Drain and quarantine, tracing,
-server-level prefix serving (``prefix_tokens``) and speculation are
-not ported yet.
+retires at the next step boundary.
+
+With a ``draft_model`` and ``speculative_k`` >= 2 the engine speculates
+(``models/decode.py``): greedy rows without a repetition penalty draft
+k-1 tokens a step and commit 1..k of them, every other row takes the
+single-token lane of the same step. A step then delivers
+``counts[slot]`` tokens to each row, in order, and stops at the one
+that retires it (EOS or budget), for streams too; /stats adds the
+speculation counters. ``speculative_k`` 1 proposes nothing, so it
+builds the draft-free engine. Drain and quarantine, tracing and
+server-level prefix serving (``prefix_tokens``) are not ported yet.
 """
 
 import collections
@@ -65,6 +73,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..models.decode import EngineCapacityError, SlotDecodeEngine
+from ..models.speculative import check_spec_models
 from ..ops.attention import flash_fwd
 
 log = logging.getLogger(__name__)
@@ -219,17 +228,39 @@ class _EngineService:
                 "batch_occupancy_avg": eng.occupancy_avg(),
                 "ttft_p50_ms": (1e3 * ttft[len(ttft) // 2]
                                 if ttft else None),
+                # Speculation (every engine has the counters; they move
+                # only with a draft). The acceptance rate is the share
+                # of proposals committed; accepted_tokens_per_step the
+                # tokens a drafting row commits a step (>= 1).
+                "spec_steps": eng.spec_steps,
+                "spec_proposed_tokens": eng.spec_proposed,
+                "spec_accepted_tokens": eng.spec_accepted,
+                "draft_prefills": eng.draft_prefills,
+                "speculative_acceptance_rate": (
+                    round(eng.spec_accepted / eng.spec_proposed, 4)
+                    if eng.spec_proposed else None),
+                "accepted_tokens_per_step": (
+                    round((eng.spec_accepted + eng.spec_row_steps)
+                          / eng.spec_row_steps, 3)
+                    if eng.spec_row_steps else None),
             }
 
     def reset_counters(self):
         """Drop warm-up's rows from the counters /stats reads: the
-        engine's steps, prefills and prefix counters, and the service's
-        admissions, retirements, tokens and first-token latencies."""
+        engine's steps, prefills, prefix and speculation counters (warm
+        rows draft: their acceptance is not the traffic's), and the
+        service's admissions, retirements, tokens and first-token
+        latencies."""
         eng = self._engine
         with self._lock:
             eng.steps = 0
             eng.row_steps = 0
             eng.prefills = 0
+            eng.spec_steps = 0
+            eng.spec_row_steps = 0
+            eng.spec_proposed = 0
+            eng.spec_accepted = 0
+            eng.draft_prefills = 0
             eng.reset_prefix_counters()
             self._admitted = 0
             self._retired = 0
@@ -413,9 +444,19 @@ class _EngineService:
                 continue
             if out is None:
                 continue
-            toks, lps = out
+            if len(out) == 2:   # one token a row
+                out = (out[0][:, None], out[1][:, None],
+                       np.ones(len(out[0]), np.int64))
+            # A speculative step commits counts[slot] tokens a row;
+            # delivery stops where the row retires (_finish clears
+            # work.slot), the engine's surplus dying with the slot.
+            toks, lps, counts = out
             for slot, work in list(self._slot_work.items()):
-                self._deliver(work, int(toks[slot]), float(lps[slot]))
+                for j in range(int(counts[slot])):
+                    self._deliver(work, int(toks[slot, j]),
+                                  float(lps[slot, j]))
+                    if work.slot is None:
+                        break
 
 
 class GenerationServer:
@@ -428,12 +469,23 @@ class GenerationServer:
     the constructor or, with ``warm_async``, on a background thread;
     ``warm_filters`` (sampling-option dicts) are accepted and ignored
     as in the JAX server, since every sampling variant runs the same
-    kernels as the warm rows."""
+    kernels as the warm rows. ``draft_model`` (the port's TransformerLM,
+    with its own weights) and ``speculative_k``: speculation in the
+    engine, checked here (``check_spec_models``) so a replica refuses
+    to build on a configuration it cannot serve."""
 
     def __init__(self, model_name, model, port=8500, max_new_tokens=64,
                  max_batch=8, buckets=None, max_queue=None, host="",
                  tokenizer=None, warm=False, warm_async=False,
-                 warm_filters=None):
+                 warm_filters=None, draft_model=None, speculative_k=0):
+        self._spec_k = int(speculative_k)
+        if self._spec_k:
+            if self._spec_k < 1:
+                raise ValueError(
+                    f"speculative_k must be >= 1: {speculative_k}")
+            if draft_model is None:
+                raise ValueError("speculative_k requires draft_model")
+            check_spec_models(model, draft_model)
         if (tokenizer is not None
                 and tokenizer.vocab_size > model.vocab_size):
             raise ValueError(
@@ -459,9 +511,13 @@ class GenerationServer:
             {b for b in buckets if 1 <= b <= max_prompt})
         if not self._buckets:
             raise ValueError("no valid prompt-length buckets")
+        # k 1 proposes no token a step: the draft-free engine.
+        engine_spec_k = self._spec_k if self._spec_k >= 2 else 0
         self._engine = SlotDecodeEngine(
             model, max_batch, self._buckets[-1] + max_new_tokens,
-            buckets=self._buckets)
+            buckets=self._buckets,
+            draft_model=draft_model if engine_spec_k else None,
+            spec_k=engine_spec_k)
         self._service = _EngineService(
             self._engine, 8 * max_batch if max_queue is None else max_queue)
         self._seed = 0
@@ -498,11 +554,13 @@ class GenerationServer:
 
     def _warm_up(self):
         """One greedy warm row per bucket (zeros, no prefix sharing,
-        two new tokens where max_new_tokens allows): each width's
-        admission prefill and the decode step run once before traffic.
-        Then the counters drop the warm rows and /healthz turns 200."""
+        two new tokens where max_new_tokens allows, speculative_k with a
+        draft so the row's span holds a verify chunk): each width's
+        admission prefill (the draft's too) and the decode step (the
+        draft step and the verify chunk) run once before traffic. Then
+        the counters drop the warm rows and /healthz turns 200."""
         t0 = time.perf_counter()
-        warm_new = min(2, self._max_new)
+        warm_new = min(max(2, self._spec_k), self._max_new)
         for b in self._buckets:
             work = _Work(np.zeros((b,), np.int32), b, warm_new, 0.0, 0,
                          1.0, 0.0, 1.0, -1, False, 0, account=False,

@@ -229,9 +229,10 @@ def test_dense_engine_matches_jax_engine(engines):
 
 def test_full_pool_and_unported_options_raise(engines):
     """A full dense pool refuses another admission; the paged pool,
-    pin_reserve_tokens and the quantized caches build
-    (tests/test_torch_paging.py and tests/test_torch_quant.py hold them
-    to the JAX engine), while speculation still raises."""
+    pin_reserve_tokens, the quantized caches and a draft model build
+    (tests/test_torch_paging.py, tests/test_torch_quant.py and
+    tests/test_torch_spec_engine.py hold them to the JAX engine), and a
+    draft with a verify chunk narrower than 2 raises."""
     _, eng = engines
     row = torch_parity.tokens(14, (8,))
     for _ in range(3):
@@ -251,8 +252,11 @@ def test_full_pool_and_unported_options_raise(engines):
         quantized = decode.SlotDecodeEngine(model, 2, 16, **kwargs)
         assert quantized.kv_quant == kwargs["kv_quant"]
         assert len(quantized._cache[0]) == 4
-    with pytest.raises(ValueError, match="speculative.*not yet ported"):
-        decode.SlotDecodeEngine(model, 2, 16, draft_model=model, spec_k=2)
+    spec = decode.SlotDecodeEngine(model, 2, 16, paged=True,
+                                   draft_model=model, spec_k=2)
+    assert spec.kv_block_stats()["spec_kv_blocks_total"] == 2
+    with pytest.raises(ValueError, match="spec_k must be >= 2"):
+        decode.SlotDecodeEngine(model, 2, 16, draft_model=model, spec_k=1)
 
 
 def test_paged_env_gate_raises(monkeypatch):

@@ -487,3 +487,67 @@ def test_resnet_step_on_the_card(cuda):
     for name, want in plain_stats.items():
         torch.testing.assert_close(kernel_stats[name], want, rtol=0,
                                    atol=1e-6)
+
+
+def test_verify_chunk_on_the_card_against_single_steps(cuda):
+    """Speculation's verify: a width-4 chunk attending the cache (at an
+    int offset, as speculative_decode runs it, and at per-row positions
+    through block tables, as the paged engine runs it) gives the logits
+    of 4 single-token steps, within the bf16 limit (2e-2 of the largest
+    logit: the chunk and the steps round at other points)."""
+    model = _card_lm()
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, 128, (2, 9), generator=gen).cuda()
+    chunk = torch.randint(0, 128, (2, 4), generator=gen).cuda()
+    with torch.inference_mode():
+        steps_cache = model.init_cache(2, 20)
+        model(prompt, steps_cache, 0)
+        chunk_cache = [tuple(a.clone() for a in layer)
+                       for layer in steps_cache]
+        want = torch.cat([model(chunk[:, j:j + 1], steps_cache, 9 + j)
+                          for j in range(4)], dim=1).float()
+        got = model(chunk, chunk_cache, 9, chunk_attends_cache=True)
+        arena = model.init_paged_cache(11, 4)
+        tables = torch.arange(10, device="cuda").reshape(2, 5)
+        for layer, dense in zip(arena, chunk_cache):
+            for a, d in zip(layer, dense):
+                a[:10] = d[:, :20].reshape(10, 4, *d.shape[2:])
+        paged = model(chunk, arena, torch.tensor([9, 9], device="cuda"),
+                      block_table=tables)
+    limit = TOL[torch.bfloat16] * want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= limit
+    assert (paged.float() - want).abs().max().item() <= limit
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_spec_engine_counts_on_the_card_equal_the_cpu_engine(cuda):
+    """A self-draft engine (k 4) on the card and on the CPU, f32, both
+    pools: the same tokens and the same counts every step on a short
+    trace of two greedy rows."""
+    from container_engine_accelerators_tpu_torch.models import speculative
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64)
+    tree = convert.init_flax_layout_params(config, 0)
+    models = {dev: convert.load_lm(config, tree, device=dev,
+                                   dtype=torch.float32)
+              for dev in ("cuda", "cpu")}
+    prompts = [np.random.default_rng(n).integers(0, 128, n)
+               for n in (5, 11)]
+    for paged in (False, True):
+        runs = {}
+        for dev, model in models.items():
+            eng = decode.SlotDecodeEngine(model, slots=2, slot_len=40,
+                                          paged=paged, kv_block_size=8,
+                                          draft_model=model, spec_k=4)
+            trace = [eng.admit(p, len(p), max_new=16)[1] for p in prompts]
+            for _ in range(5):
+                toks, _, counts = eng.step()
+                trace.append((toks.tolist(), counts.tolist()))
+            runs[dev] = trace
+            assert eng.spec_accepted > 0
+        assert runs["cuda"] == runs["cpu"]
+    want = speculative.speculative_decode(models["cpu"], models["cpu"],
+                                          prompts[1][None], 12, k=4)
+    got = speculative.speculative_decode(models["cuda"], models["cuda"],
+                                         prompts[1][None], 12, k=4)
+    assert got.cpu().tolist() == want.tolist()

@@ -55,7 +55,7 @@ def test_port_has_the_slice_modules():
                 "train_profile", "bench", "models.layers", "models.resnet",
                 "models.mlp", "models.inception", "ops.augment",
                 "serving.affinity", "models.quantized",
-                "serving.tokenizer"):
+                "serving.tokenizer", "models.speculative"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",
@@ -105,6 +105,33 @@ def test_importing_the_port_loads_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED" in proc.stdout
+
+
+def test_speculation_and_launcher_import_with_jax_blocked():
+    """models.speculative and the launcher (with the server and the
+    engine under them) import in an interpreter where importing jax,
+    flax or the JAX package raises."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+        f"{JAX_PACKAGE!r}):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import {PORT}.models.speculative as s\n"
+        f"import {PORT}.serving.serve as v\n"
+        "assert callable(s.speculative_decode)\n"
+        "assert callable(s.speculative_decode_with_prefix)\n"
+        "assert v.build_parser().parse_args([]).speculative_k == 0\n"
+        "print('IMPORTED')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

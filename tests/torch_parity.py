@@ -59,6 +59,25 @@ def flax_lm(variant="learned_mha", dtype="f32", seed=1,
     return model, tree, config
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_params_of(items, seed):
+    model = TransformerLM(dtype=jnp.float32, **dict(items))
+    params = jax.jit(model.init)(jax.random.PRNGKey(seed),
+                                 jnp.zeros((1, 8), jnp.int32))["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def flax_lm_of(seed=0, **config):
+    """(flax model in f32, a fresh copy of its params as a numpy tree,
+    the port's config) for any TransformerLM ``config``, initialised
+    from PRNGKey(``seed``): the fixtures of the JAX package's own tests
+    (``_make`` in tests/test_speculative.py), cached."""
+    model = TransformerLM(dtype=jnp.float32, **config)
+    tree = jax.tree_util.tree_map(
+        np.copy, _flax_params_of(tuple(sorted(config.items())), seed))
+    return model, tree, config
+
+
 def port_lm(config, tree, dtype="f32"):
     """The port's TransformerLM on the CPU with the flax weights."""
     return convert.load_lm(config, tree, device="cpu",
