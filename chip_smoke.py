@@ -144,7 +144,35 @@
    its acceptance at least 0.5 (the JAX tool's floor); (c)
    informational: a decode step with 8 rows plain, with the demo draft
    and with the self-draft, tokens committed a step, the draft arena's
-   bytes.
+   bytes;
+11. runs the serving contract: (a) demo/serving/jax-serving.yaml's
+   command line (``--model-name=resnet --port=8500``, ``--port=0``
+   added) through the port's launcher in its own process: the default
+   model, ResNet-50 v1.5 at 224x224x3 (bf16, seed 0, eval mode,
+   micro-batches padded to 8); /readyz 200; 8 instances in one request
+   and 8 one-instance requests at once must return the classes of the
+   same ResNet-50's eval forward run here on the same batch (or differ
+   at a near tie, the 2e-2 rule) and scores within 2e-2;
+   informational p50 latency at 1 and 8 images, images/s; exit 0 on
+   SIGTERM. (b) a fault drill on the dense and the paged pool of the
+   GenerationServer: ``CEA_TPU_FAULT_PLAN`` {"step": [8]}, then
+   {"prefill": [3]}, with 6 concurrent greedy requests of 16-1500
+   tokens: each plan exactly one quarantine, naming an InjectedFault
+   (any other error fails the phase), and one rebuild; every stream
+   equal to greedy_decode's or first differing at a near tie; 8
+   flash_fwd launches a replay admission on the dense pool, 0 on the
+   paged pool; the pool clean. (c) SIGTERM to a launcher process (the
+   LM) with 3 streams in flight: /readyz 503 {"state": "draining"}, a
+   new POST 503 with Retry-After, the streams finish, exit 0. (d)
+   ``--system-prefix-ids`` with 1000 ids, alone and with
+   ``--speculative-k 4``: 4 prefix hits each, suffix streams against
+   greedy_decode over prefix + suffix (the near-tie rule), no launch
+   alone and 2 a greedy draft admission with speculation. (e) on the
+   first prefix server: /metrics with the TTFT buckets,
+   /debug/requests records summing to their wall time, and a request
+   sent with a traceparent and a request id lands in one
+   ``serving.request`` span under that trace, with the id in its
+   ledger record.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -222,6 +250,22 @@ SPEC_ENGINE_NEW = 64
 SPEC_NEW = 32
 SPEC_ACCEPT_SINGLE = 0.9   # single-request self-draft: no draft holes
 SPEC_ACCEPT_ENGINE = 0.5   # tools/bench_serving_occupancy.py's floor
+# The serving-contract phase (11): demo/serving/jax-serving.yaml's
+# predict server (ResNet-50 at 224x224x3, the launcher's --max-batch 8);
+# a fault drill of 6 concurrent greedy requests of 16-1500 tokens on
+# both pools under a step plan and a prefill plan (the step fault lands
+# mid-stream, the prefill fault on the fourth admission); drain; a
+# 1000-id system prefix with 4 suffixes of 3-500 tokens.
+PREDICT_MANIFEST = os.path.join(REPO_ROOT, "demo", "serving",
+                                "jax-serving.yaml")
+PREDICT_DEPTH = 50
+PREDICT_BATCH = 8
+DRILL_LENGTHS = (16, 64, 300, 700, 1000, 1500)
+DRILL_NEW = 24
+DRILL_PLANS = ({"step": [8]}, {"prefill": [3]})
+PREFIX_IDS = 1000
+PREFIX_SUFFIXES = (3, 30, 200, 500)
+DRAIN_PROMPTS = (16, 100, 700)     # streams in flight at SIGTERM
 # The kernel step against the plain step: loss within 1e-3 relative,
 # each gradient within 5e-2 relative L2. Both steps compute in bf16
 # with f32 sums but round at different points (the flash forward's
@@ -968,16 +1012,23 @@ def drive_paged_server(server, rng):
     return greedy, prefix
 
 
-def stream_divergence(torch, model, prompt, new, seq):
+def stream_divergence(torch, model, prompt, new, seq, wants=None):
     """None when ``seq`` equals greedy_decode's stream, else where it
     first differs and the oracle's margin there: the gap between its
     top two logits against 2e-2 of its largest logit (the logits of
-    greedy_decode's own path, fed its own tokens up to that point)."""
+    greedy_decode's own path, fed its own tokens up to that point).
+    ``wants`` caches the oracle's streams by (prompt, new)."""
     from container_engine_accelerators_tpu_torch.models.decode import (
         greedy_decode,
     )
-    want = greedy_decode(model, torch.tensor([prompt], device=model.device),
-                         new)[0].tolist()
+    key = (tuple(prompt), new)
+    want = None if wants is None else wants.get(key)
+    if want is None:
+        want = greedy_decode(model, torch.tensor([prompt],
+                                                 device=model.device),
+                             new)[0].tolist()
+        if wants is not None:
+            wants[key] = want
     if want == seq:
         return None
     first = next(i for i, (a, b) in enumerate(zip(want, seq)) if a != b)
@@ -1160,12 +1211,13 @@ def drive_paged(torch, model, engine_dense, kernels, rng):
     return report, launches
 
 
-def manifest_argv():
-    """The serving container's arguments in lm-serving.yaml (after the
+def manifest_argv(path=MANIFEST):
+    """The serving container's arguments in a deployment manifest
+    (lm-serving.yaml unless ``path`` names another; after the
     interpreter and the script), read as plain text: the "- " items
     under the first "command:" key, comments skipped."""
     args, indent = [], None
-    with open(MANIFEST) as f:
+    with open(path) as f:
         for line in f:
             stripped = line.strip()
             depth = len(line) - len(line.lstrip())
@@ -1179,7 +1231,7 @@ def manifest_argv():
                 break
             args.append(stripped[2:].strip())
     if args[:2] != ["python3", "/demos/serving/serve.py"]:
-        raise AssertionError(f"unexpected command in {MANIFEST}: {args}")
+        raise AssertionError(f"unexpected command in {path}: {args}")
     return args[2:]
 
 
@@ -2447,6 +2499,543 @@ def drive_spec(torch, convert, kernels, rng):
     return report, launches
 
 
+# ---------------------------------------------------------------------
+# Phase 11: the serving contract.
+# ---------------------------------------------------------------------
+
+
+def launch_process(argv, env=None):
+    """The port's launcher in its own process on ``argv``; returns
+    (process, port, stderr lines) once it prints the port it serves on
+    (the rest of its stderr is drained on a thread)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.serving.serve"] + argv,
+        cwd=REPO_ROOT, env=dict(os.environ, **(env or {})), text=True,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    lines, port = [], None
+    while port is None:
+        line = proc.stderr.readline()
+        if not line:
+            proc.wait(timeout=60)
+            raise AssertionError(f"launcher {argv} exited {proc.returncode}"
+                                 f" before serving: {lines[-20:]}")
+        lines.append(line.rstrip())
+        m = re.search(r"on port (\d+)", line)
+        port = int(m.group(1)) if m else None
+
+    def drain():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+
+    threading.Thread(target=drain, daemon=True).start()
+    return proc, port, lines
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def http_call(port, path, payload=None, headers=None, timeout=600):
+    """(status, headers, parsed JSON body) of a GET or POST; an HTTP
+    error status is an answer here."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def class_check(logits, pred):
+    """None when ``pred`` (a predict response row) is the argmax and
+    top softmax probability of ``logits`` (f32 [classes]) within the
+    bf16 limit, else what differs: a class other than the argmax must
+    sit within 2e-2 of the largest logit of it (a near tie), the score
+    within 2e-2 of the top probability."""
+    top = int(logits.argmax())
+    gap = float(logits.max() - logits[pred["class"]])
+    score = float(logits.softmax(-1).max())
+    near = gap <= 2e-2 * float(logits.abs().max())
+    if (pred["class"] == top or near) and abs(pred["score"] - score) <= 2e-2:
+        return None
+    return dict(got=pred, want_class=top, want_score=score, gap=gap)
+
+
+def drive_predict(torch, convert, proc, port):
+    """Phase 11a: jax-serving.yaml's command line through the port's
+    launcher (a process on the card): /readyz 200, 8 instances in one
+    request and 8 one-instance requests at once against the same
+    ResNet-50's eval forward run here, then p50 latencies and images/s
+    (informational)."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.models.resnet import resnet
+    size = RESNET_SIZE
+    deadline = time.perf_counter() + 300
+    while http_call(port, "/readyz")[0] != 200:
+        if time.perf_counter() > deadline or proc.poll() is not None:
+            raise AssertionError("the predict server never became ready")
+        time.sleep(0.1)
+    meta = http_call(port, "/v1/models/resnet")[2]
+    info = meta["model_version_status"][0]["metadata"]
+    if info != {"kind": "predict", "input_shape": [size, size, 3],
+                "max_batch": PREDICT_BATCH}:
+        raise AssertionError(f"predict server metadata: {info}")
+    # Two decimals keep the JSON body near 1 MB an image; the server
+    # and the forward here read the same f32 values.
+    rng = np.random.default_rng(SEED + 11)
+    values = np.round(rng.standard_normal((PREDICT_BATCH, size, size, 3)),
+                      2)
+    images = values.astype(np.float32)
+    model = resnet(depth=PREDICT_DEPTH, device="meta")
+    model = convert.load_image_model(
+        model.to_empty(device="cuda"),
+        convert.init_flax_layout_image(model, SEED)).eval()
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(images).cuda()).float().cpu()
+    del model
+    path = "/v1/models/resnet:predict"
+    t0 = time.perf_counter()
+    status, _, batch = http_call(port, path, {"instances": values.tolist()})
+    batch_ms = 1e3 * (time.perf_counter() - t0)
+    singles = [None] * PREDICT_BATCH
+
+    def client(i):
+        singles[i] = http_call(port, path, {"instances": [values[i].tolist()]})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(PREDICT_BATCH)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if status != 200 or any(s is None or s[0] != 200 for s in singles):
+        raise AssertionError(f"predict failed: {status} {batch} {singles}")
+    mismatches = []
+    for i in range(PREDICT_BATCH):
+        for how, pred in (("batch", batch["predictions"][i]),
+                          ("single", singles[i][2]["predictions"][0])):
+            bad = class_check(logits[i], pred)
+            if bad is not None:
+                mismatches.append(dict(bad, row=i, how=how))
+    exact = sum(p["class"] == int(logits[i].argmax())
+                for i, p in enumerate(batch["predictions"]))
+    one_body = {"instances": [values[0].tolist()]}
+    eight_body = {"instances": values.tolist()}
+    one_ms, eight_ms = [], []
+    for body, out, n in ((one_body, one_ms, 8), (eight_body, eight_ms, 3)):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            if http_call(port, path, body)[0] != 200:
+                raise AssertionError("timed predict request failed")
+            out.append(1e3 * (time.perf_counter() - t0))
+    stats = http_call(port, "/stats")[2]
+    report = dict(metadata=info, batch_exact=exact, mismatches=mismatches,
+                  first_batch_ms=batch_ms,
+                  p50_ms_1=float(np.median(one_ms)),
+                  p50_ms_8=float(np.median(eight_ms)),
+                  images_per_s=8e3 / float(np.median(eight_ms)),
+                  stats={k: stats.get(k) for k in ("requests", "shed",
+                                                   "p50_ms", "device")})
+    log("predict server:", json.dumps(report))
+    if mismatches:
+        raise AssertionError(f"predictions differ from the forward: "
+                             f"{mismatches}")
+    if stats.get("device") != "cuda:0":
+        raise AssertionError(f"predict server not on the card: {stats}")
+    return report
+
+
+def drill_traffic(server, lengths, rng, vocab):
+    """Concurrent greedy requests of ``lengths`` tokens, DRILL_NEW new
+    tokens each. Returns [(prompt, sequence)]."""
+    import numpy as np
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lengths]
+    results, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            results[i] = post(server.port, {"prompts": [prompts[i]],
+                                            "max_new_tokens": DRILL_NEW})
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"drill requests failed: {errors} {results}")
+    return [(p, r[1]["sequences"][0]) for p, r in zip(prompts, results)]
+
+
+def quarantine_events(obs):
+    events = obs.TRACER.snapshot()["events"]
+    return ([e for e in events if e["name"] == "serving.engine_quarantine"],
+            [e for e in events if e["name"] == "serving.engine_recovered"])
+
+
+def drive_fault_drill(torch, model, kernels, rng, wants):
+    """Phase 11b: CEA_TPU_FAULT_PLAN {"step": [N]}, then {"prefill":
+    [N]}, on the dense and the paged pool of the GenerationServer at
+    full width, each with DRILL_LENGTHS concurrent greedy requests:
+    one quarantine (naming an InjectedFault) and one rebuild a plan,
+    every stream equal to greedy_decode's or first differing at a near
+    tie, MODEL's layers of flash_fwd launches a replay admission on the
+    dense pool and 0 on the paged pool, the pool clean when idle.
+    Returns (report, launches by path)."""
+    from container_engine_accelerators_tpu_torch import obs
+    from container_engine_accelerators_tpu_torch.ops import attention
+    from container_engine_accelerators_tpu_torch.serving.server import (
+        GenerationServer,
+    )
+    from container_engine_accelerators_tpu_torch.utils import faults
+    layers = MODEL["num_layers"]
+    report, launches = {}, {}
+    for pool in ("dense", "paged"):
+        totals = {kern.name: 0 for kern in kernels}
+        for plan in DRILL_PLANS:
+            if pool == "dense":
+                os.environ["CEA_TPU_PAGED_KV"] = "0"
+            try:
+                server = GenerationServer("lm", model, port=0,
+                                          max_new_tokens=MAX_NEW,
+                                          max_batch=MAX_BATCH,
+                                          host="127.0.0.1")
+            finally:
+                os.environ.pop("CEA_TPU_PAGED_KV", None)
+            svc = server._engine_service
+            first_engine = server.engine
+            replays = []
+            real_admit = svc._admit
+
+            def spy(work, real_admit=real_admit, replays=replays):
+                replay = bool(work.tokens)
+                before = attention.flash_fwd.launches
+                out = real_admit(work)
+                if replay:
+                    replays.append(attention.flash_fwd.launches - before)
+                return out
+
+            svc._admit = spy
+            server.start()
+            q0, r0 = (len(x) for x in quarantine_events(obs))
+            try:
+                os.environ[faults.FAULT_PLAN_ENV] = json.dumps(plan)
+                faults.reset()   # the next fire parses the plan
+                for kern in kernels:
+                    kern.launches = 0
+                p0 = first_engine.prefills
+                greedy = drill_traffic(server, DRILL_LENGTHS, rng,
+                                       MODEL["vocab_size"])
+                counts = {kern.name: kern.launches for kern in kernels}
+                fired = faults.active().fired()
+                deadline = time.perf_counter() + 60
+                while server.stats()["slots_active"] and (
+                        time.perf_counter() < deadline):
+                    time.sleep(0.01)
+                stats = server.stats()
+                admissions = (first_engine.prefills - p0
+                              + server.engine.prefills)
+                leaks = server.engine.pool_leak_report()
+            finally:
+                os.environ.pop(faults.FAULT_PLAN_ENV, None)
+                faults.reset()
+                server.stop()
+            quarantines, recovered = quarantine_events(obs)
+            quarantines, recovered = quarantines[q0:], recovered[r0:]
+            diverged = []
+            for p, seq in greedy:
+                d = stream_divergence(torch, model, p, DRILL_NEW, seq,
+                                      wants)
+                if d is not None:
+                    diverged.append(d)
+            key = f"{pool}_{next(iter(plan))}"
+            entry = dict(plan=plan, fired=fired, launches=counts,
+                         admissions=admissions, replay_launches=replays,
+                         greedy=len(greedy),
+                         greedy_exact=len(greedy) - len(diverged),
+                         greedy_diverged=diverged, leaks=leaks,
+                         quarantine_errors=[e["fields"].get("error_type")
+                                            for e in quarantines],
+                         recovered=len(recovered),
+                         stats={k: stats[k] for k in (
+                             "engine_rebuilds", "quarantine_episodes",
+                             "replayed_rows", "replayed_tokens",
+                             "engine_state", "requests_retired")})
+            report[key] = entry
+            log(f"fault drill ({key}):", json.dumps(entry))
+            per_replay = layers if pool == "dense" else 0
+            if (stats["engine_rebuilds"] != 1
+                    or stats["quarantine_episodes"] != 1
+                    or len(quarantines) != 1 or len(recovered) != 1
+                    or fired != plan):
+                raise AssertionError(f"fault drill {key}: not one "
+                                     f"quarantine and one rebuild")
+            if entry["quarantine_errors"] != ["InjectedFault"]:
+                raise AssertionError(f"fault drill {key}: a quarantine "
+                                     f"not caused by the injected fault: "
+                                     f"{quarantines}")
+            if not replays or any(n != per_replay for n in replays):
+                raise AssertionError(f"fault drill {key}: replay launches "
+                                     f"{replays}, want {per_replay} each")
+            if (counts["flash_fwd"] != per_replay * admissions
+                    or any(n for k, n in counts.items() if k != "flash_fwd")):
+                raise AssertionError(f"fault drill {key}: launches {counts} "
+                                     f"for {admissions} admissions")
+            if leaks is not None or stats["engine_state"] != "serving":
+                raise AssertionError(f"fault drill {key}: pool {leaks}, "
+                                     f"state {stats['engine_state']}")
+            if not all(d["near_tie"] for d in diverged):
+                raise AssertionError(f"fault drill {key}: streams diverge "
+                                     f"off a near tie: {diverged}")
+            totals = {k: totals[k] + counts[k] for k in totals}
+            del server, svc, first_engine
+            torch.cuda.empty_cache()
+        launches[f"fault_drill_{pool}"] = totals
+    return report, launches
+
+
+def lm_flags():
+    return ["--model", "transformer", "--model-name", "lm", "--port", "0",
+            "--vocab-size", str(MODEL["vocab_size"]),
+            "--embed-dim", str(MODEL["embed_dim"]),
+            "--num-layers", str(MODEL["num_layers"]),
+            "--num-heads", str(MODEL["num_heads"]),
+            "--num-kv-heads", str(MODEL["num_kv_heads"]),
+            "--pos-embedding", MODEL["pos_embedding"],
+            "--max-seq-len", str(MODEL["max_seq_len"]),
+            "--max-new-tokens", str(MAX_NEW),
+            "--max-batch", str(MAX_BATCH), "--seed", str(SEED)]
+
+
+def drive_drain(proc, port):
+    """Phase 11c: SIGTERM to a launcher process (the LM on the paged
+    pool) with DRAIN_PROMPTS streams in flight: /readyz turns 503
+    {"state": "draining"}, a new POST gets 503 with Retry-After, every
+    stream finishes with its done line and all its tokens, and the
+    process exits 0."""
+    import signal
+
+    import numpy as np
+    vocab = MODEL["vocab_size"]
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in DRAIN_PROMPTS]
+    conns, firsts = [], []
+    for p in prompts:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/models/lm:generate",
+            data=json.dumps({"prompts": [p], "max_new_tokens": MAX_NEW,
+                             "stream": True}).encode())
+        conns.append(urllib.request.urlopen(req, timeout=600))
+    for c in conns:
+        firsts.append(json.loads(c.readline()))
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    while http_call(port, "/readyz")[0] != 503:
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError("/readyz did not turn 503 after SIGTERM")
+        time.sleep(0.005)
+    readyz = http_call(port, "/readyz")
+    post_code, post_headers, post_body = http_call(
+        port, "/v1/models/lm:generate", {"prompts": [[1, 2, 3]],
+                                         "max_new_tokens": 2})
+    streams = []
+    for c, first in zip(conns, firsts):
+        lines = [first] + [json.loads(x) for x in c.read().splitlines()]
+        c.close()
+        streams.append(lines)
+    rc = proc.wait(timeout=120)
+    report = dict(readyz_code=readyz[0], readyz=readyz[2],
+                  post_code=post_code,
+                  retry_after=post_headers.get("Retry-After"),
+                  stream_tokens=[sum(len(x.get("tokens", [])) for x in s)
+                                 for s in streams],
+                  stream_ends=[s[-1] for s in streams], exit_code=rc,
+                  drain_s=time.perf_counter() - t0)
+    log("drain:", json.dumps(report))
+    if (readyz[0] != 503 or readyz[2].get("state") != "draining"
+            or post_code != 503 or int(post_headers["Retry-After"]) < 1
+            or "request_id" not in post_body):
+        raise AssertionError(f"drain did not shed: {report}")
+    if (any(e != {"done": True} for e in report["stream_ends"])
+            or any(n != MAX_NEW for n in report["stream_tokens"])):
+        raise AssertionError(f"drained streams did not finish: {report}")
+    if rc != 0:
+        raise AssertionError(f"launcher exited {rc} after the drain")
+    return report
+
+
+def prefix_traffic(server, prefix, rng):
+    vocab = MODEL["vocab_size"]
+    suffixes = [rng.integers(0, vocab, n).tolist() for n in PREFIX_SUFFIXES]
+    results, errors = [None] * len(suffixes), []
+
+    def client(i):
+        try:
+            results[i] = post(server.port, {"prompts": [suffixes[i]],
+                                            "max_new_tokens": DRILL_NEW})
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(suffixes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"prefix requests failed: {errors} {results}")
+    return [(prefix + s, prefix + r[1]["sequences"][0])
+            for s, r in zip(suffixes, results)]
+
+
+def drive_prefix(torch, model, kernels, rng, wants):
+    """Phase 11d/e: ``--system-prefix-ids`` with PREFIX_IDS ids, alone
+    and with ``--speculative-k 4``: every request a prefix hit, suffix
+    streams against greedy_decode over prefix + suffix (the near-tie
+    rule), no launch alone and 2 (the draft's prefill) a greedy
+    admission with speculation; on the first server /metrics,
+    /debug/requests and a traceparent round trip. Returns (report,
+    launches by path)."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import obs
+    from container_engine_accelerators_tpu_torch.serving import serve
+    vocab = MODEL["vocab_size"]
+    prefix = np.random.default_rng(SEED + 13).integers(
+        0, vocab, PREFIX_IDS).tolist()
+    flags = lm_flags() + ["--system-prefix-ids",
+                          ",".join(map(str, prefix))]
+    report, launches = {}, {}
+    for name, extra in (("system_prefix", []),
+                        ("system_prefix_spec",
+                         ["--speculative-k", str(SPEC_K)])):
+        server = serve.build_server(serve.parse_args(flags + extra))
+        server.start()
+        try:
+            eng = server.engine
+            before = server.stats()
+            for kern in kernels:
+                kern.launches = 0
+            streams = prefix_traffic(server, prefix, rng)
+            counts = {kern.name: kern.launches for kern in kernels}
+            stats = server.stats()
+            contract = (drive_observability(obs, server)
+                        if name == "system_prefix" else None)
+            leaks = eng.pool_leak_report()
+        finally:
+            server.stop()
+        diverged = [d for d in (stream_divergence(torch, model, p,
+                                                  DRILL_NEW, seq, wants)
+                                for p, seq in streams) if d is not None]
+        hits = stats["prefix_hits"] - before["prefix_hits"]
+        drafts = stats["draft_prefills"] - before["draft_prefills"]
+        entry = dict(launches=counts, prefix_hits=hits,
+                     prefix_tokens_shared=stats["prefix_tokens_shared"]
+                     - before["prefix_tokens_shared"],
+                     draft_prefills=drafts, pinned_blocks=len(eng._pinned),
+                     greedy=len(streams),
+                     greedy_exact=len(streams) - len(diverged),
+                     greedy_diverged=diverged, leaks=leaks,
+                     acceptance=stats["speculative_acceptance_rate"])
+        if contract is not None:
+            entry["observability"] = contract
+        report[name] = entry
+        log(f"{name}:", json.dumps(entry))
+        n = len(PREFIX_SUFFIXES)
+        want = SPEC_DRAFT["num_layers"] * n if extra else 0
+        if (hits != n or counts["flash_fwd"] != want
+                or any(v for k, v in counts.items() if k != "flash_fwd")
+                or drafts != (n if extra else 0)):
+            raise AssertionError(f"{name}: {entry}")
+        if leaks is not None:
+            raise AssertionError(f"{name}: pool not clean: {leaks}")
+        if not all(d["near_tie"] for d in diverged):
+            raise AssertionError(f"{name}: streams diverge off a near tie: "
+                                 f"{diverged}")
+        launches[name] = counts
+        del server, eng
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def drive_observability(obs, server):
+    """Phase 11e on a running LM server: /metrics carries the TTFT
+    buckets of the traffic, /debug/requests records whose buckets sum
+    to their wall time, and a request sent with a traceparent and a
+    request id lands under that trace (the serving.request span's
+    parent is the header's span) with the id in its ledger record."""
+    port = server.port
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        text = resp.read().decode()
+    ttft = re.search(r'tpu_serving_ttft_seconds_count (\d+)', text)
+    if not ttft or int(ttft.group(1)) < len(PREFIX_SUFFIXES):
+        raise AssertionError("/metrics lacks the TTFT histogram")
+    trace_id, span_id, rid = 0x5EED00C0FFEE, 0xABCDEF, "chip-smoke-11"
+    status, _, _ = http_call(
+        port, "/v1/models/lm:generate",
+        {"prompts": [[1, 2, 3]], "max_new_tokens": 4},
+        headers={"traceparent": obs.format_traceparent((trace_id, span_id)),
+                 "x-cea-request-id": rid})
+    spans = [s for s in obs.TRACER.snapshot()["spans"]
+             if s["name"] == "serving.request" and s["trace_id"] == trace_id]
+    records = http_call(port, "/debug/requests?n=8")[2]["records"]
+    mine = [r for r in records if r.get("request_id") == rid]
+    bad_sums = [r for r in records
+                if abs(sum(r["buckets"].values()) - r["wall_s"]) > 1e-5]
+    out = dict(buckets_in_metrics=text.count("_bucket{"),
+               ttft_count=int(ttft.group(1)), traced_spans=len(spans),
+               records=len(records), bad_sums=len(bad_sums))
+    if (status != 200 or len(spans) != 1
+            or spans[0]["parent_id"] != span_id
+            or spans[0]["attrs"].get("request_id") != rid
+            or len(mine) != 1 or mine[0].get("trace_id") != "%x" % trace_id
+            or bad_sums):
+        raise AssertionError(f"observability round trip: {out}, {spans}, "
+                             f"{mine}")
+    return out
+
+
+def drive_contract(torch, convert, model, kernels):
+    """Phase 11 (see the module docstring). The predict and drain
+    launchers start first, in their own processes, and warm up while
+    the in-process parts run. Returns (report, launches by path)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    predict = launch_process(manifest_argv(PREDICT_MANIFEST) + ["--port=0"])
+    drain = launch_process(lm_flags())
+    try:
+        report = {"predict": drive_predict(torch, convert, predict[0],
+                                           predict[1])}
+        predict[0].terminate()
+        report["predict"]["exit_code"] = predict[0].wait(timeout=120)
+        rng = np.random.default_rng(SEED + 14)
+        wants = {}
+        report["fault_drill"], launches = drive_fault_drill(
+            torch, model, kernels, rng, wants)
+        report["prefix"], more = drive_prefix(torch, model, kernels, rng,
+                                              wants)
+        launches.update(more)
+        report["drain"] = drive_drain(drain[0], drain[1])
+    finally:
+        stop_process(predict[0])
+        stop_process(drain[0])
+    if report["predict"]["exit_code"] != 0:
+        raise AssertionError("the predict server did not exit 0 on SIGTERM")
+    report["phase_s"] = time.perf_counter() - t0
+    log(f"serving contract phase: {report['phase_s']:.1f} s")
+    return report, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2598,6 +3187,10 @@ def main():
     report["spec"], spec_launches = drive_spec(torch, convert, all_kernels,
                                                rng)
 
+    # Phase 11: the serving contract.
+    report["contract"], contract_launches = drive_contract(
+        torch, convert, model, all_kernels)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -2643,6 +3236,8 @@ def main():
             by_path[path] = counts[name]
         for path, counts in spec_launches.items():
             by_path[path] = counts[name]
+        for path, counts in contract_launches.items():
+            by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -2681,7 +3276,11 @@ def main():
         f"paged: {json.dumps(report['paged']['times'])}; window step "
         f"{json.dumps(report['window']['step_ms'])} ms, windowed training "
         f"{report['window']['train']['step_ms_mean']:.2f} ms a step; "
-        f"speculation phase {report['spec']['phase_s']:.1f} s")
+        f"speculation phase {report['spec']['phase_s']:.1f} s; ResNet-50 "
+        f"predict p50 {report['contract']['predict']['p50_ms_1']:.1f} ms "
+        f"(1 image), {report['contract']['predict']['p50_ms_8']:.1f} ms "
+        f"(8); serving contract phase "
+        f"{report['contract']['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,10 @@ Counterpart of container_engine_accelerators_tpu/models/decode.py:
   from its own cache (a dense slot row, or a block span of its own
   arena on the paged pool) and the target verifies them as one
   width-k chunk (the ``models/speculative.py`` machinery, per row).
+  The engine calls ``utils.faults.fire`` where the JAX engine does (the
+  admission prefills, the spill tier's rehydrate, the step after its
+  host block upkeep), so a ``CEA_TPU_FAULT_PLAN`` fires at the same
+  invocation of the same trace on both.
 
 JAX's programs are pure; here the engine's cache is updated in place
 (the dense admission prefill writes straight into its slot's row
@@ -66,7 +70,7 @@ import numpy as np
 import torch
 
 from ..serving.affinity import KV_BLOCK_ENV, chain_digest
-from ..utils import _env_flag, env_number, env_str
+from ..utils import _env_flag, env_number, env_str, faults
 from .transformer import map_cache
 
 PAGED_KV_ENV = "CEA_TPU_PAGED_KV"
@@ -1480,6 +1484,7 @@ class SlotDecodeEngine:
         return self.row_steps / self.steps if self.steps else None
 
     def _row(self, tokens):
+        faults.fire("prefill")
         row = torch.as_tensor(np.asarray(tokens, np.int64).reshape(-1),
                               device=self.device)[None, :]
         if row.shape[1] > self.slot_len:
@@ -1625,6 +1630,7 @@ class SlotDecodeEngine:
 
     def _paged_prefill(self, suffix, shared_len, prefix_table, knobs,
                        seed):
+        faults.fire("prefill")
         width = self._pick_width(max(len(suffix), 1), shared_len)
         row = np.zeros((width,), np.int64)
         row[:len(suffix)] = suffix
@@ -1667,6 +1673,7 @@ class SlotDecodeEngine:
         admission, then one scatter per layer and leaf; timed
         (synchronized on the card) into the pool's rehydrate
         samples."""
+        faults.fire("hydrate")
         t0 = time.perf_counter()
         dests = torch.as_tensor([bid for bid, _ in pairs],
                                 device=self.device)
@@ -2089,12 +2096,18 @@ class SlotDecodeEngine:
         any_gated = bool(gate.any())
         tok = torch.as_tensor(self._tok, device=dev)
         if self.paged:
-            for src, dst in self._paged_prestep(gate):
+            # The fault fires after the host-side block upkeep, as in
+            # the JAX engine: the torn tables a mid-step device failure
+            # leaves are what quarantine and force_reclaim must survive.
+            cows = self._paged_prestep(gate)
+            faults.fire("step")
+            for src, dst in cows:
                 self._copy_block(src, dst)
             span = self._n_blk * self._block_size
             tables = torch.as_tensor(self._tables, device=dev)
             draft_tables = torch.as_tensor(self._draft_tables, device=dev)
         else:
+            faults.fire("step")
             span = self.slot_len
             tables = draft_tables = None
         row_pos = torch.as_tensor(self._row_pos, device=dev)
@@ -2143,7 +2156,9 @@ class SlotDecodeEngine:
         dev = self.device
         tok = torch.as_tensor(self._tok, device=dev)[:, None]
         if self.paged:
-            for src, dst in self._paged_prestep():
+            cows = self._paged_prestep()
+            faults.fire("step")
+            for src, dst in cows:
                 self._copy_block(src, dst)
             limit = self._n_blk * self._block_size - 1
             pos = torch.as_tensor(np.minimum(self._row_pos, limit),
@@ -2152,6 +2167,7 @@ class SlotDecodeEngine:
                               block_table=torch.as_tensor(self._tables,
                                                           device=dev))
         else:
+            faults.fire("step")
             pos = torch.as_tensor(
                 np.minimum(self._row_pos, self.slot_len - 1), device=dev)
             raw = self._model(tok, self._cache, pos)

@@ -551,3 +551,80 @@ def test_spec_engine_counts_on_the_card_equal_the_cpu_engine(cuda):
     got = speculative.speculative_decode(models["cuda"], models["cuda"],
                                          prompts[1][None], 12, k=4)
     assert got.cpu().tolist() == want.tolist()
+
+
+def test_predict_server_on_the_card_answers_as_the_forward(cuda):
+    """The image predict server with ResNet-18 (width 16, 10 classes,
+    32x32) on the card: each prediction is the argmax and top softmax
+    probability of the same model's eval forward on the same padded
+    batch, run directly (bf16 compute: classes equal or at a near tie,
+    2e-2 of the largest logit; scores within 2e-2)."""
+    from container_engine_accelerators_tpu_torch.serving import server
+    model = resnet(18, 10, width=16, device="meta")
+    model = convert.load_image_model(
+        model.to_empty(device=cuda), convert.init_flax_layout_image(model, 0))
+    srv = server.InferenceServer("resnet", model, (32, 32, 3), port=0,
+                                 max_batch=4, host="127.0.0.1")
+    try:
+        images = np.random.default_rng(0).standard_normal(
+            (3, 32, 32, 3)).astype(np.float32)
+        code, body = srv._handle_post({"instances": images.tolist()})
+        assert code == 200
+        padded = np.zeros((4, 32, 32, 3), np.float32)
+        padded[:3] = images
+        with torch.inference_mode():
+            logits = model.eval()(torch.from_numpy(padded).cuda()).float()
+        probs = torch.softmax(logits, -1)
+        for i, pred in enumerate(body["predictions"]):
+            row = logits[i]
+            if pred["class"] != int(row.argmax()):
+                gap = float(row.max() - row[pred["class"]])
+                assert gap <= 2e-2 * float(row.abs().max())
+            assert abs(pred["score"] - float(probs[i].max())) <= 2e-2
+    finally:
+        srv.stop()
+
+
+def test_dense_replay_on_the_card_launches_the_kernel(cuda):
+    """A step fault in a supervised dense-pool engine service on the
+    card (f32): the rebuilt engine replays each row as one admission of
+    prompt plus delivered tokens, each launching the flash kernel once
+    per layer, and the streams equal greedy_decode."""
+    from container_engine_accelerators_tpu_torch.serving import server
+    from container_engine_accelerators_tpu_torch.utils import faults
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64)
+    model = convert.load_lm(config, convert.init_flax_layout_params(
+        config, 0), device="cuda", dtype=torch.float32)
+
+    def factory():
+        return decode.SlotDecodeEngine(model, 2, 48, paged=False)
+
+    svc = server._EngineService(factory(), server._Admission(0),
+                                engine_factory=factory)
+    prompts = [np.random.default_rng(n).integers(0, 128, n) for n in (5, 17)]
+    works = []
+    for i, p in enumerate(prompts):
+        row = np.zeros((32,), np.int32)
+        row[:len(p)] = p
+        works.append(server._EngineWork(row, len(p), 8, 0.0, 0, 1.0, 0.0,
+                                        1.0, -1, False, i, None))
+    before = attn.flash_fwd.launches
+    faults.install({"step": [2]})
+    try:
+        assert svc.submit_many(works) is not None
+        for w in works:
+            status, out = w.done.get(timeout=120)
+            assert status == "ok", out
+    finally:
+        faults.reset()
+        svc.stop()
+    stats = svc.stats()
+    assert stats["engine_rebuilds"] == 1 and stats["replayed_rows"] == 2
+    # Two admissions and two replay admissions, one launch a layer each.
+    assert attn.flash_fwd.launches - before == 4 * config["num_layers"]
+    assert dict(svc.engine.prefill_widths) == {len(p) + 3: 1
+                                               for p in prompts}
+    for p, w in zip(prompts, works):
+        want = decode.greedy_decode(model, torch.tensor(p)[None], 8)
+        assert w.tokens == want[0, len(p):].tolist()

@@ -55,7 +55,10 @@ def test_port_has_the_slice_modules():
                 "train_profile", "bench", "models.layers", "models.resnet",
                 "models.mlp", "models.inception", "ops.augment",
                 "serving.affinity", "models.quantized",
-                "serving.tokenizer", "models.speculative"):
+                "serving.tokenizer", "models.speculative",
+                "utils.faults", "obs", "obs.metric_names", "obs.identity",
+                "obs.trace", "obs.propagate", "obs.reqledger",
+                "obs.export", "obs.http", "serving.fleet_worker"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",
@@ -125,6 +128,40 @@ def test_speculation_and_launcher_import_with_jax_blocked():
         "assert callable(s.speculative_decode)\n"
         "assert callable(s.speculative_decode_with_prefix)\n"
         "assert v.build_parser().parse_args([]).speculative_k == 0\n"
+        "print('IMPORTED')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
+def test_serving_contract_modules_import_with_jax_blocked():
+    """The fault seam, the observability copies, the predict server and
+    the fleet worker import in an interpreter where importing jax, flax
+    or the JAX package raises, and the launcher's default is the
+    predict server."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {REPO_ROOT!r})\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+        f"{JAX_PACKAGE!r}):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import {PORT}.utils.faults as f\n"
+        f"import {PORT}.obs as o\n"
+        f"from {PORT}.serving.server import InferenceServer\n"
+        f"import {PORT}.serving.fleet_worker as w\n"
+        f"import {PORT}.serving.serve as v\n"
+        "assert issubclass(f.InjectedFault, RuntimeError)\n"
+        "assert callable(o.prometheus_text) and callable(o.extract_headers)\n"
+        "assert callable(InferenceServer.predict)\n"
+        "assert w.build_parser().parse_args(['--port-file', 'x']).device "
+        "== 'cuda'\n"
+        "assert v.parse_args([]).model == 'resnet'\n"
         "print('IMPORTED')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

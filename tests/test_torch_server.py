@@ -279,7 +279,8 @@ def test_healthz_stats_and_metadata(request, pool):
 
 
 def test_launcher_builds_a_cpu_server_and_refuses_the_rest(monkeypatch):
-    flags = ["--vocab-size", "64", "--embed-dim", "32", "--num-layers",
+    flags = ["--model", "transformer", "--vocab-size", "64",
+             "--embed-dim", "32", "--num-layers",
              "1", "--num-heads", "4", "--num-kv-heads", "2",
              "--pos-embedding", "rope", "--max-seq-len", "48",
              "--max-new-tokens", "4", "--max-batch", "2", "--port", "0"]
@@ -543,7 +544,7 @@ def test_cancelled_stream_frees_its_slot_and_blocks(srv, monkeypatch):
     body.close()
     gate.set()
     after = _wait_idle(srv)
-    assert after["retired"] == before["retired"] + 1
+    assert after["requests_retired"] == before["requests_retired"] + 1
     assert after["tokens_generated"] - before["tokens_generated"] == 2
     assert srv.engine.pool_leak_report() is None
     monkeypatch.setattr(srv.engine, "step", real_step)
@@ -593,7 +594,8 @@ def test_warm_up_gates_healthz_and_leaves_stats_clean(lm, monkeypatch):
         assert s.warm_seconds > 0
         assert dict(s.engine.prefill_widths) == {16: 1, 32: 1, 40: 1}
         stats = _call(s, "/stats")[1]
-        for key in ("requests_admitted", "retired", "tokens_generated",
+        for key in ("requests_admitted", "requests_retired",
+                    "tokens_generated",
                     "engine_steps", "engine_prefills", "prefix_lookups",
                     "prefix_hits", "requests"):
             assert stats[key] == 0, key
@@ -602,7 +604,7 @@ def test_warm_up_gates_healthz_and_leaves_stats_clean(lm, monkeypatch):
         assert s.engine.pool_leak_report() is None
         code, body = _generate(s, {"prompts": [[1, 2, 3]],
                                    "max_new_tokens": 2})
-        assert code == 200 and _call(s, "/stats")[1]["retired"] == 1
+        assert code == 200 and _call(s, "/stats")[1]["requests_retired"] == 1
     finally:
         s.stop()
 
@@ -672,7 +674,8 @@ def test_launcher_takes_the_deployment_command_line():
         code, body = _generate(s, {"text": ["Hello"], "max_new_tokens": 4})
         assert code == 200 and len(body["completions"]) == 1
         stats = _call(s, "/stats")[1]
-        assert stats["kv_quant_mode"] == "int8" and stats["retired"] == 1
+        assert stats["kv_quant_mode"] == "int8"
+        assert stats["requests_retired"] == 1
     finally:
         s.stop()
 

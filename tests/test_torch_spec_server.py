@@ -305,7 +305,8 @@ def test_launcher_speculative_flags():
     ``--draft-embed-dim``, ``--draft-num-heads`` or the target's,
     seed + 1), validated with the demo's messages;
     ``--draft-model-dir`` is refused as ``--model-dir`` is."""
-    flags = ["--vocab-size", "64", "--embed-dim", "32", "--num-layers",
+    flags = ["--model", "transformer", "--vocab-size", "64",
+             "--embed-dim", "32", "--num-layers",
              "1", "--num-heads", "4", "--pos-embedding", "rope",
              "--max-seq-len", "48", "--max-new-tokens", "4",
              "--max-batch", "2", "--port", "0", "--device", "cpu",
