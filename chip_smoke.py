@@ -20,20 +20,31 @@
 1. prints the card (name, count, power limit);
 2. builds every CUDA kernel of the port from ops/csrc (one nvcc per
    source, all at once) and reads each kernel's registers and spills
-   from ``-Xptxas -v``: a tensor-core kernel must not spill;
+   from ``-Xptxas -v``: a tensor-core kernel (the Hopper wgmma kernels
+   included) must not spill, and ptxas must neither serialize a wgmma
+   ("Potential Performance Loss") nor ignore a setmaxnreg;
 3. holds each kernel against its plain PyTorch version on the card
    (flash forward, dQ, dK/dV, cross-entropy forward and backward; the
-   cross-entropy gradient element by element, scaled by its mean),
-   the bf16 flash forward, dQ and dK/dV also on q/k/v/dO rows that do
-   not start on 16 bytes; launches the three tensor-core kernels (bf16
-   flash forward, dQ, dK/dV) twice on the same inputs and requires
-   bitwise-equal outputs; and counts the tensor-core instructions
-   (HMMA/HGMMA) in their SASS (cuobjdump), which must not be 0;
+   cross-entropy gradient element by element, scaled by its mean):
+   the bf16 flash forward and dK/dV (Hopper kernels: wgmma, TMA) at
+   head dims 16, 40, 64 and 128, lengths 17 and 1000, the window band,
+   B 1 at S 1920, grids with one and with several consumer warpgroups
+   a block, and on q/k/v/dO rows that do not start on 16 bytes (the
+   mma.sync kernels, ``attention.tma_rows``); launches the three
+   tensor-core kernels (bf16 flash forward, dQ, dK/dV) twice on the
+   same inputs at the training and the serving prefill's shapes and
+   requires bitwise-equal outputs; and counts the tensor-core
+   instructions in their SASS (cuobjdump): HMMA or HGMMA in every
+   ``*_tc_kernel``, HGMMA in each wgmma kernel, and both wgmma kernels
+   present;
 4. times each kernel at its path's shapes beside its bound, its plain
    version and one PyTorch library call (flash forward at the serving
-   prefill widths and at the training shape; the backward and the
-   cross-entropy at the training shapes, the cross-entropy also at
-   ResNet-50's logits), and the next-token objective's logits copy
+   prefill widths, at the demo draft's D 16 and at the training shape;
+   the backward and the cross-entropy at the training shapes, the
+   cross-entropy also at ResNet-50's logits), the flash kernels by
+   CUDA-graph replay (device time; ``launch_ms`` launched back to back)
+   beside the mma.sync design's time where one was taken
+   (``MMA_SYNC_MS``), and the next-token objective's logits copy
    alone;
 5. serves the full-width LM (the architecture of
    demo/serving/lm-serving.yaml without its int8 options: vocab 32000,
@@ -338,6 +349,30 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters, reps=5):
+    """Mean device time of ``fn`` by CUDA events around replays of a
+    CUDA graph of ``iters`` calls: the kernels' own time, without the
+    host's launch cost (which bounds back-to-back calls at small
+    shapes)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def bound_ms(nbytes, flops, dtype):
     """The least time for ``nbytes`` of memory traffic and ``flops``
     operations of input type ``dtype``: (ms, "bytes"|"operations")."""
@@ -402,13 +437,36 @@ def attn_operands(torch, shape, dtype, n, gen, misaligned=False):
 
 
 # Phase 3's attention cases: (shape, dtype, causal, window, misaligned
-# rows). bf16 runs the tensor-core forward, dQ and dK/dV (D 128, D 40
-# not a multiple of 16, the window band, narrow loads), f32 the FMA
-# kernels.
+# rows). bf16 runs the Hopper forward and dK/dV (wgmma, TMA) and the
+# mma.sync dQ: head dims 16 (the demo draft's), 40 (not a multiple of
+# 16), 64 and 128; lengths 17 and 1000 (not multiples of a tile); the
+# window band; one and two consumer warpgroups a block (the grid's
+# 128-row tiles below and above the card's 132 SMs); and rows that do
+# not start on 16 bytes, which take the mma.sync forward and dK/dV
+# (``attention.tma_rows``). f32 runs the FMA kernels.
 BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
                  ((2, 200, 4, 40), "bfloat16", False, 0, False),
                  ((1, 300, 4, 64), "bfloat16", True, 64, False),
-                 ((2, 150, 4, 64), "bfloat16", True, 0, True)]
+                 ((2, 150, 4, 64), "bfloat16", True, 0, True),
+                 ((2, 17, 8, 16), "bfloat16", True, 0, False),
+                 ((1, 1920, 8, 16), "bfloat16", True, 0, False),
+                 ((2, 1000, 4, 40), "bfloat16", True, 0, False),
+                 ((1, 1000, 8, 64), "bfloat16", True, 512, False),
+                 ((4, 1000, 8, 128), "bfloat16", True, 256, False),
+                 ((8, 512, 8, 64), "bfloat16", False, 0, False),
+                 ((2, 150, 4, 128), "bfloat16", True, 64, True)]
+
+# The bf16 forward's and dK/dV's times on the mma.sync design the
+# Hopper kernels replaced (the same measurement on one NVIDIA H100
+# 80GB HBM3 at 700 W), printed beside the new times: {(name, shape,
+# window): ms}.
+MMA_SYNC_MS = {("flash_fwd", (8, 2048, 8, 64), 0): 0.1949,
+               ("flash_bwd_dkv", (8, 2048, 8, 64), 0): 0.4184,
+               ("flash_bwd_dq", (8, 2048, 8, 64), 0): 0.2753,
+               ("flash_fwd", (8, 2048, 8, 64), 512): 0.1137,
+               ("flash_bwd_dkv", (8, 2048, 8, 64), 512): 0.2284,
+               ("flash_bwd_dq", (8, 2048, 8, 64), 512): 0.1481,
+               ("flash_fwd", (1, 1920, 8, 64), 0): 0.0460}
 
 
 def check_flash(torch, attn):
@@ -433,6 +491,7 @@ def check_flash(torch, attn):
         tol = TOL[str(dtype)]
         case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
                     window=window, rows_aligned=attn.rows_aligned(q, k, v),
+                    tma_rows=attn.tma_rows(q, k, v),
                     err_o=err_o, err_lse=err_l, tol=tol)
         log("flash check", json.dumps(case))
         if not (err_o <= tol and err_l <= tol):
@@ -441,10 +500,13 @@ def check_flash(torch, attn):
     return results
 
 
-def time_flash(torch, attn, widths):
-    """Phase 4: kernel, plain version and SDPA at the path shapes."""
+def time_flash(torch, attn, widths, d=None):
+    """Phase 4: kernel, plain version and SDPA at the path shapes
+    (head dim ``d``, the target's by default), each beside the
+    mma.sync kernel's time where one was taken."""
     import torch.nn.functional as F
-    heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
+    heads = MODEL["num_heads"]
+    d = d or MODEL["embed_dim"] // heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
     for s in widths:
@@ -453,20 +515,25 @@ def time_flash(torch, attn, widths):
                    for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         iters = 200 if s <= 512 else 50
-        row = dict(shape=[1, s, heads, d], dtype="torch.bfloat16")
-        row["kernel_ms"] = cuda_ms(
+        row = dict(shape=[1, s, heads, d], dtype="torch.bfloat16",
+                   timing="graph")
+        row["kernel_ms"] = graph_ms(
+            lambda: attn.flash_fwd.launch(q, k, v, True, 0), 20)
+        row["launch_ms"] = cuda_ms(
             lambda: attn.flash_fwd.launch(q, k, v, True, 0), iters)
         row["plain_ms"] = cuda_ms(
             lambda: attn.flash_attention_reference(q, k, v, True, 0),
             max(10, iters // 10))
-        row["library_ms"] = cuda_ms(
+        row["library_ms"] = graph_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True), iters)
+                                                   is_causal=True), 20)
         o, _ = attn.flash_fwd.launch(q, k, v, True, 0)
         ro, _ = attn.flash_attention_reference(q, k, v, True, 0)
         row["max_abs_err"] = (o.float() - ro.float()).abs().max().item()
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             1, s, heads, d, "torch.bfloat16", True, 0)
+        row["mma_sync_ms"] = MMA_SYNC_MS.get(("flash_fwd", (1, s, heads, d),
+                                              0))
         log("flash time", json.dumps(row))
         rows.append(row)
     return rows
@@ -517,6 +584,7 @@ def check_backward(torch, attn):
         rk, rv = attn.flash_attention_dkv_reference(*args, causal, window)
         case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
                     window=window, rows_aligned=attn.rows_aligned(*args[:4]),
+                    tma_rows=attn.tma_rows(*args[:4]),
                     lse_cotangent=lse_grad)
         ok = True
         for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
@@ -533,24 +601,27 @@ def check_backward(torch, attn):
 
 def check_repeat(torch, attn):
     """Phase 3: the tensor-core kernels (bf16 flash forward, dQ, dK/dV)
-    at the training shape, launched twice on the same inputs, give
-    bitwise-equal outputs (each output tile has one owner block and
-    there are no atomics)."""
-    shape = (TRAIN_BATCH, TRAIN_SEQ, MODEL["num_heads"],
-             MODEL["embed_dim"] // MODEL["num_heads"])
+    at the training shape (two consumer warpgroups a block) and at the
+    serving prefill's [1, 1920, 8, 64] (one), launched twice on the
+    same inputs, give bitwise-equal outputs (each output tile has one
+    owner block and there are no atomics)."""
+    heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    args = bwd_inputs(torch, attn, shape, torch.bfloat16, True, 0, gen,
-                      True)
     out = {}
-    for name, run in (
-            ("flash_fwd", lambda: attn.flash_fwd.launch(*args[:3], True, 0)),
-            ("flash_bwd_dq",
-             lambda: attn.flash_bwd_dq.launch(*args, True, 0)),
-            ("flash_bwd_dkv",
-             lambda: attn.flash_bwd_dkv.launch(*args, True, 0))):
-        first, second = run(), run()
-        torch.cuda.synchronize()
-        out[name] = all(torch.equal(a, b) for a, b in zip(first, second))
+    for shape in ((TRAIN_BATCH, TRAIN_SEQ, heads, d), (1, 1920, heads, d)):
+        args = bwd_inputs(torch, attn, shape, torch.bfloat16, True, 0, gen,
+                          True)
+        for name, run in (
+                ("flash_fwd",
+                 lambda: attn.flash_fwd.launch(*args[:3], True, 0)),
+                ("flash_bwd_dq",
+                 lambda: attn.flash_bwd_dq.launch(*args, True, 0)),
+                ("flash_bwd_dkv",
+                 lambda: attn.flash_bwd_dkv.launch(*args, True, 0))):
+            first, second = run(), run()
+            torch.cuda.synchronize()
+            out[f"{name} {list(shape)}"] = all(
+                torch.equal(a, b) for a, b in zip(first, second))
     log("bitwise repeat:", json.dumps(out))
     if not all(out.values()):
         raise AssertionError(f"two launches on the same inputs differ: {out}")
@@ -559,17 +630,21 @@ def check_repeat(torch, attn):
 
 def kernel_key(symbol):
     """A kernel's short name from its mangled or demangled symbol:
-    "flash_bwd_dq_tc_kernel<64>", "xent_fwd_kernel f32"; None for a
-    function that is not one of the port's kernels."""
-    # Mangled: ...22flash_bwd_dq_tc_kernelILi64EE...; demangled:
-    # ...::flash_bwd_dq_tc_kernel<64>(...).
+    "flash_bwd_dq_tc_kernel<64>", "flash_fwd_wgmma_tc_kernel<64,2>",
+    "xent_fwd_kernel f32"; None for a function that is not one of the
+    port's kernels."""
+    # Mangled: ...22flash_bwd_dq_tc_kernelILi64EE...,
+    # ...25flash_fwd_wgmma_tc_kernelILi64ELi2EE...; demangled:
+    # ...::flash_bwd_dq_tc_kernel<64>(...), <64, 2>.
     name = re.search(r"(?:\d|::)((?:flash|xent)_\w+?_kernel)", symbol)
     if name is None:
         return None
     key = name.group(1)
-    dmax = re.search(r"Li(\d+)E|<(\d+)>", symbol)
-    if dmax:
-        key += f"<{dmax.group(1) or dmax.group(2)}>"
+    args = re.search(r"I((?:Li\d+E)+)E|<(\d+(?:, *\d+)*)>", symbol)
+    if args:
+        ints = re.findall(r"\d+", args.group(1).replace("Li", " ")
+                          if args.group(1) else args.group(2))
+        key += f"<{','.join(ints)}>"
     if "bfloat16" in symbol:
         key += " bf16"
     elif "kernelIf" in symbol or "<float" in symbol:
@@ -582,9 +657,12 @@ def ptxas_report(compiler):
     ``-Xptxas -v`` output: {"flash_bwd_dq_tc_kernel<64>": {"registers":
     n, "spill_bytes": n}, ...} (a library that was already built has
     no output and adds nothing). Fails if a tensor-core kernel
-    (``*_tc_kernel``) spills, or if a flash library was compiled and
-    none of its tensor-core kernels is in the output."""
+    (``*_tc_kernel``, the wgmma kernels included) spills, if ptxas
+    serialized wgmma instructions ("Potential Performance Loss") or
+    ignored a setmaxnreg, or if a flash library was compiled and none
+    of its tensor-core kernels is in the output."""
     report = {}
+    serialized, ignored = [], []
     for lib, text in sorted(compiler.items()):
         key = None
         for line in text.splitlines():
@@ -594,6 +672,13 @@ def ptxas_report(compiler):
                 if key:
                     report[key] = {}
                 continue
+            serial = re.search(r"wgmma\.mma_async instructions are "
+                               r"serialized.*?'(\w+)'", line)
+            if serial or "wgmma.mma_async instructions are serialized" in line:
+                where = kernel_key(serial.group(1)) if serial else key
+                serialized.append(f"{where}: {line.strip()}")
+            if "setmaxnreg ignored" in line:
+                ignored.append(f"{key}: {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
@@ -612,14 +697,25 @@ def ptxas_report(compiler):
     if spills:
         raise AssertionError(f"tensor-core kernels spill (or ptxas "
                              f"reported no spill line): {spills}")
+    if serialized or ignored:
+        raise AssertionError(
+            "ptxas serialized wgmma or ignored setmaxnreg:\n"
+            + "\n".join(serialized + ignored))
     return report
 
 
+# The Hopper kernels (wgmma, TMA) each flash library must hold.
+WGMMA_KERNELS = {"flash_fwd": "flash_fwd_wgmma_tc_kernel",
+                 "flash_bwd": "flash_bwd_dkv_wgmma_tc_kernel"}
+
+
 def tensor_core_counts(build):
-    """HMMA/HGMMA instructions in each kernel of the built flash
-    libraries, from ``cuobjdump -sass``: {"flash_fwd_tc_kernel<64>": n,
-    ...}, or None when the toolkit has no cuobjdump. Fails if a
-    tensor-core kernel (``*_tc_kernel``) has none."""
+    """HMMA and HGMMA instructions in each kernel of the built flash
+    libraries, from ``cuobjdump -sass``: {"flash_fwd_tc_kernel<64>":
+    {"HMMA": n, "HGMMA": n}, ...}, or None when the toolkit has no
+    cuobjdump. Fails if a tensor-core kernel (``*_tc_kernel``) has
+    neither, if a wgmma kernel has no HGMMA, or if a flash library
+    lacks its wgmma kernels (``WGMMA_KERNELS``)."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = os.path.join(home, "bin", "cuobjdump")
     if not os.path.isfile(tool):
@@ -637,13 +733,20 @@ def tensor_core_counts(build):
             key = kernel_key(section.split("\n", 1)[0])
             if key is None:
                 continue
-            counts[key] = sum(("HMMA" in line or "HGMMA" in line)
-                              for line in section.splitlines())
+            lines = section.splitlines()
+            counts[key] = {
+                "HMMA": sum(bool(re.search(r"\bHMMA", ln)) for ln in lines),
+                "HGMMA": sum("HGMMA" in ln for ln in lines)}
     log("tensor-core instructions (SASS HMMA/HGMMA):", json.dumps(counts))
     tc = {k: n for k, n in counts.items() if "_tc_kernel" in k}
-    if not tc or not all(tc.values()):
-        raise AssertionError(f"tensor-core kernels without HMMA/HGMMA: "
-                             f"{counts}")
+    bad = {k: n for k, n in tc.items()
+           if not (n["HGMMA"] if "wgmma" in k else n["HMMA"] + n["HGMMA"])}
+    missing = [name for name in WGMMA_KERNELS.values()
+               if not any(k.startswith(name + "<") for k in tc)]
+    if not tc or bad or missing:
+        raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
+                             f"(wgmma kernels: HGMMA): {bad}; wgmma "
+                             f"kernels missing: {missing}; {counts}")
     return counts
 
 
@@ -712,10 +815,12 @@ def check_xent(torch, xent):
 def time_flash_kernels(torch, attn, window, gen):
     """The flash forward, dQ and dK/dV at q/k/v [8, 2048, 8, 64] bf16
     causal (with the ``window`` band when > 0): {name: row} with each
-    kernel's time, its plain version's, the library yardstick's (never
-    called by the port: SDPA forward, causal or with the band as a
-    boolean mask; its backward for dQ and dK/dV together), the error
-    and the bound over the kept pairs."""
+    kernel's device time (``graph_ms``) and its time launched back to
+    back (``launch_ms``), its plain version's, the library yardstick's
+    (never called by the port: SDPA forward, causal or with the band as
+    a boolean mask, by graph; its backward for dQ and dK/dV together,
+    by events), the error, the bound over the kept pairs and the
+    mma.sync design's time where one was taken."""
     import torch.nn.functional as F
     heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
     shape = (TRAIN_BATCH, TRAIN_SEQ, heads, d)
@@ -731,18 +836,22 @@ def time_flash_kernels(torch, attn, window, gen):
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, (qt, kt, vt), sdpa_g, retain_graph=True), 20)
     rows = {}
-    row = dict(shape=list(shape), dtype=bf16, window=window)
-    row["kernel_ms"] = cuda_ms(lambda: attn.flash_fwd.launch(
+    row = dict(shape=list(shape), dtype=bf16, window=window,
+               timing="graph")
+    row["kernel_ms"] = graph_ms(lambda: attn.flash_fwd.launch(
+        q, k, v, True, window), 20)
+    row["launch_ms"] = cuda_ms(lambda: attn.flash_fwd.launch(
         q, k, v, True, window), 20)
     row["plain_ms"] = cuda_ms(lambda: attn.flash_attention_reference(
         q, k, v, True, window), 5)
-    row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+    row["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, **mask), 20)
     o, _ = attn.flash_fwd.launch(q, k, v, True, window)
     ro, _ = attn.flash_attention_reference(q, k, v, True, window)
     row["max_abs_err"] = (o.float() - ro.float()).abs().max().item()
     row["bound_ms"], row["bound_by"] = attention_bound_ms(
         *shape, bf16, True, window, "fwd")
+    row["mma_sync_ms"] = MMA_SYNC_MS.get(("flash_fwd", shape, window))
     rows["flash_fwd"] = row
     args = (q, k, v, do, lse, delta, True, window)
     for name, kern, plain in (
@@ -750,8 +859,10 @@ def time_flash_kernels(torch, attn, window, gen):
              attn.flash_attention_dq_reference),
             ("flash_bwd_dkv", attn.flash_bwd_dkv,
              attn.flash_attention_dkv_reference)):
-        row = dict(shape=list(shape), dtype=bf16, window=window)
-        row["kernel_ms"] = cuda_ms(lambda: kern.launch(*args), 20)
+        row = dict(shape=list(shape), dtype=bf16, window=window,
+                   timing="graph")
+        row["kernel_ms"] = graph_ms(lambda: kern.launch(*args), 20)
+        row["launch_ms"] = cuda_ms(lambda: kern.launch(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 5)
         row["library_ms"] = sdpa_bwd_ms
         row["library_call"] = ("scaled_dot_product_attention backward "
@@ -762,6 +873,7 @@ def time_flash_kernels(torch, attn, window, gen):
                                  for a, b in zip(got, want))
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             *shape, bf16, True, window, name.split("_")[-1])
+        row["mma_sync_ms"] = MMA_SYNC_MS.get((name, shape, window))
         rows[name] = row
     del q, k, v, do, lse, delta, qt, kt, vt, sdpa_out, sdpa_g, o, ro, mask
     torch.cuda.empty_cache()
@@ -3088,6 +3200,10 @@ def main():
     report["xent_checks"] = check_xent(torch, xent)
     widths = [16, 128, 1024, 1920]
     report["flash_times"] = time_flash(torch, attention, widths)
+    # The demo draft's head dim (E 128, 8 heads) at the largest bucket.
+    report["draft_flash_times"] = time_flash(
+        torch, attention, [1920],
+        d=SPEC_DRAFT["embed_dim"] // MODEL["num_heads"])
     report["train_kernel_times"] = time_training_kernels(torch, attention,
                                                          xent)
     report["image_kernel_times"] = time_image_xent(torch, xent)

@@ -126,15 +126,30 @@ def _strides(*xs):
 def rows_aligned(*xs):
     """1 when every row (one position of one head) of every [B, S, H, D]
     operand starts on 16 bytes: the pointer and each stride of the
-    batch, sequence and head dims that is ever stepped. The bf16
-    tensor-core kernels then stage rows by 16-byte ``cp.async``, and by
-    2-byte loads otherwise (0)."""
+    batch, sequence and head dims that is ever stepped; 0 otherwise."""
     for x in xs:
         size = x.element_size()
         if x.data_ptr() % 16 or any(
                 x.stride(i) * size % 16 for i in range(3) if x.shape[i] > 1):
             return 0
     return 1
+
+
+def tma_rows(*xs):
+    """The route of the bf16 kernels, passed to every entry point as
+    its ``aligned`` flag. 1 when a TMA tensor map can describe each
+    operand in place: its rows are aligned (``rows_aligned``) and no
+    stepped stride is 0 (a broadcast dim). The forward and dK/dV then
+    run their Hopper kernels (wgmma, TMA) and dQ stages rows by 16-byte
+    ``cp.async``. 0 otherwise (a view whose rows start off 16 bytes, a
+    broadcast): the forward and dK/dV take their mma.sync kernels, and
+    every bf16 kernel stages rows with 2-byte loads. No other case
+    reaches the mma.sync forward or dK/dV, and no failure falls back
+    to them."""
+    if not rows_aligned(*xs):
+        return 0
+    return int(all(x.stride(i) for x in xs for i in range(3)
+                   if x.shape[i] > 1))
 
 
 def _check_tensors(what, tensors):
@@ -177,7 +192,8 @@ def _check_rows(what, b, s, h, rows):
 
 class FlashForward(_build.Kernel):
     """The flash-forward kernel's wrapper: checks, allocation, launch
-    and a count of launches."""
+    and a count of launches. bf16 takes the Hopper kernel, or the
+    mma.sync kernel where ``tma_rows`` is 0; both count here."""
 
     name = library = "flash_fwd"
     symbol = "cea_flash_fwd"
@@ -203,7 +219,7 @@ class FlashForward(_build.Kernel):
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
                      b, s, h, d, *_strides(q, k, v), int(bool(causal)),
-                     int(window), 1.0 / math.sqrt(d), rows_aligned(q, k, v),
+                     int(window), 1.0 / math.sqrt(d), tma_rows(q, k, v),
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
         return o, lse
 
@@ -241,7 +257,7 @@ class _FlashBackward(_build.Kernel):
                      *ptrs, _DTYPE_CODES[q.dtype], b, s, h, d,
                      *_strides(q, k, v, do), int(bool(causal)),
                      int(window), 1.0 / math.sqrt(d),
-                     rows_aligned(q, k, v, do),
+                     tma_rows(q, k, v, do),
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
         return tuple(outs)
 
@@ -261,7 +277,8 @@ class FlashBackwardDQ(_FlashBackward):
 
 class FlashBackwardDKV(_FlashBackward):
     """dK/dV kernel's wrapper (Pallas ``_dkv_kernel``/
-    ``_dkv_kernel_stream``)."""
+    ``_dkv_kernel_stream``). bf16 takes the Hopper kernel, or the
+    mma.sync kernel where ``tma_rows`` is 0; both count here."""
 
     name = "flash_bwd_dkv"
     symbol = "cea_flash_bwd_dkv"

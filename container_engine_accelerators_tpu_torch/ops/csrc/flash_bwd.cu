@@ -43,16 +43,17 @@
 // operations per kept (query, key) pair, about 52 and 69 GFLOP, against
 // 85-101 MB of traffic, so the tensor cores' rate bounds both (about
 // 0.05-0.07 ms at 989 TFLOP/s), and what keeps a kernel from that
-// bound is feeding them.
+// bound is feeding them and the elementwise step between the products
+// (an exp2 a score on the special-function unit).
 //
-// Four kernels, two per role, chosen by the input type. bf16 runs on
-// the tensor cores (mma.m16n8k16 bf16 with f32 accumulators, the
-// helpers of mma_bf16.cuh), with 128-thread blocks of 4 warps, each
-// warp owning 16 rows of the block's tile; partner tiles come in
-// double-buffered by 16-byte cp.async (2-byte loads where a row does
-// not start on 16 bytes); masks are evaluated only on the tiles a mask
-// can touch (the diagonal, the window edge, the ragged end), and
-// scores run in log2 units (exp2, scale * log2 e folded in).
+// Five kernels, chosen by the role, the input type and (dK/dV) the
+// rows' alignment. The mma.sync kernels (mma.m16n8k16 bf16 with f32
+// accumulators, the helpers of mma_bf16.cuh) have 128-thread blocks of
+// 4 warps, each warp owning 16 rows of the block's tile; partner tiles
+// come in double-buffered by 16-byte cp.async (2-byte loads where a row
+// does not start on 16 bytes). Every kernel evaluates masks only on the
+// tiles a mask can touch (the diagonal, the window edge, the ragged
+// end) and runs scores in log2 units (exp2, scale * log2 e folded in).
 //
 // dQ, bf16 (`flash_bwd_dq_tc_kernel`): the forward's structure with two
 //   products before the softmax step. One block per (batch*head,
@@ -68,16 +69,40 @@
 //   bf16 as the A operand straight from the registers and K through
 //   ldmatrix.trans. dQ stays in f32 registers for the whole loop and is
 //   written once.
-// dK/dV, bf16 (`flash_bwd_dkv_tc_kernel`): one block per (batch*head,
-//   64-key tile); K and V staged once; Q and dO tiles (64 queries, 32
-//   at D > 64 to keep the accumulators in registers) with their lse
-//   and delta rows, between the causal lower bound and the window's
-//   upper bound (`_dkv_kernel`, attention.py:212-215). Per tile,
-//   transposed (rows are the block's keys): S^T = K.Q^T and dP^T =
-//   V.dO^T; P^T and dS^T on the fragments; then dV += P^T.dO and dK +=
-//   dS^T.Q with P^T and dS^T rounded to bf16 as A operands from the
-//   registers (dO and Q through ldmatrix.trans). dK and dV stay in f32
-//   registers for the whole loop.
+// dK/dV, bf16, the Hopper kernel (`flash_bwd_dkv_wgmma_tc_kernel`, for
+//   every input a TMA tensor map can describe: the wrapper's
+//   `tma_rows`). Only wgmma reaches the tensor cores' full rate on this
+//   card (wgmma_tma.cuh has the building blocks). One block per
+//   (batch*head, 64 * WG keys): a producer warpgroup whose first warp
+//   loads the block's K and V once by TMA, then streams Q/dO tiles of
+//   64 queries (32 at D 128, where dK and dV alone take 128 accumulator
+//   registers a thread) by TMA through a three-stage mbarrier ring,
+//   their lse and delta rows beside them (read by the warp's lanes
+//   before the slot frees, so the global reads do not delay the TMA
+//   issue); WG consumer warpgroups of 64 keys each (two, one block an
+//   SM, once the grid fills the card's 132 SMs; otherwise one and two
+//   blocks an SM), registers handed over by setmaxnreg. Per Q/dO tile a
+//   consumer runs S^T = K.Q^T and dP^T = V.dO^T (rows: its keys; K and
+//   V the A operands, held in registers at D 64 and read from shared
+//   memory at D 128, Q and dO the B operands),
+//   forms P^T and dS^T on the accumulators (exp2 on the special-function
+//   unit alone), rounds them to bf16 as the register A operands of
+//   dV += P^T.dO and dK += dS^T.Q (dO and Q read MN-major through the
+//   descriptor: no transposing load), and queues the next tile's two
+//   score products behind those on the tensor cores before it waits.
+//   Query tiles from the causal lower bound to the window's upper bound
+//   (`_dkv_kernel`, attention.py:212-215); tiles outside a consumer's
+//   own range are waited for and released only. dK and dV stay in f32
+//   registers for the whole loop and are written once. dQ stays in its
+//   own kernel (no atomics folded in, as FlashAttention-3 does), so
+//   every output keeps one owner block.
+// dK/dV, bf16 rows a tensor map cannot describe (`tma_rows` 0: a view
+//   whose rows start off 16 bytes, a broadcast stride), and no other
+//   case: the mma.sync kernel (`flash_bwd_dkv_tc_kernel`): one block
+//   per (batch*head, 64-key tile); K and V staged once; Q and dO tiles
+//   (64 queries, 32 at D > 64) with their lse and delta rows; per tile
+//   S^T and dP^T, then dV and dK with P^T and dS^T as A fragments from
+//   the registers (dO and Q through ldmatrix.trans).
 // Rounding P^T and dS^T (dK/dV) and dS (dQ) to bf16 before the second
 // product is the change of numerics against the f32 kernels (as in
 // FlashAttention-2); lse, delta, the row terms and every accumulator
@@ -98,6 +123,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -802,6 +828,400 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------
+// dK/dV, bf16: the Hopper kernel (wgmma + TMA).
+
+// Parameters of the Hopper kernel: the tensor maps of q, k, v and dO
+// (read in place from the caller's strides) beside the common ones.
+struct TmaParams {
+  CUtensorMap tq, tk, tv, tdo;
+  Params p;
+};
+
+// One block: WG consumer warpgroups of 64 keys each (the block's key
+// tile is 64 * WG) and one producer warpgroup. Its first warp loads K
+// and V once by TMA, then streams Q/dO tiles of kQ queries by TMA with
+// their lse and delta rows (plain loads by its 32 lanes) through a
+// two-stage ring. kQ is 64, or 32 at DMAX 128, where dK and dV alone
+// take 128 accumulator registers a thread.
+template <int DMAX, int WG>
+struct DkvWg {
+  static constexpr int kChunks = DMAX / 64;
+  static constexpr int kKeys = 64 * WG;
+  static constexpr int kQ = DMAX <= 64 ? 64 : 32;
+  // K and V as register A operands of the score products (D 64 only).
+  static constexpr bool kHoldKV = DMAX <= 64;
+  static constexpr int kHeldSteps = kHoldKV ? DMAX / 16 : 1;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 128 * (WG + 1);
+  static constexpr int kMinBlocks = WG == 2 ? 1 : 2;
+  static constexpr int kRegsProducer = 24;
+  static constexpr int kRegsConsumer = WG == 2 ? 240 : 232;
+  static constexpr int kChunkK = kKeys * cea_hopper::kRowBytes;
+  static constexpr int kKBytes = kChunks * kChunkK;  // K or V
+  static constexpr int kChunkQ = kQ * cea_hopper::kRowBytes;
+  static constexpr int kQBytes = kChunks * kChunkQ;  // Q or dO
+  static constexpr int kStageBytes = 2 * kQBytes;
+  static constexpr size_t smem_bytes() {
+    // Alignment slack, K, V, the Q/dO ring, the lse/delta ring, the
+    // barriers.
+    return 1024 + 2 * kKBytes + kStages * kStageBytes +
+           sizeof(float) * kStages * 2 * kQ +
+           sizeof(uint64_t) * (1 + 2 * kStages);
+  }
+};
+
+// S^T = K.Q^T and dP^T = V.dO^T of one ring stage (`qd`: its Q tile,
+// then its dO tile) for one warpgroup's keys: issued and committed as
+// one wgmma group, not waited for. At D 64 K and V are register A
+// operands (`kf`, `vf`, loaded once), so a tile reads only Q and dO
+// from shared memory; at D 128 they stay in shared memory (`k_w`,
+// `v_w`), where dK and dV leave no registers for them.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_scores(
+    float (&st)[DkvWg<DMAX, WG>::kQ / 2],
+    float (&dpt)[DkvWg<DMAX, WG>::kQ / 2],
+    const uint32_t (&kf)[DkvWg<DMAX, WG>::kHeldSteps][4],
+    const uint32_t (&vf)[DkvWg<DMAX, WG>::kHeldSteps][4],
+    const unsigned char* k_w, const unsigned char* v_w,
+    const unsigned char* qd) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  if constexpr (C::kHoldKV) {
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_rs_n64<0>(st, kf[kk], kmajor_desc(qd, C::kChunkQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_rs_n64<0>(dpt, vf[kk],
+                      kmajor_desc(qd + C::kQBytes, C::kChunkQ, kk), kk > 0);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_ss<C::kQ, 0>(st, kmajor_desc(k_w, C::kChunkK, kk),
+                         kmajor_desc(qd, C::kChunkQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_ss<C::kQ, 0>(dpt, kmajor_desc(v_w, C::kChunkK, kk),
+                         kmajor_desc(qd + C::kQBytes, C::kChunkQ, kk),
+                         kk > 0);
+  }
+  wgmma_commit();
+}
+
+// One query tile's second half for one warpgroup: P^T and dS^T on the
+// score accumulators (element e is key key0 + 8 ((e >> 1) & 1), query
+// column 8 (e >> 2) + 2t + (e & 1) of the tile at q0), rounded to bf16
+// as register A operands; then dV += P^T.dO and dK += dS^T.Q (dO and
+// Q the MN-major B operands, 16 queries a step), issued and committed
+// as one wgmma group, not waited for.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_update(
+    float (&st)[DkvWg<DMAX, WG>::kQ / 2],
+    float (&dpt)[DkvWg<DMAX, WG>::kQ / 2],
+    float (&dk)[DMAX / 64][32], float (&dv)[DMAX / 64][32],
+    uint32_t (&pa)[DkvWg<DMAX, WG>::kQ / 16][4],
+    uint32_t (&da)[DkvWg<DMAX, WG>::kQ / 16][4], const unsigned char* qd,
+    const float* lse_b, const float* delta_b, const Params& p, int q0,
+    int kw, int key0, int t, float scale2) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  constexpr int kQ = C::kQ;
+  const int seq = p.seq;
+  fence_regs(st);
+  fence_regs(dpt);
+  const bool masked =
+      q0 + kQ > seq || kw + 64 > seq ||
+      (p.causal &&
+       (q0 < kw + 63 || (p.window && kw <= q0 + kQ - 1 - p.window)));
+#pragma unroll
+  for (int e = 0; e < kQ / 2; ++e) {
+    const int col = (e >> 2) * 8 + 2 * t + (e & 1);
+    float pr = fast_exp2(fmaf(st[e], scale2, -lse_b[col]));
+    if (masked) {
+      const int q_pos = q0 + col;
+      const int k_pos = key0 + ((e >> 1) & 1) * 8;
+      bool keep = q_pos < seq && k_pos < seq;
+      if (p.causal) {
+        keep = keep && q_pos >= k_pos;
+        if (p.window) keep = keep && k_pos > q_pos - p.window;
+      }
+      pr = keep ? pr : 0.f;
+    }
+    st[e] = pr;
+    dpt[e] = pr * (dpt[e] - delta_b[col]) * p.scale;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk) {
+    acc_to_a(pa[kk], st, kk);
+    acc_to_a(da[kk], dpt, kk);
+  }
+  __syncwarp();  // this warp's reads of lse/delta are done
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c) {
+    fence_regs(dv[c]);
+    fence_regs(dk[c]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      wgmma_rs_n64<1>(dv[c], pa[kk],
+                      mnmajor_desc(qd + C::kQBytes, C::kChunkQ, c, kk));
+      wgmma_rs_n64<1>(dk[c], da[kk], mnmajor_desc(qd, C::kChunkQ, c, kk));
+    }
+  wgmma_commit();
+}
+
+template <int DMAX, int WG>
+__global__ void __launch_bounds__(DkvWg<DMAX, WG>::kThreads,
+                                  DkvWg<DMAX, WG>::kMinBlocks)
+flash_bwd_dkv_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  constexpr int kStages = C::kStages;
+  constexpr int kQ = C::kQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = align1024(smem_raw);
+  unsigned char* v_s = k_s + C::kKBytes;
+  unsigned char* qd_s = v_s + C::kKBytes;  // stage s: Q, then dO
+  float* rows_s = reinterpret_cast<float*>(qd_s + kStages * C::kStageBytes);
+  // stage s: lse (log2 units) at rows_s + 2 s kQ, delta after it
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s + kStages * 2 * kQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const Params& p = tp.p;
+  const int b = blockIdx.x / p.heads;
+  const int h = blockIdx.x % p.heads;
+  // Causal: the first key tiles see the most queries; run them first.
+  const int k0 =
+      (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * C::kKeys;
+  const int seq = p.seq;
+  // The query range that sees the block's keys, as in the f32 kernel.
+  const int k_last = min(k0 + C::kKeys, seq) - 1;
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi =
+      (p.causal && p.window) ? min(seq - 1, k_last + p.window - 1) : seq - 1;
+  const int qt_lo = q_lo / kQ, qt_hi = q_hi / kQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);       // the producer warp's lanes
+      mbar_init(&empty[s], 4 * WG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wg == WG) {
+    setmaxnreg_dec<C::kRegsProducer>();
+    if (threadIdx.x < 128 * WG + 32) {
+      // lse and delta of (b, position, h) at (b * seq + pos) * heads + h.
+      const long long row_base = static_cast<long long>(b) * seq * p.heads + h;
+      if (lane == 0) {
+        tma_prefetch_map(&tp.tq);
+        tma_prefetch_map(&tp.tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * C::kKBytes);
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_4d(k_s + c * C::kChunkK, &tp.tk, kv_full, 64 * c, h, k0, b);
+          tma_load_4d(v_s + c * C::kChunkK, &tp.tv, kv_full, 64 * c, h, k0, b);
+        }
+      }
+      for (int qt = qt_lo, i = 0; qt <= qt_hi; ++qt, ++i) {
+        const int s = i % kStages;
+        const int q0 = qt * kQ;
+        // This tile's lse and delta rows, read before the slot frees.
+        float lv[kQ / 32], dv_[kQ / 32];
+#pragma unroll
+        for (int u = 0; u < kQ / 32; ++u) {
+          const int pos = q0 + lane + 32 * u;
+          const bool in = pos < seq;
+          const long long row =
+              row_base + static_cast<long long>(pos) * p.heads;
+          lv[u] = in ? p.lse[row] * kLog2e : 0.f;
+          dv_[u] = in ? p.delta[row] : 0.f;
+        }
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        float* lse_s = rows_s + 2 * s * kQ;
+#pragma unroll
+        for (int u = 0; u < kQ / 32; ++u) {
+          lse_s[lane + 32 * u] = lv[u];
+          lse_s[kQ + lane + 32 * u] = dv_[u];
+        }
+        if (lane == 0) {
+          unsigned char* qs = qd_s + s * C::kStageBytes;
+          mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+          for (int c = 0; c < C::kChunks; ++c) {
+            tma_load_4d(qs + c * C::kChunkQ, &tp.tq, &full[s], 64 * c, h, q0,
+                        b);
+            tma_load_4d(qs + C::kQBytes + c * C::kChunkQ, &tp.tdo, &full[s],
+                        64 * c, h, q0, b);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: keys kw .. kw + 63.
+    setmaxnreg_inc<C::kRegsConsumer>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw = k0 + 64 * wg;
+    const int key0 = kw + warp * 16 + g;  // this lane's keys: key0, +8
+    const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+    const unsigned char* k_w = k_s + 64 * wg * kRowBytes;
+    const unsigned char* v_w = v_s + 64 * wg * kRowBytes;
+    // This warpgroup computes query tiles [c_lo, c_hi] of the block's
+    // range; the others see none of its keys (before its causal
+    // diagonal, past its window band, or keys past the length), and it
+    // only waits for them and releases them, in ring order.
+    const int kw_last = min(kw + 63, seq - 1);
+    const int c_lo = max(qt_lo, p.causal ? kw / kQ : 0);
+    const int c_hi =
+        kw >= seq ? -1
+                  : ((p.causal && p.window)
+                         ? min(seq - 1, kw_last + p.window - 1) / kQ
+                         : qt_hi);
+    int i = 0;  // ring position of query tile qt_lo + i
+    auto release = [&](int n) {
+      for (; n > 0; --n, ++i) {
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        if (lane == 0) mbar_arrive(&empty[i % kStages]);
+      }
+    };
+    float st[kQ / 2], dpt[kQ / 2];
+
+    float dk[C::kChunks][32], dv[C::kChunks][32];
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
+    uint32_t pa[kQ / 16][4], da[kQ / 16][4];
+
+    if (c_lo > c_hi) {
+      release(qt_hi - qt_lo + 1);
+    } else {
+      release(c_lo - qt_lo);
+      mbar_wait(kv_full, 0);
+      uint32_t kf[C::kHeldSteps][4], vf[C::kHeldSteps][4];
+      if constexpr (C::kHoldKV) {
+#pragma unroll
+        for (int kk = 0; kk < DMAX / 16; ++kk) {
+          load_a_sw128(kf[kk], k_w, C::kChunkK, kk, warp, lane);
+          load_a_sw128(vf[kk], v_w, C::kChunkK, kk, warp, lane);
+        }
+      }
+      mbar_wait(&full[i % kStages], (i / kStages) & 1);
+      wgmma_fence();
+      dkv_scores<DMAX, WG>(st, dpt, kf, vf, k_w, v_w,
+                           qd_s + (i % kStages) * C::kStageBytes);
+      wgmma_wait<0>();
+      // Each tile but the last: its dV/dK products, then the next
+      // tile's scores queued behind them on the tensor cores.
+      for (int qt = c_lo; qt < c_hi; ++qt, ++i) {
+        const int s = i % kStages;
+        const int next = i + 1;
+        const float* lse_b = rows_s + 2 * s * kQ;
+        mbar_wait(&full[next % kStages], (next / kStages) & 1);
+        dkv_update<DMAX, WG>(st, dpt, dk, dv, pa, da,
+                             qd_s + s * C::kStageBytes, lse_b, lse_b + kQ,
+                             p, qt * kQ, kw, key0, t, scale2);
+        dkv_scores<DMAX, WG>(st, dpt, kf, vf, k_w, v_w,
+                             qd_s + (next % kStages) * C::kStageBytes);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) {
+          fence_regs(dv[c]);
+          fence_regs(dk[c]);
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      {
+        const int s = i % kStages;
+        const float* lse_b = rows_s + 2 * s * kQ;
+        dkv_update<DMAX, WG>(st, dpt, dk, dv, pa, da,
+                             qd_s + s * C::kStageBytes, lse_b, lse_b + kQ,
+                             p, c_hi * kQ, kw, key0, t, scale2);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) {
+          fence_regs(dv[c]);
+          fence_regs(dk[c]);
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+        ++i;
+      }
+      release(qt_hi - c_hi);
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pos = key0 + 8 * r;
+        if (pos >= seq) continue;
+        const long long off =
+            ((static_cast<long long>(b) * seq + pos) * p.heads + h) * p.dim;
+        bf16* dkg = static_cast<bf16*>(p.out0) + off;
+        bf16* dvg = static_cast<bf16*>(p.out1) + off;
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * c + j * 8 + 2 * t;
+            if (col >= p.dim) continue;
+            *reinterpret_cast<__nv_bfloat162*>(dkg + col) =
+                __floats2bfloat162_rn(dk[c][4 * j + 2 * r],
+                                      dk[c][4 * j + 2 * r + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dvg + col) =
+                __floats2bfloat162_rn(dv[c][4 * j + 2 * r],
+                                      dv[c][4 * j + 2 * r + 1]);
+          }
+      }
+    }
+  }
+}
+
+template <int DMAX, int WG>
+cudaError_t launch_dkv_wg_n(const Params& p, cudaStream_t stream) {
+  using C = DkvWg<DMAX, WG>;
+  auto kernel = flash_bwd_dkv_wgmma_tc_kernel<DMAX, WG>;
+  const size_t smem = C::smem_bytes();
+  cudaError_t err = cea_hopper::prepare_launch<C>(
+      kernel, C::kThreads, WG, C::kRegsProducer, C::kRegsConsumer, smem);
+  if (err != cudaSuccess) return err;
+  TmaParams tp;
+  tp.p = p;
+  const long long* strides[4] = {p.q_stride, p.k_stride, p.v_stride,
+                                 p.do_stride};
+  const void* bases[4] = {p.q, p.k, p.v, p.dout};
+  CUtensorMap* maps[4] = {&tp.tq, &tp.tk, &tp.tv, &tp.tdo};
+  for (int i = 0; i < 4; ++i) {
+    const long long st[3] = {strides[i][0], strides[i][1], strides[i][2]};
+    const bool keys = i == 1 || i == 2;
+    err = cea_hopper::encode_rows(maps[i], bases[i], p.batch, p.seq,
+                                  p.heads, p.dim, st,
+                                  keys ? C::kKeys : C::kQ);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(p.batch * p.heads, (p.seq + C::kKeys - 1) / C::kKeys);
+  kernel<<<grid, C::kThreads, smem, stream>>>(tp);
+  return cudaGetLastError();
+}
+
+// Two consumer warpgroups (128-key tiles, one block an SM) once the
+// grid of such tiles fills the card's 132 SMs; otherwise one.
+template <int DMAX>
+cudaError_t launch_dkv_wg(const Params& p, cudaStream_t stream) {
+  const long long tiles128 =
+      static_cast<long long>(p.batch) * p.heads * ((p.seq + 127) / 128);
+  return tiles128 >= 132 ? launch_dkv_wg_n<DMAX, 2>(p, stream)
+                         : launch_dkv_wg_n<DMAX, 1>(p, stream);
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Params& p, size_t smem, int threads,
                    cudaStream_t stream) {
@@ -823,6 +1243,7 @@ cudaError_t dispatch(const Params& p, int dtype, bool dkv,
                         f32_smem_bytes(DMAX), kThreads, stream)
                : launch(flash_bwd_dq_kernel<DMAX>, p,
                         f32_smem_bytes(DMAX), kThreads, stream);
+  if (dtype == 1 && dkv && p.aligned) return launch_dkv_wg<DMAX>(p, stream);
   if (dtype == 1)
     return dkv ? launch(flash_bwd_dkv_tc_kernel<DMAX>, p,
                         DkvTc<DMAX>::smem_bytes(), kTcThreads, stream)
@@ -868,8 +1289,10 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 
 // Both entry points: dtype 0 = float32, 1 = bfloat16; strides in
 // elements, (batch, seq, head) for q, k, v, dO in that order; aligned
-// = 1 when every q/k/v/dO row starts on 16 bytes (read by the bf16
-// kernels, which stage by 2-byte loads otherwise). Return
+// = 1 when a TMA tensor map can read q, k, v and dO in place (16-byte
+// base, every stepped stride a nonzero multiple of 16 bytes): bf16
+// dK/dV takes the Hopper kernel and dQ stages by 16-byte cp.async; 0:
+// the mma.sync kernels with 2-byte loads. Return
 // the cudaError_t of the launch (0 = success); the caller raises on
 // anything else. The wrapper has checked shapes, types, the head dim
 // (<= 128, multiple of 8) and that it is contiguous, and that lse and

@@ -1186,8 +1186,14 @@ class _BaseServer:
     (the module docstring has the contract): one POST route, the GET
     surfaces, latency bookkeeping, readiness and drain."""
 
-    def __init__(self, model_name, port, host=""):
+    def __init__(self, model_name, port, host="", devices=()):
         self._name = model_name
+        # What this replica computes on, captured once (the JAX
+        # server's /stats fields): the torch device type and each
+        # device's name, so a load harness can reject numbers taken
+        # on a CPU fallback.
+        self._devices = [str(d) for d in devices]
+        self._platform = devices[0].type if devices else None
         # Liveness: /healthz answers 503 until set (warm-up).
         self._ready = threading.Event()
         self._ready.set()
@@ -1464,6 +1470,8 @@ class _BaseServer:
                 "identity": dict(obs.identity(), port=self.port),
                 "requests": self._requests,
                 "shed": self._shed,
+                "platform": self._platform,
+                "devices": self._devices,
                 "p50_ms": (round(p50 * 1000, 3)
                            if p50 is not None else None),
                 "p99_ms": (round(p99 * 1000, 3)
@@ -1508,9 +1516,10 @@ class InferenceServer(_BaseServer):
 
     def __init__(self, model_name, model, input_shape, port=8500,
                  max_batch=8, max_wait_ms=5, max_queue=None, host=""):
-        super().__init__(model_name, port, host=host)
-        self._model = model.eval()
         self._device = next(model.parameters()).device
+        super().__init__(model_name, port, host=host,
+                         devices=[self._device])
+        self._model = model.eval()
         self._input_shape = tuple(input_shape)
         self._max_batch = max_batch
         if max_queue is None:
@@ -1718,7 +1727,8 @@ class GenerationServer(_BaseServer):
         self._engine_service = _EngineService(
             first, self._admission, engine_factory=build_engine)
         try:
-            super().__init__(model_name, port, host=host)
+            super().__init__(model_name, port, host=host,
+                             devices=[first.device])
         except BaseException:
             self._engine_service.stop()
             raise

@@ -25,7 +25,9 @@ Each kernel is held to its plain PyTorch version on the same inputs:
 bf16 at 2e-2 (outputs rounded to 8 bits; the backward and the
 cross-entropy relative to the largest reference value), f32 at 1e-4
 (summation order). bf16 flash forward, dQ and dK/dV run on the tensor
-cores, f32 on the FMA kernels.
+cores (the forward and dK/dV on the Hopper wgmma/TMA kernels, or on
+their mma.sync kernels where ``attention.tma_rows`` is 0), f32 on the
+FMA kernels.
 """
 
 import math
@@ -335,6 +337,83 @@ def test_tensor_core_kernels_are_deterministic(cuda):
     first = attn.flash_bwd_dkv(*args, True, 0)
     second = attn.flash_bwd_dkv(*args, True, 0)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# The Hopper forward and dK/dV (wgmma, TMA) at the cases that stress
+# them: head dims 16 (the demo draft's), 40 (zero-padded past a
+# multiple of 16), 64 and 128; lengths 17 and 1000 (ragged against every
+# tile); the window band; B 1 at S 1920 (one consumer warpgroup a
+# block) and grids that fill the card (three consumers at D 64, two at
+# D 128).
+HOPPER_CASES = [
+    ((2, 17, 8, 16), True, 0),
+    ((1, 1920, 8, 16), True, 0),
+    ((2, 1000, 4, 40), True, 0),
+    ((1, 1920, 8, 64), True, 0),
+    ((1, 1000, 8, 64), True, 512),
+    ((8, 512, 8, 64), False, 0),
+    ((8, 1000, 8, 64), True, 128),
+    ((4, 1000, 8, 128), True, 256),
+    ((4, 1024, 8, 128), True, 0),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window", HOPPER_CASES)
+def test_hopper_kernels_match_plain_versions(cuda, shape, causal, window):
+    args = _bwd_args(shape, torch.bfloat16, causal, window, cuda)
+    q, k, v, do, lse, delta = args
+    assert attn.tma_rows(q, k, v, do) == 1
+    before = (attn.flash_fwd.launches, attn.flash_bwd_dkv.launches)
+    o, got_lse = attn.flash_fwd(q, k, v, causal, window)
+    dk, dv = attn.flash_bwd_dkv(*args, causal, window)
+    torch.cuda.synchronize()
+    assert (attn.flash_fwd.launches, attn.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ro, rl = attn.flash_attention_reference(q, k, v, causal, window)
+    _assert_near(o, ro, torch.bfloat16, "o")
+    torch.testing.assert_close(got_lse, rl, rtol=2e-2, atol=2e-2)
+    rk, rv = attn.flash_attention_dkv_reference(*args, causal, window)
+    _assert_near(dk, rk, torch.bfloat16, "dk")
+    _assert_near(dv, rv, torch.bfloat16, "dv")
+
+
+@pytest.mark.parametrize("shape", [(1, 1920, 8, 64), (8, 512, 8, 64),
+                                   (4, 1024, 8, 128)])
+def test_hopper_kernels_are_deterministic(cuda, shape):
+    """One and several consumer warpgroups a block: two launches give
+    bitwise-equal outputs (one owner block a tile, no atomics)."""
+    args = _bwd_args(shape, torch.bfloat16, True, 0, cuda)
+    first = attn.flash_fwd(*args[:3], True, 0)
+    second = attn.flash_fwd(*args[:3], True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first = attn.flash_bwd_dkv(*args, True, 0)
+    second = attn.flash_bwd_dkv(*args, True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_broadcast_rows_take_the_mma_sync_kernels(cuda):
+    """k and v broadcast over the heads (stride 0): no TMA tensor map
+    describes them, so the forward and dK/dV take their mma.sync
+    kernels (``tma_rows`` 0), count the launch, and agree."""
+    b, s, h, d = 2, 150, 4, 64
+    q, do = _qkv((b, s, h, d), torch.bfloat16, 5, cuda)[:2]
+    k, v = (x.expand(b, s, h, d) for x in
+            _qkv((b, s, 1, d), torch.bfloat16, 6, cuda)[:2])
+    assert attn.rows_aligned(q, k, v, do) == 1
+    assert attn.tma_rows(q, k, v, do) == 0
+    before = (attn.flash_fwd.launches, attn.flash_bwd_dkv.launches)
+    o, lse = attn.flash_fwd(q, k, v, True, 0)
+    ro, rl = attn.flash_attention_reference(q, k, v, True, 0)
+    _assert_near(o, ro, torch.bfloat16, "o")
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, do, rl, delta, True, 0)
+    torch.cuda.synchronize()
+    assert (attn.flash_fwd.launches, attn.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    rk, rv = attn.flash_attention_dkv_reference(q, k, v, do, rl, delta,
+                                                True, 0)
+    _assert_near(dk, rk, torch.bfloat16, "dk")
+    _assert_near(dv, rv, torch.bfloat16, "dv")
 
 
 def test_autograd_runs_the_three_kernels(cuda):
