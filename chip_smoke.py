@@ -26,17 +26,17 @@
 3. holds each kernel against its plain PyTorch version on the card
    (flash forward, dQ, dK/dV, cross-entropy forward and backward; the
    cross-entropy gradient element by element, scaled by its mean):
-   the bf16 flash forward and dK/dV (Hopper kernels: wgmma, TMA) at
-   head dims 16, 40, 64 and 128, lengths 17 and 1000, the window band,
-   B 1 at S 1920, grids with one and with several consumer warpgroups
-   a block, and on q/k/v/dO rows that do not start on 16 bytes (the
-   mma.sync kernels, ``attention.tma_rows``); launches the three
-   tensor-core kernels (bf16 flash forward, dQ, dK/dV) twice on the
-   same inputs at the training and the serving prefill's shapes and
-   requires bitwise-equal outputs; and counts the tensor-core
+   the bf16 flash forward, dQ and dK/dV (Hopper kernels: wgmma, TMA)
+   at head dims 16, 40, 64 and 128, lengths 17 and 1000, the window
+   band, B 1 at S 1920, grids with one and with several consumer
+   warpgroups a block, and on q/k/v/dO rows that do not start on 16
+   bytes (the mma.sync kernels, ``attention.tma_rows``); launches the
+   three tensor-core kernels (bf16 flash forward, dQ, dK/dV) twice on
+   the same inputs at the training and the serving prefill's shapes
+   and requires bitwise-equal outputs; and counts the tensor-core
    instructions in their SASS (cuobjdump): HMMA or HGMMA in every
-   ``*_tc_kernel``, HGMMA in each wgmma kernel, and both wgmma kernels
-   present;
+   ``*_tc_kernel``, HGMMA in each wgmma kernel, and all three wgmma
+   kernels present;
 4. times each kernel at its path's shapes beside its bound, its plain
    version and one PyTorch library call (flash forward at the serving
    prefill widths, at the demo draft's D 16 and at the training shape;
@@ -437,12 +437,12 @@ def attn_operands(torch, shape, dtype, n, gen, misaligned=False):
 
 
 # Phase 3's attention cases: (shape, dtype, causal, window, misaligned
-# rows). bf16 runs the Hopper forward and dK/dV (wgmma, TMA) and the
-# mma.sync dQ: head dims 16 (the demo draft's), 40 (not a multiple of
-# 16), 64 and 128; lengths 17 and 1000 (not multiples of a tile); the
-# window band; one and two consumer warpgroups a block (the grid's
-# 128-row tiles below and above the card's 132 SMs); and rows that do
-# not start on 16 bytes, which take the mma.sync forward and dK/dV
+# rows). bf16 runs the Hopper forward, dQ and dK/dV (wgmma, TMA): head
+# dims 16 (the demo draft's), 40 (not a multiple of 16), 64 and 128;
+# lengths 17 and 1000 (not multiples of a tile); the window band; one
+# and two consumer warpgroups a block (the grid's 128-row tiles below
+# and above the card's 132 SMs); and rows that do not start on 16
+# bytes, which take the mma.sync forward, dQ and dK/dV
 # (``attention.tma_rows``). f32 runs the FMA kernels.
 BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
                  ((2, 200, 4, 40), "bfloat16", False, 0, False),
@@ -456,8 +456,8 @@ BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
                  ((8, 512, 8, 64), "bfloat16", False, 0, False),
                  ((2, 150, 4, 128), "bfloat16", True, 64, True)]
 
-# The bf16 forward's and dK/dV's times on the mma.sync design the
-# Hopper kernels replaced (the same measurement on one NVIDIA H100
+# The bf16 forward's, dQ's and dK/dV's times on the mma.sync design
+# the Hopper kernels replaced (the same measurement on one NVIDIA H100
 # 80GB HBM3 at 700 W), printed beside the new times: {(name, shape,
 # window): ms}.
 MMA_SYNC_MS = {("flash_fwd", (8, 2048, 8, 64), 0): 0.1949,
@@ -705,8 +705,9 @@ def ptxas_report(compiler):
 
 
 # The Hopper kernels (wgmma, TMA) each flash library must hold.
-WGMMA_KERNELS = {"flash_fwd": "flash_fwd_wgmma_tc_kernel",
-                 "flash_bwd": "flash_bwd_dkv_wgmma_tc_kernel"}
+WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_tc_kernel",),
+                 "flash_bwd": ("flash_bwd_dkv_wgmma_tc_kernel",
+                               "flash_bwd_dq_wgmma_tc_kernel")}
 
 
 def tensor_core_counts(build):
@@ -741,7 +742,7 @@ def tensor_core_counts(build):
     tc = {k: n for k, n in counts.items() if "_tc_kernel" in k}
     bad = {k: n for k, n in tc.items()
            if not (n["HGMMA"] if "wgmma" in k else n["HMMA"] + n["HGMMA"])}
-    missing = [name for name in WGMMA_KERNELS.values()
+    missing = [name for names in WGMMA_KERNELS.values() for name in names
                if not any(k.startswith(name + "<") for k in tc)]
     if not tc or bad or missing:
         raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
@@ -819,8 +820,9 @@ def time_flash_kernels(torch, attn, window, gen):
     back (``launch_ms``), its plain version's, the library yardstick's
     (never called by the port: SDPA forward, causal or with the band as
     a boolean mask, by graph; its backward for dQ and dK/dV together,
-    by events), the error, the bound over the kept pairs and the
-    mma.sync design's time where one was taken."""
+    by graph where the card's torch captures it, else by events over 50
+    calls: ``library_timing``), the error, the bound over the kept
+    pairs and the mma.sync design's time where one was taken."""
     import torch.nn.functional as F
     heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
     shape = (TRAIN_BATCH, TRAIN_SEQ, heads, d)
@@ -833,8 +835,9 @@ def time_flash_kernels(torch, attn, window, gen):
                   for x in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **mask)
     sdpa_g = do.transpose(1, 2)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qt, kt, vt), sdpa_g, retain_graph=True), 20)
+    sdpa_bwd_ms, sdpa_bwd_timing = sdpa_backward_ms(
+        torch, lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), sdpa_g, retain_graph=True))
     rows = {}
     row = dict(shape=list(shape), dtype=bf16, window=window,
                timing="graph")
@@ -865,6 +868,7 @@ def time_flash_kernels(torch, attn, window, gen):
         row["launch_ms"] = cuda_ms(lambda: kern.launch(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 5)
         row["library_ms"] = sdpa_bwd_ms
+        row["library_timing"] = sdpa_bwd_timing
         row["library_call"] = ("scaled_dot_product_attention backward "
                                "(dQ, dK and dV together)")
         got, want = kern.launch(*args), plain(*args)
@@ -878,6 +882,19 @@ def time_flash_kernels(torch, attn, window, gen):
     del q, k, v, do, lse, delta, qt, kt, vt, sdpa_out, sdpa_g, o, ro, mask
     torch.cuda.empty_cache()
     return rows
+
+
+def sdpa_backward_ms(torch, fn):
+    """(ms, "graph" | "events"): SDPA's backward ``fn`` by CUDA-graph
+    replay of 20 calls, or, where the card's torch cannot capture it
+    (torch 2.11 at [8, 2048, 8, 64] causal: the capture is
+    invalidated), by events over 50 calls back to back."""
+    try:
+        return graph_ms(fn, 20), "graph"
+    except RuntimeError as err:
+        log(f"SDPA backward not captured ({err}); timed by events")
+        torch.cuda.synchronize()
+        return cuda_ms(fn, 50), "events"
 
 
 def time_training_kernels(torch, attn, xent):

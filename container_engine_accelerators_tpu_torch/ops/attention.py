@@ -139,13 +139,11 @@ def tma_rows(*xs):
     """The route of the bf16 kernels, passed to every entry point as
     its ``aligned`` flag. 1 when a TMA tensor map can describe each
     operand in place: its rows are aligned (``rows_aligned``) and no
-    stepped stride is 0 (a broadcast dim). The forward and dK/dV then
-    run their Hopper kernels (wgmma, TMA) and dQ stages rows by 16-byte
-    ``cp.async``. 0 otherwise (a view whose rows start off 16 bytes, a
-    broadcast): the forward and dK/dV take their mma.sync kernels, and
-    every bf16 kernel stages rows with 2-byte loads. No other case
-    reaches the mma.sync forward or dK/dV, and no failure falls back
-    to them."""
+    stepped stride is 0 (a broadcast dim). The forward, dQ and dK/dV
+    then run their Hopper kernels (wgmma, TMA). 0 otherwise (a view
+    whose rows start off 16 bytes, a broadcast): they take their
+    mma.sync kernels, which stage rows with 2-byte loads. No other case
+    reaches an mma.sync kernel, and no failure falls back to one."""
     if not rows_aligned(*xs):
         return 0
     return int(all(x.stride(i) for x in xs for i in range(3)
@@ -263,7 +261,9 @@ class _FlashBackward(_build.Kernel):
 
 
 class FlashBackwardDQ(_FlashBackward):
-    """dQ kernel's wrapper (Pallas ``_dq_kernel``/``_dq_kernel_stream``)."""
+    """dQ kernel's wrapper (Pallas ``_dq_kernel``/``_dq_kernel_stream``).
+    bf16 takes the Hopper kernel, or the mma.sync kernel where
+    ``tma_rows`` is 0; both count here."""
 
     name = "flash_bwd_dq"
     symbol = "cea_flash_bwd_dq"

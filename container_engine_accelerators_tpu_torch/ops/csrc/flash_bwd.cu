@@ -46,33 +46,51 @@
 // bound is feeding them and the elementwise step between the products
 // (an exp2 a score on the special-function unit).
 //
-// Five kernels, chosen by the role, the input type and (dK/dV) the
-// rows' alignment. The mma.sync kernels (mma.m16n8k16 bf16 with f32
-// accumulators, the helpers of mma_bf16.cuh) have 128-thread blocks of
-// 4 warps, each warp owning 16 rows of the block's tile; partner tiles
-// come in double-buffered by 16-byte cp.async (2-byte loads where a row
-// does not start on 16 bytes). Every kernel evaluates masks only on the
+// Six kernels, chosen by the role, the input type and (bf16) the rows'
+// alignment. Only wgmma reaches the tensor cores' full rate on this
+// card, so bf16 runs on the Hopper kernels (wgmma + TMA; wgmma_tma.cuh
+// has the building blocks) for every input a TMA tensor map can
+// describe (the wrapper's `tma_rows`), and on the mma.sync kernels
+// (mma.m16n8k16 bf16 with f32 accumulators, the helpers of
+// mma_bf16.cuh) otherwise. Every kernel evaluates masks only on the
 // tiles a mask can touch (the diagonal, the window edge, the ragged
 // end) and runs scores in log2 units (exp2, scale * log2 e folded in).
 //
-// dQ, bf16 (`flash_bwd_dq_tc_kernel`): the forward's structure with two
-//   products before the softmax step. One block per (batch*head,
-//   64-row Q tile); Q and dO staged once and held as A fragments in
-//   registers (re-read from shared memory at each step at DMAX 128,
-//   where dQ's accumulators leave no room for them); this lane's two
-//   rows of lse (in log2 units) and delta in registers; 64-key K/V
-//   tiles from the window's lower edge to the causal diagonal (the
-//   bounds of `_dq_kernel`, attention.py:183-185, at this tile size).
-//   Per tile: S = Q.K^T and dP = dO.V^T (K and V as B operands);
-//   P = exp2(S * scale * log2 e - lse * log2 e) and dS = P * (dP -
-//   delta) * scale on the fragments; then dQ += dS.K with dS rounded to
-//   bf16 as the A operand straight from the registers and K through
-//   ldmatrix.trans. dQ stays in f32 registers for the whole loop and is
-//   written once.
+// dQ, bf16, the Hopper kernel (`flash_bwd_dq_wgmma_tc_kernel`): the
+//   forward's structure with one more product. One block per
+//   (batch*head, 64 * WG query rows), the last (heaviest causal) tiles
+//   first: a producer warpgroup whose first thread loads the block's Q
+//   and dO once by TMA, then streams 64-key K/V tiles by TMA through a
+//   three-stage mbarrier ring (two at D 128 with one consumer); WG
+//   consumer warpgroups of 64 rows each (three at D 64 and two at D
+//   128, one block an SM, once the grid fills the card's 132 SMs;
+//   otherwise one and two blocks an SM), registers handed over by
+//   setmaxnreg. A consumer holds its rows' lse (log2 units) and delta
+//   in registers for the whole loop (no ring: they do not change with
+//   the K/V tile). Per tile it runs S = Q.K^T and dP = dO.V^T (Q and
+//   dO the A operands, held in registers by a lone consumer at D 64
+//   and read from shared memory otherwise; K and V K-major B
+//   operands), forms P = exp2(S * scale * log2 e - lse * log2 e) and
+//   dS = P * (dP - delta) * scale on the accumulators (exp2 on the
+//   special-function unit alone), rounds dS to bf16 as the register A
+//   operand of dQ += dS.K (K read MN-major through the descriptor: no
+//   transposing load). The next tile's two score products go to the
+//   tensor cores ahead of this tile's dQ product, and the consumer
+//   forms the next dS while that product runs. Key tiles from the
+//   window's lower edge to the causal diagonal (the bounds of
+//   `_dq_kernel`, attention.py:183-185, at this tile size); tiles
+//   outside a consumer's own range are waited for and released only.
+//   dQ stays in f32 registers for the whole loop and is written once.
+// dQ, bf16 rows a tensor map cannot describe (`tma_rows` 0: a view
+//   whose rows start off 16 bytes, a broadcast stride), and no other
+//   case: the mma.sync kernel (`flash_bwd_dq_tc_kernel`): 128-thread
+//   blocks of 4 warps, each warp owning 16 rows of a 64-row Q tile; Q
+//   and dO staged once and held as A fragments (re-read from shared
+//   memory at each step at DMAX 128), K/V tiles in two buffers (rows
+//   by 2-byte loads); per tile S and dP, then dQ += dS.K with dS as the
+//   A operand from the registers and K through ldmatrix.trans.
 // dK/dV, bf16, the Hopper kernel (`flash_bwd_dkv_wgmma_tc_kernel`, for
-//   every input a TMA tensor map can describe: the wrapper's
-//   `tma_rows`). Only wgmma reaches the tensor cores' full rate on this
-//   card (wgmma_tma.cuh has the building blocks). One block per
+//   every input a TMA tensor map can describe). One block per
 //   (batch*head, 64 * WG keys): a producer warpgroup whose first warp
 //   loads the block's K and V once by TMA, then streams Q/dO tiles of
 //   64 queries (32 at D 128, where dK and dV alone take 128 accumulator
@@ -98,8 +116,9 @@
 //   every output keeps one owner block.
 // dK/dV, bf16 rows a tensor map cannot describe (`tma_rows` 0: a view
 //   whose rows start off 16 bytes, a broadcast stride), and no other
-//   case: the mma.sync kernel (`flash_bwd_dkv_tc_kernel`): one block
-//   per (batch*head, 64-key tile); K and V staged once; Q and dO tiles
+//   case: the mma.sync kernel (`flash_bwd_dkv_tc_kernel`): 128-thread
+//   blocks, one per (batch*head, 64-key tile); K and V staged once (the
+//   mma.sync kernels stage rows by 2-byte loads); Q and dO tiles
 //   (64 queries, 32 at D > 64) with their lse and delta rows; per tile
 //   S^T and dP^T, then dV and dK with P^T and dS^T as A fragments from
 //   the registers (dO and Q through ldmatrix.trans).
@@ -150,7 +169,7 @@ struct Params {
   long long q_stride[3], k_stride[3], v_stride[3], do_stride[3];
   int causal, window;
   float scale;
-  int aligned;  // every q/k/v/dO row starts on 16 bytes
+  int aligned;  // a TMA tensor map describes q, k, v, dO (`tma_rows`)
 };
 
 // ---------------------------------------------------------------------
@@ -465,7 +484,6 @@ flash_bwd_dq_tc_kernel(const Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int seq = p.seq;
   const int dim = p.dim;
-  const bool aligned = p.aligned;
 
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
                    h * p.q_stride[2];
@@ -482,15 +500,13 @@ flash_bwd_dq_tc_kernel(const Params p) {
   const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
   const int kt_lo = k_lo / kTile, kt_hi = k_hi / kTile;
 
-  stage_rows<kTile, DMAX, kTcThreads>(q_s, qg, p.q_stride[1], q0, seq, dim,
-                                      aligned);
+  stage_rows<kTile, DMAX, kTcThreads>(q_s, qg, p.q_stride[1], q0, seq, dim);
   stage_rows<kTile, DMAX, kTcThreads>(do_s, dog, p.do_stride[1], q0, seq,
-                                      dim, aligned);
+                                      dim);
   stage_rows<kTile, DMAX, kTcThreads>(k_s, kg, p.k_stride[1], kt_lo * kTile,
-                                      seq, dim, aligned);
+                                      seq, dim);
   stage_rows<kTile, DMAX, kTcThreads>(v_s, vg, p.v_stride[1], kt_lo * kTile,
-                                      seq, dim, aligned);
-  cp_async_commit();
+                                      seq, dim);
 
   // This lane's rows row0 and row0 + 8: lse in log2 units, and delta.
   const int row0 = q0 + warp * 16 + g;
@@ -514,18 +530,12 @@ flash_bwd_dq_tc_kernel(const Params p) {
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int buf = (kt - kt_lo) & 1;
-    if (kt < kt_hi) {  // the next tile loads while this one computes
+    if (kt < kt_hi) {  // the next tile into the other buffer
       const int next = (kt + 1) * kTile;
       stage_rows<kTile, DMAX, kTcThreads>(k_s + (buf ^ 1) * kTileSz, kg,
-                                          p.k_stride[1], next, seq, dim,
-                                          aligned);
+                                          p.k_stride[1], next, seq, dim);
       stage_rows<kTile, DMAX, kTcThreads>(v_s + (buf ^ 1) * kTileSz, vg,
-                                          p.v_stride[1], next, seq, dim,
-                                          aligned);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+                                          p.v_stride[1], next, seq, dim);
     }
     __syncthreads();
     if constexpr (kHoldA) {
@@ -670,7 +680,6 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   const int k0 = (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * kTile;
   const int seq = p.seq;
   const int dim = p.dim;
-  const bool aligned = p.aligned;
 
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
                    h * p.q_stride[2];
@@ -694,9 +703,9 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   auto stage_partner = [&](int qt, int buf) {
     const int q0 = qt * kQ;
     stage_rows<kQ, DMAX, kTcThreads>(q_s + buf * kQ * kLd, qg, p.q_stride[1],
-                                     q0, seq, dim, aligned);
+                                     q0, seq, dim);
     stage_rows<kQ, DMAX, kTcThreads>(do_s + buf * kQ * kLd, dog,
-                                     p.do_stride[1], q0, seq, dim, aligned);
+                                     p.do_stride[1], q0, seq, dim);
     for (int r = threadIdx.x; r < kQ; r += kTcThreads) {
       const int pos = q0 + r;
       const bool in = pos < seq;
@@ -706,10 +715,8 @@ flash_bwd_dkv_tc_kernel(const Params p) {
     }
   };
 
-  stage_rows<kTile, DMAX, kTcThreads>(k_s, kg, p.k_stride[1], k0, seq, dim,
-                                      aligned);
-  stage_rows<kTile, DMAX, kTcThreads>(v_s, vg, p.v_stride[1], k0, seq, dim,
-                                      aligned);
+  stage_rows<kTile, DMAX, kTcThreads>(k_s, kg, p.k_stride[1], k0, seq, dim);
+  stage_rows<kTile, DMAX, kTcThreads>(v_s, vg, p.v_stride[1], k0, seq, dim);
   stage_partner(qt_lo, 0);
   cp_async_commit();
 
@@ -725,7 +732,7 @@ flash_bwd_dkv_tc_kernel(const Params p) {
 
   for (int qt = qt_lo; qt <= qt_hi; ++qt) {
     const int buf = (qt - qt_lo) & 1;
-    if (qt < qt_hi) {  // the next tile loads while this one computes
+    if (qt < qt_hi) {  // the next tile (its lse/delta rows by cp.async)
       stage_partner(qt + 1, buf ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -1222,6 +1229,375 @@ cudaError_t launch_dkv_wg(const Params& p, cudaStream_t stream) {
                          : launch_dkv_wg_n<DMAX, 1>(p, stream);
 }
 
+// ---------------------------------------------------------------------
+// dQ, bf16: the Hopper kernel (wgmma + TMA).
+
+// One block: WG consumer warpgroups of 64 query rows each (the block's
+// Q tile is 64 * WG rows) and one producer warpgroup whose first thread
+// loads Q and dO once by TMA, then streams K/V tiles of 64 keys by TMA
+// through a ring of kStages. Unlike dK/dV, a consumer's lse and delta
+// rows are fixed for the whole loop, so they sit in its registers and
+// need no ring.
+template <int DMAX, int WG>
+struct DqWg {
+  static constexpr int kChunks = DMAX / 64;
+  static constexpr int kRowsQ = 64 * WG;
+  // Q and dO as register A operands of the score products where the
+  // budget holds them, at D 64 with one consumer (232 registers a
+  // thread): dQ, S and dP take 96, dS's A operands 16, Q and dO 32
+  // more. With three consumers (160 registers) and at D 128 (dQ alone
+  // 64) they stay in shared memory.
+  static constexpr bool kHoldQ = DMAX <= 64 && WG == 1;
+  static constexpr int kHeldSteps = kHoldQ ? DMAX / 16 : 1;
+  // Three stages where they fit, two where two blocks an SM at D 128
+  // would not.
+  static constexpr int kStages = (WG == 1 && DMAX > 64) ? 2 : 3;
+  static constexpr int kThreads = 128 * (WG + 1);
+  static constexpr int kMinBlocks = WG == 1 ? 2 : 1;
+  static constexpr int kRegsProducer = 24;
+  static constexpr int kRegsConsumer = WG == 1 ? 232 : WG == 2 ? 240 : 160;
+  static constexpr int kChunkQ = kRowsQ * cea_hopper::kRowBytes;
+  static constexpr int kQBytes = kChunks * kChunkQ;  // Q or dO
+  static constexpr int kChunkK = kTile * cea_hopper::kRowBytes;
+  static constexpr int kKBytes = kChunks * kChunkK;  // one K or V tile
+  static constexpr int kStageBytes = 2 * kKBytes;
+  static constexpr size_t smem_bytes() {
+    // Alignment slack, Q and dO, the K/V ring, the barriers.
+    return 1024 + 2 * kQBytes + kStages * kStageBytes +
+           sizeof(uint64_t) * (1 + 2 * kStages);
+  }
+};
+
+// S = Q.K^T and dP = dO.V^T of one ring stage (`kv`: its K tile, then
+// its V tile) for one warpgroup's rows: issued and committed as one
+// wgmma group, not waited for. K and V are K-major B operands; Q and dO
+// are register A operands (`qf`, `df`, loaded once) where C::kHoldQ,
+// otherwise read from shared memory (`q_w`, `do_w`).
+template <int DMAX, int WG>
+__device__ __forceinline__ void dq_scores(
+    float (&s)[32], float (&dp)[32],
+    const uint32_t (&qf)[DqWg<DMAX, WG>::kHeldSteps][4],
+    const uint32_t (&df)[DqWg<DMAX, WG>::kHeldSteps][4],
+    const unsigned char* q_w, const unsigned char* do_w,
+    const unsigned char* kv) {
+  using namespace cea_hopper;
+  using C = DqWg<DMAX, WG>;
+  if constexpr (C::kHoldQ) {
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_rs_n64<0>(s, qf[kk], kmajor_desc(kv, C::kChunkK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_rs_n64<0>(dp, df[kk],
+                      kmajor_desc(kv + C::kKBytes, C::kChunkK, kk), kk > 0);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_ss_n64<0>(s, kmajor_desc(q_w, C::kChunkQ, kk),
+                      kmajor_desc(kv, C::kChunkK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_ss_n64<0>(dp, kmajor_desc(do_w, C::kChunkQ, kk),
+                      kmajor_desc(kv + C::kKBytes, C::kChunkK, kk), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// dS of one K/V tile for one warpgroup, in place on the score
+// accumulator `s` (element e is row row0 + 8 ((e >> 1) & 1), key k0 +
+// 8 (e >> 2) + 2t + (e & 1)): P = exp2(S * scale * log2 e - lse *
+// log2 e), zero where `masked` and a mask drops the pair, then
+// dS = P * (dP * scale - delta * scale), `delta` holding delta * scale.
+__device__ __forceinline__ void dq_ds(
+    float (&s)[32], const float (&dp)[32], const float (&lse2)[2],
+    const float (&delta)[2], const Params& p, int k0, int row0, int t,
+    bool masked, float scale2) {
+  using namespace cea_hopper;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int r = (e >> 1) & 1;
+    float pr = fast_exp2(fmaf(s[e], scale2, -lse2[r]));
+    if (masked) {
+      const int q_pos = row0 + 8 * r;
+      const int k_pos = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+      bool keep = k_pos < p.seq;
+      if (p.causal) {
+        keep = keep && q_pos >= k_pos;
+        if (p.window) keep = keep && k_pos > q_pos - p.window;
+      }
+      pr = keep ? pr : 0.f;
+    }
+    s[e] = pr * fmaf(dp[e], p.scale, -delta[r]);
+  }
+}
+
+// dQ += dS.K for one warpgroup: dS the register A operand (`dsa`, 16
+// keys a step), K the MN-major B operand (`ks`: the stage's K tile, no
+// transposing load); issued and committed as one wgmma group, not
+// waited for.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dq_product(float (&dq)[DMAX / 64][32],
+                                           const uint32_t (&dsa)[kTile / 16][4],
+                                           const unsigned char* ks) {
+  using namespace cea_hopper;
+  using C = DqWg<DMAX, WG>;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+      wgmma_rs_n64<1>(dq[c], dsa[kk], mnmajor_desc(ks, C::kChunkK, c, kk));
+  wgmma_commit();
+}
+
+template <int DMAX, int WG>
+__global__ void __launch_bounds__(DqWg<DMAX, WG>::kThreads,
+                                  DqWg<DMAX, WG>::kMinBlocks)
+flash_bwd_dq_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+  using namespace cea_hopper;
+  using C = DqWg<DMAX, WG>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);
+  unsigned char* do_s = q_s + C::kQBytes;
+  unsigned char* kv_s = do_s + C::kQBytes;  // stage s: K, then V
+  uint64_t* qd_full =
+      reinterpret_cast<uint64_t*>(kv_s + kStages * C::kStageBytes);
+  uint64_t* full = qd_full + 1;      // [kStages]: K/V tile landed
+  uint64_t* empty = full + kStages;  // [kStages]: every consumer done
+
+  const Params& p = tp.p;
+  const int b = blockIdx.x / p.heads;
+  const int h = blockIdx.x % p.heads;
+  // Causal: the last Q tiles see the most keys; run them first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRowsQ;
+  const int seq = p.seq;
+  // The key range the block's Q tile sees, as in the f32 kernel.
+  const int q_last = min(q0 + C::kRowsQ, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+  const int kt_lo = k_lo / kTile, kt_hi = k_hi / kTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == WG) {
+    // Producer: Q and dO once, then the K/V tiles through the ring.
+    setmaxnreg_dec<C::kRegsProducer>();
+    if (threadIdx.x == 128 * WG) {
+      tma_prefetch_map(&tp.tk);
+      tma_prefetch_map(&tp.tv);
+      mbar_arrive_expect_tx(qd_full, 2 * C::kQBytes);
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_load_4d(q_s + c * C::kChunkQ, &tp.tq, qd_full, 64 * c, h, q0, b);
+        tma_load_4d(do_s + c * C::kChunkQ, &tp.tdo, qd_full, 64 * c, h, q0,
+                    b);
+      }
+      for (int kt = kt_lo, i = 0; kt <= kt_hi; ++kt, ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        unsigned char* ks = kv_s + s * C::kStageBytes;
+        mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load_4d(ks + c * C::kChunkK, &tp.tk, &full[s], 64 * c, h,
+                      kt * kTile, b);
+          tma_load_4d(ks + C::kKBytes + c * C::kChunkK, &tp.tv, &full[s],
+                      64 * c, h, kt * kTile, b);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows r0 .. r0 + 63.
+    setmaxnreg_inc<C::kRegsConsumer>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x / 32) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + 64 * wg;
+    const int row0 = r0 + warp * 16 + g;  // this lane's rows: row0, +8
+    const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+    const unsigned char* q_w = q_s + 64 * wg * kRowBytes;
+    const unsigned char* do_w = do_s + 64 * wg * kRowBytes;
+    // This warpgroup computes tiles [c_lo, c_hi] of the block's range;
+    // the others are masked for all its rows (past its causal
+    // diagonal, before its window edge, or rows past the length), and
+    // it only waits for them and releases them, in ring order.
+    const int c_lo =
+        max(kt_lo, (p.causal && p.window) ? max(0, r0 - p.window + 1) / kTile
+                                          : 0);
+    const int c_hi =
+        r0 >= seq ? -1 : (p.causal ? min(r0 + 63, seq - 1) / kTile : kt_hi);
+    int i = 0;  // ring position of tile kt_lo + i
+    auto release = [&](int n) {
+      for (; n > 0; --n, ++i) {
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        if (lane == 0) mbar_arrive(&empty[i % kStages]);
+      }
+    };
+    // A tile's scores need their masks if a mask can reach one of them.
+    auto masked = [&](int k0) {
+      return k0 + kTile > seq ||
+             (p.causal && (k0 + kTile - 1 > r0 ||
+                           (p.window && k0 <= r0 + 63 - p.window)));
+    };
+
+    if (c_lo > c_hi) {
+      release(kt_hi - kt_lo + 1);
+    } else {
+      release(c_lo - kt_lo);
+      // This lane's rows' lse (log2 units) and delta * scale, for every
+      // tile.
+      float lse2[2], delta[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pos = row0 + 8 * r;
+        const long long row =
+            (static_cast<long long>(b) * seq + pos) * p.heads + h;
+        lse2[r] = pos < seq ? p.lse[row] * kLog2e : 0.f;
+        delta[r] = pos < seq ? p.delta[row] * p.scale : 0.f;
+      }
+      float dq[C::kChunks][32];
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dq[c][e] = 0.f;
+      float s[32], dp[32];
+      uint32_t dsa[kTile / 16][4];
+      uint32_t qf[C::kHeldSteps][4], df[C::kHeldSteps][4];
+      mbar_wait(qd_full, 0);
+      if constexpr (C::kHoldQ) {
+#pragma unroll
+        for (int kk = 0; kk < DMAX / 16; ++kk) {
+          load_a_sw128(qf[kk], q_w, C::kChunkQ, kk, warp, lane);
+          load_a_sw128(df[kk], do_w, C::kChunkQ, kk, warp, lane);
+        }
+      }
+      // The first tile: its scores, then its dS.
+      mbar_wait(&full[i % kStages], (i / kStages) & 1);
+      wgmma_fence();
+      dq_scores<DMAX, WG>(s, dp, qf, df, q_w, do_w,
+                          kv_s + (i % kStages) * C::kStageBytes);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      dq_ds(s, dp, lse2, delta, p, c_lo * kTile, row0, t,
+            masked(c_lo * kTile), scale2);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) acc_to_a(dsa[kk], s, kk);
+      // Each tile but the last: the next tile's scores, then this
+      // tile's dQ product on the tensor cores; the next tile's dS runs
+      // once the scores are in, while the product is in flight (it
+      // reads `dsa` and writes `dq`, which dS leaves alone, so ptxas
+      // keeps the wgmma asynchronous).
+      for (int kt = c_lo; kt < c_hi; ++kt, ++i) {
+        const int st = i % kStages;
+        const int next = i + 1;
+        mbar_wait(&full[next % kStages], (next / kStages) & 1);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+        wgmma_fence();
+        dq_scores<DMAX, WG>(s, dp, qf, df, q_w, do_w,
+                            kv_s + (next % kStages) * C::kStageBytes);
+        dq_product<DMAX, WG>(dq, dsa, kv_s + st * C::kStageBytes);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        dq_ds(s, dp, lse2, delta, p, (kt + 1) * kTile, row0, t,
+              masked((kt + 1) * kTile), scale2);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+        if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) acc_to_a(dsa[kk], s, kk);
+      }
+      {  // the last tile's dQ product
+        const int st = i % kStages;
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+        wgmma_fence();
+        dq_product<DMAX, WG>(dq, dsa, kv_s + st * C::kStageBytes);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+        if (lane == 0) mbar_arrive(&empty[st]);
+        ++i;
+      }
+      release(kt_hi - c_hi);
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pos = row0 + 8 * r;
+        if (pos >= seq) continue;
+        bf16* dqg = static_cast<bf16*>(p.out0) +
+                    ((static_cast<long long>(b) * seq + pos) * p.heads + h) *
+                        p.dim;
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * c + j * 8 + 2 * t;
+            if (col < p.dim)
+              *reinterpret_cast<__nv_bfloat162*>(dqg + col) =
+                  __floats2bfloat162_rn(dq[c][4 * j + 2 * r],
+                                        dq[c][4 * j + 2 * r + 1]);
+          }
+      }
+    }
+  }
+}
+
+template <int DMAX, int WG>
+cudaError_t launch_dq_wg_n(const Params& p, cudaStream_t stream) {
+  using C = DqWg<DMAX, WG>;
+  auto kernel = flash_bwd_dq_wgmma_tc_kernel<DMAX, WG>;
+  const size_t smem = C::smem_bytes();
+  cudaError_t err = cea_hopper::prepare_launch<C>(
+      kernel, C::kThreads, WG, C::kRegsProducer, C::kRegsConsumer, smem);
+  if (err != cudaSuccess) return err;
+  TmaParams tp;
+  tp.p = p;
+  const long long* strides[4] = {p.q_stride, p.k_stride, p.v_stride,
+                                 p.do_stride};
+  const void* bases[4] = {p.q, p.k, p.v, p.dout};
+  CUtensorMap* maps[4] = {&tp.tq, &tp.tk, &tp.tv, &tp.tdo};
+  for (int i = 0; i < 4; ++i) {
+    const long long st[3] = {strides[i][0], strides[i][1], strides[i][2]};
+    const bool keys = i == 1 || i == 2;
+    err = cea_hopper::encode_rows(maps[i], bases[i], p.batch, p.seq,
+                                  p.heads, p.dim, st,
+                                  keys ? kTile : C::kRowsQ);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(p.batch * p.heads, (p.seq + C::kRowsQ - 1) / C::kRowsQ);
+  kernel<<<grid, C::kThreads, smem, stream>>>(tp);
+  return cudaGetLastError();
+}
+
+// As the forward: three consumer warpgroups (192-row Q tiles, Q and dO
+// read from shared memory) at D 64 and two (128-row) at D 128, one
+// block an SM, once the grid of such tiles fills the card's 132 SMs;
+// otherwise one (64-row tiles, two blocks an SM). At [8, 2048, 8, 64]
+// three consumers took 0.178 ms and two 0.215, whether two held Q and
+// dO in registers or read them from shared memory (flash_bench.py on
+// an NVIDIA H100 80GB HBM3 at 700 W, before the dS step overlapped the
+// dQ product): the third warpgroup's dS step hides behind the others'
+// products.
+template <int DMAX>
+cudaError_t launch_dq_wg(const Params& p, cudaStream_t stream) {
+  constexpr int kWide = DMAX == 64 ? 3 : 2;
+  const long long tiles = static_cast<long long>(p.batch) * p.heads *
+                          ((p.seq + 64 * kWide - 1) / (64 * kWide));
+  return tiles >= 132 ? launch_dq_wg_n<DMAX, kWide>(p, stream)
+                      : launch_dq_wg_n<DMAX, 1>(p, stream);
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Params& p, size_t smem, int threads,
                    cudaStream_t stream) {
@@ -1234,7 +1610,9 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem, int threads,
   return cudaGetLastError();
 }
 
-// bf16 goes to the tensor-core kernels, f32 to the FMA kernels.
+// bf16 goes to the tensor-core kernels (the Hopper kernels where a
+// tensor map describes the rows, the mma.sync ones otherwise), f32 to
+// the FMA kernels.
 template <int DMAX>
 cudaError_t dispatch(const Params& p, int dtype, bool dkv,
                      cudaStream_t stream) {
@@ -1243,7 +1621,8 @@ cudaError_t dispatch(const Params& p, int dtype, bool dkv,
                         f32_smem_bytes(DMAX), kThreads, stream)
                : launch(flash_bwd_dq_kernel<DMAX>, p,
                         f32_smem_bytes(DMAX), kThreads, stream);
-  if (dtype == 1 && dkv && p.aligned) return launch_dkv_wg<DMAX>(p, stream);
+  if (dtype == 1 && p.aligned)
+    return dkv ? launch_dkv_wg<DMAX>(p, stream) : launch_dq_wg<DMAX>(p, stream);
   if (dtype == 1)
     return dkv ? launch(flash_bwd_dkv_tc_kernel<DMAX>, p,
                         DkvTc<DMAX>::smem_bytes(), kTcThreads, stream)
@@ -1291,8 +1670,8 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 // elements, (batch, seq, head) for q, k, v, dO in that order; aligned
 // = 1 when a TMA tensor map can read q, k, v and dO in place (16-byte
 // base, every stepped stride a nonzero multiple of 16 bytes): bf16
-// dK/dV takes the Hopper kernel and dQ stages by 16-byte cp.async; 0:
-// the mma.sync kernels with 2-byte loads. Return
+// dQ and dK/dV take the Hopper kernels; 0: the mma.sync kernels with
+// 2-byte loads. Return
 // the cudaError_t of the launch (0 = success); the caller raises on
 // anything else. The wrapper has checked shapes, types, the head dim
 // (<= 128, multiple of 8) and that it is contiguous, and that lse and

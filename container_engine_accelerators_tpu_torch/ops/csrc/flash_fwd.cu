@@ -114,7 +114,7 @@ struct Params {
   long long q_stride[3], k_stride[3], v_stride[3];
   int causal, window;
   float scale;
-  int aligned;  // every q/k/v row starts on 16 bytes
+  int aligned;  // a TMA tensor map describes q, k, v (`tma_rows`)
 };
 
 // ---------------------------------------------------------------------
@@ -328,7 +328,6 @@ flash_fwd_tc_kernel(const Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
   const int seq = p.seq;
   const int dim = p.dim;
-  const bool aligned = p.aligned;
 
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
                    h * p.q_stride[2];
@@ -343,13 +342,12 @@ flash_fwd_tc_kernel(const Params p) {
   const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
   const int kt_lo = k_lo / kBlockK, kt_hi = k_hi / kBlockK;
 
-  stage_rows<kBlockQ, DMAX, kTcThreads>(q_s, qg, p.q_stride[1], q0, seq, dim,
-                                        aligned);
+  stage_rows<kBlockQ, DMAX, kTcThreads>(q_s, qg, p.q_stride[1], q0, seq,
+                                        dim);
   stage_rows<kBlockK, DMAX, kTcThreads>(k_s, kg, p.k_stride[1],
-                                        kt_lo * kBlockK, seq, dim, aligned);
+                                        kt_lo * kBlockK, seq, dim);
   stage_rows<kBlockK, DMAX, kTcThreads>(v_s, vg, p.v_stride[1],
-                                        kt_lo * kBlockK, seq, dim, aligned);
-  cp_async_commit();
+                                        kt_lo * kBlockK, seq, dim);
 
   // Scores in log2 units: exp(x) = exp2(x * log2 e), folded into the
   // scale; the -1e9 mask value goes with them.
@@ -365,18 +363,12 @@ flash_fwd_tc_kernel(const Params p) {
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int buf = (kt - kt_lo) & 1;
-    if (kt < kt_hi) {  // the next tile loads while this one computes
+    if (kt < kt_hi) {  // the next tile into the other buffer
       const int next = (kt + 1) * kBlockK;
       stage_rows<kBlockK, DMAX, kTcThreads>(k_s + (buf ^ 1) * kTile, kg,
-                                            p.k_stride[1], next, seq, dim,
-                                            aligned);
+                                            p.k_stride[1], next, seq, dim);
       stage_rows<kBlockK, DMAX, kTcThreads>(v_s + (buf ^ 1) * kTile, vg,
-                                            p.v_stride[1], next, seq, dim,
-                                            aligned);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+                                            p.v_stride[1], next, seq, dim);
     }
     __syncthreads();
     if (kt == kt_lo) {

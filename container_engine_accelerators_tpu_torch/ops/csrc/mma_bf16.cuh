@@ -12,9 +12,10 @@
 // See the License for the specific language governing permissions and
 // limitations under the License.
 
-// Building blocks of the bf16 tensor-core flash kernels (flash_fwd.cu,
-// flash_bwd.cu): 16-byte cp.async staging of [rows][D] tiles into
-// padded shared memory, ldmatrix fragment loads and the
+// Building blocks of the bf16 mma.sync flash kernels (flash_fwd.cu,
+// flash_bwd.cu; the inputs a TMA tensor map cannot describe): staging
+// of [rows][D] tiles into padded shared memory by 2-byte loads, 4-byte
+// cp.async for row vectors, ldmatrix fragment loads and the
 // mma.sync.m16n8k16 bf16 product with f32 accumulators.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, lane = 4 * g + t):
@@ -29,7 +30,7 @@
 // Shared tiles hold DMAX + 8 bf16 a row: the 16-byte pad puts the 8
 // rows an ldmatrix reads on 8 different 16-byte bank groups, so the
 // loads are conflict-free, and keeps every row 16-byte aligned for
-// cp.async.
+// ldmatrix.
 
 #pragma once
 
@@ -47,17 +48,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zeros when !in (nothing
+// 4 bytes global -> shared, asynchronously; zeros when !in (nothing
 // is read then, but src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes global -> shared, asynchronously; zeros when !in.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
@@ -149,30 +141,18 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* tile,
 // Stage rows [r0, r0 + ROWS) of one head of a [B, S, H, D] bf16 operand
 // (`src` at its (b, h) origin, `row_stride` elements between
 // positions) into a [ROWS][DMAX + 8] shared tile, zero past the true
-// length and the head dim (a multiple of 8). aligned: every row starts
-// on 16 bytes, and the rows go by 16-byte cp.async (the caller commits
-// and waits); otherwise by 2-byte loads, done when this returns.
+// length and the head dim (a multiple of 8), by 2-byte loads (a row
+// need not start on 16 bytes), done when this returns.
 template <int ROWS, int DMAX, int THREADS>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            long long row_stride, int r0,
-                                           int seq, int dim, bool aligned) {
+                                           int seq, int dim) {
   constexpr int kLd = DMAX + 8;
-  if (aligned) {
-    constexpr int kChunks = DMAX / 8;
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const int pos = r0 + r;
-      const bool in = pos < seq && c < dim;
-      cp_async16(dst + r * kLd + c, in ? src + pos * row_stride + c : src,
-                 in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DMAX; i += THREADS) {
-      const int r = i / DMAX, c = i % DMAX;
-      const int pos = r0 + r;
-      dst[r * kLd + c] = (pos < seq && c < dim) ? src[pos * row_stride + c]
-                                                : __float2bfloat16_rn(0.f);
-    }
+  for (int i = threadIdx.x; i < ROWS * DMAX; i += THREADS) {
+    const int r = i / DMAX, c = i % DMAX;
+    const int pos = r0 + r;
+    dst[r * kLd + c] = (pos < seq && c < dim) ? src[pos * row_stride + c]
+                                              : __float2bfloat16_rn(0.f);
   }
 }
 

@@ -138,11 +138,13 @@ def test_forward_rounding_fits_pallas(causal, window, d):
                                rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("d", [32, 40, 64])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 128])
 @pytest.mark.parametrize("causal,window", CASES)
 def test_backward_rounding_fits_pallas(causal, window, d):
     """dQ, dK, dV (an lse cotangent folded into delta) against the
-    Pallas backward, each within 2e-2 of its largest value."""
+    Pallas backward, each within 2e-2 of its largest value. D 16 is the
+    Hopper kernels' zero-padded case (one 64-column chunk), D 128 their
+    two-chunk case."""
     q, k, v, g_o, g_lse = _inputs(100 + d, d)
     want = _jax_grads(q, k, v, g_o, g_lse, causal=causal, window=window)
     got = emulated_gradients(q, k, v, g_o, g_lse, causal, window)

@@ -16,7 +16,13 @@
 decides between the Hopper kernels (wgmma, TMA) and the mma.sync
 kernels, and the wrappers hand exactly that flag to every entry point.
 The launch itself is replaced by a recorder, so nothing needs the card.
+Also the names ``chip_smoke.py`` reads the kernels by in the build's
+ptxas and SASS listings.
 """
+
+import importlib.util
+import os
+import re
 
 import pytest
 import torch
@@ -24,6 +30,17 @@ import torch
 from container_engine_accelerators_tpu_torch.ops import attention as attn
 
 H, D = 4, 64
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO_ROOT, "container_engine_accelerators_tpu_torch",
+                    "ops", "csrc")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO_ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _fused(n, extra=0, s=10):
@@ -83,3 +100,32 @@ def test_wrappers_pass_the_route_to_every_entry_point(recorded, extra,
     # The flag is each entry point's last argument before the stream.
     assert {name: args[-1] for name, args in recorded.items()} == {
         "flash_fwd": want, "flash_bwd_dq": want, "flash_bwd_dkv": want}
+
+
+@pytest.mark.parametrize("symbol", [
+    "_ZN12_GLOBAL__N_128flash_bwd_dq_wgmma_tc_kernelILi64ELi2EEEv"
+    "NS_9TmaParamsE",
+    "void (anonymous namespace)::flash_bwd_dq_wgmma_tc_kernel<64, 2>("
+    "(anonymous namespace)::TmaParams)",
+])
+def test_kernel_key_reads_the_dq_wgmma_symbol(symbol):
+    """ptxas names a kernel by its mangled symbol, cuobjdump by either
+    form: both map to one short name."""
+    assert _chip_smoke().kernel_key(symbol) == (
+        "flash_bwd_dq_wgmma_tc_kernel<64,2>")
+
+
+def test_wgmma_kernels_name_the_three_hopper_kernels():
+    """Phase 2 requires the forward's, dQ's and dK/dV's wgmma kernels,
+    each in the library its source builds."""
+    wanted = _chip_smoke().WGMMA_KERNELS
+    assert {lib: set(names) for lib, names in wanted.items()} == {
+        "flash_fwd": {"flash_fwd_wgmma_tc_kernel"},
+        "flash_bwd": {"flash_bwd_dkv_wgmma_tc_kernel",
+                      "flash_bwd_dq_wgmma_tc_kernel"}}
+    for lib, names in wanted.items():
+        with open(os.path.join(CSRC, f"{lib}.cu")) as f:
+            source = f.read()
+        for name in names:
+            assert re.search(r"__global__[^;{]*\b" + name + r"\(", source), (
+                f"{name} is not a kernel of {lib}.cu")
