@@ -184,6 +184,27 @@
    sent with a traceparent and a request id lands in one
    ``serving.request`` span under that trace, with the id in its
    ledger record.
+12. runs the fleet front door: lm-serving.yaml's architecture in two
+   launcher processes (started before phase 11, warmed up while it
+   runs) behind the port's FleetCollector and RouterServer: A on the
+   paged pool (deploy/fleet/engine.yaml's), B on the dense pool
+   (``CEA_TPU_PAGED_KV=0``). (a) 8 greedy streams of 128 tokens through
+   the router, 4 of 16-1000 tokens and 4 on a shared 1000-token prefix
+   whose first request is pinned to A and whose repeats land there by
+   affinity (``tpu_router_routed_total{reason="affinity"}``); every
+   stream equal to greedy_decode's or first differing at a near tie.
+   (b) SIGKILL A with at least 2 of the repeats mid-flight: every
+   stream completes through the router, each spliced tail equals B's
+   direct answer for prompt + the tokens delivered before the kill
+   (exact), the failover counter moves, and B's flash_fwd launches
+   grow by 8 a splice admission (kernel #1 on the fleet path). (c) B
+   quiesces with its slots free and every admitted request retired.
+   (d) each spliced journey is one router record with one trace id,
+   under which B's ``serving.request`` span for the resubmit parents.
+   (e) SIGUSR1 drains B: the router's /readyz turns 503 and new work
+   gets 503 with Retry-After. The ``fleet:`` line holds each stream's
+   first divergence, the splices, #1's launches, the router overhead
+   (its own buckets of a splice-free journey) and the phase's seconds.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -2633,15 +2654,27 @@ def drive_spec(torch, convert, kernels, rng):
 # ---------------------------------------------------------------------
 
 
-def launch_process(argv, env=None):
-    """The port's launcher in its own process on ``argv``; returns
-    (process, port, stderr lines) once it prints the port it serves on
-    (the rest of its stderr is drained on a thread)."""
-    proc = subprocess.Popen(
+def spawn_launcher(argv, env=None):
+    """The port's launcher in its own process on ``argv`` (``env`` on
+    top of this process's), its stderr piped for ``launcher_port``."""
+    return subprocess.Popen(
         [sys.executable, "-m",
          "container_engine_accelerators_tpu_torch.serving.serve"] + argv,
         cwd=REPO_ROOT, env=dict(os.environ, **(env or {})), text=True,
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+
+def launch_process(argv, env=None):
+    """The port's launcher in its own process on ``argv``; returns
+    (process, port, stderr lines) once it prints the port it serves on
+    (the rest of its stderr is drained on a thread)."""
+    proc = spawn_launcher(argv, env)
+    return (proc,) + launcher_port(proc, argv)
+
+
+def launcher_port(proc, argv):
+    """(port, stderr lines) once the launcher ``proc`` prints the port
+    it serves on; the rest of its stderr is drained on a thread."""
     lines, port = [], None
     while port is None:
         line = proc.stderr.readline()
@@ -2658,7 +2691,7 @@ def launch_process(argv, env=None):
             lines.append(line.rstrip())
 
     threading.Thread(target=drain, daemon=True).start()
-    return proc, port, lines
+    return port, lines
 
 
 def stop_process(proc):
@@ -3165,6 +3198,329 @@ def drive_contract(torch, convert, model, kernels):
     return report, launches
 
 
+# The fleet phase (12): lm-serving.yaml's architecture in two launcher
+# processes behind the port's router and collector. A runs the paged
+# pool (what deploy/fleet/engine.yaml deploys), B the dense pool, whose
+# admission prefill runs #1, as does a splice's resubmit onto it.
+FLEET_SHARED = 1000                  # the shared prefix's tokens
+FLEET_UNSHARED = (16, 100, 500, 1000)
+FLEET_SUFFIXES = (16, 40, 70, 100)   # after the shared prefix
+# The kernels each path must launch at least once in this run, by the
+# path's name in the launch record.
+PATH_KERNELS = {"fleet": ("flash_fwd",)}
+
+
+def start_fleet_engines():
+    """Phase 12's engines, started before phase 11 so they warm up while
+    it runs: {name: (process, thread that reads its port, result)}.
+    The thread reads the port and keeps draining stderr from the
+    start, so a chatty warm-up never blocks on a full pipe."""
+    engines = {}
+    for name, env in (("A", None), ("B", {"CEA_TPU_PAGED_KV": "0"})):
+        argv = lm_flags() + ["--warm"]
+        proc = spawn_launcher(argv, env)
+        result = {}
+
+        def read(proc=proc, argv=argv, result=result):
+            try:
+                result["port"] = launcher_port(proc, argv)[0]
+            except AssertionError as e:
+                result["error"] = str(e)
+
+        thread = threading.Thread(target=read, daemon=True)
+        thread.start()
+        engines[name] = (proc, thread, result)
+    return engines
+
+
+def fleet_stream(port, prompt, rid, first=None):
+    """One greedy stream of MAX_NEW tokens through the router, with its
+    own request id: (tokens, error line or None). ``first`` is set at
+    the first token line."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/models/lm:generate",
+        data=json.dumps({"prompts": [prompt], "max_new_tokens": MAX_NEW,
+                         "stream": True}).encode(),
+        headers={"x-cea-request-id": rid})
+    tokens = []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = json.loads(raw)
+            if "tokens" in line:
+                tokens.extend(line["tokens"])
+                if first is not None:
+                    first.set()
+            elif line.get("done"):
+                return tokens, None
+            else:
+                return tokens, line
+    return tokens, {"error": "stream ended without done"}
+
+
+def fleet_streams(port, jobs):
+    """``jobs`` [(rid, prompt, first event or None)] streamed at once;
+    returns {rid: (tokens, error)}."""
+    results = {}
+
+    def client(rid, prompt, first):
+        try:
+            results[rid] = fleet_stream(port, prompt, rid, first)
+        except Exception as e:  # reported below, fails the phase
+            results[rid] = ([], {"error": repr(e)})
+
+    threads = [threading.Thread(target=client, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
+
+
+def wait_for(predicate, what, timeout_s=60.0):
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        out = predicate()
+        if out:
+            return out
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def drive_fleet(torch, model, engines, wants):
+    """Phase 12 (see the module docstring): (a) 8 greedy streams through
+    the router, 4 of them on a shared 1000-token prefix whose repeats
+    land by affinity on A; (b) SIGKILL A with >= 2 of them mid-flight:
+    every stream completes, each spliced tail equals B's direct answer
+    for prompt + the tokens delivered before the kill, the failover
+    counter moves, and B's flash_fwd launches grow by MODEL's layers a
+    splice admission; (c) B quiesces clean; (d) one trace id a spliced
+    journey, with B's serving.request span under the router's; (e)
+    SIGUSR1 drains B and the router sheds 503 with Retry-After, its
+    /readyz 503. Returns (report, launches by path)."""
+    import signal
+
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch import obs
+    from container_engine_accelerators_tpu_torch.obs.fleet import (
+        FleetCollector,
+    )
+    from container_engine_accelerators_tpu_torch.router_check import (
+        router_overhead_ms,
+    )
+    from container_engine_accelerators_tpu_torch.serving.affinity import (
+        affinity_key,
+    )
+    from container_engine_accelerators_tpu_torch.serving.router import (
+        RouterCore,
+        RouterServer,
+    )
+    t0 = time.perf_counter()
+    layers = MODEL["num_layers"]
+    procs = {name: e[0] for name, e in engines.items()}
+    ports = {}
+    for name, (proc, thread, result) in engines.items():
+        thread.join(timeout=600)
+        if "port" not in result:
+            raise AssertionError(f"fleet engine {name}: {result}")
+        ports[name] = result["port"]
+        wait_for(lambda port=ports[name]: healthz(port) == 200,
+                 f"engine {name} to warm up", 600)
+    pools = {name: get(port, "/stats")["kv_pool"]
+             for name, port in ports.items()}
+    if pools != {"A": "paged", "B": "dense"}:
+        raise AssertionError(f"fleet engines' pools: {pools}")
+    urls = {name: f"http://127.0.0.1:{port}" for name, port in ports.items()}
+    # The collector and router as deploy/fleet/router.yaml runs them:
+    # the default poll interval, shed saturation and spill bound.
+    collector = FleetCollector(list(urls.values()))
+    core = RouterCore(collector)
+    router = RouterServer(core, collector, port=0)
+    collector.start()
+    router.start()
+    rport = router.port
+    # Traffic starts once the router is ready, as its readinessProbe
+    # gates it in the deployment (the first poll sweep has landed).
+    wait_for(lambda: http_call(rport, "/readyz")[0] == 200,
+             "the router's /readyz", 30)
+    rng = np.random.default_rng(SEED + 15)
+    vocab = MODEL["vocab_size"]
+    shared = rng.integers(0, vocab, FLEET_SHARED).tolist()
+    prompts = {f"fleet-u{i}": rng.integers(0, vocab, n).tolist()
+               for i, n in enumerate(FLEET_UNSHARED)}
+    prompts.update({f"fleet-s{i}": shared + rng.integers(0, vocab, n).tolist()
+                    for i, n in enumerate(FLEET_SUFFIXES)})
+    spliced_rids = [f"fleet-s{i}" for i in range(1, len(FLEET_SUFFIXES))]
+
+    def b_stats():
+        return get(ports["B"], "/stats")
+
+    try:
+        b0 = b_stats()
+        # (a) the unshared streams at once; then the shared prefix's
+        # first request on A (its blocks live there from now on).
+        results = fleet_streams(rport, [(rid, prompts[rid], None)
+                                        for rid in prompts if "-u" in rid])
+        key = affinity_key(shared, core.block_size, core.affinity_blocks)
+        core.repoint(key, urls["A"])
+        results.update(fleet_streams(rport, [("fleet-s0",
+                                              prompts["fleet-s0"], None)]))
+        routed_a = dict(core.stats()["routed"])
+        # (b) the shared prefix's repeats, SIGKILL A mid-flight.
+        b1 = b_stats()
+        failover0 = core.stats()["failover"]
+        firsts = [threading.Event() for _ in spliced_rids]
+        jobs = [(rid, prompts[rid], first)
+                for rid, first in zip(spliced_rids, firsts)]
+        box = {}
+        runner = threading.Thread(
+            target=lambda: box.update(fleet_streams(rport, jobs)))
+        runner.start()
+        wait_for(lambda: sum(e.is_set() for e in firsts) >= 2,
+                 "two shared-prefix streams to start", 120)
+        inflight_a = dict(core._inflight).get(urls["A"], 0)
+        procs["A"].kill()
+        procs["A"].wait(timeout=60)
+        runner.join(timeout=600)
+        results.update(box)
+        routed = dict(core.stats()["routed"])
+        failovers = core.stats()["failover"] - failover0
+        b2 = b_stats()
+        b_records = {r["request_id"]: r for r in get(
+            ports["B"], "/debug/requests?n=64")["records"]}
+        # Each spliced tail against B asked directly for prompt + the
+        # tokens delivered before the kill (B's record of the resubmit
+        # holds that prompt's length).
+        splices, tails = {}, {}
+        for rid in spliced_rids:
+            rec = b_records.get(rid)
+            if rec is None:
+                continue
+            tokens = results[rid][0]
+            d = rec["prompt_len"] - len(prompts[rid])
+            status, body = post(ports["B"], {
+                "prompts": [prompts[rid] + tokens[:d]],
+                "max_new_tokens": MAX_NEW - d})
+            direct = body["sequences"][0][len(prompts[rid]) + d:]
+            splices[rid] = d
+            tails[rid] = (status == 200 and direct == tokens[d:])
+        # (c) B quiesces with its pool clean.
+        b3 = wait_for(lambda: (lambda s: s if s["slots_active"] == 0
+                               and s["queue_depth"] == 0 else None)(
+                                   b_stats()), "B to quiesce")
+        # (d) one trace a spliced journey.
+        journeys = {}
+        for r in http_call(rport, "/debug/requests")[2]["records"]:
+            journeys.setdefault(r["request_id"], []).append(r)
+        b_spans = {s["attrs"].get("request_id"): s for s in get(
+            ports["B"], "/debug/trace")["spans"]
+            if s["name"] == "serving.request"}
+        router_spans = {s["attrs"].get("request_id"): s
+                        for s in obs.TRACER.snapshot()["spans"]
+                        if s["name"] == "router.request"}
+        traces = {}
+        for rid in splices:
+            recs = journeys.get(rid, [])
+            rec = recs[0] if len(recs) == 1 else {}
+            span, parent = b_spans.get(rid), router_spans.get(rid)
+            traces[rid] = dict(
+                records=len(recs), hops=rec.get("hops"),
+                trace_id=rec.get("trace_id"),
+                b_span_trace=(None if span is None
+                              else "%x" % span["trace_id"]),
+                parented=(span is not None and parent is not None
+                          and span["parent_id"] == parent["span_id"]),
+                sum_err=(abs(sum(rec["buckets"].values()) - rec["wall_s"])
+                         if rec else None),
+                wall_s=rec.get("wall_s"),
+                splice_resubmit_s=(rec["buckets"].get("splice_resubmit")
+                                   if rec else None))
+        overhead_ms, tax_ms = router_overhead_ms(
+            [r for recs in journeys.values() for r in recs
+             if r["outcome"] == "completed"])
+        metrics = urllib.request.urlopen(
+            f"http://127.0.0.1:{rport}/metrics", timeout=60).read().decode()
+        # (e) drain B: the fleet has nowhere to send new work.
+        os.kill(procs["B"].pid, signal.SIGUSR1)
+        wait_for(lambda: http_call(rport, "/readyz")[0] == 503,
+                 "the router's /readyz to turn 503", 30)
+        shed_code, shed_headers, shed_body = http_call(
+            rport, "/v1/models/lm:generate",
+            {"prompts": [prompts["fleet-u0"]], "max_new_tokens": 2})
+    finally:
+        router.stop()
+        collector.stop()
+        for proc in procs.values():
+            stop_process(proc)
+    divergence = {}
+    for rid, prompt in prompts.items():
+        tokens, err = results.get(rid, ([], {"error": "missing"}))
+        if err is not None or len(tokens) != MAX_NEW:
+            raise AssertionError(f"fleet stream {rid}: {len(tokens)} "
+                                 f"tokens, error {err}")
+        divergence[rid] = stream_divergence(torch, model, prompt, MAX_NEW,
+                                            prompt + tokens, wants)
+    b_prefills = b2["engine_prefills"] - b0["engine_prefills"]
+    b_launches = b2["flash_fwd_launches"] - b0["flash_fwd_launches"]
+    splice_launches = b2["flash_fwd_launches"] - b1["flash_fwd_launches"]
+    report = dict(
+        smi=smi_line(), pools=pools, routed_before_kill=routed_a,
+        routed=routed, inflight_on_a_at_kill=inflight_a,
+        failovers=failovers, splices=splices, spliced_tails_exact=tails,
+        splice_launches=splice_launches, flash_fwd_launches=b_launches,
+        b_prefills=b_prefills,
+        first_divergence={rid: (None if d is None else d["first_diff"])
+                          for rid, d in divergence.items()},
+        diverged=[dict(d, rid=rid) for rid, d in divergence.items() if d],
+        b_quiesced={k: b3[k] for k in (
+            "slots", "slots_free", "slots_active", "queue_depth",
+            "requests_admitted", "requests_retired", "engine_state")},
+        traces=traces, router_overhead_ms=overhead_ms,
+        router_overhead_by_bucket_ms=tax_ms,
+        failover_metric="tpu_router_failover_total" in metrics,
+        shed=dict(code=shed_code,
+                  retry_after=shed_headers.get("Retry-After"),
+                  error=shed_body.get("error")),
+        phase_s=time.perf_counter() - t0)
+    log("fleet:", json.dumps(report))
+    if routed_a.get("affinity", 0) < 1 or routed.get("affinity", 0) \
+            < routed_a["affinity"] + len(spliced_rids):
+        raise AssertionError(f"fleet: the shared prefix's repeats were not "
+                             f"affinity hits: {routed_a} -> {routed}")
+    if inflight_a < 2 or failovers < 2 or len(splices) < 2 \
+            or not report["failover_metric"]:
+        raise AssertionError(f"fleet: the kill spliced {len(splices)} "
+                             f"streams ({failovers} failovers, "
+                             f"{inflight_a} in flight on A)")
+    if not all(tails.values()):
+        raise AssertionError(f"fleet: spliced tails differ from B's "
+                             f"direct answer: {tails}")
+    if not all(d["near_tie"] for d in report["diverged"]):
+        raise AssertionError(f"fleet: streams diverge off a near tie: "
+                             f"{report['diverged']}")
+    q = report["b_quiesced"]
+    if (q["slots_free"] != q["slots"] or q["engine_state"] != "serving"
+            or q["requests_admitted"] != q["requests_retired"]):
+        raise AssertionError(f"fleet: B not clean after the kill: {q}")
+    for rid, t in traces.items():
+        if (t["records"] != 1 or not t["hops"] or not t["trace_id"]
+                or t["b_span_trace"] != t["trace_id"] or not t["parented"]
+                or t["sum_err"] > max(0.01 * t["wall_s"], 2e-5)):
+            raise AssertionError(f"fleet: journey {rid} is not one trace: "
+                                 f"{t}")
+    if shed_code != 503 or int(shed_headers.get("Retry-After") or 0) < 1:
+        raise AssertionError(f"fleet: drained fleet answered {report['shed']}")
+    if (splice_launches != layers * len(splices)
+            or b_launches != layers * b_prefills):
+        raise AssertionError(
+            f"fleet: B launched flash_fwd {splice_launches} times for "
+            f"{len(splices)} splice admissions ({b_launches} for "
+            f"{b_prefills} admissions in all)")
+    log(f"fleet phase: {report['phase_s']:.1f} s")
+    return report, {"fleet": {"flash_fwd": b_launches}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3320,9 +3676,18 @@ def main():
     report["spec"], spec_launches = drive_spec(torch, convert, all_kernels,
                                                rng)
 
-    # Phase 11: the serving contract.
-    report["contract"], contract_launches = drive_contract(
-        torch, convert, model, all_kernels)
+    # Phase 11: the serving contract; phase 12's engines warm up
+    # meanwhile in their own processes.
+    fleet_engines = start_fleet_engines()
+    try:
+        report["contract"], contract_launches = drive_contract(
+            torch, convert, model, all_kernels)
+        # Phase 12: the fleet front door.
+        report["fleet"], fleet_launches = drive_fleet(
+            torch, model, fleet_engines, {})
+    finally:
+        for proc, _, _ in fleet_engines.values():
+            stop_process(proc)
 
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
@@ -3371,6 +3736,8 @@ def main():
             by_path[path] = counts[name]
         for path, counts in contract_launches.items():
             by_path[path] = counts[name]
+        for path, counts in fleet_launches.items():
+            by_path[path] = counts.get(name, 0)
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -3395,6 +3762,12 @@ def main():
                 "kernel_ms" if key == "ms" else key] for key in timed})
         kernels.append(entry)
     report["kernels"] = kernels
+    idle = [(path, entry["name"]) for entry in kernels
+            for path, names in PATH_KERNELS.items()
+            if entry["name"] in names
+            and not entry["launches_by_path"].get(path)]
+    if idle:
+        raise AssertionError(f"kernels a path never launched: {idle}")
     report["wall_s"] = time.perf_counter() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3413,7 +3786,9 @@ def main():
         f"predict p50 {report['contract']['predict']['p50_ms_1']:.1f} ms "
         f"(1 image), {report['contract']['predict']['p50_ms_8']:.1f} ms "
         f"(8); serving contract phase "
-        f"{report['contract']['phase_s']:.1f} s")
+        f"{report['contract']['phase_s']:.1f} s; fleet phase "
+        f"{report['fleet']['phase_s']:.1f} s, router overhead "
+        f"{report['fleet']['router_overhead_ms']} ms a request")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

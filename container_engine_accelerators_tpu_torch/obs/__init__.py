@@ -15,9 +15,9 @@
 """Observability for the port's servers: spans, histograms, the event
 journal, the request ledger and trace propagation.
 
-Own copies of the JAX package's obs modules the server needs,
-under the same names (metric_names, identity, trace,
-propagate, reqledger, export, http), with the same
+Own copies of the JAX package's obs modules the servers and the fleet
+front door need, under the same names (metric_names, identity, trace,
+propagate, reqledger, export, http, fleet), with the same
 module-level helpers over one process-wide tracer::
 
     from container_engine_accelerators_tpu_torch import obs
@@ -43,7 +43,10 @@ from .propagate import (
 )
 from .reqledger import (
     ATTRIBUTION_BUCKETS,
+    GAP_BUCKETS,
+    ROUTER_BUCKETS,
     SATURATION_CAUSES,
+    TTFT_BUCKETS,
     RequestLedger,
     RequestTimeline,
     saturation,
@@ -86,13 +89,13 @@ def gauge(name, value, **labels):
 
 
 __all__ = [
-    "ATTRIBUTION_BUCKETS", "DEFAULT_BUCKETS", "Histogram", "NULL_SPAN",
-    "REQUEST_ID_KEY", "RequestLedger", "RequestTimeline",
-    "SATURATION_CAUSES", "Span", "TRACEPARENT_KEY", "TRACER",
-    "TRACE_PATH", "Tracer", "VARZ_PATH", "counter", "debug_response",
-    "dump_json", "event", "extract_headers", "format_traceparent",
-    "gauge", "get_tracer", "histogram", "identity", "inject_headers",
-    "parse_traceparent", "perfetto_trace", "process_label",
-    "prometheus_text", "query_param", "saturation", "set_role", "span",
-    "varz",
+    "ATTRIBUTION_BUCKETS", "DEFAULT_BUCKETS", "GAP_BUCKETS", "Histogram",
+    "NULL_SPAN", "REQUEST_ID_KEY", "ROUTER_BUCKETS", "RequestLedger",
+    "RequestTimeline", "SATURATION_CAUSES", "Span", "TRACEPARENT_KEY",
+    "TRACER", "TRACE_PATH", "TTFT_BUCKETS", "Tracer", "VARZ_PATH",
+    "counter", "debug_response", "dump_json", "event", "extract_headers",
+    "format_traceparent", "gauge", "get_tracer", "histogram", "identity",
+    "inject_headers", "parse_traceparent", "perfetto_trace",
+    "process_label", "prometheus_text", "query_param", "saturation",
+    "set_role", "span", "varz",
 ]

@@ -14,10 +14,10 @@
 
 """The registry of the serving metric names the port publishes.
 
-The port's own copy of the serving part of the JAX package's
-obs/metric_names.py: the same tpu_* names, so the fleet
-collector and a dashboard read a PyTorch engine and a JAX engine
-alike. Every publisher imports its name from here; a literal that
+The port's own copy of the serving, fleet and router part of the JAX
+package's obs/metric_names.py: the same tpu_* names, so the fleet
+collector, the HPA and a dashboard read a PyTorch engine and a JAX
+engine alike. Every publisher imports its name from here; a literal that
 drifted between the Prometheus, varz and /stats surfaces would split
 one series in two.
 """
@@ -40,6 +40,27 @@ SERVING_SATURATION = "tpu_serving_saturation"
 SERVING_SATURATION_CAUSE = "tpu_serving_saturation_cause"
 SERVING_ENGINE_REBUILDS = "tpu_serving_engine_rebuilds_total"
 
+# -- fleet (the multi-engine collector, obs/fleet.py) ------------------
+FLEET_ENGINES = "tpu_fleet_engines"
+FLEET_SATURATION = "tpu_fleet_saturation"
+FLEET_TTFT = "tpu_fleet_ttft_seconds"
+FLEET_TPOT = "tpu_fleet_tpot_seconds"
+FLEET_SLO_BURN = "tpu_fleet_slo_burn_rate"
+FLEET_DESIRED_REPLICAS = "tpu_fleet_desired_replicas"
+FLEET_POLLS = "tpu_fleet_polls_total"
+FLEET_POLL_ERRORS = "tpu_fleet_poll_errors_total"
+
+# -- router (the fleet front door, serving/router.py) ------------------
+ROUTER_ROUTED = "tpu_router_routed_total"
+ROUTER_SHED = "tpu_router_shed_total"
+ROUTER_FAILOVER = "tpu_router_failover_total"
+ROUTER_AFFINITY_HIT_RATE = "tpu_router_affinity_hit_rate"
+ROUTER_LATENCY_ATTRIBUTION = (
+    "tpu_router_latency_attribution_seconds")
+ROUTER_E2E_LATENCY = "tpu_router_e2e_seconds"
+ROUTER_UPSTREAM_TTFB = "tpu_router_upstream_ttfb_seconds"
+ROUTER_SLO_VIOLATIONS = "tpu_router_slo_violations_total"
+
 METRICS = {
     SERVING_SLOT_OCCUPANCY: "active/total slot fraction per step",
     SERVING_TTFT: "admission-to-first-token latency",
@@ -59,4 +80,38 @@ METRICS = {
     SERVING_SATURATION_CAUSE: "per-cause serving saturation (0..1)",
     SERVING_ENGINE_REBUILDS:
         "engine quarantine-and-rebuild episodes by fault reason",
+    FLEET_ENGINES: "engines by liveness state (up/down/unready)",
+    FLEET_SATURATION:
+        "cause-wise fleet saturation, max and mean over engines",
+    FLEET_TTFT: "fleet-merged TTFT distribution (exact bucket merge)",
+    FLEET_TPOT: "fleet-merged TPOT distribution (exact bucket merge)",
+    FLEET_SLO_BURN:
+        "SLO error-budget burn rate per (slo, fast/slow window)",
+    FLEET_DESIRED_REPLICAS:
+        "HPA-shaped replica target from sustained fleet saturation",
+    FLEET_POLLS: "completed fleet poll cycles",
+    FLEET_POLL_ERRORS: "engine poll attempts that failed, by engine",
+    ROUTER_ROUTED:
+        "requests placed, by reason "
+        "(affinity/least_loaded/hedge/spill)",
+    ROUTER_SHED: "requests shed at the router door, by reason",
+    ROUTER_FAILOVER: "streams resumed on a sibling engine, by kind",
+    ROUTER_AFFINITY_HIT_RATE:
+        "fraction of keyed requests landing on their affinity engine",
+    ROUTER_LATENCY_ATTRIBUTION:
+        "per-request router-side latency by journey bucket",
+    ROUTER_E2E_LATENCY:
+        "router receipt to final byte, end to end per request",
+    ROUTER_UPSTREAM_TTFB:
+        "router placement to first upstream body line",
+    ROUTER_SLO_VIOLATIONS:
+        "router-measured end-to-end SLO burns per (slo, tenant)",
 }
+
+# tpu_-prefixed tokens that are NOT metric names (label keys, module
+# prefixes), as the JAX package's registry lists them.
+NON_METRIC_TOKENS = frozenset({
+    "tpu_device",           # label key on the plugin gauge set
+    "tpu_metrics_bridge",   # sidecar module name (cmd/)
+    "tpu_diagnose_bundle",  # diagnostics bundle format tag
+})

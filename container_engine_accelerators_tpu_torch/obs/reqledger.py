@@ -51,6 +51,33 @@ ATTRIBUTION_BUCKETS = ("queue_wait", "block_wait", "prefill",
                        "rehydrate", "recovery", "decode_gap",
                        "stream_backpressure", "other")
 
+# The fleet router's bucket set (serving/router.py), same sum-to-wall
+# contract over the router's submit -> final-byte wall:
+#
+#   - ``router_queue``: receipt through the placement decision
+#     (fleet-view fetch, affinity lookup, admission bookkeeping);
+#   - ``fairness_wait``: parked on the tenant deficit counter inside
+#     the bounded fairness-wait budget instead of shedding 429;
+#   - ``shed_backoff``: parked re-polling an unroutable fleet inside
+#     the bounded shed-backoff budget before giving up 503;
+#   - ``upstream_ttfb``: placement through the FIRST upstream body
+#     line (connect + engine queue + prefill as the router sees it);
+#   - ``stream``: relaying upstream body lines to the client;
+#   - ``splice_resubmit``: a mid-stream failover, from the upstream
+#     failure through the sibling's first spliced line;
+#   - ``other``: the unattributed remainder (shed replies, client
+#     disconnect residue), keeping the sum honest.
+ROUTER_BUCKETS = ("router_queue", "fairness_wait", "shed_backoff",
+                  "upstream_ttfb", "stream", "splice_resubmit",
+                  "other")
+
+# The buckets that make up TTFT (submit -> first token); the rest is
+# the token-gap (TPOT) side. ``recovery`` ranks on the gap side: the
+# canonical quarantine stall lands mid-stream, between delivered
+# tokens.
+TTFT_BUCKETS = ("queue_wait", "block_wait", "prefill", "rehydrate")
+GAP_BUCKETS = ("decode_gap", "stream_backpressure", "recovery")
+
 SATURATION_CAUSES = ("slots", "kv_blocks", "queue_age")
 
 # Retired-record ring capacity (the /debug/requests window).
@@ -83,9 +110,9 @@ class RequestTimeline:
     single-writer contract as the engine's pool state).
 
     ``bucket_names`` swaps the partition's vocabulary (default the
-    engine's :data:`ATTRIBUTION_BUCKETS`): any tuple ending in the
-    ``other`` residue bucket works, and the sum-to-wall contract is
-    identical.
+    engine's :data:`ATTRIBUTION_BUCKETS`; the router passes
+    :data:`ROUTER_BUCKETS`): any tuple ending in the ``other``
+    residue bucket works, and the sum-to-wall contract is identical.
     """
 
     __slots__ = ("submit_unix", "submit_t", "buckets", "first_token_t",
@@ -173,7 +200,9 @@ class RequestLedger:
     the shape an SLO postmortem needs.
 
     ``bucket_names``/``metric`` retarget the ledger at a different
-    attribution vocabulary and histogram family.
+    attribution vocabulary and histogram family: the fleet router
+    runs one with :data:`ROUTER_BUCKETS` behind
+    ``tpu_router_latency_attribution_seconds``.
     """
 
     def __init__(self, capacity=None, tracer=None,

@@ -94,6 +94,39 @@ class Histogram:
             self.sum = 0.0
             self.count = 0
 
+    def merge(self, other):
+        """Fold ``other``'s observations into this histogram IN
+        PLACE: exact bucket-wise addition of counts/sum/count, the
+        fleet-aggregation primitive (obs/fleet.py). Because the grids
+        are identical, quantiles of the merged histogram equal
+        quantiles over the POOLED observations (bucket-resolution
+        exact), which percentile-of-percentiles never is. Names and
+        labels may differ (a fleet rollup collapses per-engine label
+        sets on purpose); bucket BOUNDARIES may not: a silent
+        re-bucketing would corrupt the distribution, so a mismatch
+        raises with the offending boundary named."""
+        if not isinstance(other, Histogram):
+            raise TypeError(
+                f"can only merge Histogram, not "
+                f"{type(other).__name__}")
+        if tuple(other.buckets) != self.buckets:
+            ours, theirs = self.buckets, other.buckets
+            for i in range(max(len(ours), len(theirs))):
+                a = ours[i] if i < len(ours) else None
+                b = theirs[i] if i < len(theirs) else None
+                if a != b:
+                    raise ValueError(
+                        f"bucket boundary mismatch merging "
+                        f"{other.name!r} into {self.name!r} at "
+                        f"index {i}: {a} != {b}")
+        counts, other_sum, other_count = other.snapshot()
+        with self._lock:
+            for i, c in enumerate(counts):
+                self.counts[i] += c
+            self.sum += other_sum
+            self.count += other_count
+        return self
+
     def quantile(self, q):
         """Estimated quantile via linear interpolation inside the
         owning bucket (the Prometheus histogram_quantile method);

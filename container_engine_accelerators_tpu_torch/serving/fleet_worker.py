@@ -23,9 +23,10 @@ TransformerLM (by default the JAX worker's shape: vocab 48, E 32, 2
 layers, 4 heads, max_seq_len 64, 24 new tokens, 4 slots; f32) whose
 weights come from ``init_flax_layout_params(config, --seed)``, so a
 JAX engine loaded with the same numpy tree serves the same greedy
-tokens. Once warm it writes its port to ``--port-file`` (atomically);
-SIGUSR1 starts a drain (POSTs 503, /readyz unready), SIGTERM and SIGINT
-stop it.
+tokens. ``serving.serve_fleet --spawn`` and ``router_check`` start
+their engines with it. Once warm it writes its port to
+``--port-file`` (atomically); SIGUSR1 starts a drain (POSTs 503,
+/readyz unready), SIGTERM and SIGINT stop it.
 """
 
 import argparse
@@ -51,6 +52,9 @@ def build_parser():
     p.add_argument("--max-seq-len", type=int, default=64)
     p.add_argument("--max-new-tokens", type=int, default=24)
     p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="admission queue bound (default 8 x "
+                        "--max-batch; 0 = unbounded)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -72,7 +76,8 @@ def main(argv=None):
                     device=args.device, dtype=torch.float32)
     srv = GenerationServer("lm", model, port=0,
                            max_new_tokens=args.max_new_tokens,
-                           max_batch=args.max_batch, warm=True)
+                           max_batch=args.max_batch,
+                           max_queue=args.max_queue, warm=True)
     srv.start()
     stop = threading.Event()
     signal.signal(signal.SIGUSR1, lambda *_: srv.begin_drain())

@@ -53,7 +53,9 @@ the command line is parsed, with the demo's messages.
 SIGTERM and SIGINT drain: new POSTs answer 503 with Retry-After and
 /readyz turns unready while in-flight requests finish (within
 ``CEA_TPU_DRAIN_GRACE_S``, 30 s by default), then the server stops and
-the process exits 0.
+the process exits 0. SIGUSR1 starts the same drain and keeps the
+process up (a fleet router then steers around the replica, as it does
+around ``serving.fleet_worker``).
 """
 
 import argparse
@@ -286,6 +288,7 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
+    signal.signal(signal.SIGUSR1, lambda *_: server.begin_drain())
     # The bound port (--port 0 picks a free one), for whoever started
     # the process.
     print(f"serving {args.model_name or args.model!r} on port "

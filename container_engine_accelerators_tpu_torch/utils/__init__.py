@@ -15,13 +15,14 @@
 """Env-var knob parsing and ``wall_sync`` (own copies of the JAX
 package's helpers), the step-keyed generator behind augmentation and
 dropout, and the error every option of the JAX package that the port
-does not carry yet raises."""
+does not carry yet raises.
+
+Imports neither torch nor numpy at module level: the fleet front door
+(obs, serving.router, serving.affinity) imports this module in a
+process that must never load torch."""
 
 import logging
 import os
-
-import numpy as np
-import torch
 
 log = logging.getLogger(__name__)
 
@@ -60,6 +61,9 @@ def step_generator(key, step, device):
     PRNGKey(key), step)`` for randomness keyed by the training step
     (augmentation, dropout). The same pair gives the same stream on the
     same device; jax's bits are not reproduced."""
+    import numpy as np
+    import torch
+
     seed = np.random.SeedSequence([int(key), int(step)]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(seed))
@@ -75,6 +79,8 @@ def _env_flag(env_name, default):
 
 
 def _first_tensor(tree):
+    import torch
+
     if isinstance(tree, torch.Tensor):
         return tree if tree.numel() else None
     if isinstance(tree, torch.nn.Module):
@@ -96,6 +102,8 @@ def wall_sync(tree):
     first non-empty tensor on the host. Returns that element, or None
     when the tree holds no non-empty tensor. Call it around a batch of
     steps, never per step."""
+    import torch
+
     leaf = _first_tensor(tree)
     if leaf is None:
         return None

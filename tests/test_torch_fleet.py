@@ -14,7 +14,8 @@
 
 """A mixed fleet: one JAX engine and one engine of the port behind the
 JAX package's unchanged ``serving/router.py`` and
-``obs/fleet.FleetCollector``, both engines on the same f32 weights
+``obs/fleet.FleetCollector``, and behind the port's own router and
+collector, both engines on the same f32 weights
 (``init_flax_layout_params``).
 
 Greedy streams are token-identical whichever engine serves them; a
@@ -22,7 +23,9 @@ SIGKILL of the port's worker mid-stream splices onto the JAX engine
 token-identical, and the reverse; the collector reads the port's
 /stats, /metrics and /readyz (``requests_retired``, the TTFT buckets,
 the drain state); and the router's ``traceparent`` parents the port's
-``serving.request`` span, with the request id carried through."""
+``serving.request`` span, with the request id carried through. The
+port's router gives the same greedy streams, and the same SIGKILL
+splices in both directions, as the JAX router on the same fleet."""
 
 import http.client
 import json
@@ -52,6 +55,13 @@ from container_engine_accelerators_tpu.serving.router import (
 )
 from container_engine_accelerators_tpu_torch import obs
 from container_engine_accelerators_tpu_torch.models import convert
+from container_engine_accelerators_tpu_torch.obs import fleet as port_fleet
+from container_engine_accelerators_tpu_torch.serving import (
+    affinity as port_affinity,
+)
+from container_engine_accelerators_tpu_torch.serving import (
+    router as port_router,
+)
 from container_engine_accelerators_tpu_torch.serving import server
 from tests.conftest import REPO_ROOT
 
@@ -79,13 +89,16 @@ def workers():
                XLA_FLAGS="--xla_cpu_multi_thread_eigen=false "
                          "intra_op_parallelism_threads=1")
     procs = {}
-    for name, cmd in (
-            ("torch", [sys.executable, "-m",
-                       "container_engine_accelerators_tpu_torch.serving"
-                       ".fleet_worker", "--device", "cpu"]),
-            ("jax", [sys.executable,
-                     os.path.join(REPO_ROOT, "tests",
-                                  "torch_fleet_worker.py")])):
+    port_cmd = [sys.executable, "-m",
+                "container_engine_accelerators_tpu_torch.serving"
+                ".fleet_worker", "--device", "cpu"]
+    jax_cmd = [sys.executable,
+               os.path.join(REPO_ROOT, "tests", "torch_fleet_worker.py")]
+    # "torch" and "jax" die behind the JAX router; the _j and _p pairs
+    # die behind the JAX router and the port's in the same test.
+    for name, cmd in (("torch", port_cmd), ("jax", jax_cmd),
+                      ("torch_j", port_cmd), ("torch_p", port_cmd),
+                      ("jax_j", jax_cmd), ("jax_p", jax_cmd)):
         port_file = os.path.join(tmpdir, f"{name}.port")
         procs[name] = (subprocess.Popen(
             cmd + ["--port-file", port_file] + WORKER_FLAGS, env=env,
@@ -142,19 +155,30 @@ def torch_engine(workers, tree):
 
 
 class _Fleet:
-    def __init__(self, urls):
-        self.collector = FleetCollector(urls, poll_ms=100.0)
-        self.core = RouterCore(self.collector, shed_sat=2.0,
-                               tenants=TenantLedger(rate=0))
-        self.router = RouterServer(self.core, self.collector, port=0)
+    """A collector and a router over ``urls``: the JAX package's, or
+    with ``port=True`` the port's own."""
+
+    def __init__(self, urls, port=False):
+        collector_cls, router_mod = (
+            (port_fleet.FleetCollector, port_router) if port
+            else (FleetCollector, None))
+        core_cls, server_cls, ledger_cls = (
+            (router_mod.RouterCore, router_mod.RouterServer,
+             router_mod.TenantLedger) if port
+            else (RouterCore, RouterServer, TenantLedger))
+        self.key_fn = port_affinity.affinity_key if port else affinity_key
+        self.collector = collector_cls(urls, poll_ms=100.0)
+        self.core = core_cls(self.collector, shed_sat=2.0,
+                             tenants=ledger_cls(rate=0))
+        self.router = server_cls(self.core, self.collector, port=0)
         self.collector.start()
         self.router.start()
 
     def steer(self, prompt, url):
         """Pin ``prompt``'s affinity key to ``url`` (the router then
         places it there)."""
-        key = affinity_key(prompt, self.core.block_size,
-                           self.core.affinity_blocks)
+        key = self.key_fn(prompt, self.core.block_size,
+                          self.core.affinity_blocks)
         assert key is not None
         self.core.repoint(key, url)
 
@@ -340,3 +364,53 @@ def test_router_traceparent_parents_the_ports_span(jax_engine,
     records = tsrv._engine_service.debug_requests()["records"]
     assert any(r["request_id"] == rid and r["trace_id"] == "%x" % trace_id
                for r in records)
+
+
+def test_port_router_greedy_streams_match_the_jax_router(jax_engine,
+                                                        torch_engine):
+    """The same prompts steered to each engine through the JAX router
+    and through the port's give the same greedy streams."""
+    (jsrv, jurl), (tsrv, turl) = jax_engine, torch_engine
+    fleets = {"jax": _Fleet([jurl, turl]),
+              "port": _Fleet([jurl, turl], port=True)}
+    try:
+        for seed, n, new in ((21, 16, 24), (22, 33, 48)):
+            prompt = _prompt(seed, n)
+            for srv, url in ((jsrv, jurl), (tsrv, turl)):
+                got = {}
+                for name, fleet in fleets.items():
+                    before = srv.stats()["requests"]
+                    fleet.steer(prompt, url)
+                    got[name] = fleet.stream(prompt, new)
+                    assert _wait_requests(srv, before + 1), name
+                assert got["port"] == got["jax"], url
+                assert len(got["port"]) == new
+    finally:
+        for fleet in fleets.values():
+            fleet.stop()
+
+
+@pytest.mark.parametrize("victim", ["torch", "jax"])
+def test_port_router_sigkill_splices_match_the_jax_router(
+        workers, jax_engine, torch_engine, victim):
+    """A SIGKILL of a worker mid-stream splices onto the in-process
+    engine of the other kind: the port's router delivers the same
+    tokens as the JAX router on the same fleet, and both equal the
+    sibling's uninterrupted answer."""
+    sibling_srv, sibling_url = (jax_engine if victim == "torch"
+                                else torch_engine)
+    prompt = _prompt(31 if victim == "torch" else 32, 24)
+    got = {}
+    for name in ("jax", "port"):
+        proc, victim_url = _worker_url(workers, f"{victim}_{name[0]}")
+        fleet = _Fleet([sibling_url, victim_url], port=name == "port")
+        try:
+            before = sibling_srv.stats()["requests"]
+            got[name] = _splice(fleet, proc, victim_url, sibling_url,
+                                prompt)
+            assert _wait_requests(sibling_srv, before + 1), name
+        finally:
+            fleet.stop()
+    assert got["port"] == got["jax"]
+    assert len(got["port"]) == MAX_NEW
+    assert got["port"] == _unary(sibling_url, prompt, MAX_NEW)

@@ -58,7 +58,9 @@ def test_port_has_the_slice_modules():
                 "serving.tokenizer", "models.speculative",
                 "utils.faults", "obs", "obs.metric_names", "obs.identity",
                 "obs.trace", "obs.propagate", "obs.reqledger",
-                "obs.export", "obs.http", "serving.fleet_worker"):
+                "obs.export", "obs.http", "serving.fleet_worker",
+                "obs.fleet", "serving.router", "serving.serve_fleet",
+                "serving.fleet_observer", "router_check"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",
