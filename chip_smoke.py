@@ -205,6 +205,33 @@
    gets 503 with Retry-After. The ``fleet:`` line holds each stream's
    first divergence, the splices, #1's launches, the router overhead
    (its own buckets of a splice-free journey) and the phase's seconds.
+13. runs the MoE family at full width: the serving architecture with
+   the launchers' MoE defaults (8 experts, top-2 routing at capacity
+   factor 1.25 on the 4 odd layers). (a) one routed layer at T 2048,
+   d 512, bf16: the index form's slot assignment and weights equal to
+   the dense form's (``top_k_routing``) exactly, its output within the
+   bf16 rule of ``dense_moe_reference``'s, aux within 1e-5, both forms
+   timed; (b) ``train.run`` with ``--model moe`` at phase 7's shape for
+   5 steps (8/8/8/1/1 launches a step, the loss falls), and the batch-2
+   kernel step against the plain step (plain attention, plain loss,
+   ``dense_moe_reference``; phase 7's limits); (c) ``serve.py --model
+   moe`` (build_server) on the dense and the paged pool, 6 concurrent
+   greedy requests of 16-1100 tokens: 8 flash_fwd launches a dense
+   admission, none paged, the pool clean; each greedy stream equal to
+   greedy_decode's or first differing at a near tie (the 2e-2 rule);
+   the engine's calls recorded and replayed on a fresh engine of the
+   server's factory that routes through ``dense_moe_reference``, every
+   live row's token equal or the first difference at a near tie. A
+   dropping router routes each step's 8 slots and each admission's
+   padded bucket as one group, which greedy_decode's batch-1 calls do
+   not: the replay makes the same calls, and greedy_decode's rule
+   holds while a drop moves the logits less than the rule's limit
+   (PERF.md §6). The 8-slot step timed on each pool. (d) drop-free routing (capacity factor 4) with its
+   own draft at k 4 through the server on the paged pool: streams
+   against greedy_decode under the near-tie rule, acceptance at least
+   0.5, 8 flash_fwd launches a greedy admission; ``serve.py --model
+   moe --speculative-k 4`` refuses the dropping router at startup (on
+   2 layers and vocab 1024: the refusal reads the routing options).
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -217,6 +244,8 @@ printing any result. The last three lines of output are the
 chiprun_out/chip_smoke.json.
 """
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -1170,6 +1199,7 @@ def stream_divergence(torch, model, prompt, new, seq, wants=None):
     ``wants`` caches the oracle's streams by (prompt, new)."""
     from container_engine_accelerators_tpu_torch.models.decode import (
         greedy_decode,
+        logits_of,
     )
     key = (tuple(prompt), new)
     want = None if wants is None else wants.get(key)
@@ -1185,11 +1215,12 @@ def stream_divergence(torch, model, prompt, new, seq, wants=None):
     p = len(prompt)
     with torch.inference_mode():
         cache = model.init_cache(1, len(want))
-        logits = model(torch.tensor([prompt], device=model.device), cache,
-                       0)[0, -1]
+        logits = logits_of(model(torch.tensor([prompt], device=model.device),
+                                 cache, 0))[0, -1]
         for t in range(p, first):
-            logits = model(torch.tensor([[want[t]]], device=model.device),
-                           cache, t)[0, 0]
+            logits = logits_of(model(torch.tensor([[want[t]]],
+                                                  device=model.device),
+                                     cache, t))[0, 0]
     top = logits.float().topk(2).values
     gap = (top[0] - top[1]).item()
     limit = 2e-2 * logits.float().abs().max().item()
@@ -1988,16 +2019,19 @@ def drive_training(torch, train, kernels):
     return summary, launches
 
 
-def check_plain_step(torch, attn, convert, train, window=0):
+def check_plain_step(torch, attn, convert, train, window=0, extra=()):
     """One batch-2 step's loss and gradients through the kernels
     against the same step through the plain versions (attention_fn =
     the plain forward, with the band when ``window``; loss = the plain
-    cross_entropy_loss), on the same weights and batch."""
-    import functools
-
+    cross_entropy_loss), on the same weights and batch. ``extra``: more
+    driver flags; with ``--model moe`` both steps add the router's aux
+    loss, the plain step routes through ``dense_moe_reference`` and
+    takes the kernel step's expert choices (``RoutePin``)."""
+    from container_engine_accelerators_tpu_torch.models import moe
     from container_engine_accelerators_tpu_torch.models.transformer import (
         next_token_loss_fn,
     )
+    from container_engine_accelerators_tpu_torch.parallel import expert
     from container_engine_accelerators_tpu_torch.ops.xent import (
         mean_cross_entropy_loss,
     )
@@ -2006,7 +2040,8 @@ def check_plain_step(torch, attn, convert, train, window=0):
         cross_entropy_loss,
     )
     config = train.lm_config(train.parse_args(
-        train_argv(1, 0, PLAIN_BATCH) + ["--attention-window", str(window)]))
+        train_argv(1, 0, PLAIN_BATCH) + ["--attention-window", str(window)]
+        + list(extra)))
     tree = convert.init_flax_layout_params(config, SEED)
     tokens = next(SyntheticTokenLoader(PLAIN_BATCH, TRAIN_SEQ,
                                        config["vocab_size"],
@@ -2015,12 +2050,22 @@ def check_plain_step(torch, attn, convert, train, window=0):
     def plain_attention(q, k, v, causal, window=0):
         return attn.flash_attention_reference(q, k, v, causal, window)[0]
 
+    pin = RoutePin(torch, expert) if "num_experts" in config else None
+
     def step(attention_fn, loss):
         model = convert.load_lm(config, tree, device="cuda",
                                 trainable=True, attention_fn=attention_fn)
         loss_fn = next_token_loss_fn(functools.partial(
             loss, label_smoothing=0.0))
-        value = loss_fn(model(tokens), tokens)
+        routing = contextlib.nullcontext()
+        if pin is not None:
+            loss_fn = moe.with_router_loss(loss_fn)
+            routing = pin.recording()
+            if attention_fn is not None:
+                set_moe_fn(moe, model, expert.dense_moe_reference)
+                routing = pin.replaying()
+        with routing:
+            value = loss_fn(model(tokens), tokens)
         value.backward()
         grads = {n: p.grad for n, p in model.named_parameters()}
         return value.item(), grads
@@ -2034,7 +2079,10 @@ def check_plain_step(torch, attn, convert, train, window=0):
                loss_rel_err=abs(kernel_loss - plain_loss) / abs(plain_loss),
                grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
                grad_rel_l2_median=sorted(rel.values())[len(rel) // 2],
-               loss_tol=STEP_LOSS_TOL, grad_tol=STEP_GRAD_TOL, window=window)
+               loss_tol=STEP_LOSS_TOL, grad_tol=STEP_GRAD_TOL, window=window,
+               flags=list(extra))
+    if pin is not None:
+        out.update(route_choices=pin.total, route_flips=pin.flips)
     log("kernel step vs plain step:", json.dumps(out))
     if out["loss_rel_err"] > STEP_LOSS_TOL or rel[worst] > STEP_GRAD_TOL:
         raise AssertionError(f"kernel step differs from the plain step: "
@@ -2042,6 +2090,66 @@ def check_plain_step(torch, attn, convert, train, window=0):
     del kernel_grads, plain_grads
     torch.cuda.empty_cache()
     return out
+
+
+class RoutePin:
+    """Pins one step's expert choices in another. ``recording()``
+    keeps every routing call's choices (the argmax rounds of
+    ``expert._route``); ``replaying()`` makes each routing call, in the
+    same order, take the recorded choices and compute everything else
+    (probabilities, queue positions, drops, weights, aux) from its own
+    gate logits. A choice near a tie flips between two steps whose
+    hidden states round apart (flash against plain attention), and a
+    flip moves a token's whole expert output and shifts that expert's
+    queue: the kernel step and the plain step then differ by routing,
+    not by the kernels' rounding. ``flips`` counts the replayed choices
+    that differed from the step's own argmax, ``total`` all of
+    them."""
+
+    def __init__(self, torch, expert):
+        self.torch, self.expert = torch, expert
+        self.choices, self.flips, self.total = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        orig = self.expert._route
+        self.expert._route = functools.partial(fn, orig)
+        try:
+            yield
+        finally:
+            self.expert._route = orig
+
+    def recording(self):
+        def record(orig, gate_logits, capacity, top_k):
+            out = orig(gate_logits, capacity, top_k)
+            self.choices.append([idx for idx, _, _ in out[1]])
+            return out
+        return self._patched(record)
+
+    def replaying(self):
+        torch = self.torch
+        import torch.nn.functional as F
+
+        def replay(orig, gate_logits, capacity, top_k):
+            probs, own, _, _ = orig(gate_logits, capacity, top_k)
+            forced = self.choices.pop(0)
+            e = probs.shape[1]
+            counts = torch.zeros((e,), dtype=torch.long, device=probs.device)
+            assign_frac = torch.zeros((e,), device=probs.device)
+            chosen_mass = torch.zeros(probs.shape[:1], device=probs.device)
+            rounds = []
+            for idx, (own_idx, _, _) in zip(forced, own):
+                self.flips += int((idx != own_idx).sum())
+                self.total += idx.numel()
+                onehot = F.one_hot(idx, e)
+                assign_frac = assign_frac + onehot.float().mean(dim=0) / top_k
+                pos = self.expert._rank_in_expert(onehot, idx) + counts[idx]
+                w = probs.gather(1, idx[:, None])[:, 0]
+                chosen_mass = chosen_mass + w
+                counts = counts + (onehot * (pos < capacity)[:, None]).sum(0)
+                rounds.append((idx, pos, w))
+            return probs, rounds, assign_frac, chosen_mass
+        return self._patched(replay)
 
 
 def drive_window_training(torch, train, kernels):
@@ -3521,6 +3629,443 @@ def drive_fleet(torch, model, engines, wants):
     return report, {"fleet": {"flash_fwd": b_launches}}
 
 
+# ---------------------------------------------------------------------
+# Phase 13: the MoE family.
+# ---------------------------------------------------------------------
+
+# The LM serving architecture with the launchers' MoE defaults: 8
+# experts, top-2 routing at capacity factor 1.25 (a dropping router)
+# on the 4 odd layers, 67.1 M expert parameters.
+MOE = dict(MODEL, num_experts=8)
+MOE_ROUTE_T = 2048                  # the routing check's token group
+MOE_STEPS = 5
+MOE_WARMUP = 2
+MOE_NEW = 32
+# Concurrent greedy requests through serve.py: buckets 16 and 128, a
+# 300-token one and one past 1000 tokens (bucket 1920 on the dense
+# pool).
+MOE_SERVE = (16, 16, 100, 128, 300, 1100)
+MOE_SPEC = (16, 100, 700)            # drop-free speculation's requests
+MOE_AUX_TOL = 1e-5
+PATH_KERNELS.update({
+    "moe_training": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "xent_fwd", "xent_bwd"),
+    "moe_dense_serving": ("flash_fwd",),
+    "moe_spec_serving": ("flash_fwd",),
+})
+
+
+def set_moe_fn(moe, model, fn):
+    """Route every MoE layer of ``model`` through ``fn`` (None: back to
+    the class's ``expert.dense_moe``)."""
+    for m in model.modules():
+        if isinstance(m, moe.MoEMlp):
+            if fn is None:
+                m.__dict__.pop("moe_fn", None)
+            else:
+                m.moe_fn = fn
+
+
+def moe_argv(extra=()):
+    """serve.py's flags for MOE on the card."""
+    return ["--model", "moe", "--num-experts", str(MOE["num_experts"]),
+            "--model-name", "lm", "--port", "0",
+            "--vocab-size", str(MOE["vocab_size"]),
+            "--embed-dim", str(MOE["embed_dim"]),
+            "--num-layers", str(MOE["num_layers"]),
+            "--num-heads", str(MOE["num_heads"]),
+            "--num-kv-heads", str(MOE["num_kv_heads"]),
+            "--pos-embedding", MOE["pos_embedding"],
+            "--max-seq-len", str(MOE["max_seq_len"]),
+            "--max-new-tokens", str(MOE_NEW), "--max-batch", str(MAX_BATCH),
+            "--seed", str(SEED)] + list(extra)
+
+
+def moe_routing(torch):
+    """13a: one routed layer at the serving width (T 2048, d 512, E 8,
+    bf16 tokens and experts, f32 gate, lecun-scaled weights from a
+    seed): the index form's slot assignment must equal the dense
+    form's exactly, its output lie within the bf16 rule of
+    ``dense_moe_reference``'s and its aux within 1e-5. Both forms timed
+    by CUDA events."""
+    from container_engine_accelerators_tpu_torch.parallel import expert
+    gen = torch.Generator().manual_seed(SEED)
+    t, d, e = MOE_ROUTE_T, MOE["embed_dim"], MOE["num_experts"]
+    f = 4 * d
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda()
+
+    # A shared offset, as a residual stream has, skews the routing so
+    # that the preferred experts overflow their capacity.
+    tokens = (randn(t, d) + randn(1, d)).bfloat16()
+    gate = randn(d, e, scale=d ** -0.5)
+    w_in = randn(e, d, f, scale=(e * d) ** -0.5).bfloat16()
+    w_out = randn(e, f, d, scale=(e * f) ** -0.5).bfloat16()
+    cap = expert.expert_capacity(t, e, 1.25, 2)
+    logits = tokens.float() @ gate
+    dispatch, combine, aux_dense = expert.top_k_routing(logits, cap)
+    idx, slot, keep, weight, aux_idx = expert.top_k_routing_indices(
+        logits, cap)
+    rebuilt = torch.zeros_like(dispatch)
+    rows = torch.arange(t, device="cuda")[:, None].expand_as(idx)
+    rebuilt[rows[keep], idx[keep], slot[keep]] = 1.0
+    weights = torch.zeros_like(combine)
+    weights[rows[keep], idx[keep], slot[keep]] = weight[keep]
+    out, aux = expert.dense_moe(tokens, gate, w_in, w_out)
+    ref, ref_aux = expert.dense_moe_reference(tokens, gate, w_in, w_out)
+    err, tol = near(out, ref, "torch.bfloat16")
+    report = dict(
+        tokens=t, capacity=cap, kept=int(keep.sum()),
+        dropped=int((~keep).sum()),
+        assignment_equal=bool(torch.equal(rebuilt, dispatch)),
+        weights_equal=bool(torch.equal(weights, combine)),
+        max_abs_err=err, tol=tol, aux=float(aux),
+        aux_err=abs(float(aux) - float(ref_aux)),
+        aux_index_vs_dense=abs(float(aux_idx) - float(aux_dense)),
+        index_ms=cuda_ms(lambda: expert.dense_moe(tokens, gate, w_in,
+                                                  w_out), 20),
+        plain_ms=cuda_ms(lambda: expert.dense_moe_reference(
+            tokens, gate, w_in, w_out), 20))
+    log("moe routing:", json.dumps(report))
+    if not (report["assignment_equal"] and report["weights_equal"]):
+        raise AssertionError(f"moe: the index form's slots differ from the "
+                             f"dense form's: {report}")
+    if err > tol or report["aux_err"] > MOE_AUX_TOL or not report["dropped"]:
+        raise AssertionError(f"moe: index form against the reference: "
+                             f"{report}")
+    return report
+
+
+def moe_training(torch, train, attn, convert, kernels):
+    """13b: MOE_STEPS steps of ``--model moe`` through the driver at
+    phase 7's shape (8/8/8/1/1 launches a step, the loss falls), then
+    the batch-2 kernel step against the plain step (phase 7's limits;
+    the plain step routes through ``dense_moe_reference``)."""
+    argv = train_argv(MOE_STEPS, MOE_WARMUP) + [
+        "--model", "moe", "--num-experts", str(MOE["num_experts"])]
+    per_step = (MOE["num_layers"],) * 3 + (1, 1)
+    summary, launches, _, _ = drive(torch, train, kernels, argv, per_step,
+                                    MOE_WARMUP)
+    losses, result = summary["losses"], summary["driver_result"]
+    summary["tokens_per_s"] = result["tokens_per_sec"]
+    log("moe train:", json.dumps(summary))
+    if not (losses[-1] < losses[0] and result["model"] == "moe"):
+        raise AssertionError(f"moe: loss did not fall: {losses} {result}")
+    torch.cuda.empty_cache()
+    summary["plain_step"] = check_plain_step(
+        torch, attn, convert, train,
+        extra=("--model", "moe", "--num-experts", str(MOE["num_experts"])))
+    return summary, launches
+
+
+class EngineRecorder:
+    """Records a live engine's admit/step/release calls (arguments and
+    results) for a replay on another engine."""
+
+    NAMES = ("admit", "step", "release")
+
+    def __init__(self, engine):
+        self.calls = []
+        self.engine = engine
+        for name in self.NAMES:
+            setattr(engine, name, self._wrap(name, getattr(engine, name)))
+
+    def detach(self):
+        """The engine's own methods again."""
+        for name in self.NAMES:
+            del self.engine.__dict__[name]
+
+    def _wrap(self, name, fn):
+        import copy
+
+        def call(*args, **kwargs):
+            args, kwargs = copy.deepcopy(args), copy.deepcopy(kwargs)
+            try:
+                out = fn(*args, **kwargs)
+            except Exception as e:
+                self.calls.append((name, args, kwargs, None, type(e)))
+                raise
+            self.calls.append((name, args, kwargs, copy.deepcopy(out), None))
+            return out
+        return call
+
+
+def moe_replay(torch, moe, expert, server, recorder):
+    """The recorded calls again, on a fresh engine from the server's
+    own factory whose MoE layers route through ``dense_moe_reference``
+    (the JAX einsums): the same calls group the same tokens, so every
+    first token and step token of a live row must agree, or first
+    differ where the reference's top two logits lie within 2e-2 of its
+    largest (PERF.md §2's bf16 rule); the replay stops there."""
+    model = server.engine._model
+    last = {}
+    hook = model.register_forward_hook(
+        lambda _m, _i, out: last.__setitem__("logits", out[0]))
+    set_moe_fn(moe, model, expert.dense_moe_reference)
+    engine = server._engine_service._engine_factory()
+    if engine.paged != server.engine.paged:
+        raise AssertionError("moe replay: the factory built another pool")
+    live, compared, divergence = set(), 0, None
+
+    def margin(logits, kind, index, slot):
+        top = logits.float().topk(2).values
+        gap = (top[0] - top[1]).item()
+        limit = 2e-2 * logits.float().abs().max().item()
+        return dict(call=index, kind=kind, slot=slot, top2_gap=gap,
+                    limit=limit, near_tie=gap <= limit)
+
+    try:
+        for i, (name, args, kwargs, out, error) in enumerate(recorder.calls):
+            if error is not None:
+                try:
+                    getattr(engine, name)(*args, **kwargs)
+                except error:
+                    continue
+                raise AssertionError(f"moe replay: call {i} {name} did not "
+                                     f"raise {error.__name__}")
+            got = getattr(engine, name)(*args, **kwargs)
+            if name == "release":
+                live.discard(args[0])
+                continue
+            if name == "admit":
+                if got[0] != out[0]:
+                    raise AssertionError(f"moe replay: admission {i} took "
+                                         f"slot {got[0]}, not {out[0]}")
+                live.add(got[0])
+                compared += 1
+                if got[1] != out[1]:
+                    divergence = margin(last["logits"][0, args[1] - 1],
+                                        "admit", i, got[0])
+                    break
+                continue
+            for slot in sorted(live):
+                compared += 1
+                if int(got[0][slot]) != int(out[0][slot]):
+                    divergence = margin(last["logits"][slot, 0], "step", i,
+                                        slot)
+                    break
+            if divergence is not None:
+                break
+    finally:
+        hook.remove()
+        set_moe_fn(moe, model, None)
+    return dict(calls=len(recorder.calls), tokens_compared=compared,
+                divergence=divergence)
+
+
+def moe_step_ms(torch, engine, rng):
+    """Host clock around 20 synced decode steps with every slot
+    active (16-token prompts)."""
+    vocab = MOE["vocab_size"]
+    slots = [engine.admit(rng.integers(0, vocab, 16), 16)[0]
+             for _ in range(engine.slots)]
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        engine.step()
+    ms = 1e3 * (time.perf_counter() - t0) / 20
+    for slot in slots:
+        engine.release(slot)
+    return ms
+
+
+def moe_serving(torch, kernels, rng):
+    """13c: ``serve.py --model moe`` (build_server) on the dense pool
+    (CEA_TPU_PAGED_KV=0 while it builds) and on the paged pool:
+    MOE_SERVE greedy requests at once, MOE_NEW tokens each, through
+    HTTP. Launch counts set to 0 just before the traffic and read just
+    after: 8 flash_fwd a dense admission, none paged. The engine's
+    calls are recorded and replayed with the plain routing form
+    (``moe_replay``). Each greedy stream must also meet greedy_decode
+    by the near-tie rule, though a dropping router routes each step's 8
+    slots and each admission's padded bucket as one group where
+    greedy_decode makes batch-1 calls: the rule holds while a drop
+    moves the logits less than its limit. Returns (report, launches by
+    path)."""
+    from container_engine_accelerators_tpu_torch.models import moe
+    from container_engine_accelerators_tpu_torch.parallel import expert
+    from container_engine_accelerators_tpu_torch.serving import serve
+    report, launches = {}, {}
+    vocab = MOE["vocab_size"]
+    for pool in ("dense", "paged"):
+        if pool == "dense":
+            os.environ["CEA_TPU_PAGED_KV"] = "0"
+        try:
+            server = serve.build_server(serve.parse_args(moe_argv()))
+        finally:
+            os.environ.pop("CEA_TPU_PAGED_KV", None)
+        eng = server.engine
+        if (eng.paged != (pool == "paged")
+                or not isinstance(eng._model, moe.MoETransformerLM)):
+            raise AssertionError(f"moe: the launcher built the wrong {pool} "
+                                 f"engine")
+        recorder = EngineRecorder(eng)
+        payloads = [{"prompts": [rng.integers(0, vocab, n).tolist()],
+                     "max_new_tokens": MOE_NEW} for n in MOE_SERVE]
+        results, errors = [None] * len(payloads), []
+
+        def client(i):
+            try:
+                results[i] = post(server.port, payloads[i])
+            except Exception as e:  # reported below, fails the run
+                errors.append(repr(e))
+
+        server.start()
+        try:
+            for kern in kernels:
+                kern.launches = 0
+            prefills0 = eng.prefills
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(payloads))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            counts = {kern.name: kern.launches for kern in kernels}
+            admissions = eng.prefills - prefills0
+            stats = get(server.port, "/stats")
+        finally:
+            server.stop()
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"moe {pool} requests failed: {errors}")
+        streams = []
+        for pay, (status, body) in zip(payloads, results):
+            p, seq = pay["prompts"][0], body["sequences"][0]
+            if status != 200 or len(seq) != len(p) + MOE_NEW or not all(
+                    0 <= t < vocab for t in seq):
+                raise AssertionError(f"bad moe response {status}: {body}")
+            streams.append((p, seq))
+        recorder.detach()
+        replay = moe_replay(torch, moe, expert, server, recorder)
+        oracle = [stream_divergence(torch, eng._model, p, MOE_NEW, seq)
+                  for p, seq in streams]
+        entry = dict(
+            launches=counts, admissions=admissions, wall_s=wall,
+            tokens_per_s=len(MOE_SERVE) * MOE_NEW / wall, replay=replay,
+            prefix_hits=stats.get("prefix_hits"),
+            greedy_decode_agreement=dict(
+                streams=len(oracle), equal=oracle.count(None),
+                diverged=[d for d in oracle if d is not None]),
+            leaks=eng.pool_leak_report(),
+            step_ms=moe_step_ms(torch, eng, rng))
+        report[pool] = entry
+        log(f"moe serving ({pool}):", json.dumps(entry))
+        want = MOE["num_layers"] * admissions if pool == "dense" else 0
+        if (counts["flash_fwd"] != want or admissions != len(MOE_SERVE)
+                or any(v for k, v in counts.items() if k != "flash_fwd")):
+            raise AssertionError(f"moe {pool} serving launched {counts} for "
+                                 f"{admissions} admissions; want {want} "
+                                 f"flash_fwd")
+        if entry["leaks"] is not None or stats.get("prefix_hits"):
+            raise AssertionError(f"moe {pool}: leaks {entry['leaks']}, "
+                                 f"prefix hits {stats.get('prefix_hits')}")
+        off_tie = [d for d in oracle if d is not None and not d["near_tie"]]
+        if off_tie:
+            raise AssertionError(f"moe {pool}: streams leave greedy_decode "
+                                 f"off a near tie: {off_tie}")
+        if replay["divergence"] is not None \
+                and not replay["divergence"]["near_tie"]:
+            raise AssertionError(f"moe {pool}: the engine diverges from the "
+                                 f"plain routing off a near tie: {replay}")
+        launches[f"moe_{pool}_serving"] = counts
+        del server, eng, recorder
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def moe_speculation(torch, convert, kernels, rng):
+    """13d: drop-free routing (capacity_factor 4 = E / top_k) on the
+    same weights, its own draft at k 4, through GenerationServer on the
+    paged pool: greedy streams against greedy_decode (drop-free routing
+    does not depend on the call's other tokens) under the near-tie
+    rule, acceptance >= SPEC_ACCEPT_ENGINE, 8 flash_fwd launches a
+    greedy admission (the draft's one-shot prefill). Then
+    ``serve.py --model moe --speculative-k 4`` (capacity 1.25) must
+    fail at construction."""
+    from container_engine_accelerators_tpu_torch.serving import serve
+    from container_engine_accelerators_tpu_torch.serving.server import (
+        GenerationServer,
+    )
+    config = dict(MOE, capacity_factor=MOE["num_experts"] / 2)
+    # The launcher's weights (its tree from --seed), routed drop-free.
+    model = convert.load_lm(config, convert.init_flax_layout_params(MOE,
+                                                                    SEED))
+    server = GenerationServer("lm", model, port=0, max_new_tokens=MOE_NEW,
+                              max_batch=MAX_BATCH, host="127.0.0.1",
+                              draft_model=model, speculative_k=SPEC_K)
+    eng = server.engine
+    server.start()
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        prefills0 = eng.prefills
+        greedy = spec_server_traffic(server, rng, MOE_SPEC)
+        counts = {kern.name: kern.launches for kern in kernels}
+        admissions = eng.prefills - prefills0
+        stats = get(server.port, "/stats")
+    finally:
+        server.stop()
+    diverged = [d for d in (stream_divergence(torch, model, p, new, seq)
+                            for p, new, seq in greedy) if d is not None]
+    report = dict(launches=counts, admissions=admissions,
+                  greedy=len(greedy), greedy_diverged=diverged,
+                  acceptance=stats.get("speculative_acceptance_rate"),
+                  accepted_tokens_per_step=stats.get(
+                      "accepted_tokens_per_step"),
+                  draft_prefills=stats.get("draft_prefills"),
+                  leaks=eng.pool_leak_report())
+    try:
+        # The refusal reads the routing options alone: two layers and a
+        # small vocab make it quick.
+        serve.build_server(serve.parse_args(moe_argv(
+            ["--speculative-k", str(SPEC_K), "--num-layers", "2",
+             "--vocab-size", "1024"])))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    report["dropping_refused"] = refused
+    log("moe speculation:", json.dumps(report))
+    want = MOE["num_layers"] * len(MOE_SPEC)
+    if (counts["flash_fwd"] != want or not eng.paged
+            or any(v for k, v in counts.items() if k != "flash_fwd")
+            or admissions != len(MOE_SPEC) + 1):
+        raise AssertionError(f"moe speculation launched {counts} for "
+                             f"{admissions} admissions; want {want}")
+    if not all(d["near_tie"] for d in diverged) or report["leaks"]:
+        raise AssertionError(f"moe speculation: {report}")
+    if (report["acceptance"] or 0) < SPEC_ACCEPT_ENGINE:
+        raise AssertionError(f"moe speculation acceptance "
+                             f"{report['acceptance']} < {SPEC_ACCEPT_ENGINE}")
+    if not refused or "drop" not in refused:
+        raise AssertionError(f"moe: a dropping router served with "
+                             f"--speculative-k: {refused}")
+    del server, eng, model
+    torch.cuda.empty_cache()
+    return report, {"moe_spec_serving": counts}
+
+
+def drive_moe(torch, train, attn, convert, kernels, rng):
+    """Phase 13 (see the module docstring). Returns (report, launches by
+    path)."""
+    t0 = time.perf_counter()
+    report = {"routing": moe_routing(torch)}
+    report["train"], train_launches = moe_training(torch, train, attn,
+                                                   convert, kernels)
+    launches = {"moe_training": train_launches}
+    report["serving"], serving = moe_serving(torch, kernels, rng)
+    launches.update(serving)
+    report["spec"], spec = moe_speculation(torch, convert, kernels, rng)
+    launches.update(spec)
+    report["phase_s"] = time.perf_counter() - t0
+    log(f"moe phase: {report['phase_s']:.1f} s")
+    return report, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3689,6 +4234,10 @@ def main():
         for proc, _, _ in fleet_engines.values():
             stop_process(proc)
 
+    # Phase 13: the MoE family.
+    report["moe"], moe_launches = drive_moe(torch, train, attention,
+                                            convert, all_kernels, rng)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -3738,6 +4287,8 @@ def main():
             by_path[path] = counts[name]
         for path, counts in fleet_launches.items():
             by_path[path] = counts.get(name, 0)
+        for path, counts in moe_launches.items():
+            by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -3788,7 +4339,10 @@ def main():
         f"(8); serving contract phase "
         f"{report['contract']['phase_s']:.1f} s; fleet phase "
         f"{report['fleet']['phase_s']:.1f} s, router overhead "
-        f"{report['fleet']['router_overhead_ms']} ms a request")
+        f"{report['fleet']['router_overhead_ms']} ms a request; MoE "
+        f"training {report['moe']['train']['tokens_per_s']:.0f} tokens/s, "
+        f"{report['moe']['train']['step_ms_mean']:.2f} ms a step, MoE "
+        f"phase {report['moe']['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Carry TransformerLM and image-model weights between the flax layout
-and the port.
+"""Carry TransformerLM, MoETransformerLM and image-model weights
+between the flax layout and the port.
 
 The flax tree (numpy leaves, f32) names each parameter by module path:
 ``tok_embed/embedding``, ``pos_embed/embedding`` (learned positions),
@@ -28,6 +28,12 @@ inverse, and ``flax_shapes`` the table of every leaf's flax path and
 shape behind both; the weight-decay mask of the trainer reads the
 flax ranks from it (the attention biases are rank 2-3 in flax and
 rank 1 here).
+
+A MoETransformerLM tree (``num_experts`` in the config) has, at each
+odd (routed) layer, ``block{i}/moe/gate`` [E_model, experts],
+``moe/w_in`` [experts, E_model, 4E] and ``moe/w_out`` [experts, 4E,
+E_model] in place of ``Dense_0``/``Dense_1``; the port keeps these
+leaves in the same layout and rank (``blocks.{i}.moe.*``).
 
 A ``weights="int8"`` tree (``models.quantized.convert_params_int8``,
 or ``quantize_lm`` here) holds ``kernel_q`` int8 [in, *out], ``scale``
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from .layers import _TRUNC_STD, BatchNorm, Conv
+from .moe import MoETransformerLM
 from .quantized import convert_params_int8
 from .transformer import TransformerLM
 
@@ -83,10 +90,12 @@ def _count_leaves(tree):
 
 def flax_shapes(config):
     """{port state_dict name: (flax leaf path, flax shape)} for a
-    TransformerLM ``config`` (its keyword arguments); with
-    ``weights="int8"`` the projections' ``kernel_q``, ``scale`` and
-    ``bias``."""
+    TransformerLM ``config`` (its keyword arguments; a MoETransformerLM's
+    with ``num_experts``); with ``weights="int8"`` the projections'
+    ``kernel_q``, ``scale`` and ``bias`` (the expert leaves stay
+    native)."""
     e, v = config["embed_dim"], config["vocab_size"]
+    experts = config.get("num_experts") or 0
     quant = config.get("weights", "native") == "int8"
     heads = config["num_heads"]
     kv = config.get("num_kv_heads") or heads
@@ -118,6 +127,12 @@ def flax_shapes(config):
             dense(f"{name}.attn.kv", (blk, "attn", "kv"), e, (2, kv, d))
         dense(f"{name}.attn.proj", (blk, "attn", "proj"), e, (e,))
         norm(f"{name}.ln", (blk, "LayerNorm_0"))
+        if experts and i % 2 == 1:
+            for leaf, shape in (("gate", (e, experts)),
+                                ("w_in", (experts, e, hidden)),
+                                ("w_out", (experts, hidden, e))):
+                out[f"{name}.moe.{leaf}"] = ((blk, "moe", leaf), shape)
+            continue
         dense(f"{name}.mlp_in", (blk, "Dense_0"), e, (hidden,))
         dense(f"{name}.mlp_out", (blk, "Dense_1"), hidden, (e,))
     norm("ln_f", ("LayerNorm_0",))
@@ -152,9 +167,10 @@ def params_to_flax(model_or_state_dict, config):
 
 
 def params_from_flax(tree):
-    """flax TransformerLM params (a nested mapping of arrays, native or
-    weights="int8") -> a state_dict for the port's TransformerLM (CPU
-    tensors: int8 quantized weights, f32 everything else)."""
+    """flax TransformerLM or MoETransformerLM params (a nested mapping
+    of arrays, native or weights="int8") -> a state_dict for the port's
+    model (CPU tensors: int8 quantized weights, f32 everything else; a
+    routed layer's ``moe`` leaves keep their flax layout)."""
     out = {}
 
     def tensor(value):
@@ -184,6 +200,10 @@ def params_from_flax(tree):
             put(f"{name}.attn.kv", _dense(tree, (blk, "attn", "kv")))
         put(f"{name}.attn.proj", _dense(tree, (blk, "attn", "proj")))
         put(f"{name}.ln", _norm(tree, (blk, "LayerNorm_0")))
+        if "moe" in tree[blk]:
+            put(f"{name}.moe", {leaf: tree[blk]["moe"][leaf]
+                                for leaf in ("gate", "w_in", "w_out")})
+            continue
         put(f"{name}.mlp_in", _dense(tree, (blk, "Dense_0")))
         put(f"{name}.mlp_out", _dense(tree, (blk, "Dense_1")))
     put("ln_f", _norm(tree, ("LayerNorm_0",)))
@@ -193,7 +213,7 @@ def params_from_flax(tree):
         # silently.
         raise ValueError(
             f"flax tree has {_count_leaves(tree)} leaves, converted "
-            f"{len(out)}: not a TransformerLM tree")
+            f"{len(out)}: not a TransformerLM or MoETransformerLM tree")
     return out
 
 
@@ -203,20 +223,44 @@ def init_flax_layout_params(config, seed):
     from ``seed`` with numpy alone (no JAX). Kernels are lecun-normal
     (std 1/sqrt(fan_in)), embeddings normal with std 1/sqrt(E);
     biases and norm affines get small random values so that a
-    conversion that drops or misplaces them shows."""
+    conversion that drops or misplaces them shows. A routed layer's
+    ``gate``, ``w_in`` and ``w_out`` take flax's lecun_normal itself (a
+    normal cut at two standard deviations), whose fan-in counts the
+    leading expert axis of a stacked kernel: std 1/sqrt(d) for the gate,
+    1/sqrt(E * d) for w_in and 1/sqrt(E * f) for w_out."""
     rng = np.random.default_rng(seed)
     e = config["embed_dim"]
     tree = {}
     for path, shape in flax_shapes(dict(config, weights="native")).values():
         leaf = path[-1]
-        std = {"embedding": e ** -0.5,
-               "kernel": shape[0] ** -0.5}.get(leaf, 0.02)
-        value = (rng.standard_normal(shape) * std).astype(np.float32)
+        if leaf in ("gate", "w_in", "w_out"):
+            value = _lecun_normal(rng, shape)
+        else:
+            std = {"embedding": e ** -0.5,
+                   "kernel": shape[0] ** -0.5}.get(leaf, 0.02)
+            value = (rng.standard_normal(shape) * std).astype(np.float32)
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[leaf] = 1.0 + value if leaf == "scale" else value
     return tree
+
+
+def _lecun_normal(rng, shape):
+    """flax's lecun_normal on ``shape`` (numpy): a standard normal cut
+    at +-2 (redrawn outside), scaled to std 1/sqrt(fan_in) with fan_in =
+    shape[-2] times the receptive field, every axis before the last
+    two."""
+    value = rng.standard_normal(shape)
+    flat = value.reshape(-1)
+    # Redraw the cut entries in index order until none is left (only
+    # the redrawn ones need a second look).
+    out = np.flatnonzero(np.abs(flat) > 2.0)
+    while out.size:
+        flat[out] = rng.standard_normal(out.size)
+        out = out[np.abs(flat[out]) > 2.0]
+    value *= np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNC_STD
+    return value.astype(np.float32)
 
 
 def image_layout(model):
@@ -318,13 +362,7 @@ def init_flax_layout_image(model, seed):
     for name, (collection, path, shape) in image_layout(model).items():
         leaf = path[-1]
         if leaf == "kernel":
-            value = rng.standard_normal(shape)
-            while True:
-                out = np.abs(value) > 2.0
-                if not out.any():
-                    break
-                value[out] = rng.standard_normal(int(out.sum()))
-            value *= np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNC_STD
+            value = _lecun_normal(rng, shape)
         elif leaf == "scale":
             zero = modules[name.rsplit(".", 1)[0]].zero_scale
             value = np.zeros(shape) if zero else np.ones(shape)
@@ -366,9 +404,10 @@ def quantize_lm(config, tree):
 def load_lm(config, tree, device="cuda", dtype=torch.bfloat16,
             trainable=False, attention_fn=None):
     """Build the port's TransformerLM from ``config`` (TransformerLM
-    keyword arguments) on ``device`` and load a flax-layout tree into
-    it (native, or int8 with ``weights="int8"`` in ``config``). Runs on
-    the card unless the caller asks for ``device="cpu"``.
+    keyword arguments; a MoETransformerLM when it has ``num_experts``)
+    on ``device`` and load a flax-layout tree into it (native, or int8
+    with ``weights="int8"`` in ``config``). Runs on the card unless the
+    caller asks for ``device="cpu"``.
 
     For serving (the default) the parameters are held in the compute
     ``dtype`` and frozen, in eval mode. ``trainable=True`` holds them
@@ -378,9 +417,9 @@ def load_lm(config, tree, device="cuda", dtype=torch.bfloat16,
         raise ValueError("int8 weights are for serving; "
                          "trainable=True needs native weights")
     param_dtype = torch.float32 if trainable else dtype
-    model = TransformerLM(**config, dtype=dtype, device=device,
-                          param_dtype=param_dtype,
-                          attention_fn=attention_fn)
+    cls = MoETransformerLM if config.get("num_experts") else TransformerLM
+    model = cls(**config, dtype=dtype, device=device,
+                param_dtype=param_dtype, attention_fn=attention_fn)
     model.load_state_dict(params_from_flax(tree))
     if trainable:
         return model.train().requires_grad_(True)

@@ -46,6 +46,13 @@ Counterpart of container_engine_accelerators_tpu/models/decode.py:
   host block upkeep), so a ``CEA_TPU_FAULT_PLAN`` fires at the same
   invocation of the same trace on both.
 
+Every path takes the MoE family too, whose forward returns (logits,
+aux) and is read through ``logits_of``. A dropping router makes a
+token's output depend on the other tokens of its forward call, so each
+call here holds exactly the tokens of the JAX call it mirrors: a step
+feeds every slot (free rows' scratch tokens included), an admission its
+whole bucket-padded chunk.
+
 JAX's programs are pure; here the engine's cache is updated in place
 (the dense admission prefill writes straight into its slot's row
 instead of into a batch-1 cache that is then copied in, and the paged
@@ -134,6 +141,12 @@ def kv_token_bytes(model, mode="bf16"):
     else:
         per_head = float(d * model.dtype.itemsize)
     return 2.0 * kv_heads * per_head
+
+
+def logits_of(outputs):
+    """A forward's logits: the MoE family returns (logits, aux), the
+    dense LM its logits (the JAX package's ``_logits_of``)."""
+    return outputs[0] if isinstance(outputs, tuple) else outputs
 
 
 # --------------------------------------------------------------------
@@ -269,11 +282,11 @@ def greedy_decode(model, prompt, max_new_tokens, kv_quant=None):
     if max_new_tokens <= 0:
         return prompt.clone()
     cache = model.init_cache(b, p + max_new_tokens, quant=kv_quant)
-    logits = model(prompt, cache, 0)
+    logits = logits_of(model(prompt, cache, 0))
     tok = torch.argmax(logits[:, -1], dim=-1)
     out = [prompt, tok[:, None]]
     for t in range(p, p + max_new_tokens - 1):
-        logits = model(tok[:, None], cache, t)
+        logits = logits_of(model(tok[:, None], cache, t))
         tok = torch.argmax(logits[:, 0], dim=-1)
         out.append(tok[:, None])
     return torch.cat(out, dim=1)
@@ -435,7 +448,7 @@ def _generate(model, cache, offset, prompt, prompt_len, max_new_tokens,
     toks, lps = [], []
 
     def step(tok, t, done):
-        raw = model(tok[:, None], cache, offset + t)[:, 0]
+        raw = logits_of(model(tok[:, None], cache, offset + t))[:, 0]
         nxt, done = _advance_token(chain.pick(raw), padded, t, plen, done,
                                    chain.eos_row)
         if logprobs:
@@ -447,7 +460,8 @@ def _generate(model, cache, offset, prompt, prompt_len, max_new_tokens,
     if fast_prefill and max_new_tokens > 0:
         if chain.use_rp:
             chain.seen[chain.rows[:, None], prompt] = True
-        pre = model(prompt, cache, offset, chunk_attends_cache=attend_cache)
+        pre = logits_of(model(prompt, cache, offset,
+                              chunk_attends_cache=attend_cache))
         first = chain.pick(pre[:, -1])
         done = chain.first_done(first)
         chain.mark(first)
@@ -736,7 +750,8 @@ def beam_search(model, prompt, max_new_tokens, *, num_beams=4,
     alpha = torch.tensor(float(length_penalty), dtype=torch.float32,
                          device=dev)
     cache = model.init_cache(b, p + n_new)
-    logprobs = torch.log_softmax(model(prompt, cache, 0)[:, -1].float(), -1)
+    logprobs = torch.log_softmax(
+        logits_of(model(prompt, cache, 0))[:, -1].float(), -1)
     v = logprobs.shape[-1]
     # Beam rows of one batch element are adjacent (row b * k + j).
     cache = map_cache(lambda a: a.repeat_interleave(k, dim=0), cache)
@@ -788,7 +803,7 @@ def beam_search(model, prompt, max_new_tokens, *, num_beams=4,
         seqs, scores, finished, gen_len, token, flat_parent, _ = select(
             seqs, scores, finished, gen_len, logprobs, t)
         cache = map_cache(lambda a: a[flat_parent], cache)
-        logits = model(token.reshape(b * k, 1), cache, p + t)
+        logits = logits_of(model(token.reshape(b * k, 1), cache, p + t))
         logprobs = torch.log_softmax(logits[:, 0].float(), dim=-1)
     seqs, scores, _, _, _, _, eff = select(seqs, scores, finished, gen_len,
                                            logprobs, n_new - 1)
@@ -1157,7 +1172,8 @@ def _slot_prefill(model, row, prompt_len, cache, knobs, generator):
     [bucket] f32, seen_row [V] bool)."""
     index = (torch.zeros((1,), dtype=torch.long, device=row.device)
              if model.attention_window else 0)
-    return _prefill_tail(model(row, cache, index)[0], row, prompt_len,
+    return _prefill_tail(logits_of(model(row, cache, index))[0], row,
+                         prompt_len,
                          knobs, generator)
 
 
@@ -1188,11 +1204,11 @@ def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
     echo [width], seen_row [V] bool)."""
     cache = _arena_to_dense(arena, prefix_table, slot_len)
     if model.attention_window:
-        logits = model(row, cache, torch.full((1,), int(shared_len),
-                                              device=row.device))
+        logits = logits_of(model(row, cache, torch.full(
+            (1,), int(shared_len), device=row.device)))
     else:
-        logits = model(row, cache, int(shared_len),
-                       chunk_attends_cache=True)
+        logits = logits_of(model(row, cache, int(shared_len),
+                                 chunk_attends_cache=True))
     return (cache,) + _prefill_tail(logits[0], row, suffix_len, knobs,
                                     generator)
 
@@ -1207,7 +1223,8 @@ def _draft_scan(draft, cache, row_pos, tok, k, span, block_table=None):
     props = []
     for j in range(k - 1):
         pos = torch.clamp(row_pos + j, max=span - 1)
-        logits = draft(tok[:, None], cache, pos, block_table=block_table)
+        logits = logits_of(draft(tok[:, None], cache, pos,
+                                 block_table=block_table))
         tok = torch.argmax(logits[:, 0], dim=-1)
         props.append(tok)
     return torch.stack(props, dim=1)
@@ -2117,9 +2134,9 @@ class SlotDecodeEngine:
         else:
             props = torch.zeros((self.slots, k - 1), dtype=torch.long,
                                 device=dev)
-        raw = self._model(torch.cat([tok[:, None], props], dim=1),
-                          self._cache, torch.clamp(row_pos, max=span - 1),
-                          block_table=tables)
+        raw = logits_of(self._model(
+            torch.cat([tok[:, None], props], dim=1), self._cache,
+            torch.clamp(row_pos, max=span - 1), block_table=tables))
         toks, lps, counts = _verify_commit(
             raw, props, torch.as_tensor(gate, device=dev),
             torch.as_tensor(self._active, device=dev), self._seen,
@@ -2163,14 +2180,14 @@ class SlotDecodeEngine:
             limit = self._n_blk * self._block_size - 1
             pos = torch.as_tensor(np.minimum(self._row_pos, limit),
                                   device=dev)
-            raw = self._model(tok, self._cache, pos,
-                              block_table=torch.as_tensor(self._tables,
-                                                          device=dev))
+            raw = logits_of(self._model(
+                tok, self._cache, pos,
+                block_table=torch.as_tensor(self._tables, device=dev)))
         else:
             faults.fire("step")
             pos = torch.as_tensor(
                 np.minimum(self._row_pos, self.slot_len - 1), device=dev)
-            raw = self._model(tok, self._cache, pos)
+            raw = logits_of(self._model(tok, self._cache, pos))
         nxt, lp = _slot_sample(raw[:, 0], self._seen, self._knobs,
                                self._generators)
         self._seen[torch.arange(self.slots, device=dev), nxt] = True

@@ -42,6 +42,10 @@ the JAX function's distribution, not its threefry numbers.
 The prompt prefills (target and draft) are one-shot forwards on the
 flash kernel; the draft steps and the verify chunks attend the cache
 through the grouped product, as the JAX package runs them in XLA.
+
+Either model may be a MoETransformerLM with drop-free routing
+(capacity_factor * top_k >= num_experts): a dropping router scores a
+token of a width-k chunk unlike a single-token step, and is refused.
 """
 
 import inspect
@@ -55,6 +59,7 @@ from .decode import (
     _mask_top_k_rows,
     _mask_top_p,
     _token_logprob,
+    logits_of,
 )
 from .transformer import map_cache
 
@@ -181,7 +186,7 @@ def _spec_impl(model, draft_model, prompt, max_new_tokens, k, *, plen,
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         walked, walked_lp = [], []
         for t in range(p):
-            logits = model(tok[:, None], t_cache, p0 + t)[:, 0]
+            logits = logits_of(model(tok[:, None], t_cache, p0 + t))[:, 0]
             in_prompt = t + 1 < plen
             tok = torch.where(in_prompt, padded[:, t + 1],
                               pick(logits, "walk"))
@@ -205,7 +210,8 @@ def _spec_impl(model, draft_model, prompt, max_new_tokens, k, *, plen,
         # Full-width prompts: one forward each; the target's last
         # logits give the first generated token (decode()'s fast
         # prefill).
-        outs = model(prompt, t_cache, p0, chunk_attends_cache=mid)
+        outs = logits_of(model(prompt, t_cache, p0,
+                               chunk_attends_cache=mid))
         first = pick(outs[:, -1], "first")
         done = ((first == eos_row) if use_eos
                 else torch.zeros((b,), dtype=torch.bool, device=dev))
@@ -238,7 +244,8 @@ def _spec_impl(model, draft_model, prompt, max_new_tokens, k, *, plen,
         # fully accepted round would leave the draft a key short.
         tok, done_d, proposals, qs = last, done, [], []
         for j in range(k):
-            logits = draft_model(tok[:, None], d_cache, pos + j)[:, 0]
+            logits = logits_of(draft_model(tok[:, None], d_cache,
+                                           pos + j))[:, 0]
             tok = pick(logits, "draft")
             if use_eos:
                 tok = torch.where(done_d, eos_row, tok)
@@ -250,8 +257,8 @@ def _spec_impl(model, draft_model, prompt, max_new_tokens, k, *, plen,
             torch.zeros((b, 0), dtype=torch.long, device=dev))
         # Verify: ONE width-k chunk at the position of `last`; column j
         # predicts the token after chunk position j.
-        vl = model(torch.cat([last[:, None], d], dim=1), t_cache, pos,
-                   chunk_attends_cache=True)
+        vl = logits_of(model(torch.cat([last[:, None], d], dim=1), t_cache,
+                             pos, chunk_attends_cache=True))
         if sample:
             v = vl.shape[-1]
             pd = dist(vl.reshape(b * k, v), reps=k).reshape(b, k, v)

@@ -664,6 +664,20 @@ class TransformerLM(nn.Module):
         a ``RingCache``) and the write offset (int, or [B] per-row
         positions); ``block_table`` [B, n_blk] maps each row's logical
         blocks to arena blocks of a paged cache."""
+        x, layers, slot_pos = self._embed(tokens, cache, index)
+        for block, layer_cache in zip(self.blocks, layers):
+            x = block(x, layer_cache, index, block_table,
+                      chunk_attends_cache, slot_pos)
+        return self._head(x)
+
+    def _head(self, x):
+        """The final norm and the f32 lm_head on an f32 copy."""
+        return self.lm_head(self.ln_f(x).float())
+
+    def _embed(self, tokens, cache, index):
+        """The embedded input, each layer's cache (None without one)
+        and a ring's slot positions (written for this call), as
+        ``forward`` reads them."""
         s = tokens.shape[1]
         if s > self.max_seq_len:
             raise ValueError(
@@ -689,10 +703,7 @@ class TransformerLM(nn.Module):
                     "band-masked, as the flax module's per_row_index)")
             _write_slot_pos(cache, index, s)
             slot_pos = cache.slot_pos
-        for block, layer_cache in zip(self.blocks, layers):
-            x = block(x, layer_cache, index, block_table,
-                      chunk_attends_cache, slot_pos)
-        return self.lm_head(self.ln_f(x).float())
+        return x, layers, slot_pos
 
 
 def next_token_loss_fn(loss):

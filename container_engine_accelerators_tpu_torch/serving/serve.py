@@ -30,10 +30,13 @@ for the random weights. ``--model`` defaults to resnet, as in the demo:
 the image predict server (``InferenceServer``) on ResNet v1.5 of
 ``--depth`` (50) at ``--image-size`` (224) x 3, 1000 classes, bf16
 compute, in eval mode. ``--model transformer`` serves the LM
-(``GenerationServer``); ``--model moe`` is not ported yet. Weights are
-made in the flax layout from the seed and carried over by
-models/convert.py; ``--quantize-weights=int8`` quantizes the LM's tree
-at load, as the demo launcher does. Loading a checkpoint
+(``GenerationServer``), ``--model moe`` the MoETransformerLM of
+``--num-experts`` experts (top-2 routing at capacity factor 1.25, the
+demo's defaults; a dropping router, so ``--speculative-k`` refuses it
+at startup, as the demo's engine does). Weights are made in the flax
+layout from the seed and carried over by models/convert.py;
+``--quantize-weights=int8`` quantizes the LM's tree at load, as the
+demo launcher does (the MoE's expert kernels stay native). Loading a checkpoint
 (``--model-dir``, ``--draft-model-dir``) waits for the checkpoint-format
 port, and ``--warm-filters`` is validated and then ignored, as in the
 demo.
@@ -95,6 +98,8 @@ def build_parser():
                         "causal); the engine's slots hold full-length "
                         "band-masked caches")
     p.add_argument("--max-seq-len", type=int, default=2048)
+    p.add_argument("--num-experts", type=int, default=8,
+                   help="MoE expert count (--model moe)")
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=8)
@@ -200,9 +205,6 @@ def build_server(args):
     error = prefix_args_error(args)
     if error:
         raise SystemExit(error)
-    if args.model == "moe":
-        raise SystemExit("--model moe is not yet ported to the PyTorch "
-                         "server")
     if args.model_dir:
         raise SystemExit("--model-dir is not yet ported to the PyTorch "
                          "server; omit it to serve random weights")
@@ -228,6 +230,8 @@ def build_server(args):
                   num_kv_heads=args.num_kv_heads or None,
                   pos_embedding=args.pos_embedding,
                   max_seq_len=args.max_seq_len)
+    if args.model == "moe":
+        config["num_experts"] = args.num_experts
     tree = init_flax_layout_params(config, args.seed)
     if args.quantize_weights == "int8":
         tree = quantize_lm(config, tree)

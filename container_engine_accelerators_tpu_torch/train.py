@@ -20,6 +20,8 @@ on one card.
         --model resnet --depth 50 --batch-size 128 --steps 12
     python -m container_engine_accelerators_tpu_torch.train \
         --model transformer --seq-len 2048 --batch-size 8 --steps 12
+    python -m container_engine_accelerators_tpu_torch.train \
+        --model moe --num-experts 8 --seq-len 2048 --batch-size 8
 
 Counterpart of demo/tpu-training/train.py: the same flag names and
 defaults (``--model`` defaults to resnet), plus ``--device`` (cuda
@@ -38,9 +40,12 @@ Prints the demo's JSON result line (model, depth, devices,
 global_batch, steps, images_per_sec, images_per_sec_per_chip,
 final_loss, tokens_per_sec for the LM, eval accuracies) with the
 kernels' launch counts added. ``--attention-window`` trains the LM
-with sliding-window attention (the flash kernels' band). The flags of
-the demo's other paths (moe, parallelism, checkpoints, profiles, real
-data) raise "not yet ported".
+with sliding-window attention (the flash kernels' band). ``--model moe``
+trains the MoETransformerLM (``--num-experts``, top-2 routing at
+capacity factor 1.25 on the odd layers) on the next-token loss plus
+0.01 times the router's aux loss, as the demo's build_lm. The flags of
+the demo's other paths (parallelism, expert parallelism included,
+checkpoints, profiles, real data) raise "not yet ported".
 """
 
 import argparse
@@ -54,7 +59,9 @@ import time
 import torch
 
 from .models import convert, mlp
+from .models.decode import logits_of
 from .models.inception import InceptionV3
+from .models.moe import with_router_loss
 from .models.resnet import resnet
 from .models.transformer import next_token_loss_fn
 from .ops import attention, xent
@@ -95,7 +102,7 @@ def parse_args(argv=None):
                    help="sliding-window attention width (0 = full "
                         "causal)")
     p.add_argument("--num-experts", type=int, default=8,
-                   help="MoE expert count (moe is not ported)")
+                   help="MoE expert count (--model moe)")
     p.add_argument("--expert-parallelism", type=int, default=1)
     p.add_argument("--context-parallelism", type=int, default=1)
     p.add_argument("--attention", choices=["flash", "ring", "ulysses"],
@@ -164,7 +171,6 @@ def check_ported(args):
     """Raise "not yet ported" for every flag of a path the port does
     not carry."""
     unported = {
-        "--model moe": args.model == "moe",
         "--expert-parallelism": args.expert_parallelism > 1,
         "--context-parallelism": args.context_parallelism > 1,
         "--attention ring/ulysses": args.attention != "flash",
@@ -183,13 +189,17 @@ def check_ported(args):
 
 def lm_config(args):
     """TransformerLM keyword arguments from the flags (the demo's
-    build_lm)."""
-    return dict(vocab_size=args.vocab_size, embed_dim=args.embed_dim,
-                num_layers=args.num_layers, num_heads=args.num_heads,
-                num_kv_heads=args.num_kv_heads or None,
-                pos_embedding=args.pos_embedding,
-                attention_window=args.attention_window,
-                max_seq_len=args.seq_len)
+    build_lm); ``num_experts`` too for --model moe (the
+    MoETransformerLM's, with its default top_k and capacity_factor)."""
+    config = dict(vocab_size=args.vocab_size, embed_dim=args.embed_dim,
+                  num_layers=args.num_layers, num_heads=args.num_heads,
+                  num_kv_heads=args.num_kv_heads or None,
+                  pos_embedding=args.pos_embedding,
+                  attention_window=args.attention_window,
+                  max_seq_len=args.seq_len)
+    if args.model == "moe":
+        config["num_experts"] = args.num_experts
+    return config
 
 
 def linear_schedule(init_value, end_value, transition_steps):
@@ -270,16 +280,20 @@ def build_tx(args, config=None):
 
 
 def build_lm(args, device):
-    """(model, loss_fn): the port's TransformerLM with random weights
-    from --seed (trainable, f32 parameters, bf16 compute) and the
-    next-token loss (fused kernel, or the plain loss)."""
+    """(model, loss_fn): the port's TransformerLM (MoETransformerLM for
+    --model moe) with random weights from --seed (trainable, f32
+    parameters, bf16 compute) and the next-token loss (fused kernel, or
+    the plain loss), with the router's aux loss added for the MoE."""
     config = lm_config(args)
     tree = convert.init_flax_layout_params(config, args.seed)
     model = convert.load_lm(config, tree, device=device, trainable=True)
     loss = functools.partial(
         mean_cross_entropy_loss if args.pallas_loss else cross_entropy_loss,
         label_smoothing=args.label_smoothing)
-    return model, next_token_loss_fn(loss)
+    loss_fn = next_token_loss_fn(loss)
+    if args.model == "moe":
+        loss_fn = with_router_loss(loss_fn)
+    return model, loss_fn
 
 
 def build_model(args, device):
@@ -356,7 +370,7 @@ def evaluate(trainer, state, loader, args):
     correct = correct5 = None
     total = 0
     for _, (inputs, labels) in zip(range(args.eval_batches), loader):
-        logits = trainer.eval_step(state, inputs)
+        logits = logits_of(trainer.eval_step(state, inputs))
         if args.model in IMAGE_MODELS:
             want = labels
         else:

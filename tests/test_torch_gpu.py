@@ -715,3 +715,74 @@ def test_dense_replay_on_the_card_launches_the_kernel(cuda):
     for p, w in zip(prompts, works):
         want = decode.greedy_decode(model, torch.tensor(p)[None], 8)
         assert w.tokens == want[0, len(p):].tolist()
+
+
+def test_moe_routing_forms_agree_on_the_card(cuda):
+    """One routed layer at the serving width (T 2048, d 512, 8 experts,
+    bf16 tokens and experts, f32 gate): the index form's slot
+    assignment and weights equal the dense form's exactly and the CPU
+    index form's on the same logits; its output lies within the bf16
+    rule of ``dense_moe_reference``'s, aux within 1e-5."""
+    from container_engine_accelerators_tpu_torch.parallel import expert
+    gen = torch.Generator().manual_seed(0)
+    t, d, e = 2048, 512, 8
+    # A shared offset skews the routing: the preferred experts overflow.
+    tokens = (torch.randn((t, d), generator=gen)
+              + torch.randn((1, d), generator=gen)).bfloat16()
+    gate = torch.randn((d, e), generator=gen) * d ** -0.5
+    w_in = (torch.randn((e, d, 4 * d), generator=gen)
+            * (e * d) ** -0.5).bfloat16()
+    w_out = (torch.randn((e, 4 * d, d), generator=gen)
+             * (4 * e * d) ** -0.5).bfloat16()
+    cap = expert.expert_capacity(t, e, 1.25, 2)
+    logits = tokens.cuda().float() @ gate.cuda()
+    dispatch, combine, aux_dense = expert.top_k_routing(logits, cap)
+    idx, slot, keep, weight, aux_idx = expert.top_k_routing_indices(logits,
+                                                                    cap)
+    rows = torch.arange(t, device=cuda)[:, None].expand_as(idx)
+    rebuilt = torch.zeros_like(dispatch)
+    rebuilt[rows[keep], idx[keep], slot[keep]] = 1.0
+    weights = torch.zeros_like(combine)
+    weights[rows[keep], idx[keep], slot[keep]] = weight[keep]
+    assert torch.equal(rebuilt, dispatch) and torch.equal(weights, combine)
+    assert float(aux_idx) == float(aux_dense)
+    assert 0 < int((~keep).sum()) < t      # the group drops some choices
+    cpu = expert.top_k_routing_indices(logits.cpu(), cap)
+    for got, want in zip((idx, slot, keep), cpu[:3]):
+        assert torch.equal(got.cpu(), want)
+    args = [x.cuda() for x in (tokens, gate, w_in, w_out)]
+    out, aux = expert.dense_moe(*args)
+    ref, ref_aux = expert.dense_moe_reference(*args)
+    _assert_near(out, ref, torch.bfloat16, "moe output")
+    assert abs(float(aux) - float(ref_aux)) <= 1e-5
+
+
+def test_moe_trainer_step_launches_on_the_card(cuda):
+    """One step of a small MoE (2 layers: layer 1 routed over 4
+    experts) through the kernels: flash forward, dQ and dK/dV once a
+    layer and the fused cross-entropy once each way; the loss (with
+    the router's aux) is finite and the gate and the experts get
+    gradients."""
+    from container_engine_accelerators_tpu_torch.models import moe
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64,
+                  num_experts=4)
+    tree = convert.init_flax_layout_params(config, 0)
+    model = convert.load_lm(config, tree, device="cuda", trainable=True)
+    assert isinstance(model, moe.MoETransformerLM)
+    loss_fn = moe.with_router_loss(transformer.next_token_loss_fn(
+        xent.mean_cross_entropy_loss))
+    trainer = Trainer(model, loss_fn, Sgd(0.1, momentum=0.9))
+    state = trainer.init_state()
+    batch = next(SyntheticTokenLoader(2, 64, 128, device="cuda"))
+    kernels = attn.KERNELS + xent.KERNELS
+    before = [kern.launches for kern in kernels]
+    routed = model.blocks[1].moe
+    w_in = routed.w_in.detach().clone()
+    state, loss = trainer.train_step(state, batch)
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [
+        2, 2, 2, 1, 1]
+    assert math.isfinite(float(loss))
+    for p in (routed.gate, routed.w_in, routed.w_out):
+        assert p.grad is not None and float(p.grad.abs().sum()) > 0
+    assert not torch.equal(routed.w_in.detach(), w_in)

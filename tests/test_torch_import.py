@@ -60,7 +60,8 @@ def test_port_has_the_slice_modules():
                 "obs.trace", "obs.propagate", "obs.reqledger",
                 "obs.export", "obs.http", "serving.fleet_worker",
                 "obs.fleet", "serving.router", "serving.serve_fleet",
-                "serving.fleet_observer", "router_check"):
+                "serving.fleet_observer", "router_check", "models.moe",
+                "parallel.expert"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",
@@ -113,9 +114,10 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_speculation_and_launcher_import_with_jax_blocked():
-    """models.speculative and the launcher (with the server and the
-    engine under them) import in an interpreter where importing jax,
-    flax or the JAX package raises."""
+    """models.speculative, the MoE family (models.moe, parallel.expert)
+    and the launcher (with the server and the engine under them) import
+    in an interpreter where importing jax, flax or the JAX package
+    raises."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {REPO_ROOT!r})\n"
@@ -127,6 +129,9 @@ def test_speculation_and_launcher_import_with_jax_blocked():
         "sys.meta_path.insert(0, Block())\n"
         f"import {PORT}.models.speculative as s\n"
         f"import {PORT}.serving.serve as v\n"
+        f"import {PORT}.models.moe as m\n"
+        f"import {PORT}.parallel.expert as e\n"
+        "assert callable(e.dense_moe) and callable(m.with_router_loss)\n"
         "assert callable(s.speculative_decode)\n"
         "assert callable(s.speculative_decode_with_prefix)\n"
         "assert v.build_parser().parse_args([]).speculative_k == 0\n"

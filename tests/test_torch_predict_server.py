@@ -36,6 +36,7 @@ import yaml
 
 from container_engine_accelerators_tpu.models.resnet import make_apply_fn
 from container_engine_accelerators_tpu.serving import server as jax_server
+from container_engine_accelerators_tpu_torch.models import moe
 from container_engine_accelerators_tpu_torch.serving import serve
 from container_engine_accelerators_tpu_torch.serving import server
 from tests import torch_parity
@@ -257,9 +258,19 @@ def test_launcher_serves_resnet_by_default():
         assert srv._model.depth == 18 and not srv._model.training
     finally:
         srv.stop()
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.build_server(serve.parse_args(["--model", "moe",
-                                             "--device", "cpu"]))
+    # --model moe is ported: the launcher serves a MoETransformerLM.
+    lm = serve.build_server(serve.parse_args([
+        "--model", "moe", "--num-experts", "4", "--vocab-size", "64",
+        "--embed-dim", "32", "--num-layers", "2", "--num-heads", "4",
+        "--max-seq-len", "32", "--max-new-tokens", "4", "--max-batch",
+        "2", "--port", "0",
+        "--device", "cpu"]))
+    try:
+        assert isinstance(lm, server.GenerationServer)
+        assert isinstance(lm.engine._model, moe.MoETransformerLM)
+        assert lm.engine._model.num_experts == 4
+    finally:
+        lm.stop()
 
 
 @pytest.mark.parametrize("argv, message", [

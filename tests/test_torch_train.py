@@ -41,6 +41,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from container_engine_accelerators_tpu.models import moe as jax_moe
 from container_engine_accelerators_tpu.models import transformer as jax_tf
 from container_engine_accelerators_tpu.ops import (
     mean_cross_entropy_loss as jax_mean_xent,
@@ -50,7 +51,7 @@ from container_engine_accelerators_tpu.parallel.data import (
     SyntheticTokenLoader as JaxTokenLoader,
 )
 from container_engine_accelerators_tpu_torch import train as port_train
-from container_engine_accelerators_tpu_torch.models import convert
+from container_engine_accelerators_tpu_torch.models import convert, moe
 from container_engine_accelerators_tpu_torch.models import transformer
 from container_engine_accelerators_tpu_torch.ops import attention, xent
 from container_engine_accelerators_tpu_torch.parallel import (
@@ -101,13 +102,26 @@ def _flat(tree, prefix=()):
             yield "/".join(prefix + (key,)), np.asarray(tree[key])
 
 
-@pytest.mark.parametrize("variant", sorted(torch_parity.VARIANTS))
+def _flax(variant):
+    """(flax model, tree, config): a TINY TransformerLM variant, or for
+    "moe" the rope/GQA MoETransformerLM with a dropping router (4
+    experts, top-2, capacity factor 1.25)."""
+    if variant == "moe":
+        return torch_parity.flax_moe("rope_gqa", "f32")
+    return torch_parity.flax_lm(variant, "f32")
+
+
+@pytest.mark.parametrize("variant", sorted(torch_parity.VARIANTS) + ["moe"])
 def test_three_steps_match_the_jax_trainer(variant):
-    model, tree, config = torch_parity.flax_lm(variant, "f32")
+    """The moe case trains on the loss plus 0.01 x the router's aux
+    loss (``with_router_loss`` on both sides)."""
+    model, tree, config = _flax(variant)
     argv = _argv("--steps", "3")
     # JAX: the demo's optimizer, the Pallas loss, a 1x1 mesh.
     jax_loss = jax_tf.next_token_loss_fn(functools.partial(
         jax_mean_xent, label_smoothing=0.0))
+    if variant == "moe":
+        jax_loss = jax_moe.with_router_loss(jax_loss)
     jax_trainer = JaxTrainer(jax_tf.make_apply_fn(model), jax_loss,
                              _demo().build_tx(_demo().parse_args(argv)),
                              mesh=_one_by_one_mesh(), donate_state=False)
@@ -119,6 +133,8 @@ def test_three_steps_match_the_jax_trainer(variant):
     args = port_train.parse_args(argv + ["--device", "cpu"])
     port_loss = transformer.next_token_loss_fn(functools.partial(
         xent.mean_cross_entropy_loss, label_smoothing=0.0))
+    if variant == "moe":
+        port_loss = moe.with_router_loss(port_loss)
     trainer = Trainer(port, port_loss, port_train.build_tx(args, config))
     state = trainer.init_state()
     jax_batches = JaxTokenLoader(BATCH, SEQ, config["vocab_size"], pool=2)
@@ -142,12 +158,13 @@ def test_three_steps_match_the_jax_trainer(variant):
     assert any(np.abs(got[n] - moved[n]).max() > 1e-4 for n in got)
 
 
-@pytest.mark.parametrize("variant", sorted(torch_parity.VARIANTS))
+@pytest.mark.parametrize("variant", sorted(torch_parity.VARIANTS) + ["moe"])
 def test_decay_mask_follows_the_flax_ranks(variant):
     """The demo decays every leaf of rank >= 2 in the flax tree, the
     attention biases included (rank 2-3 there, rank 1 in torch); norm
-    scales and the other biases are not decayed."""
-    _, tree, config = torch_parity.flax_lm(variant, "f32")
+    scales and the other biases are not decayed. The MoE's gate and
+    stacked expert kernels keep their flax ranks and decay."""
+    _, tree, config = _flax(variant)
     port = convert.load_lm(config, tree, device="cpu", trainable=True)
     args = port_train.parse_args(_argv("--device", "cpu"))
     opt = port_train.build_tx(args, config).init(port)
@@ -159,6 +176,9 @@ def test_decay_mask_follows_the_flax_ranks(variant):
     assert bias in decayed and port.get_parameter(bias).dim() == 1
     assert "blocks.0.attn.ln.weight" not in decayed
     assert "blocks.0.attn.proj.bias" not in decayed
+    if variant == "moe":
+        assert {"blocks.1.moe.gate", "blocks.1.moe.w_in",
+                "blocks.1.moe.w_out"} <= decayed
     # Leaf for leaf, the demo's optax mask on the flax tree.
     flax_mask = dict(_flat(jax.tree_util.tree_map(
         lambda p: np.asarray(p.ndim >= 2), tree)))
@@ -340,17 +360,23 @@ def test_eval_step_gives_the_lm_logits():
     ["--model-parallelism", "2"], ["--context-parallelism", "2"],
     ["--attention", "ring"], ["--expert-parallelism", "2"],
     ["--pipeline-parallelism", "2"], ["--dcn-granules", "2"], ["--fsdp"],
-    ["--data-dir", "d"], ["--model-dir", "m"], ["--profile-dir", "p"]])
+    ["--data-dir", "d"], ["--model-dir", "m"], ["--profile-dir", "p"],
+    ["--model", "moe", "--expert-parallelism", "2"]])
 def test_unported_flags_raise(flags):
     """Every flag of a path the port does not carry raises; the
-    sliding window is ported and trains a tiny windowed LM instead."""
+    sliding window and the MoE are ported and train a tiny windowed LM
+    and a tiny MoE instead (expert parallelism still raises)."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
-    if flags[0] == "--attention-window":
+    if flags in (["--attention-window", "64"], ["--model", "moe"]):
+        # Two layers for the MoE: layer 1 is its routed one.
+        model = "moe" if "moe" in flags else "transformer"
         result = port_train.main(argv + [
-            "--vocab-size", "32", "--embed-dim", "16", "--num-layers", "1",
-            "--num-heads", "2", "--seq-len", "80", "--batch-size", "2",
-            "--steps", "2", "--warmup-steps", "1"])
+            "--vocab-size", "32", "--embed-dim", "16", "--num-layers",
+            "2" if model == "moe" else "1", "--num-heads", "2",
+            "--seq-len", "80", "--batch-size", "2", "--steps", "2",
+            "--warmup-steps", "1", "--num-experts", "4"])
         assert np.isfinite(result["final_loss"]) and result["steps"] == 2
+        assert result["model"] == model
         return
     with pytest.raises(ValueError, match="not yet ported"):
         port_train.main(argv)

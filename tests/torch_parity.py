@@ -13,9 +13,9 @@
 # limitations under the License.
 
 """Shared set-up of the parity tests between the JAX package and its
-PyTorch port: one tiny flax TransformerLM, its parameters as numpy,
-and the port's model loaded from them on the CPU. Data crosses between
-the frameworks as numpy arrays only."""
+PyTorch port: one tiny flax TransformerLM (or MoETransformerLM), its
+parameters as numpy, and the port's model loaded from them on the CPU.
+Data crosses between the frameworks as numpy arrays only."""
 
 import functools
 
@@ -24,7 +24,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from container_engine_accelerators_tpu.models import TransformerLM
+from container_engine_accelerators_tpu.models import (
+    MoETransformerLM,
+    TransformerLM,
+)
 from container_engine_accelerators_tpu_torch.models import convert
 
 # Small enough for tier-1, wide enough for GQA (4 query heads over 2
@@ -78,8 +81,31 @@ def flax_lm_of(seed=0, **config):
     return model, tree, config
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_moe_params(items, seed):
+    model = MoETransformerLM(dtype=jnp.float32, **dict(items))
+    params = jax.jit(model.init)(jax.random.PRNGKey(seed),
+                                 jnp.zeros((1, 8), jnp.int32))["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def flax_moe(variant="learned_mha", dtype="f32", seed=1, **options):
+    """(flax MoETransformerLM, a fresh copy of its params as a numpy
+    tree, the port's config) at TINY with 4 experts, top-2 routing and
+    the default capacity factor 1.25 (a dropping router) unless
+    ``options`` say otherwise."""
+    config = dict(TINY, **VARIANTS[variant])
+    config.update(dict(num_experts=4, top_k=2, capacity_factor=1.25),
+                  **options)
+    model = MoETransformerLM(dtype=DTYPES[dtype][0], **config)
+    tree = jax.tree_util.tree_map(
+        np.copy, _flax_moe_params(tuple(sorted(config.items())), seed))
+    return model, tree, config
+
+
 def port_lm(config, tree, dtype="f32"):
-    """The port's TransformerLM on the CPU with the flax weights."""
+    """The port's TransformerLM (MoETransformerLM for a config with
+    ``num_experts``) on the CPU with the flax weights."""
     return convert.load_lm(config, tree, device="cpu",
                            dtype=DTYPES[dtype][1])
 
