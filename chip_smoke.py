@@ -232,6 +232,36 @@
    0.5, 8 flash_fwd launches a greedy admission; ``serve.py --model
    moe --speculative-k 4`` refuses the dropping router at startup (on
    2 layers and vocab 1024: the refusal reads the routing options).
+14. runs real data, checkpoints and trained weights through the driver
+   and the launcher, at full width. (a) ResNet-50 as
+   demo/tpu-training/resnet-jax.yaml runs it on one card (batch 128,
+   224x224x3, 1000 classes) on 5 seeded .npz shards of 176 images in a
+   temporary directory (batches cross shard boundaries): A, 4 steps
+   with ``--data-dir``, ``--model-dir`` M, ``--checkpoint-every 2`` and
+   ``--keep-checkpoints 2``; B, resumed in M for 2 steps (the loader
+   skips the batches A took, shard by shard); C, 6 steps straight in a
+   second directory on shards that replay A's and B's six batches,
+   saving at the end only (its images/s is the file pipeline's). Each
+   step's labels and the last pixels of each image, read on the card as
+   the step reads them, equal numpy's NpzShardDataset's; 0/0/0/1/1
+   launches a step; M holds checkpoint_4 and checkpoint_6; B's
+   checkpoint_6 against C's leaf by leaf within 5e-2 relative L2
+   (``CKPT_RESUME_TOL``). (b) An async save at C's last step with two
+   more steps at once: the archive equals the host copy of that step
+   bitwise. (c) MODEL trained 3 steps at sequence 2048, batch 8, with
+   ``--model-dir`` (8/8/8/1/1 a step) and the demo's draft (2 layers, E
+   128) 3 steps into its own directory; ``serve.py --model-dir`` on the
+   dense and the paged pool: every served weight the archive's leaf cast
+   to bf16 bitwise, 4 concurrent greedy streams against greedy_decode
+   under the near-tie rule, 8 flash_fwd launches a dense admission and
+   none paged; lm-serving.yaml's flags (without --warm) with
+   ``--model-dir``: the int8 weights equal ``quantize_lm`` of the
+   archive's tree, bitwise; ``--speculative-k 4 --draft-model-dir``:
+   the draft's weights the archive's, streams under the near-tie rule,
+   2 launches a greedy admission, the trained draft's acceptance beside
+   phase 10's random draft (no bound). (d) The ResNet-50 predict server
+   from B's checkpoint: weights and BN statistics equal the archive,
+   classes the eval forward of the restored model or a near tie.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -246,6 +276,7 @@ chiprun_out/chip_smoke.json.
 
 import contextlib
 import functools
+import itertools
 import json
 import os
 import re
@@ -1812,15 +1843,16 @@ def train_argv(steps, warmup, batch=TRAIN_BATCH):
             "--seed", str(SEED)]
 
 
-def drive(torch, train, kernels, argv, per_step, warmup):
+def drive(torch, train, kernels, argv, per_step, warmup, on_batch=None):
     """One run of the port's training driver (``train.run``, what
     ``python -m container_engine_accelerators_tpu_torch.train`` runs
     before it prints) on ``argv``, with every launch count set to 0
     just before it. A per-step hook records a CUDA event after each
     step and checks that step's launches against ``per_step`` (one
-    count per kernel of ``kernels``). Fails on a step with other
-    launches, a driver count that disagrees, or a non-finite loss.
-    Returns (summary, launches, trainer, state)."""
+    count per kernel of ``kernels``); ``on_batch`` is the driver's hook
+    before each step. Fails on a step with other launches, a driver
+    count that disagrees, or a non-finite loss. Returns (summary,
+    launches, trainer, state)."""
     losses, events, bad = [], [], []
     prev = [0] * len(kernels)
 
@@ -1841,7 +1873,8 @@ def drive(torch, train, kernels, argv, per_step, warmup):
     for kern in kernels:
         kern.launches = 0
     t0 = time.perf_counter()
-    result, trainer, state = train.run(args, on_step=on_step)
+    result, trainer, state = train.run(args, on_step=on_step,
+                                       on_batch=on_batch)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {kern.name: kern.launches for kern in kernels}
@@ -4066,6 +4099,517 @@ def drive_moe(torch, train, attn, convert, kernels, rng):
     return report, launches
 
 
+# ---------------------------------------------------------------------
+# Phase 14: real data, checkpoints and trained weights.
+# ---------------------------------------------------------------------
+
+CKPT_SHARDS = 5              # seeded .npz shards of ResNet-50 images
+CKPT_SHARD_ROWS = 176        # not a multiple of 128: batches cross shards
+CKPT_EVERY = 2
+CKPT_KEEP = 2
+# B's final leaves (resumed at step 4) against C's (the straight run on
+# the same six batches), each by relative L2: the two runs make the
+# same calls, but cuDNN's algorithms may round apart between runs
+# (atomics in a backward), and one f32 bit apart flips bf16 roundings
+# downstream: phase 8's bf16 gradient limit. A leaf that was not
+# restored (parameters, momentum, BN statistics) or a step on other
+# data moves by O(1).
+CKPT_RESUME_TOL = 5e-2
+CKPT_LM_STEPS = 3
+CKPT_SERVE = (16, 100, 700, 1500)   # concurrent greedy requests a pool
+CKPT_NEW = 32
+PATH_KERNELS.update({
+    "ckpt_resnet": ("xent_fwd", "xent_bwd"),
+    "ckpt_lm_training": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "xent_fwd", "xent_bwd"),
+    "ckpt_dense_serving": ("flash_fwd",),
+})
+
+
+def write_image_shards(np, root):
+    """CKPT_SHARDS shards of CKPT_SHARD_ROWS f32 NHWC images (standard
+    normal, 224x224x3) and int32 labels in [0, 1000), from SEED."""
+    rng = np.random.default_rng(SEED)
+    for s in range(CKPT_SHARDS):
+        np.savez(os.path.join(root, f"shard{s}.npz"),
+                 images=rng.standard_normal(
+                     (CKPT_SHARD_ROWS, RESNET_SIZE, RESNET_SIZE, 3),
+                     dtype=np.float32),
+                 labels=rng.integers(0, RESNET_CLASSES, CKPT_SHARD_ROWS,
+                                     dtype=np.int32))
+
+
+def replay_shards(np, root, batches):
+    """``batches`` as one shard each, named so that NpzShardDataset's
+    first epoch (the shard order permuted from seed 0) reads them in
+    the given order: a straight run over exactly these batches."""
+    order = np.random.default_rng(0).permutation(len(batches))
+    for k, (images, labels) in enumerate(batches):
+        np.savez(os.path.join(root, f"r{order[k]}.npz"), images=images,
+                 labels=labels)
+
+
+def archive_arrays(np, path):
+    """{path key: array} of a checkpoint directory's arrays.npz, read
+    with numpy alone."""
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def archive_tree(arrays, prefix):
+    """The nested dict of the arrays under ``prefix`` (e.g.
+    "['params']"), from their path keys."""
+    tree = {}
+    for key, value in arrays.items():
+        if not key.startswith(prefix):
+            continue
+        parts = re.findall(r"\['([^']*)'\]", key[len(prefix):])
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def rel_l2(np, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def served_mismatches(torch, model, want):
+    """Names of ``model``'s weights that differ from ``want`` ({name: f32
+    or int8 CPU tensor}, the converter's reading of an archive) cast to
+    the served dtype, bitwise."""
+    state = model.state_dict()
+    bad = sorted(set(state) ^ set(want))
+    for name, value in state.items():
+        if name in want and not torch.equal(
+                value.cpu(), want[name].to(value.dtype)):
+            bad.append(name)
+    return bad
+
+
+def ckpt_resnet(torch, np, train, kernels, root, synthetic_ips):
+    """Phase 14a-b. A: 4 steps of ResNet-50 on the shards with
+    --model-dir M (every 2, keep 2); B: resumed there for 2; C: 6 steps
+    straight in a second directory on shards replaying A's and B's six
+    batches. Each step's labels (and the last pixels of each image,
+    read on the card as the step sees them) equal what numpy's
+    NpzShardDataset yields for it; 0/0/0/1/1 launches a step;
+    checkpoint_4 and checkpoint_6 remain; B's leaves against C's. Then
+    an async save at C's last step with two more steps at once: the
+    archive holds the step's values bitwise."""
+    from container_engine_accelerators_tpu_torch.parallel import checkpoint
+    from container_engine_accelerators_tpu_torch.parallel.data import (
+        NpzShardDataset,
+    )
+    shards, replay = os.path.join(root, "shards"), os.path.join(root, "replay")
+    m1, m2 = os.path.join(root, "resnet_b"), os.path.join(root, "resnet_c")
+    os.makedirs(shards)
+    os.makedirs(replay)
+    t0 = time.perf_counter()
+    write_image_shards(np, shards)
+    stream_a = list(itertools.islice(NpzShardDataset(shards, RESNET_BATCH),
+                                     4))
+    stream_b = list(itertools.islice(NpzShardDataset(
+        shards, RESNET_BATCH, skip_batches=4), 2))
+    replay_shards(np, replay, stream_a + stream_b)
+    report = {"data_write_s": time.perf_counter() - t0,
+              "data_bytes": sum(os.path.getsize(os.path.join(shards, f))
+                                for f in os.listdir(shards))}
+    launches = {kern.name: 0 for kern in kernels}
+
+    def run(name, data, model_dir, steps, warmup, want, every=CKPT_EVERY):
+        seen = []
+
+        def on_batch(step, batch):
+            images, labels = batch
+            # On the consumer's stream, as the step reads the batch.
+            seen.append((labels.clone(), images[:, -1, -4:, :].clone()))
+
+        argv = image_argv("resnet", RESNET_BATCH, steps, warmup) + [
+            "--data-dir", data, "--model-dir", model_dir,
+            "--checkpoint-every", str(every),
+            "--keep-checkpoints", str(CKPT_KEEP)]
+        summary, counts, trainer, state = drive(
+            torch, train, kernels, argv, (0, 0, 0, 1, 1), warmup,
+            on_batch=on_batch)
+        bad = [i for i, ((labels, tail), (w_images, w_labels))
+               in enumerate(zip(seen, want))
+               if not (np.array_equal(labels.cpu().numpy(), w_labels)
+                       and np.array_equal(tail.cpu().numpy(),
+                                          w_images[:, -1, -4:, :]))]
+        result = summary["driver_result"]
+        report[name] = dict(
+            steps=steps, losses=summary["losses"],
+            step_ms_mean=summary["step_ms_mean"],
+            images_per_s=result["images_per_sec"],
+            data_wait_ms_mean=result["data_wait_ms_mean"],
+            checkpoint_block_s=result["checkpoint_block_s"],
+            batches_checked=len(seen), batches_differing=bad)
+        log(f"checkpoint phase, resnet run {name}:", json.dumps(report[name]))
+        if len(seen) != len(want) or bad:
+            raise AssertionError(f"resnet run {name}: steps {bad} did not "
+                                 f"get NpzShardDataset's batches")
+        for k in launches:
+            launches[k] += counts[k]
+        return trainer, state
+
+    run("a", shards, m1, 4, 1, stream_a)
+    run("b", shards, m1, 2, 1, stream_b)
+    # C saves only after its last step, outside the driver's timed
+    # steps: its images/s is the file pipeline's alone.
+    trainer, state = run("c", replay, m2, 6, 2, stream_a + stream_b, 0)
+    kept = sorted(os.listdir(m1))
+    if kept != ["checkpoint_4", "checkpoint_6"]:
+        raise AssertionError(f"resnet: {m1} holds {kept}, want "
+                             f"checkpoint_4 and checkpoint_6")
+    got = archive_arrays(np, os.path.join(m1, "checkpoint_6"))
+    want = archive_arrays(np, os.path.join(m2, "checkpoint_6"))
+    if sorted(got) != sorted(want) or int(got["['step']"]) != 6:
+        raise AssertionError("resnet: B's and C's checkpoint_6 differ in "
+                             "keys or step")
+    errs = {k: rel_l2(np, got[k], want[k]) for k in want if k != "['step']"}
+    groups = {}
+    for key, err in errs.items():
+        group = key.split("]", 1)[0][2:-1]
+        if ".trace" in key:
+            group = "trace"
+        groups[group] = max(groups.get(group, 0.0), err)
+    worst = max(errs, key=errs.get)
+    report["resume"] = dict(
+        leaves=len(errs), bitwise=sum(e == 0.0 for e in errs.values()),
+        max_rel_l2_by_group=groups, worst=worst, worst_rel_l2=errs[worst],
+        limit=CKPT_RESUME_TOL)
+    report["synthetic_images_per_s"] = synthetic_ips
+    log("checkpoint phase, resume B vs straight C:",
+        json.dumps(report["resume"]))
+    if errs[worst] > CKPT_RESUME_TOL:
+        raise AssertionError(f"resnet: resumed run B differs from the "
+                             f"straight run C: {report['resume']}")
+
+    # (b) an async save racing two steps.
+    payload = checkpoint.state_payload(state)
+    copy = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                else np.array(v))
+            for k, v in checkpoint.keystr_items(payload)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    batch = (torch.randn((RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3),
+                         generator=gen, device="cuda"),
+             torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,), generator=gen,
+                           device="cuda", dtype=torch.int32))
+    mgr = checkpoint.CheckpointManager(os.path.join(root, "race"))
+    step = state.step
+    mgr.save(payload, step=step)
+    for _ in range(2):
+        state, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    pending = mgr._pending
+    mgr.wait_until_finished()
+    raw = archive_arrays(np, os.path.join(mgr.directory,
+                                          f"checkpoint_{step}"))
+    differ = sorted(k for k in copy if k not in raw
+                    or not np.array_equal(raw[k], copy[k]))
+    live = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                else np.array(v))
+            for k, v in checkpoint.keystr_items(
+                checkpoint.state_payload(state))}
+    moved = sum(not np.array_equal(live[k], copy[k]) for k in copy)
+    report["async_race"] = dict(step=step, leaves=len(copy),
+                                differing=differ, moved_after=moved,
+                                write_pending_after_steps=pending,
+                                blocked_s=mgr.last_blocked_s)
+    log("checkpoint phase, async save racing 2 steps:",
+        json.dumps(report["async_race"]))
+    mgr.close()
+    if differ or not moved:
+        raise AssertionError(f"async save: {report['async_race']}")
+    del trainer, state, payload, live, copy
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def ckpt_traffic(server, rng, lengths):
+    """Concurrent greedy requests of ``lengths`` tokens, CKPT_NEW new
+    tokens each. Returns [(prompt, new, sequence)]."""
+    vocab = MODEL["vocab_size"]
+    payloads = [{"prompts": [rng.integers(0, vocab, n).tolist()],
+                 "max_new_tokens": CKPT_NEW} for n in lengths]
+    results, errors = [None] * len(payloads), []
+
+    def client(i):
+        try:
+            results[i] = post(server.port, payloads[i])
+        except Exception as e:  # reported below, fails the run
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"checkpoint serving requests failed: {errors}")
+    out = []
+    for pay, (status, body) in zip(payloads, results):
+        p, seq = pay["prompts"][0], body["sequences"][0]
+        if status != 200 or len(seq) != len(p) + CKPT_NEW:
+            raise AssertionError(f"bad response {status}: {body}")
+        out.append((p, CKPT_NEW, seq))
+    return out
+
+
+def serve_argv(model_dir, extra=()):
+    """The launcher's flags for MODEL with --model-dir."""
+    return ["--model", "transformer", "--model-name", "lm", "--port", "0",
+            "--vocab-size", str(MODEL["vocab_size"]),
+            "--embed-dim", str(MODEL["embed_dim"]),
+            "--num-layers", str(MODEL["num_layers"]),
+            "--num-heads", str(MODEL["num_heads"]),
+            "--num-kv-heads", str(MODEL["num_kv_heads"]),
+            "--pos-embedding", MODEL["pos_embedding"],
+            "--max-seq-len", str(MODEL["max_seq_len"]),
+            "--max-new-tokens", str(MAX_NEW),
+            "--max-batch", str(MAX_BATCH), "--seed", str(SEED),
+            "--model-dir", model_dir, *extra]
+
+
+def ckpt_lm(torch, np, train, convert, kernels, rng, root, random_accept):
+    """Phase 14c: the LM and the demo draft trained with --model-dir,
+    then served from their checkpoints."""
+    from container_engine_accelerators_tpu_torch.serving import serve
+    report, launches = {}, {}
+    lm_dir, draft_dir = os.path.join(root, "lm"), os.path.join(root, "draft")
+    summary, launches["ckpt_lm_training"], trainer, state = drive(
+        torch, train, kernels, train_argv(CKPT_LM_STEPS, 1) + [
+            "--model-dir", lm_dir], (8, 8, 8, 1, 1), 1)
+    report["lm_training"] = dict(
+        losses=summary["losses"], step_ms_mean=summary["step_ms_mean"],
+        checkpoint_block_s=summary["driver_result"]["checkpoint_block_s"])
+    del trainer, state
+    d = SPEC_DRAFT
+    draft_argv = ["--model", "transformer", "--device", "cuda",
+                  "--vocab-size", str(d["vocab_size"]),
+                  "--embed-dim", str(d["embed_dim"]),
+                  "--num-layers", str(d["num_layers"]),
+                  "--num-heads", str(d["num_heads"]),
+                  "--pos-embedding", d["pos_embedding"],
+                  "--seq-len", str(TRAIN_SEQ),
+                  "--batch-size", str(TRAIN_BATCH),
+                  "--steps", str(CKPT_LM_STEPS), "--warmup-steps", "1",
+                  "--seed", str(SEED + 1), "--model-dir", draft_dir]
+    summary, launches["ckpt_draft_training"], trainer, state = drive(
+        torch, train, kernels, draft_argv, (2, 2, 2, 1, 1), 1)
+    report["draft_training"] = dict(losses=summary["losses"],
+                                    step_ms_mean=summary["step_ms_mean"])
+    del trainer, state
+    torch.cuda.empty_cache()
+    for name, path in (("lm", lm_dir), ("draft", draft_dir)):
+        if sorted(os.listdir(path)) != [f"checkpoint_{CKPT_LM_STEPS}"]:
+            raise AssertionError(f"{name}: {path} holds "
+                                 f"{sorted(os.listdir(path))}")
+    lm_tree = archive_tree(archive_arrays(np, os.path.join(
+        lm_dir, f"checkpoint_{CKPT_LM_STEPS}")), "['params']")
+    draft_tree = archive_tree(archive_arrays(np, os.path.join(
+        draft_dir, f"checkpoint_{CKPT_LM_STEPS}")), "['params']")
+    lm_want = convert.params_from_flax(lm_tree)
+
+    def build(argv, paged=True):
+        if not paged:
+            os.environ["CEA_TPU_PAGED_KV"] = "0"
+        try:
+            return serve.build_server(serve.build_parser().parse_args(argv))
+        finally:
+            os.environ.pop("CEA_TPU_PAGED_KV", None)
+
+    def serve_pool(name, server, per_greedy, lengths):
+        eng = server.engine
+        bad = served_mismatches(torch, eng._model, lm_want)
+        server.start()
+        try:
+            for kern in kernels:
+                kern.launches = 0
+            prefills0 = eng.prefills
+            greedy = ckpt_traffic(server, rng, lengths)
+            counts = {kern.name: kern.launches for kern in kernels}
+            stats = get(server.port, "/stats")
+            admissions = eng.prefills - prefills0
+        finally:
+            server.stop()
+        diverged = [x for x in (stream_divergence(torch, eng._model, p, new,
+                                                  seq)
+                                for p, new, seq in greedy) if x is not None]
+        entry = dict(weights_differing=bad, launches=counts,
+                     admissions=admissions, greedy=len(greedy),
+                     greedy_diverged=diverged, leaks=eng.pool_leak_report(),
+                     acceptance=stats.get("speculative_acceptance_rate"),
+                     accepted_tokens_per_step=stats.get(
+                         "accepted_tokens_per_step"))
+        report[name] = entry
+        log(f"checkpoint phase, serving {name}:", json.dumps(entry))
+        want = per_greedy * admissions
+        if (bad or counts["flash_fwd"] != want
+                or any(v for k, v in counts.items() if k != "flash_fwd")
+                or admissions != len(lengths)):
+            raise AssertionError(f"serving {name} from the checkpoint: "
+                                 f"{entry}")
+        if entry["leaks"] is not None or not all(x["near_tie"]
+                                                 for x in diverged):
+            raise AssertionError(f"serving {name}: {entry}")
+        return counts
+
+    launches["ckpt_dense_serving"] = serve_pool(
+        "dense", build(serve_argv(lm_dir), paged=False),
+        MODEL["num_layers"], CKPT_SERVE)
+    launches["ckpt_paged_serving"] = serve_pool(
+        "paged", build(serve_argv(lm_dir)), 0, CKPT_SERVE)
+
+    # lm-serving.yaml's flags (int8 KV and weights, the byte tokenizer;
+    # without --warm) with --model-dir: quantized after the restore.
+    argv = [a for a in manifest_argv() if a != "--warm"] + [
+        "--port=0", "--model-dir", lm_dir]
+    server = build(argv)
+    int8_want = convert.params_from_flax(convert.quantize_lm(MODEL, lm_tree))
+    bad = served_mismatches(torch, server.engine._model, int8_want)
+    kernel_q = convert.params_to_flax(server.engine._model,
+                                      dict(MODEL, weights="int8"))
+    q_tree = convert.quantize_lm(MODEL, lm_tree)
+    q_bad = [f"block{i}" for i in range(MODEL["num_layers"])
+             if not all(np.array_equal(kernel_q[f"block{i}"]["attn"][k]
+                                       ["kernel_q"],
+                                       q_tree[f"block{i}"]["attn"][k]
+                                       ["kernel_q"])
+                        for k in ("q", "kv", "proj"))]
+    server.start()
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        greedy = ckpt_traffic(server, rng, (100,))
+        counts = {kern.name: kern.launches for kern in kernels}
+    finally:
+        server.stop()
+    diverged = [x for x in (stream_divergence(torch, server.engine._model,
+                                              p, new, seq)
+                            for p, new, seq in greedy) if x is not None]
+    report["deployed_int8"] = dict(weights_differing=bad,
+                                   kernel_q_differing=q_bad,
+                                   launches=counts,
+                                   greedy_diverged=diverged)
+    log("checkpoint phase, lm-serving.yaml with --model-dir:",
+        json.dumps(report["deployed_int8"]))
+    if bad or q_bad or any(counts.values()) or not all(
+            x["near_tie"] for x in diverged):
+        raise AssertionError(f"int8 serving from the checkpoint: "
+                             f"{report['deployed_int8']}")
+    launches["ckpt_deployed_serving"] = counts
+    del server, int8_want, q_tree, kernel_q
+    torch.cuda.empty_cache()
+
+    # Speculation with the trained draft (paged pool): the draft's
+    # prefill launches flash_fwd once a draft layer a greedy admission.
+    server = build(serve_argv(lm_dir, (
+        "--speculative-k", str(SPEC_K),
+        "--draft-layers", str(d["num_layers"]),
+        "--draft-embed-dim", str(d["embed_dim"]),
+        "--draft-model-dir", draft_dir)))
+    draft_bad = served_mismatches(torch, server.engine._draft_model,
+                                  convert.params_from_flax(draft_tree))
+    launches["ckpt_spec_serving"] = serve_pool(
+        "speculative", server, d["num_layers"], CKPT_SERVE)
+    report["speculative"]["draft_weights_differing"] = draft_bad
+    report["speculative"]["random_draft_acceptance"] = random_accept
+    if draft_bad:
+        raise AssertionError(f"draft weights differ from the archive: "
+                             f"{draft_bad}")
+    del server
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def ckpt_predict(torch, np, convert, root):
+    """Phase 14d: the ResNet-50 predict server from run B's checkpoint:
+    its BN statistics and weights equal the archive, its classes the
+    eval forward of the restored model or a near tie."""
+    from container_engine_accelerators_tpu_torch.serving import serve
+    model_dir = os.path.join(root, "resnet_b")
+    server = serve.build_server(serve.build_parser().parse_args(
+        ["--model-name", "resnet", "--port", "0", "--max-batch",
+         str(PREDICT_BATCH), "--model-dir", model_dir]))
+    arrays = archive_arrays(np, os.path.join(model_dir, "checkpoint_6"))
+    served = convert.image_variables_to_flax(server._model)
+    differing = {}
+    for collection in ("params", "batch_stats"):
+        want = archive_tree(arrays, f"['{collection}']")
+        flat_want, flat_got = {}, {}
+
+        def walk(tree, prefix, out):
+            for key, value in tree.items():
+                if isinstance(value, dict):
+                    walk(value, prefix + (key,), out)
+                else:
+                    out["/".join(prefix + (key,))] = value
+
+        walk(want, (), flat_want)
+        walk(served[collection], (), flat_got)
+        differing[collection] = sorted(
+            k for k in set(flat_want) | set(flat_got)
+            if k not in flat_want or k not in flat_got
+            or not np.array_equal(flat_got[k], flat_want[k]))
+    rng = np.random.default_rng(SEED + 14)
+    images = rng.standard_normal((PREDICT_BATCH, RESNET_SIZE, RESNET_SIZE,
+                                  3)).astype(np.float32)
+    with torch.inference_mode():
+        logits = server._model(torch.from_numpy(images).cuda()).float().cpu()
+    server.start()
+    try:
+        status, body = server._handle_post({"instances": images.tolist()})
+    finally:
+        server.stop()
+    if status != 200:
+        raise AssertionError(f"predict from the checkpoint: {status} {body}")
+    mismatches = [dict(bad, row=i) for i, pred in enumerate(
+        body["predictions"]) if (bad := class_check(logits[i], pred))]
+    exact = sum(p["class"] == int(logits[i].argmax())
+                for i, p in enumerate(body["predictions"]))
+    report = dict(differing=differing, exact=exact, mismatches=mismatches,
+                  batch_stats_leaves=sum(k.startswith("['batch_stats']")
+                                         for k in arrays))
+    log("checkpoint phase, predict server:", json.dumps(report))
+    if any(differing.values()) or mismatches:
+        raise AssertionError(f"predict server from the checkpoint: {report}")
+    del server
+    torch.cuda.empty_cache()
+    return report
+
+
+def drive_checkpoints(torch, train, convert, kernels, rng, report):
+    """Phase 14 (see the module docstring). ``report``: the run's report
+    so far (phase 8's images/s, phase 10's random-draft acceptance).
+    Returns (report, launches by path)."""
+    import tempfile
+
+    import numpy as np
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        out, resnet_counts = ckpt_resnet(torch, np, train, kernels, root,
+                                         report["resnet"]["images_per_s"])
+        launches = {"ckpt_resnet": resnet_counts}
+        random = report["spec"]["serving"]["paged"]["stats"][
+            "speculative_acceptance_rate"]
+        out["lm"], lm_launches = ckpt_lm(torch, np, train, convert, kernels,
+                                         rng, root, random)
+        launches.update(lm_launches)
+        out["predict"] = ckpt_predict(torch, np, convert, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"checkpoint phase: {out['phase_s']:.1f} s")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4238,6 +4782,10 @@ def main():
     report["moe"], moe_launches = drive_moe(torch, train, attention,
                                             convert, all_kernels, rng)
 
+    # Phase 14: real data, checkpoints and trained weights.
+    report["checkpoints"], ckpt_launches = drive_checkpoints(
+        torch, train, convert, all_kernels, rng, report)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -4289,6 +4837,8 @@ def main():
             by_path[path] = counts.get(name, 0)
         for path, counts in moe_launches.items():
             by_path[path] = counts[name]
+        for path, counts in ckpt_launches.items():
+            by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -4323,6 +4873,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    ckpt_spec = report["checkpoints"]["lm"]["speculative"]
     log(f"informational on {kind} ({smi}): concurrent "
         f"{summary['concurrent_tokens_per_s']:.1f} tokens/s, time to "
         f"first token {summary['ttft_ms']} ms (16-token prompt); "
@@ -4342,7 +4893,15 @@ def main():
         f"{report['fleet']['router_overhead_ms']} ms a request; MoE "
         f"training {report['moe']['train']['tokens_per_s']:.0f} tokens/s, "
         f"{report['moe']['train']['step_ms_mean']:.2f} ms a step, MoE "
-        f"phase {report['moe']['phase_s']:.1f} s")
+        f"phase {report['moe']['phase_s']:.1f} s; ResNet-50 from .npz "
+        f"shards {report['checkpoints']['c']['images_per_s']:.1f} images/s "
+        f"(synthetic {report['resnet']['images_per_s']:.1f}), loader wait "
+        f"{report['checkpoints']['c']['data_wait_ms_mean']:.2f} ms a step, "
+        f"save blocking {report['checkpoints']['c']['checkpoint_block_s']} "
+        f"s; trained draft acceptance "
+        f"{ckpt_spec['acceptance']} (random "
+        f"{ckpt_spec['random_draft_acceptance']}); checkpoint phase "
+        f"{report['checkpoints']['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -140,10 +140,20 @@ def flax_shapes(config):
     return out
 
 
-def params_to_flax(model_or_state_dict, config):
+def _put(tree, path, value):
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def params_to_flax(model_or_state_dict, config, tensors=False):
     """The inverse of ``params_from_flax``: the port's parameters (a
     TransformerLM or its state_dict) as a nested dict of f32 numpy
-    arrays in the flax layout."""
+    arrays in the flax layout. ``tensors=True`` leaves each leaf a
+    contiguous torch tensor on its own device (the transpose made
+    there; a leaf that needs none may share the parameter's storage),
+    for a checkpoint's snapshot to copy to the host."""
     state = model_or_state_dict
     if hasattr(state, "state_dict"):
         state = state.state_dict()
@@ -154,15 +164,13 @@ def params_to_flax(model_or_state_dict, config):
             f"{sorted(set(state) ^ set(shapes))}")
     tree = {}
     for name, (path, shape) in shapes.items():
-        value = state[name].detach().cpu()
-        value = (value.numpy() if path[-1] == "kernel_q"
-                 else value.to(torch.float32).numpy())
+        value = state[name].detach()
+        if path[-1] != "kernel_q":
+            value = value.to(torch.float32)
         if path[-1] in ("kernel", "kernel_q"):
             value = value.T  # Linear [out, in] -> Dense [in, out]
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(value.reshape(shape))
+        value = value.reshape(shape).contiguous()
+        _put(tree, path, value if tensors else value.cpu().numpy())
     return tree
 
 
@@ -300,13 +308,13 @@ def image_layout(model):
     return out
 
 
-def image_variables_from_flax(model, variables):
-    """flax variables of an image model (``{"params": ...,
-    "batch_stats": ...}``, nested mappings of arrays) -> a state_dict
-    for the port's ``model`` (f32 CPU tensors). Raises if a leaf is
-    missing, has another shape, or is one the model does not have."""
+def _image_from_flax(model, variables, collections):
+    """{state_dict name: f32 CPU tensor} of the image ``model``'s
+    entries in ``collections``, read from flax ``variables``."""
     out = {}
     for name, (collection, path, shape) in image_layout(model).items():
+        if collection not in collections:
+            continue
         node = variables
         try:
             for key in (collection,) + path:
@@ -330,23 +338,87 @@ def image_variables_from_flax(model, variables):
     return out
 
 
-def image_variables_to_flax(model):
+def image_variables_from_flax(model, variables):
+    """flax variables of an image model (``{"params": ...,
+    "batch_stats": ...}``, nested mappings of arrays) -> a state_dict
+    for the port's ``model`` (f32 CPU tensors). Raises if a leaf is
+    missing, has another shape, or is one the model does not have."""
+    return _image_from_flax(model, variables, ("params", "batch_stats"))
+
+
+def _image_to_flax(model, state, tensors):
+    """The flax tree of the image ``model``'s entries in ``state``
+    ({state_dict name: tensor}): f32 numpy leaves, or contiguous f32
+    tensors on their device with ``tensors=True``."""
+    tree = {}
+    for name, (collection, path, _) in image_layout(model).items():
+        if name not in state:
+            continue
+        value = state[name].detach().to(torch.float32)
+        if path[-1] == "kernel":
+            value = (value.permute(2, 3, 1, 0) if value.dim() == 4
+                     else value.T)
+        value = value.contiguous()
+        _put(tree.setdefault(collection, {}), path,
+             value if tensors else value.cpu().numpy())
+    return tree
+
+
+def image_variables_to_flax(model, tensors=False):
     """The inverse of ``image_variables_from_flax``: the port's
     parameters and running statistics as ``{"params": ...,
     "batch_stats": ...}`` of f32 numpy arrays (no ``batch_stats`` for a
-    model without BN)."""
-    state = model.state_dict()
-    tree = {}
-    for name, (collection, path, _) in image_layout(model).items():
-        value = state[name].detach().to("cpu", torch.float32).numpy()
-        if path[-1] == "kernel":
-            value = (value.transpose(2, 3, 1, 0) if value.ndim == 4
-                     else value.T)
-        node = tree.setdefault(collection, {})
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(value)
-    return tree
+    model without BN); ``tensors`` as in ``params_to_flax``."""
+    return _image_to_flax(model, model.state_dict(), tensors)
+
+
+def named_params_to_flax(model, named, config=None, tensors=False):
+    """{parameter name: tensor} of ``model`` (its parameters, an EMA
+    shadow, momentum traces) -> the flax ``params`` tree: through
+    ``params_to_flax`` for an LM of ``config``, through the image
+    layout's ``params`` collection for an image model (``config``
+    None). ``tensors`` as in ``params_to_flax``."""
+    if config is not None:
+        return params_to_flax(named, config, tensors=tensors)
+    return _image_to_flax(model, named, tensors).get("params", {})
+
+
+def named_params_from_flax(model, tree, config=None):
+    """The inverse of ``named_params_to_flax``: {parameter name: f32
+    CPU tensor} from a flax ``params`` tree."""
+    if config is not None:
+        return params_from_flax(tree)
+    return _image_from_flax(model, {"params": tree}, ("params",))
+
+
+def opt_state_to_flax(optimizer, model, config=None, tensors=False):
+    """The momentum traces of ``optimizer`` (the ``torch.optim.SGD`` of
+    ``Sgd.init`` over ``model``) as optax's ``TraceState.trace``, in the
+    flax layout of the params (``named_params_to_flax``). A parameter
+    the optimizer has not stepped (or steps without momentum) has a
+    zero trace, as ``optax.trace`` initialises it."""
+    traces = {}
+    for name, param in model.named_parameters():
+        buf = optimizer.state.get(param, {}).get("momentum_buffer")
+        traces[name] = torch.zeros_like(param) if buf is None else buf
+    return named_params_to_flax(model, traces, config, tensors)
+
+
+def opt_state_from_flax(optimizer, model, trace, config=None):
+    """The inverse of ``opt_state_to_flax``: set every parameter's
+    ``momentum_buffer`` in ``optimizer`` from the flax-layout ``trace``
+    (creating it on an optimizer that has not stepped, so that the next
+    update is optax's ``trace = g + momentum * trace``), on the
+    parameter's device, dtype and memory format."""
+    named = named_params_from_flax(model, trace, config)
+    params = dict(model.named_parameters())
+    if set(named) != set(params):
+        raise ValueError(f"trace names differ from the model's: "
+                         f"{sorted(set(named) ^ set(params))}")
+    for name, value in named.items():
+        param = params[name]
+        optimizer.state[param]["momentum_buffer"] = (
+            torch.empty_like(param).copy_(value))
 
 
 def init_flax_layout_image(model, seed):

@@ -12,10 +12,11 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""The registry of the serving metric names the port publishes.
+"""The registry of the metric names the port publishes.
 
 The port's own copy of the serving, fleet and router part of the JAX
-package's obs/metric_names.py: the same tpu_* names, so the fleet
+package's obs/metric_names.py, and of the checkpoint's training
+histogram: the same tpu_* names, so the fleet
 collector, the HPA and a dashboard read a PyTorch engine and a JAX
 engine alike. Every publisher imports its name from here; a literal that
 drifted between the Prometheus, varz and /stats surfaces would split
@@ -60,6 +61,9 @@ ROUTER_LATENCY_ATTRIBUTION = (
 ROUTER_E2E_LATENCY = "tpu_router_e2e_seconds"
 ROUTER_UPSTREAM_TTFB = "tpu_router_upstream_ttfb_seconds"
 ROUTER_SLO_VIOLATIONS = "tpu_router_slo_violations_total"
+
+# -- training ---------------------------------------------------------
+TRAIN_CHECKPOINT_BLOCK = "tpu_train_checkpoint_block_seconds"
 
 METRICS = {
     SERVING_SLOT_OCCUPANCY: "active/total slot fraction per step",
@@ -106,6 +110,7 @@ METRICS = {
         "router placement to first upstream body line",
     ROUTER_SLO_VIOLATIONS:
         "router-measured end-to-end SLO burns per (slo, tenant)",
+    TRAIN_CHECKPOINT_BLOCK: "train-thread-blocking checkpoint time",
 }
 
 # tpu_-prefixed tokens that are NOT metric names (label keys, module

@@ -13,13 +13,21 @@
 # limitations under the License.
 
 
-"""Single-device training for the port: the Trainer, its losses and
-its synthetic data. Counterpart of
+"""Single-device training for the port: the Trainer, its losses, its
+synthetic and real data, and checkpoints. Counterpart of
 container_engine_accelerators_tpu/parallel/ (mesh, sharding and the
 distributed forms are not ported yet)."""
 
-from .data import SyntheticLoader, SyntheticTokenLoader
+from .checkpoint import CheckpointManager, restore_state, state_payload
+from .data import (
+    NpzShardDataset,
+    PrefetchLoader,
+    SyntheticLoader,
+    SyntheticTokenLoader,
+)
 from .train import Sgd, TrainState, Trainer, cross_entropy_loss
 
-__all__ = ["Sgd", "SyntheticLoader", "SyntheticTokenLoader", "TrainState",
-           "Trainer", "cross_entropy_loss"]
+__all__ = ["CheckpointManager", "NpzShardDataset", "PrefetchLoader", "Sgd",
+           "SyntheticLoader", "SyntheticTokenLoader", "TrainState",
+           "Trainer", "cross_entropy_loss", "restore_state",
+           "state_payload"]

@@ -36,17 +36,31 @@ demo's defaults; a dropping router, so ``--speculative-k`` refuses it
 at startup, as the demo's engine does). Weights are made in the flax
 layout from the seed and carried over by models/convert.py;
 ``--quantize-weights=int8`` quantizes the LM's tree at load, as the
-demo launcher does (the MoE's expert kernels stay native). Loading a checkpoint
-(``--model-dir``, ``--draft-model-dir``) waits for the checkpoint-format
-port, and ``--warm-filters`` is validated and then ignored, as in the
-demo.
+demo launcher does (the MoE's expert kernels stay native).
+``--warm-filters`` is validated and then ignored, as in the demo.
+
+``--model-dir`` (default ``$MODEL_DIR``) serves the weights of the
+newest finished checkpoint there, as the training drivers (the port's
+and the demo's) write it: the LM's or the MoE's ``params``, ResNet's
+``params`` and ``batch_stats``; the LM's are restored before
+``--quantize-weights=int8`` quantizes them, as in the demo. A directory
+with no finished checkpoint serves the initialized weights with the
+demo's message (a warning when it holds entries of another format).
+
+    python -m container_engine_accelerators_tpu_torch.serving.serve \
+        --model=transformer --model-dir=/ckpt/lm --tokenizer=/models/tok
+
+``--tokenizer`` takes "byte" or a local Hugging Face tokenizer
+directory (``transformers`` loads it without a download).
 
 ``--speculative-k N`` serves with a draft model, as the demo does: a
 TransformerLM of ``--draft-layers`` layers, ``--draft-embed-dim`` and
 ``--draft-num-heads`` heads (0: the target's; MHA), the target's vocab,
 position embedding and max_seq_len, native weights made from seed
-``--seed + 1`` (the target's from ``--seed``). A random draft almost
-never agrees with the target: it shows the path, not the speed-up.
+``--seed + 1`` (the target's from ``--seed``), or restored from
+``--draft-model-dir``. A random draft almost never agrees with the
+target: it shows the path, not the speed-up; a trained one (the
+driver's ``--model transformer`` at the draft's widths) can.
 
 ``--system-prefix`` (text, needs ``--tokenizer``) or
 ``--system-prefix-ids`` (comma-separated ids) pins a system prompt in
@@ -63,6 +77,7 @@ around ``serving.fleet_worker``).
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
@@ -73,6 +88,10 @@ from .. import obs
 from ..models import convert
 from ..models.convert import init_flax_layout_params, load_lm, quantize_lm
 from ..models.resnet import resnet
+from ..parallel.checkpoint import (
+    CheckpointManager,
+    warn_unrecognized_checkpoints,
+)
 from .server import GenerationServer, InferenceServer
 from .tokenizer import load_tokenizer
 
@@ -115,16 +134,19 @@ def build_parser():
                    default="bfloat16",
                    help="int8 halves KV-cache residency per replica")
     p.add_argument("--tokenizer", default="",
-                   help="'byte' serves text in and out (a Hugging Face "
-                        "tokenizer path is not yet ported); empty "
-                        "serves token ids only")
+                   help="text-in/text-out serving: 'byte' (the "
+                        "dependency-free byte-level codec) or a LOCAL "
+                        "Hugging Face tokenizer path; empty serves token "
+                        "ids only")
     p.add_argument("--quantize-weights", choices=["native", "int8"],
                    default="native",
                    help="int8: weight-only quantization of the "
                         "attention and MLP kernels at load time")
-    p.add_argument("--model-dir", default="",
-                   help="checkpoint restore is not yet ported; empty "
-                        "serves random weights made from --seed")
+    p.add_argument("--model-dir", default=os.environ.get("MODEL_DIR", ""),
+                   help="restore weights from the newest checkpoint_N "
+                        "under this directory (as the training drivers "
+                        "write it); empty serves random weights made "
+                        "from --seed (load-testing only)")
     p.add_argument("--speculative-k", type=int, default=0,
                    help="N > 0: greedy rows without a repetition penalty "
                         "decode speculatively in the engine, a draft "
@@ -136,8 +158,10 @@ def build_parser():
                    help="0 = the target's --num-heads (must divide "
                         "--draft-embed-dim)")
     p.add_argument("--draft-model-dir", default="",
-                   help="checkpoint restore is not yet ported; empty "
-                        "serves a random draft made from --seed + 1")
+                   help="checkpoint directory of the draft (the driver's "
+                        "--model transformer at the draft's widths); "
+                        "empty serves a random draft made from --seed + "
+                        "1 (load-testing only)")
     p.add_argument("--system-prefix", default="",
                    help="shared system-prompt text, pinned once at "
                         "startup; clients then send only their suffix. "
@@ -187,12 +211,37 @@ def parse_args(argv=None):
     return args
 
 
+def load_checkpoint_variables(model_dir, init_variables):
+    """``{"params"[, "batch_stats"]}`` (flax-layout numpy trees) from
+    the newest finished checkpoint_N under ``model_dir``; the given
+    ``init_variables`` when the directory has none. Only the model's
+    variables are read: the optimizer state stays on disk."""
+    mgr = CheckpointManager(model_dir)
+    step = mgr.latest_step()
+    if step is None:
+        foreign = warn_unrecognized_checkpoints(
+            model_dir, "serving INITIALIZED weights instead")
+        if not foreign:
+            print(f"no checkpoints under {model_dir!r}; serving "
+                  f"initialized weights", file=sys.stderr)
+        return init_variables
+    template = {"params": init_variables["params"]}
+    if "batch_stats" in init_variables:
+        template["batch_stats"] = init_variables["batch_stats"]
+    restored = mgr.restore(template, step=step)
+    print(f"serving weights from {mgr.manifest(step)['path']}",
+          file=sys.stderr)
+    return restored
+
+
 def build_image_server(args):
     """The InferenceServer ``args`` describe: ResNet v1.5 of
     ``--depth`` on ``--device`` with flax-layout weights made from
-    ``--seed``, in eval mode."""
+    ``--seed`` or restored from ``--model-dir``, in eval mode."""
     model = resnet(depth=args.depth, device="meta")
     variables = convert.init_flax_layout_image(model, args.seed)
+    if args.model_dir:
+        variables = load_checkpoint_variables(args.model_dir, variables)
     model = convert.load_image_model(model.to_empty(device=args.device),
                                      variables)
     return InferenceServer(args.model_name or args.model, model,
@@ -205,13 +254,6 @@ def build_server(args):
     error = prefix_args_error(args)
     if error:
         raise SystemExit(error)
-    if args.model_dir:
-        raise SystemExit("--model-dir is not yet ported to the PyTorch "
-                         "server; omit it to serve random weights")
-    if args.draft_model_dir:
-        raise SystemExit("--draft-model-dir is not yet ported to the "
-                         "PyTorch server; omit it to serve a random "
-                         "draft")
     warm_filters = None
     if args.warm_filters:
         warm_filters = json.loads(args.warm_filters)
@@ -233,6 +275,10 @@ def build_server(args):
     if args.model == "moe":
         config["num_experts"] = args.num_experts
     tree = init_flax_layout_params(config, args.seed)
+    if args.model_dir:
+        # Restore, then quantize, as the demo launcher does.
+        tree = load_checkpoint_variables(args.model_dir,
+                                         {"params": tree})["params"]
     if args.quantize_weights == "int8":
         tree = quantize_lm(config, tree)
     model = load_lm(
@@ -254,9 +300,11 @@ def build_server(args):
                             num_heads=draft_heads,
                             pos_embedding=args.pos_embedding,
                             max_seq_len=args.max_seq_len)
-        draft = load_lm(draft_config,
-                        init_flax_layout_params(draft_config, args.seed + 1),
-                        device=args.device)
+        draft_tree = init_flax_layout_params(draft_config, args.seed + 1)
+        if args.draft_model_dir:
+            draft_tree = load_checkpoint_variables(
+                args.draft_model_dir, {"params": draft_tree})["params"]
+        draft = load_lm(draft_config, draft_tree, device=args.device)
     prefix_tokens = args.prefix_ids
     if args.system_prefix:
         prefix_tokens = tokenizer.encode(args.system_prefix)

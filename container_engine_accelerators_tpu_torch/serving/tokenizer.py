@@ -16,13 +16,15 @@
 JAX package's serving/tokenizer.py).
 
 The serving core works on token ids; tokenization is a host-side codec
-in front of it. ``ByteTokenizer`` is the dependency-free byte-level
-codec (id = utf-8 byte, any vocab_size >= 256). A Hugging Face
-tokenizer directory is not ported: it loads files from outside the
-repository through ``transformers``.
-"""
+in front of it:
 
-from ..utils import not_ported
+- ``ByteTokenizer``: the dependency-free byte-level codec (id = utf-8
+  byte, any vocab_size >= 256).
+- ``load_tokenizer(spec)``: "byte", or a LOCAL path to a pretrained
+  Hugging Face tokenizer directory (``transformers`` is imported only
+  then, with ``local_files_only=True``: it never downloads, and the
+  package imports without it).
+"""
 
 
 class ByteTokenizer:
@@ -49,9 +51,30 @@ class ByteTokenizer:
         return "".join(out)
 
 
+class _HFTokenizer:
+    """Thin adapter over a local pretrained Hugging Face tokenizer."""
+
+    def __init__(self, path):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(
+            path, local_files_only=True)
+        # len() counts added and special tokens, .vocab_size does not:
+        # an added token would then pass the server's model-vocab
+        # guard.
+        self.vocab_size = int(len(self._tok))
+
+    def encode(self, text):
+        return list(self._tok.encode(text, add_special_tokens=False))
+
+    def decode(self, ids):
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+
 def load_tokenizer(spec):
-    """"byte" -> ByteTokenizer; a Hugging Face tokenizer path raises."""
+    """"byte" -> ByteTokenizer; anything else is a local Hugging Face
+    tokenizer directory (a missing one raises what ``transformers``
+    raises)."""
     if spec == "byte":
         return ByteTokenizer()
-    raise not_ported(f"tokenizer {spec!r} (a Hugging Face tokenizer "
-                     f"directory)")
+    return _HFTokenizer(spec)

@@ -31,7 +31,10 @@ data is the synthetic image or token loader. The optimizer is the
 demo's ``build_tx``: --grad-clip, weight decay on the leaves that are
 rank >= 2 in the flax tree, SGD with momentum under one of three
 --lr-schedule's. mnist and resnet train on the fused cross-entropy,
-inception on the plain loss, as the demo does. --remat, --grad-accum,
+inception on the plain loss, as the demo does. ``--data-dir`` trains an
+image model on ``.npz`` shards (``NpzShardDataset`` through
+``PrefetchLoader``; the LM ignores it, as the demo does), else on the
+synthetic loader. --remat, --grad-accum,
 --augment (image models; the LM ignores it with a message),
 --ema-decay and --eval-batches (top-1/top-5 through the eval step)
 follow the demo.
@@ -43,9 +46,23 @@ kernels' launch counts added. ``--attention-window`` trains the LM
 with sliding-window attention (the flash kernels' band). ``--model moe``
 trains the MoETransformerLM (``--num-experts``, top-2 routing at
 capacity factor 1.25 on the odd layers) on the next-token loss plus
-0.01 times the router's aux loss, as the demo's build_lm. The flags of
-the demo's other paths (parallelism, expert parallelism included,
-checkpoints, profiles, real data) raise "not yet ported".
+0.01 times the router's aux loss, as the demo's build_lm.
+
+``--model-dir`` (default ``$MODEL_DIR``) checkpoints in the JAX
+package's format (``parallel/checkpoint.py``): the newest finished
+checkpoint there is restored before the first step (parameters, BN
+statistics, momentum, step, EMA) and a real-data run skips the batches
+it already took; saves every ``--checkpoint-every`` steps and at the
+end, asynchronously, keeping ``--keep-checkpoints``; a ``gs://``
+directory warns and turns checkpointing off, as in the demo. A
+checkpoint the demo driver wrote resumes here and the reverse.
+
+    python -m container_engine_accelerators_tpu_torch.train \
+        --model resnet --data-dir /data/shards --model-dir /ckpt \
+        --checkpoint-every 100 --keep-checkpoints 3
+
+The flags of the demo's other paths (parallelism, expert parallelism
+included, profiles) raise "not yet ported".
 """
 
 import argparse
@@ -58,6 +75,7 @@ import time
 
 import torch
 
+from . import obs
 from .models import convert, mlp
 from .models.decode import logits_of
 from .models.inception import InceptionV3
@@ -68,12 +86,18 @@ from .ops import attention, xent
 from .ops.augment import make_augment_fn
 from .ops.xent import mean_cross_entropy_loss
 from .parallel import (
+    CheckpointManager,
+    NpzShardDataset,
+    PrefetchLoader,
     Sgd,
     SyntheticLoader,
     SyntheticTokenLoader,
     Trainer,
     cross_entropy_loss,
+    restore_state,
+    state_payload,
 )
+from .parallel.checkpoint import warn_unrecognized_checkpoints
 from .utils import not_ported, wall_sync
 
 IMAGE_MODELS = ("mnist", "resnet", "inception")
@@ -152,11 +176,19 @@ def parse_args(argv=None):
                    help="the plain cross_entropy_loss instead")
     p.add_argument("--json", action="store_true",
                    help="print a single JSON result line (always done)")
-    p.add_argument("--data-dir", default="")
-    p.add_argument("--model-dir", default=os.environ.get("MODEL_DIR", ""))
+    p.add_argument("--data-dir", default="",
+                   help="directory of .npz shards (images/labels "
+                        "arrays) for real-data image training; empty "
+                        "uses the synthetic loader")
+    p.add_argument("--model-dir", default=os.environ.get("MODEL_DIR", ""),
+                   help="checkpoint directory (local path): restore the "
+                        "newest checkpoint_N there, save into it")
     p.add_argument("--profile-dir", default="")
-    p.add_argument("--checkpoint-every", type=int, default=0)
-    p.add_argument("--keep-checkpoints", type=int, default=0)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also checkpoint every N steps (0 = end only)")
+    p.add_argument("--keep-checkpoints", type=int, default=0,
+                   help="retain only the newest N finished "
+                        "checkpoints (0 = keep all)")
     p.add_argument("--eval-batches", type=int, default=0)
     p.add_argument("--compilation-cache-dir", default="",
                    help="the demo's XLA compile cache; accepted and "
@@ -178,8 +210,6 @@ def check_ported(args):
         "--pipeline-parallelism": args.pipeline_parallelism > 1,
         "--dcn-granules": args.dcn_granules > 1,
         "--fsdp": args.fsdp,
-        "--data-dir": bool(args.data_dir),
-        "--model-dir": bool(args.model_dir),
         "--profile-dir": bool(args.profile_dir),
     }
     on = [flag for flag, bad in unported.items() if bad]
@@ -322,7 +352,9 @@ def build_model(args, device):
 
 def build_trainer(args, device):
     """(trainer, state, loader) from the flags, after checking that
-    they name a ported path and that ``device`` exists."""
+    they name a ported path and that ``device`` exists. The loader is
+    None for an image model with ``--data-dir``: ``real_data_loader``
+    makes it once the restored step is known."""
     check_ported(args)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -341,8 +373,8 @@ def build_trainer(args, device):
         loss_fn = functools.partial(
             mean_cross_entropy_loss if fused else cross_entropy_loss,
             label_smoothing=args.label_smoothing)
-        loader = SyntheticLoader(args.batch_size, shape, classes,
-                                 device=device)
+        loader = None if args.data_dir else SyntheticLoader(
+            args.batch_size, shape, classes, device=device)
         if args.augment:
             augment_fn = make_augment_fn(flip=True,
                                          crop_padding=args.crop_padding)
@@ -357,6 +389,72 @@ def build_trainer(args, device):
                       grad_accum=args.grad_accum, augment_fn=augment_fn,
                       ema_decay=args.ema_decay)
     return trainer, trainer.init_state(), loader
+
+
+def real_data_loader(args, device, skip, wait_cb=None):
+    """``--data-dir``'s loader: the shards' batches staged onto
+    ``device``, past the ``skip`` batches a restored run already took
+    (``NpzShardDataset``'s per-shard fast-forward)."""
+    return PrefetchLoader(
+        NpzShardDataset(args.data_dir, args.batch_size, skip_batches=skip),
+        device=device, wait_cb=wait_cb)
+
+
+# One CheckpointManager per directory for this process: repeated runs
+# in one process share its writer thread, as the demo's do.
+_managers = {}
+
+
+def _manager(model_dir, keep=None):
+    model_dir = os.path.abspath(model_dir)
+    mgr = _managers.get(model_dir)
+    if mgr is None:
+        mgr = _managers[model_dir] = CheckpointManager(model_dir,
+                                                       keep=keep or 0)
+    else:
+        mgr.configure(keep=keep)
+    return mgr
+
+
+def _state_layout(args):
+    """state_payload's (config, schedule) for the flags."""
+    config = None if args.model in IMAGE_MODELS else lm_config(args)
+    return config, args.lr_schedule != "constant"
+
+
+def save_checkpoint(args, state):
+    """Checkpoint the TrainState into --model-dir. Returns once the
+    state is copied to the host, with the seconds that took; the write
+    (and the retention prune) finishes in the background
+    (``finalize_checkpoints`` waits for it)."""
+    config, schedule = _state_layout(args)
+    mgr = _manager(args.model_dir, keep=args.keep_checkpoints)
+    path = mgr.save(state_payload(state, config, schedule), step=state.step)
+    print(f"saving checkpoint {path} (async)", file=sys.stderr)
+    return mgr.last_blocked_s
+
+
+def finalize_checkpoints():
+    """Block until every async checkpoint write has landed."""
+    for mgr in _managers.values():
+        mgr.wait_until_finished()
+
+
+def restore_checkpoint(args, state):
+    """Resume from the newest checkpoint in --model-dir, if any (else
+    warn about entries of another format there)."""
+    mgr = _manager(args.model_dir)
+    if mgr.latest_step() is None:
+        warn_unrecognized_checkpoints(
+            args.model_dir,
+            "they will NOT be restored, and saves at the same step "
+            "numbers will replace them")
+        return state
+    config, schedule = _state_layout(args)
+    state = restore_state(mgr, state, config=config, schedule=schedule)
+    print(f"restored checkpoint step {state.step} from "
+          f"{args.model_dir}", file=sys.stderr)
+    return state
 
 
 def kernel_launches():
@@ -387,17 +485,36 @@ def evaluate(trainer, state, loader, args):
     return int(correct) / total, int(correct5) / total
 
 
-def run(args, on_step=None):
+def run(args, on_step=None, on_batch=None):
     """Train as the flags say; returns (result dict, trainer, state).
     ``on_step(step, loss)``, if given, is called after every step with
-    the step's loss as a device tensor (no host sync)."""
+    the step's loss as a device tensor (no host sync);
+    ``on_batch(step, batch)`` before every step with its batch."""
     device = torch.device(args.device)
     trainer, state, loader = build_trainer(args, device)
+    if args.model_dir.startswith("gs://"):
+        print("WARNING: gs:// model dirs need a GCS-enabled image; "
+              "skipping checkpointing", file=sys.stderr)
+        args.model_dir = ""
+    if args.model_dir:
+        t_restore = time.perf_counter()
+        state = restore_checkpoint(args, state)
+        if state.step > 0:
+            obs.event("train.restart", step=state.step,
+                      recovery_s=round(time.perf_counter() - t_restore, 6))
+    waits = []
+    if loader is None:
+        # Deferred: the fast-forward needs the restored step, and the
+        # loader starts staging the moment it exists.
+        loader = real_data_loader(args, device, state.step,
+                                  wait_cb=waits.append)
     before = kernel_launches()
-    losses = []
+    losses, blocked = [], []
     warmup = max(args.warmup_steps, 0)
     t_start = time.perf_counter() if warmup == 0 else None
     for step, batch in zip(range(args.steps), loader):
+        if on_batch is not None:
+            on_batch(step, batch)
         state, loss = trainer.train_step(state, batch)
         if on_step is not None:
             on_step(step, loss)
@@ -408,8 +525,15 @@ def run(args, on_step=None):
             loss_val = float(loss)
             losses.append(loss_val)
             print(f"step {step} loss {loss_val:.4f}", file=sys.stderr)
+        if (args.model_dir and args.checkpoint_every
+                and (step + 1) % args.checkpoint_every == 0):
+            blocked.append(save_checkpoint(args, state))
     wall_sync(state.model)
     t_end = time.perf_counter()
+    if hasattr(loader, "close"):
+        # Staged batches would otherwise stay in device memory through
+        # the final checkpoint.
+        loader.close()
     timed_steps = max(args.steps - warmup, 0)
     if t_start is None or timed_steps == 0:
         per_sec = 0.0
@@ -434,18 +558,27 @@ def run(args, on_step=None):
         result["tokens_per_sec"] = round(per_sec * args.seq_len, 2)
     result["kernel_launches"] = {name: after[name] - before[name]
                                  for name in after}
+    if waits:
+        # The consumer's mean wait for a staged batch a step.
+        result["data_wait_ms_mean"] = 1e3 * sum(waits) / len(waits)
     if args.eval_batches:
         top1, top5 = evaluate(trainer, state, loader, args)
         result["eval_accuracy"] = round(top1, 4)
         result["eval_top5_accuracy"] = round(top5, 4)
         print(f"eval accuracy top1 {result['eval_accuracy']} "
               f"top5 {result['eval_top5_accuracy']}", file=sys.stderr)
+    if args.model_dir:
+        blocked.append(save_checkpoint(args, state))
+        finalize_checkpoints()
+        # Each save's blocking seconds (its host copy), in order.
+        result["checkpoint_block_s"] = blocked
     return result, trainer, state
 
 
 def main(argv=None, on_step=None):
     """Train and print the JSON result line; returns it as a dict.
     ``on_step`` as in ``run``."""
+    obs.set_role("train")
     result, _, _ = run(parse_args(argv), on_step)
     print(json.dumps(result))
     return result

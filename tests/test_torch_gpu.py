@@ -786,3 +786,72 @@ def test_moe_trainer_step_launches_on_the_card(cuda):
     for p in (routed.gate, routed.w_in, routed.w_out):
         assert p.grad is not None and float(p.grad.abs().sum()) > 0
     assert not torch.equal(routed.w_in.detach(), w_in)
+
+
+def test_prefetch_loader_to_the_card_gives_the_host_batches(cuda):
+    """PrefetchLoader(device="cuda"): pinned copies on a side stream,
+    waited on by the consumer's stream. Each batch (64 MB of images) is
+    read on the card the moment ``next()`` returns and equals the host
+    batch; the tensors are on the card with their dtypes."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        PrefetchLoader,
+    )
+    rng = np.random.default_rng(0)
+    source = [(rng.standard_normal((64, 256, 1024), dtype=np.float32),
+               np.arange(64, dtype=np.int32) + i) for i in range(6)]
+    got = []
+    with PrefetchLoader(iter(source), device="cuda") as loader:
+        for images, labels in loader:
+            assert images.device.type == "cuda"
+            assert images.dtype == torch.float32
+            assert labels.dtype == torch.int32
+            # Read on the current stream at once: a half-copied batch
+            # would differ.
+            got.append((images.sum(dtype=torch.float64),
+                        images[:, -1, -8:].clone(), labels.clone()))
+    torch.cuda.synchronize()
+    assert len(got) == len(source)
+    for (total, tail, labels), (images, want) in zip(got, source):
+        np.testing.assert_allclose(float(total),
+                                   images.sum(dtype=np.float64), rtol=1e-9)
+        np.testing.assert_array_equal(tail.cpu().numpy(),
+                                      images[:, -1, -8:])
+        np.testing.assert_array_equal(labels.cpu().numpy(), want)
+
+
+def test_async_save_on_the_card_archives_its_own_step(cuda, tmp_path):
+    """The checkpoint snapshot copies the card's parameters and momentum
+    to the host before save() returns: two more steps before the
+    background write runs do not reach the archive."""
+    import threading
+
+    from container_engine_accelerators_tpu_torch.parallel import checkpoint
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64)
+    model = convert.load_lm(config, convert.init_flax_layout_params(
+        config, 0), device="cuda", trainable=True)
+    trainer = Trainer(model, transformer.next_token_loss_fn(
+        xent.mean_cross_entropy_loss), Sgd(0.1, momentum=0.9))
+    state = trainer.init_state()
+    batches = SyntheticTokenLoader(2, 64, 128, device="cuda")
+    state, _ = trainer.train_step(state, next(batches))
+    payload = checkpoint.state_payload(state, config)
+    copy = {k: v.detach().cpu().numpy().copy() if torch.is_tensor(v)
+            else np.array(v) for k, v in checkpoint.keystr_items(payload)}
+    mgr = checkpoint.CheckpointManager(tmp_path)
+    gate = threading.Event()
+    write = mgr._write
+    mgr._write = lambda *args: (gate.wait(30), write(*args))[1]
+    mgr.save(payload, step=state.step)
+    for _ in range(2):
+        state, _ = trainer.train_step(state, next(batches))
+    torch.cuda.synchronize()
+    gate.set()
+    mgr.wait_until_finished()
+    with np.load(tmp_path / "checkpoint_1" / "arrays.npz") as raw:
+        assert sorted(raw.files) == sorted(copy)
+        for key in copy:
+            np.testing.assert_array_equal(raw[key], copy[key], err_msg=key)
+    live = convert.params_to_flax(state.model, config)
+    assert not np.array_equal(live["lm_head"]["kernel"],
+                              copy["['params']['lm_head']['kernel']"])

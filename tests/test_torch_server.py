@@ -54,7 +54,7 @@ from container_engine_accelerators_tpu_torch.models import transformer
 from container_engine_accelerators_tpu_torch.serving import serve
 from container_engine_accelerators_tpu_torch.serving import server
 from container_engine_accelerators_tpu_torch.serving import tokenizer
-from tests import torch_parity
+from tests import torch_drivers, torch_parity
 from tests.conftest import REPO_ROOT
 
 MAX_NEW = 8
@@ -278,7 +278,9 @@ def test_healthz_stats_and_metadata(request, pool):
     assert info["max_new_tokens"] == MAX_NEW
 
 
-def test_launcher_builds_a_cpu_server_and_refuses_the_rest(monkeypatch):
+def test_launcher_builds_a_cpu_server_and_refuses_the_rest(monkeypatch,
+                                                           tmp_path,
+                                                           capsys):
     flags = ["--model", "transformer", "--vocab-size", "64",
              "--embed-dim", "32", "--num-layers",
              "1", "--num-heads", "4", "--num-kv-heads", "2",
@@ -302,34 +304,43 @@ def test_launcher_builds_a_cpu_server_and_refuses_the_rest(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             serve.build_server(parser.parse_args(flags))
-    for extra in (["--attention-window", "16"],
-                  ["--tokenizer", "/models/tok"]):
-        if extra[0] == "--attention-window":
-            # Ported: the launcher builds the windowed server, on the
-            # paged pool and at CEA_TPU_PAGED_KV=0 on the dense one.
-            for paged in ("1", "0"):
-                monkeypatch.setenv(decode.PAGED_KV_ENV, paged)
-                s = serve.build_server(parser.parse_args(
-                    flags + ["--device", "cpu"] + extra))
-                try:
-                    assert s.engine.paged == (paged == "1")
-                    assert s.engine._model.attention_window == 16
-                    assert not isinstance(s.engine._cache,
-                                          transformer.RingCache)
-                finally:
-                    s.stop()
-            monkeypatch.delenv(decode.PAGED_KV_ENV)
-            continue
-        with pytest.raises(ValueError, match="not yet ported"):
-            serve.build_server(parser.parse_args(
-                flags + ["--device", "cpu"] + extra))
-    with pytest.raises(SystemExit, match="model-dir"):
-        serve.build_server(parser.parse_args(
-            flags + ["--device", "cpu", "--model-dir", "/ckpt"]))
+    # Ported: the launcher builds the windowed server, on the paged pool
+    # and at CEA_TPU_PAGED_KV=0 on the dense one.
+    for paged in ("1", "0"):
+        monkeypatch.setenv(decode.PAGED_KV_ENV, paged)
+        s = serve.build_server(parser.parse_args(
+            flags + ["--device", "cpu", "--attention-window", "16"]))
+        try:
+            assert s.engine.paged == (paged == "1")
+            assert s.engine._model.attention_window == 16
+            assert not isinstance(s.engine._cache, transformer.RingCache)
+        finally:
+            s.stop()
+    monkeypatch.delenv(decode.PAGED_KV_ENV)
+    # Ported: a directory without a finished checkpoint serves the
+    # weights made from --seed, with the demo launcher's message.
+    s = serve.build_server(parser.parse_args(
+        flags + ["--device", "cpu", "--model-dir", "/ckpt"]))
+    s.stop()
+    assert ("no checkpoints under '/ckpt'; serving initialized weights"
+            in capsys.readouterr().err)
     for bad in ('{"top_k": 40}', '[1, 2]', '[{"top_k": 40}, 3]'):
         with pytest.raises(SystemExit, match="list of dicts"):
             serve.build_server(parser.parse_args(
                 flags + ["--device", "cpu", "--warm-filters", bad]))
+    # Ported: a local Hugging Face tokenizer directory (its 300 ids need
+    # a vocab above 256; the later flag wins).
+    pytest.importorskip("transformers")
+    path = torch_drivers.hf_tokenizer_dir(tmp_path / "tok")
+    s = serve.build_server(parser.parse_args(
+        flags + ["--device", "cpu", "--tokenizer", path,
+                 "--vocab-size", "320"]))
+    try:
+        assert isinstance(s._tokenizer, tokenizer._HFTokenizer)
+        assert (s._tokenizer.encode("hi")
+                == jax_tokenizer.load_tokenizer(path).encode("hi"))
+    finally:
+        s.stop()
 
 
 def test_paged_server_shares_a_resident_prefix(srv, lm):
@@ -405,8 +416,14 @@ def test_byte_tokenizer_is_the_jax_codec():
         assert ours.decode(ids) == theirs.decode(ids)
     assert isinstance(tokenizer.load_tokenizer("byte"),
                       tokenizer.ByteTokenizer)
-    with pytest.raises(ValueError, match="not yet ported"):
+    # Any other spec is a local Hugging Face directory (ported): a
+    # missing one raises what the JAX loader raises.
+    pytest.importorskip("transformers")
+    with pytest.raises(Exception) as ours:
         tokenizer.load_tokenizer("/models/llama-tokenizer")
+    with pytest.raises(Exception) as theirs:
+        jax_tokenizer.load_tokenizer("/models/llama-tokenizer")
+    assert type(ours.value) is type(theirs.value)
 
 
 def test_text_requests_match_the_jax_server(byte_srv, jax_byte_srv):

@@ -300,11 +300,11 @@ def test_server_refuses_what_speculation_cannot_serve(target, draft):
         s.stop()
 
 
-def test_launcher_speculative_flags():
+def test_launcher_speculative_flags(capsys):
     """``--speculative-k`` builds the demo's draft (``--draft-layers``,
     ``--draft-embed-dim``, ``--draft-num-heads`` or the target's,
     seed + 1), validated with the demo's messages;
-    ``--draft-model-dir`` is refused as ``--model-dir`` is."""
+    ``--draft-model-dir`` restores the draft (its empty case here)."""
     flags = ["--model", "transformer", "--vocab-size", "64",
              "--embed-dim", "32", "--num-layers",
              "1", "--num-heads", "4", "--pos-embedding", "rope",
@@ -340,6 +340,17 @@ def test_launcher_speculative_flags():
     with pytest.raises(SystemExit, match="not divisible by draft heads 3"):
         serve.build_server(parser.parse_args(
             flags + ["--speculative-k", "4", "--draft-num-heads", "3"]))
-    with pytest.raises(SystemExit, match="draft-model-dir"):
-        serve.build_server(parser.parse_args(
-            flags + ["--speculative-k", "4", "--draft-model-dir", "/ckpt"]))
+    # Ported: a draft directory without a finished checkpoint serves the
+    # random draft (seed + 1) with the demo launcher's message; the
+    # trained draft is tests/test_torch_serve_checkpoint.py's.
+    s = serve.build_server(parser.parse_args(
+        flags + ["--speculative-k", "4", "--draft-embed-dim", "16",
+                 "--seed", "3", "--draft-model-dir", "/ckpt"]))
+    try:
+        assert all(torch.equal(a, b) for a, b in zip(
+            s.engine._draft_model.state_dict().values(),
+            want.state_dict().values()))
+    finally:
+        s.stop()
+    assert ("no checkpoints under '/ckpt'; serving initialized weights"
+            in capsys.readouterr().err)

@@ -362,21 +362,39 @@ def test_eval_step_gives_the_lm_logits():
     ["--pipeline-parallelism", "2"], ["--dcn-granules", "2"], ["--fsdp"],
     ["--data-dir", "d"], ["--model-dir", "m"], ["--profile-dir", "p"],
     ["--model", "moe", "--expert-parallelism", "2"]])
-def test_unported_flags_raise(flags):
+def test_unported_flags_raise(flags, tmp_path):
     """Every flag of a path the port does not carry raises; the
     sliding window and the MoE are ported and train a tiny windowed LM
-    and a tiny MoE instead (expert parallelism still raises)."""
+    and a tiny MoE instead (expert parallelism still raises), and so
+    are real data and checkpoints: --data-dir is ignored by the LM, as
+    the demo ignores it, and --model-dir writes a checkpoint that the
+    next run resumes."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
+    tiny = ["--vocab-size", "32", "--embed-dim", "16", "--num-heads", "2",
+            "--batch-size", "2", "--steps", "2", "--warmup-steps", "1"]
     if flags in (["--attention-window", "64"], ["--model", "moe"]):
         # Two layers for the MoE: layer 1 is its routed one.
         model = "moe" if "moe" in flags else "transformer"
-        result = port_train.main(argv + [
-            "--vocab-size", "32", "--embed-dim", "16", "--num-layers",
-            "2" if model == "moe" else "1", "--num-heads", "2",
-            "--seq-len", "80", "--batch-size", "2", "--steps", "2",
-            "--warmup-steps", "1", "--num-experts", "4"])
+        result = port_train.main(argv + tiny + [
+            "--num-layers", "2" if model == "moe" else "1",
+            "--seq-len", "80", "--num-experts", "4"])
         assert np.isfinite(result["final_loss"]) and result["steps"] == 2
         assert result["model"] == model
+        return
+    if flags[0] in ("--data-dir", "--model-dir"):
+        argv = argv[:-1] + [str(tmp_path / flags[1])]
+        result = port_train.main(argv + tiny + ["--num-layers", "1",
+                                                "--seq-len", "8"])
+        assert np.isfinite(result["final_loss"]) and result["steps"] == 2
+        if flags[0] == "--model-dir":
+            assert os.listdir(tmp_path / "m") == ["checkpoint_2"]
+            again = port_train.main(argv + tiny + ["--num-layers", "1",
+                                                   "--seq-len", "8"])
+            assert again["checkpoint_block_s"]
+            assert sorted(os.listdir(tmp_path / "m")) == [
+                "checkpoint_2", "checkpoint_4"]
+        else:
+            assert "checkpoint_block_s" not in result
         return
     with pytest.raises(ValueError, match="not yet ported"):
         port_train.main(argv)
