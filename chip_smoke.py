@@ -262,6 +262,28 @@
    phase 10's random draft (no bound). (d) The ResNet-50 predict server
    from B's checkpoint: weights and BN statistics equal the archive,
    classes the eval forward of the restored model or a near tie.
+15. runs the tooling adapters at full width (``drive_tooling``). (a)
+   The dense pool behind the port server (MODEL): every prompt bucket
+   served once, a 0.1 s ``/debug/profile`` capture paying the
+   profiler's start-up, then ``/debug/profile?seconds=2`` while waves of
+   8 concurrent requests are admitted and decode (a second capture
+   meanwhile answers 409): its Chrome trace must name
+   ``flash_fwd_wgmma_tc_kernel`` (up to TOOL_CAPTURES captures, each
+   one's kernel count reported). (b) ``/stats`` ``hbm_peak_bytes`` at
+   least ``torch.cuda.max_memory_allocated()`` read just before and at
+   most ``mem_get_info()[1]``; ``hbm_in_use_bytes`` at most the peak.
+   (c) ``decode_mfu`` finite and in (0, 1) after at least 32 eight-slot
+   steps; 8 ``flash_fwd`` launches an admission. (d) 3 LM steps at
+   phase 7's shape through the driver with ``--profile-dir``: 8/8/8/1/1
+   a step, the trace names the dQ and dK/dV kernels, ``train_mfu`` in
+   (0, 1), the goodput buckets sum to the wall within 1%. (f) The FLOPs
+   the Trainer counted on its first step equal the analytic count (6
+   a linear weight a token, 18·D a kept pair a layer) within 1%. (e) A
+   launcher process (``lm_flags()``, the paged pool,
+   ``CEA_TPU_TRACE_FILE`` set) SIGTERM'd with a stream in flight: the
+   stream finishes, the process exits 0, and the journal holds
+   ``serving_kv_blocks``, the drained request in ``serving_requests``
+   and a ``cuda:0`` memory watermark.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -277,6 +299,7 @@ chiprun_out/chip_smoke.json.
 import contextlib
 import functools
 import itertools
+import math
 import json
 import os
 import re
@@ -4610,6 +4633,350 @@ def drive_checkpoints(torch, train, convert, kernels, rng, report):
     return out, launches
 
 
+# Phase 15: the tooling adapters at full width.
+TOOL_STEPS = 3
+TOOL_WARMUP = 1
+TOOL_PROFILE_S = 2.0
+TOOL_WAVE_NEW = 16        # new tokens a request in the profiled waves
+# torch.profiler's CUDA rows came back empty from 1 of 6 consecutive
+# captures of a serving process on an H100 (torch 2.11): (a) takes up
+# to this many captures and reports each one's kernel count.
+TOOL_CAPTURES = 3
+TOOL_FULL_STEPS = 32      # eight-slot steps before decode_mfu is read
+TOOL_FLOPS_TOL = 0.01     # counted step FLOPs against the analytic count
+TOOL_GOODPUT_TOL = 0.01   # goodput buckets against the wall
+TOOL_PROMPTS = (16, 32, 64, 100, 200, 300, 500, 700)   # one a slot
+PATH_KERNELS.update({
+    "tooling_serving": ("flash_fwd",),
+    "tooling_training": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "xent_fwd", "xent_bwd"),
+})
+
+
+def trace_summary(path, window_s=None):
+    """What a torch.profiler Chrome trace holds: device kernels by name
+    (count and total ms, the ten largest), their summed time over the
+    window (the device's busy share, kernels of one stream not
+    overlapping), and the CPU-side operator events and threads."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, cpu_ops, cpu_tids = {}, 0, set()
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "kernel":
+            row = kernels.setdefault(e["name"], [0, 0.0])
+            row[0] += 1
+            row[1] += e.get("dur", 0) / 1e3
+        elif e.get("cat") == "cpu_op":
+            cpu_ops += 1
+            cpu_tids.add(e.get("tid"))
+    busy_ms = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    out = dict(kernel_names=sorted(name[:120] for name in kernels),
+               kernel_launches=sum(n for n, _ in kernels.values()),
+               kernel_ms=busy_ms,
+               by_name=[dict(name=name, count=n)
+                        for name, (n, _) in kernels.items()],
+        top_kernels=[dict(name=name[:120], count=n, ms=ms)
+                     for name, (n, ms) in top],
+        cpu_ops=cpu_ops, cpu_threads=len(cpu_tids),
+        trace_mb=os.path.getsize(path) / 1e6)
+    if window_s:
+        out["device_busy_share"] = busy_ms / (1e3 * window_s)
+    return out
+
+
+def named(summary, *kernels):
+    """The kernels of ``kernels`` a trace summary does not name."""
+    return [k for k in kernels
+            if not any(k in name for name in summary["kernel_names"])]
+
+
+def tooling_serving(torch, model, kernels, rng):
+    """Phase 15 (a)-(c): the dense pool behind the port server.
+    /debug/profile for TOOL_PROFILE_S while waves of eight short
+    requests are admitted and decode (a second capture meanwhile gets
+    409), up to TOOL_CAPTURES captures until one names the flash
+    kernel; then eight concurrent MAX_NEW-token requests, after which
+    /stats' HBM fields are held against the allocator and decode_mfu
+    read after at least TOOL_FULL_STEPS eight-slot steps. Returns
+    (report, launches)."""
+    from container_engine_accelerators_tpu_torch.serving.server import (
+        GenerationServer,
+    )
+    os.environ["CEA_TPU_PAGED_KV"] = "0"
+    try:
+        server = GenerationServer("lm", model, port=0,
+                                  max_new_tokens=MAX_NEW,
+                                  max_batch=MAX_BATCH, host="127.0.0.1")
+    finally:
+        del os.environ["CEA_TPU_PAGED_KV"]
+    if server.engine.paged:
+        raise AssertionError("CEA_TPU_PAGED_KV=0 built a paged engine")
+    server.start()
+    try:
+        vocab = MODEL["vocab_size"]
+        prefills0 = server.engine.prefills
+        for kern in kernels:
+            kern.launches = 0
+        profile, errors = {}, []
+
+        def capture():
+            profile["reply"] = http_call(
+                server.port, f"/debug/profile?seconds={TOOL_PROFILE_S}")
+
+        def wave(new):
+            payloads = [{"prompts": [rng.integers(0, vocab, n).tolist()],
+                         "max_new_tokens": new} for n in TOOL_PROMPTS]
+
+            def client(payload):
+                try:
+                    status, body = post(server.port, payload)
+                    if status != 200 or len(body["sequences"][0]) != len(
+                            payload["prompts"][0]) + new:
+                        errors.append((status, body))
+                except Exception as e:  # reported below, fails the run
+                    errors.append(repr(e))
+
+            clients = [threading.Thread(target=client, args=(p,))
+                       for p in payloads]
+            for t in clients:
+                t.start()
+            for t in clients:
+                t.join(timeout=600)
+            if errors or any(t.is_alive() for t in clients):
+                raise AssertionError(f"tooling traffic failed: {errors}")
+
+        # Every prompt bucket is served once before any capture: a
+        # shape's first launches load its kernels lazily, which under
+        # an active profiler stalls the engine for seconds. A first
+        # short capture then pays the profiler's one-time start-up
+        # (up to 15 s on an H100, the GIL held). Waves of admissions
+        # run for as long as each capture does.
+        wave(TOOL_WAVE_NEW)
+        warm = http_call(server.port, "/debug/profile?seconds=0.1")
+        if warm[0] != 200:
+            raise AssertionError(f"/debug/profile answered {warm}")
+        captures = []
+        while len(captures) < TOOL_CAPTURES and not any(
+                c["flash_fwd_in_trace"] for c in captures):
+            profile.clear()
+            steps0 = server.engine.steps
+            prof_thread = threading.Thread(target=capture)
+            prof_thread.start()
+            time.sleep(0.05)
+            busy = http_call(server.port, "/debug/profile?seconds=0.01")
+            waves = 0
+            while prof_thread.is_alive() and "reply" not in profile:
+                wave(TOOL_WAVE_NEW)
+                waves += 1
+            prof_thread.join(timeout=600)
+            status, _, reply = profile["reply"]
+            if status != 200 or busy[0] != 409:
+                raise AssertionError(f"/debug/profile answered {status} "
+                                     f"{reply}, a second capture {busy[0]}")
+            trace = trace_summary(reply["trace"], TOOL_PROFILE_S)
+            trace["flash_fwd_in_trace"] = sum(
+                row["count"] for row in trace.pop("by_name")
+                if "flash_fwd_wgmma_tc_kernel" in row["name"])
+            trace.update(waves=waves, start_s=reply["start_s"],
+                         engine_steps=server.engine.steps - steps0)
+            captures.append(trace)
+        wave(MAX_NEW)   # (c): every slot busy for MAX_NEW steps
+        launches = {k.name: k.launches for k in kernels}
+        admissions = server.engine.prefills - prefills0
+        time.sleep(1.1)   # past /stats' sampling interval: a fresh sample
+        torch.cuda.synchronize()
+        allocator_peak = torch.cuda.max_memory_allocated()
+        total = torch.cuda.mem_get_info()[1]
+        stats = get(server.port, "/stats")
+        occupancy = server._engine_service._occ_hist.snapshot()[0]
+    finally:
+        server.stop()
+    # The last occupancy bucket (1.0) counts the steps with every slot
+    # active.
+    full_steps = occupancy[-2]
+    out = dict(profile=captures[-1], captures=len(captures),
+               capture_kernels=[c["kernel_launches"] for c in captures],
+               warm_start_s=warm[2]["start_s"],
+               hbm_in_use_bytes=stats["hbm_in_use_bytes"],
+               hbm_peak_bytes=stats["hbm_peak_bytes"],
+               allocator_peak_bytes=allocator_peak, mem_total_bytes=total,
+               decode_mfu=stats["decode_mfu"], eight_slot_steps=full_steps,
+               engine_steps=stats["engine_steps"], admissions=admissions,
+               launches=launches)
+    log("tooling serving:", json.dumps({k: v for k, v in out.items()
+                                        if k != "profile"}))
+    for trace in captures:
+        log("tooling serving profile:", json.dumps(
+            {k: v for k, v in trace.items() if k != "kernel_names"}))
+    if not captures[-1]["flash_fwd_in_trace"]:
+        raise AssertionError(f"(a) no serving profile of {len(captures)} "
+                             f"names flash_fwd_wgmma_tc_kernel")
+    peak, in_use = stats["hbm_peak_bytes"], stats["hbm_in_use_bytes"]
+    if not (peak is not None and allocator_peak <= peak <= total
+            and in_use is not None and in_use <= peak):
+        raise AssertionError(f"(b) HBM fields: {out}")
+    mfu = stats["decode_mfu"]
+    if not (full_steps >= TOOL_FULL_STEPS and mfu is not None
+            and math.isfinite(mfu) and 0 < mfu < 1):
+        raise AssertionError(f"(c) decode_mfu {mfu} after {full_steps} "
+                             f"eight-slot steps")
+    if (launches["flash_fwd"] != MODEL["num_layers"] * admissions
+            or admissions < len(TOOL_PROMPTS) * (
+                2 + sum(c["waves"] for c in captures))
+            or any(n for name, n in launches.items()
+                   if name != "flash_fwd")):
+        raise AssertionError(f"tooling serving launches {launches} for "
+                             f"{admissions} admissions")
+    return out, launches
+
+
+def analytic_train_flops(model, batch, seq):
+    """One LM training step's FLOPs, the count the CPU tests pin: 6 a
+    linear weight a token (the embedding lookup multiplies nothing),
+    and each layer's flash forward, dQ and dK/dV at 4, 6 and 8 D a kept
+    pair a head."""
+    import torch
+    linear = sum(m.weight.numel() for m in model.modules()
+                 if isinstance(m, torch.nn.Linear))
+    heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
+    attention = (18 * d * kept_pairs(seq, True, 0) * batch * heads
+                 * MODEL["num_layers"])
+    return 6 * linear * batch * seq + attention
+
+
+def tooling_training(torch, train, kernels, profile_dir):
+    """Phase 15 (d) and (f): TOOL_STEPS LM steps at phase 7's shape
+    through the driver with --profile-dir; the trace names the dQ and
+    dK/dV kernels, train_mfu is in (0, 1), the goodput buckets sum to
+    the wall, and the FLOPs counted on the first step equal the
+    analytic count. Returns (report, launches)."""
+    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+    argv = train_argv(TOOL_STEPS, TOOL_WARMUP) + ["--profile-dir",
+                                                  profile_dir]
+    summary, launches, trainer, _ = drive(torch, train, kernels, argv,
+                                          per_step, TOOL_WARMUP)
+    result = summary["driver_result"]
+    window_s = sum(summary["step_ms"][TOOL_WARMUP - 1:]) / 1e3
+    trace = trace_summary(result["profile_trace"], window_s)
+    trace.pop("by_name")
+    want = analytic_train_flops(trainer.model, TRAIN_BATCH, TRAIN_SEQ)
+    counted = result["flops_per_step"]
+    buckets = result["goodput_buckets_s"]
+    out = dict(train_mfu=result["train_mfu"], flops_per_step=counted,
+               analytic_flops=want, goodput_ratio=result["goodput_ratio"],
+               goodput_wall_s=result["goodput_wall_s"],
+               goodput_buckets_s=buckets, step_ms=summary["step_ms"],
+               losses=summary["losses"], profile=trace, launches=launches)
+    log("tooling training:", json.dumps({k: v for k, v in out.items()
+                                         if k != "profile"}))
+    log("tooling training profile:", json.dumps(trace))
+    missing = named(trace, "flash_bwd_dq_wgmma_tc_kernel",
+                    "flash_bwd_dkv_wgmma_tc_kernel")
+    mfu = result["train_mfu"]
+    if missing or not (mfu is not None and 0 < mfu < 1):
+        raise AssertionError(f"(d) the training profile lacks {missing} "
+                             f"or train_mfu is {mfu}")
+    if abs(sum(buckets.values()) - result["goodput_wall_s"]) > (
+            TOOL_GOODPUT_TOL * result["goodput_wall_s"]):
+        raise AssertionError(f"(d) goodput buckets {buckets} against "
+                             f"the wall {result['goodput_wall_s']}")
+    if not counted or abs(counted - want) > TOOL_FLOPS_TOL * want:
+        raise AssertionError(f"(f) counted {counted} FLOPs a step, "
+                             f"analytic {want}")
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def tooling_sigterm(proc, port, journal):
+    """Phase 15 (e): SIGTERM to a launcher process (lm_flags, the paged
+    pool, CEA_TPU_TRACE_FILE set) with a stream in flight: the stream
+    finishes, the process exits 0, and the journal's flight record
+    holds serving_kv_blocks, serving_requests (the drained stream's
+    record) and the memory watermarks."""
+    import signal
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/models/lm:generate",
+        data=json.dumps({"prompts": [[1, 2, 3, 4, 5]],
+                         "max_new_tokens": MAX_NEW,
+                         "stream": True}).encode())
+    conn = urllib.request.urlopen(req, timeout=600)
+    lines = [json.loads(conn.readline())]
+    proc.send_signal(signal.SIGTERM)
+    lines += [json.loads(x) for x in conn.read().splitlines()]
+    conn.close()
+    rc = proc.wait(timeout=120)
+    with open(journal) as f:
+        doc = json.load(f)
+    state = doc.get("postmortem_state", {})
+    requests = state.get("serving_requests", {})
+    records = requests.get("records") or [{}]
+    marks = state.get("hbm_memory", {}).get("watermarks", {})
+    out = dict(exit_code=rc, exit_reason=doc.get("exit_reason"),
+               stream_tokens=sum(len(x.get("tokens", [])) for x in lines),
+               stream_end=lines[-1], providers=sorted(state),
+               retired=requests.get("retired_total"),
+               record=dict(outcome=records[0].get("outcome"),
+                           tokens=records[0].get("tokens")),
+               kv_paged=state.get("serving_kv_blocks", {}).get("paged"),
+               watermarks=marks)
+    log("tooling sigterm:", json.dumps(out))
+    if (rc != 0 or out["stream_end"] != {"done": True}
+            or out["stream_tokens"] != MAX_NEW
+            or out["exit_reason"] != "signal:SIGTERM"
+            or out["kv_paged"] is not True
+            or out["record"] != {"outcome": "completed", "tokens": MAX_NEW}
+            or not marks or not all(v > 0 for v in marks.values())):
+        raise AssertionError(f"(e) SIGTERM postmortem: {out}")
+    return out
+
+
+def drive_tooling(torch, train, model, kernels, rng):
+    """Phase 15 (see the module docstring). Returns (report, launches by
+    path)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    journal = os.path.join(root, "journal.json")
+    # (e)'s launcher warms up while (a)-(d) run.
+    proc = spawn_launcher(lm_flags(), {"CEA_TPU_TRACE_FILE": journal})
+    try:
+        port_box = {}
+
+        def read():
+            try:
+                port_box["port"] = launcher_port(proc, lm_flags())[0]
+            except AssertionError as e:
+                port_box["error"] = str(e)
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        os.environ["CEA_TPU_PROFILE_DIR"] = os.path.join(root, "serving")
+        try:
+            serving, serving_launches = tooling_serving(
+                torch, model, kernels, rng)
+        finally:
+            del os.environ["CEA_TPU_PROFILE_DIR"]
+        training, training_launches = tooling_training(
+            torch, train, kernels, os.path.join(root, "training"))
+        reader.join(timeout=600)
+        if "port" not in port_box:
+            raise AssertionError(f"(e) launcher: {port_box}")
+        sigterm = tooling_sigterm(proc, port_box["port"], journal)
+    finally:
+        stop_process(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(serving=serving, training=training, sigterm=sigterm,
+               phase_s=time.perf_counter() - t0)
+    log(f"tooling phase: {out['phase_s']:.1f} s")
+    return out, {"tooling_serving": serving_launches,
+                 "tooling_training": training_launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4786,6 +5153,10 @@ def main():
     report["checkpoints"], ckpt_launches = drive_checkpoints(
         torch, train, convert, all_kernels, rng, report)
 
+    # Phase 15: the tooling adapters.
+    report["tooling"], tool_launches = drive_tooling(
+        torch, train, model, all_kernels, rng)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -4838,6 +5209,8 @@ def main():
         for path, counts in moe_launches.items():
             by_path[path] = counts[name]
         for path, counts in ckpt_launches.items():
+            by_path[path] = counts[name]
+        for path, counts in tool_launches.items():
             by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",

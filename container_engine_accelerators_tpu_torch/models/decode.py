@@ -76,6 +76,7 @@ import time
 import numpy as np
 import torch
 
+from ..analysis import tsan
 from ..serving.affinity import KV_BLOCK_ENV, chain_digest
 from ..utils import _env_flag, env_number, env_str, faults
 from .transformer import map_cache
@@ -887,6 +888,7 @@ class _BlockPool:
                 del self._index[key]
 
     def alloc(self):
+        tsan.note_write("engine.block_pool", self)
         while self._free_order:
             bid = self._free_order.popleft()
             if bid in self._free_set:
@@ -903,6 +905,7 @@ class _BlockPool:
             "queued this request (engine invariant violated)")
 
     def incref(self, bid):
+        tsan.note_write("engine.block_pool", self)
         if self.ref[bid] == 0:
             # Revival: a free-listed block whose indexed content a new
             # admission matched goes back to resident, keys kept.
@@ -910,6 +913,7 @@ class _BlockPool:
         self.ref[bid] += 1
 
     def decref(self, bid):
+        tsan.note_write("engine.block_pool", self)
         self.ref[bid] -= 1
         if self.ref[bid] < 0:
             raise RuntimeError(f"KV block {bid} refcount underflow")
@@ -1372,6 +1376,23 @@ class SlotDecodeEngine:
         quant = kv_quant_mode(kv_quant)
         self._model = model
         self.device = model.device
+        # Parameter counts, the 2·N-FLOPs-per-token basis of the serving
+        # loop's tpu_decode_mfu (obs.efficiency.transformer_decode_flops).
+        # A MoE token runs only top_k of num_experts expert MLPs, so the
+        # expert-stacked leaves (leading dim num_experts, rank >= 3:
+        # w_in, w_out; the [d, E] gate is fully used) count at k/E in
+        # ``active_param_count``.
+        params = list(model.parameters())
+        self.param_count = sum(p.numel() for p in params)
+        experts = int(getattr(model, "num_experts", 0) or 0)
+        top_k = int(getattr(model, "top_k", 0) or 0)
+        if experts and top_k and top_k < experts:
+            self.active_param_count = sum(
+                (p.numel() * top_k // experts
+                 if p.dim() >= 3 and p.shape[0] == experts else p.numel())
+                for p in params)
+        else:
+            self.active_param_count = self.param_count
         self.slots = int(slots)
         self.slot_len = int(slot_len)
         self.kv_quant = _model_quant_mode(model) if quant == "bf16" else quant
@@ -1969,6 +1990,7 @@ class SlotDecodeEngine:
         its prompt into the draft's cache; on the paged pool its whole
         draft span must fit the draft arena's free list, checked before
         the pool is touched (EngineCapacityError otherwise)."""
+        tsan.note_write("engine.slot_tables", self)
         free = np.flatnonzero(~self._active)
         if free.size == 0:
             raise EngineCapacityError("no free slot; release one first")
@@ -2168,6 +2190,7 @@ class SlotDecodeEngine:
         ``counts[r]`` tokens (``_spec_step``)."""
         if not self._active.any():
             return None
+        tsan.note_write("engine.slot_tables", self)
         if self._draft_model is not None:
             return self._spec_step()
         dev = self.device
@@ -2207,6 +2230,7 @@ class SlotDecodeEngine:
         their prefix keys kept for revival until reuse), its table
         resets to the trash block and its unspent reservation returns
         to the budget."""
+        tsan.note_write("engine.slot_tables", self)
         if self.paged:
             for b in self._slot_blocks[slot]:
                 self._pool.decref(b)

@@ -15,10 +15,10 @@
 """Observability for the port's servers: spans, histograms, the event
 journal, the request ledger and trace propagation.
 
-Own copies of the JAX package's obs modules the servers and the fleet
-front door need, under the same names (metric_names, identity, trace,
-propagate, reqledger, export, http, fleet), with the same
-module-level helpers over one process-wide tracer::
+Own copies of the JAX package's obs modules, under the same names
+(metric_names, identity, trace, propagate, reqledger, export, http,
+fleet; efficiency, memory, profiler, postmortem, straggler), with the
+same module-level helpers over one process-wide tracer::
 
     from container_engine_accelerators_tpu_torch import obs
     with obs.span("serving.prefill", bucket=64):
@@ -27,12 +27,25 @@ module-level helpers over one process-wide tracer::
     obs.histogram("serving_request_latency_seconds").observe(dt)
 
 /metrics (prometheus_text), /debug/trace and /debug/varz
-(debug_response) are the read side. Stdlib only.
+(debug_response) are the read side; /debug/profile (profile_response)
+captures a torch.profiler trace; write_journal and obs.postmortem
+write the journal to CEA_TPU_TRACE_FILE. obs.efficiency holds the MFU
+and goodput ledgers, obs.memory samples the CUDA allocator, and
+obs.straggler rates per-host step skew. Stdlib only at import: the
+modules that read torch import it inside their calls.
 """
 
+from .efficiency import (
+    FlopsLedger,
+    GoodputLedger,
+    count_flops,
+    peak_flops_per_chip,
+    report_from_snapshots,
+)
 from .export import dump_json, perfetto_trace, prometheus_text, varz
 from .http import TRACE_PATH, VARZ_PATH, debug_response, query_param
 from .identity import identity, process_label, set_role
+from .profiler import PROFILE_PATH, profile_response
 from .propagate import (
     REQUEST_ID_KEY,
     TRACEPARENT_KEY,
@@ -58,6 +71,7 @@ from .trace import (
     Span,
     Tracer,
     get_tracer,
+    write_journal,
 )
 
 TRACER = get_tracer()
@@ -88,14 +102,21 @@ def gauge(name, value, **labels):
     TRACER.gauge(name, value, **labels)
 
 
+def enabled():
+    return TRACER.enabled
+
+
 __all__ = [
-    "ATTRIBUTION_BUCKETS", "DEFAULT_BUCKETS", "GAP_BUCKETS", "Histogram",
-    "NULL_SPAN", "REQUEST_ID_KEY", "ROUTER_BUCKETS", "RequestLedger",
+    "ATTRIBUTION_BUCKETS", "DEFAULT_BUCKETS", "FlopsLedger", "GAP_BUCKETS",
+    "GoodputLedger", "Histogram", "NULL_SPAN", "PROFILE_PATH",
+    "REQUEST_ID_KEY", "ROUTER_BUCKETS", "RequestLedger",
     "RequestTimeline", "SATURATION_CAUSES", "Span", "TRACEPARENT_KEY",
     "TRACER", "TRACE_PATH", "TTFT_BUCKETS", "Tracer", "VARZ_PATH",
-    "counter", "debug_response", "dump_json", "event", "extract_headers",
-    "format_traceparent", "gauge", "get_tracer", "histogram", "identity",
-    "inject_headers", "parse_traceparent", "perfetto_trace",
-    "process_label", "prometheus_text", "query_param", "saturation",
-    "set_role", "span", "varz",
+    "count_flops", "counter", "debug_response", "dump_json", "enabled",
+    "event", "extract_headers", "format_traceparent", "gauge",
+    "get_tracer", "histogram", "identity", "inject_headers",
+    "parse_traceparent", "peak_flops_per_chip", "perfetto_trace",
+    "process_label", "profile_response", "prometheus_text",
+    "query_param", "report_from_snapshots", "saturation", "set_role",
+    "span", "varz", "write_journal",
 ]

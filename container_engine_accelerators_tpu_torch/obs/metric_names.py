@@ -14,9 +14,9 @@
 
 """The registry of the metric names the port publishes.
 
-The port's own copy of the serving, fleet and router part of the JAX
-package's obs/metric_names.py, and of the checkpoint's training
-histogram: the same tpu_* names, so the fleet
+The port's own copy of the serving, fleet, router, training, memory
+and profiler part of the JAX package's obs/metric_names.py: the same
+tpu_* names, so the fleet
 collector, the HPA and a dashboard read a PyTorch engine and a JAX
 engine alike. Every publisher imports its name from here; a literal that
 drifted between the Prometheus, varz and /stats surfaces would split
@@ -63,9 +63,29 @@ ROUTER_UPSTREAM_TTFB = "tpu_router_upstream_ttfb_seconds"
 ROUTER_SLO_VIOLATIONS = "tpu_router_slo_violations_total"
 
 # -- training ---------------------------------------------------------
+TRAIN_MFU = "tpu_train_mfu"
+DECODE_MFU = "tpu_decode_mfu"
+TRAIN_GOODPUT_RATIO = "tpu_train_goodput_ratio"
+TRAIN_BADPUT_SECONDS = "tpu_train_badput_seconds"
+TRAIN_STEP_SKEW = "tpu_train_step_skew_ratio"
 TRAIN_CHECKPOINT_BLOCK = "tpu_train_checkpoint_block_seconds"
 
+# -- memory / profiler ------------------------------------------------
+HBM_BYTES_IN_USE = "tpu_hbm_bytes_in_use"
+HBM_PEAK_BYTES = "tpu_hbm_peak_bytes"
+HBM_BYTES_LIMIT = "tpu_hbm_bytes_limit"
+PROFILE_CAPTURES = "tpu_profile_captures_total"
+
 METRICS = {
+    TRAIN_MFU: "model FLOP utilization of the train step",
+    DECODE_MFU: "model FLOP utilization of the serving decode loop",
+    TRAIN_GOODPUT_RATIO: "productive fraction of train wall time",
+    TRAIN_BADPUT_SECONDS: "non-productive wall seconds by bucket",
+    TRAIN_STEP_SKEW: "per-host step-time skew vs fleet median",
+    HBM_BYTES_IN_USE: "allocator bytes in use per device",
+    HBM_PEAK_BYTES: "allocator peak bytes per device",
+    HBM_BYTES_LIMIT: "allocator byte limit per device",
+    PROFILE_CAPTURES: "completed /debug/profile captures",
     SERVING_SLOT_OCCUPANCY: "active/total slot fraction per step",
     SERVING_TTFT: "admission-to-first-token latency",
     SERVING_TPOT: "per-token gap of in-flight rows",

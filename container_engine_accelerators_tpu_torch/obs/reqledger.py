@@ -265,6 +265,15 @@ class RequestLedger:
             }
         return out
 
+    def state(self, max_rows=32):
+        """Postmortem state provider payload: what the last retired
+        requests spent their time on when the process died."""
+        return {
+            "capacity": self.capacity,
+            "retired_total": self.retired_total(),
+            "records": self.records(max_rows),
+        }
+
     def reset(self):
         """Zero everything in place (the post-warm-up /
         reset_counters discipline: histograms stay wired to the

@@ -14,9 +14,8 @@
 
 """In-process tracer: spans, latency histograms, event journal.
 
-The port's own copy of the JAX package's ``obs/trace.py`` (the
-journal file writer is not carried: nothing of the port writes one
-yet). Bounded memory (completed spans and events live in fixed-
+The port's own copy of the JAX package's ``obs/trace.py``, the
+journal file writer included. Bounded memory (completed spans and events live in fixed-
 capacity rings), near-zero cost when disabled (``tracer.span(...)``
 returns one module-level no-op span), stdlib only.
 
@@ -24,8 +23,15 @@ Environment:
   CEA_TPU_TRACE=0        disable span/event recording (histograms
                          stay live: they are the /metrics surface)
   CEA_TPU_TRACE_CAP=N    ring capacity for spans and events (4096)
+  CEA_TPU_TRACE_FILE=P   write the journal (``Tracer.snapshot``'s
+                         shape, the JAX package's) to P at exit;
+                         obs.postmortem writes it at a signal or an
+                         unhandled exception too
 """
 
+import atexit
+import json
+import os
 import random
 import threading
 import time
@@ -415,6 +421,41 @@ class Tracer:
         with self._lock:
             return dict(self._gauges)
 
+    def drop_gauges(self, names, keep_labels=None):
+        """Drop label series of the named gauges (the stale-label reset
+        seam). With ``keep_labels`` (a labels dict), series carrying
+        ALL of those label pairs survive; without it every series of
+        the named gauges drops."""
+        names = set(names)
+        keep = set((keep_labels or {}).items())
+        with self._lock:
+            for key in [k for k in self._gauges
+                        if k[0] in names
+                        and not (keep and keep <= set(k[1]))]:
+                del self._gauges[key]
+
+    def open_span_count(self):
+        with self._lock:
+            return len(self._open)
+
+    def reset(self):
+        """Drop journal state and zero metrics (test isolation seam).
+        Histograms are zeroed IN PLACE, not dropped: long-lived holders
+        (a server's latency histogram) keep their reference and stay
+        wired to the export surface."""
+        with self._lock:
+            self._spans.clear()
+            self._events.clear()
+            self._open.clear()
+            for h in self._histograms.values():
+                h.reset()
+            self._counters.clear()
+            self._gauges.clear()
+            self._dropped_spans = self._dropped_events = 0
+        stack = getattr(self._local, "stack", None)
+        if stack:
+            del stack[:]
+
 
 # The process-wide tracer the port's servers share: every request,
 # step and event lands in ONE journal.
@@ -423,3 +464,53 @@ TRACER = Tracer()
 
 def get_tracer():
     return TRACER
+
+
+# Set once a postmortem capture has written the journal: the atexit
+# writer then stands down, so a clean-looking teardown after a fault
+# capture cannot overwrite the at-fault view of the open spans.
+_final_written = False
+
+
+def write_journal(path=None, reason=None, state=None, final=False):
+    """Flush the process-wide journal to a file: the CEA_TPU_TRACE_FILE
+    body, shared by a normal exit (the atexit writer below) and an
+    abnormal one (obs.postmortem's signal and excepthook handlers).
+
+    ``reason`` marks why it was written ("atexit", "signal:SIGTERM",
+    ...) as ``exit_reason``; ``state`` lands under
+    ``postmortem_state``; ``final=True`` (postmortem captures) stands
+    the atexit rewrite down once it has landed on CEA_TPU_TRACE_FILE.
+    Best effort: returns the path written, or None, and never raises
+    (it runs inside signal handlers and atexit)."""
+    global _final_written
+    env_path = env_str("CEA_TPU_TRACE_FILE")
+    path = path or env_path
+    if not path:
+        return None
+    try:
+        body = TRACER.snapshot()
+        if reason is not None:
+            body["exit_reason"] = reason
+        if state is not None:
+            body["postmortem_state"] = state
+        tmp = "%s.tmp.%d" % (path, os.getpid())
+        with open(tmp, "w") as f:
+            json.dump(body, f, indent=1, default=repr)
+            f.write("\n")
+        os.replace(tmp, path)
+        if final and path == env_path:
+            _final_written = True
+        return path
+    except Exception:
+        # Exit-time best effort: an OSError, or json failing on a
+        # provider's payload, must not preempt the chained shutdown.
+        return None
+
+
+def _write_trace_file():
+    if not _final_written:
+        write_journal(reason="atexit")
+
+
+atexit.register(_write_trace_file)

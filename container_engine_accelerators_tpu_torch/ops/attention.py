@@ -32,6 +32,10 @@ takes the plain version (``flash_attention_reference``,
 ``flash_attention_dq_reference``, ``flash_attention_dkv_reference``),
 a CUDA tensor launches ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``
 or raises. There is no fallback from a kernel to its plain version.
+
+Each wrapper declares its products (``attention_flops``, over the kept
+pairs) to ``obs.efficiency.count_flops``, which cannot see a kernel:
+a counted call gives one FLOP count on the card and on the CPU.
 """
 
 import ctypes
@@ -39,6 +43,7 @@ import math
 
 import torch
 
+from ..obs.efficiency import kernel_flops
 from ..utils import env_number
 from . import _build
 
@@ -117,6 +122,32 @@ def flash_attention_dkv_reference(q, k, v, do, lse, delta, causal=False,
     dv = torch.matmul(p.transpose(-1, -2), dof).transpose(1, 2)
     dk = torch.matmul(ds.transpose(-1, -2), qf).transpose(1, 2)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def kept_pairs(s, causal, window):
+    """(query, key) pairs of one [S] row block a kernel computes: all
+    S² without a mask, S(S+1)/2 causal, fewer again in a window."""
+    if not causal:
+        return s * s
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+# Matrix-product FLOPs per kept pair and head dim: the forward's
+# S = QK^T and PV; dQ recomputes S, forms dP = dO V^T and dS K; dK/dV
+# recomputes S and dP and forms P^T dO and dS^T Q (2 FLOPs a
+# multiply-add each).
+_FLOPS_PER_PAIR = {"fwd": 4, "dq": 6, "dkv": 8}
+
+
+def attention_flops(role, shape, causal, window):
+    """The FLOPs a ``role`` ("fwd", "dq", "dkv") kernel declares for
+    [B, S, H, D] operands: its products over the kept pairs only (the
+    count ``obs.efficiency.count_flops`` gives the kernel on both
+    devices; the plain versions compute every pair)."""
+    b, s, h, d = shape
+    return _FLOPS_PER_PAIR[role] * d * kept_pairs(s, causal, window) * b * h
 
 
 def _strides(*xs):
@@ -202,9 +233,10 @@ class FlashForward(_build.Kernel):
 
     def __call__(self, q, k, v, causal=False, window=0):
         """Returns (o [B, S, H, D] in q's dtype, lse [B, S, H] f32)."""
-        if _device_type(q, k, v) == "cpu":
-            return flash_attention_reference(q, k, v, causal, window)
-        return self.launch(q, k, v, causal, window)
+        with kernel_flops(attention_flops, "fwd", q.shape, causal, window):
+            if _device_type(q, k, v) == "cpu":
+                return flash_attention_reference(q, k, v, causal, window)
+            return self.launch(q, k, v, causal, window)
 
     def launch(self, q, k, v, causal, window):
         """Launch the kernel on CUDA tensors (no device dispatch)."""
@@ -269,10 +301,11 @@ class FlashBackwardDQ(_FlashBackward):
     symbol = "cea_flash_bwd_dq"
 
     def __call__(self, q, k, v, do, lse, delta, causal=False, window=0):
-        if _device_type(q, k, v, do, lse, delta) == "cpu":
-            return flash_attention_dq_reference(q, k, v, do, lse, delta,
-                                                causal, window)
-        return self.launch(q, k, v, do, lse, delta, causal, window)[0]
+        with kernel_flops(attention_flops, "dq", q.shape, causal, window):
+            if _device_type(q, k, v, do, lse, delta) == "cpu":
+                return flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                                    causal, window)
+            return self.launch(q, k, v, do, lse, delta, causal, window)[0]
 
 
 class FlashBackwardDKV(_FlashBackward):
@@ -285,10 +318,11 @@ class FlashBackwardDKV(_FlashBackward):
     n_out = 2
 
     def __call__(self, q, k, v, do, lse, delta, causal=False, window=0):
-        if _device_type(q, k, v, do, lse, delta) == "cpu":
-            return flash_attention_dkv_reference(q, k, v, do, lse, delta,
-                                                 causal, window)
-        return self.launch(q, k, v, do, lse, delta, causal, window)
+        with kernel_flops(attention_flops, "dkv", q.shape, causal, window):
+            if _device_type(q, k, v, do, lse, delta) == "cpu":
+                return flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                                     causal, window)
+            return self.launch(q, k, v, do, lse, delta, causal, window)
 
 
 def _device_type(*xs):

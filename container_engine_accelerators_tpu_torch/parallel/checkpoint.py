@@ -38,13 +38,15 @@ The snapshot always copies: the port updates parameters and momentum
 buffers in place, and a numpy view of a live CPU tensor would let the
 background write archive a later step's values. ``restore`` has no
 ``shardings=`` argument (the port runs on one device: leaves come back
-as host numpy arrays), and the lock-order sanitizer's write hook of the
-JAX manager belongs to the analysis tools, which the port does not
-carry yet. Its constructor takes ``keep`` alone: every save is async
-unless ``save(blocking=True)``, always fsynced, and written by this
-process; the JAX manager's ``goodput``, ``primary``, ``fsync`` and
-``async_save`` switches come back with their callers (the goodput
-ledger, a fleet of writer and non-writer processes).
+as host numpy arrays). ``goodput`` is the Trainer's GoodputLedger (or
+any object with ``record(bucket, seconds)``): each save's blocking
+seconds go to its ``checkpoint`` bucket, as in the JAX manager. The
+queue's writers call the lock-order sanitizer's ``note_write`` where
+the JAX manager does. Every save is async unless
+``save(blocking=True)``, always fsynced, and written by this process:
+the JAX manager's ``primary``, ``fsync`` and ``async_save`` switches
+come back with their callers (a fleet of writer and non-writer
+processes).
 
 ``state_payload`` and ``restore_state`` carry the port's ``TrainState``
 in the JAX TrainState's layout, through models/convert.py: ``step``
@@ -69,6 +71,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis import tsan
 from ..models import convert
 from ..obs.metric_names import TRAIN_CHECKPOINT_BLOCK
 
@@ -248,11 +251,13 @@ class CheckpointError(RuntimeError):
 class CheckpointManager:
     """Owns one checkpoint directory: async saves, retention, restore.
     ``keep > 0`` retains only the newest ``keep`` finished
-    checkpoints."""
+    checkpoints; ``goodput`` receives each save's blocking seconds in
+    its ``checkpoint`` bucket."""
 
-    def __init__(self, directory, keep=0):
+    def __init__(self, directory, keep=0, goodput=None):
         self.directory = str(directory)
         self.keep = int(keep)
+        self._goodput = goodput
         self._seq = 0
         self._error = None
         self._queue = None
@@ -267,10 +272,12 @@ class CheckpointManager:
         # observation), for a driver's report.
         self.last_blocked_s = None
 
-    def configure(self, keep=None):
-        """Re-point a long-lived manager; None leaves ``keep`` alone."""
+    def configure(self, keep=None, goodput=None):
+        """Re-point a long-lived manager; None leaves a setting alone."""
         if keep is not None:
             self.keep = int(keep)
+        if goodput is not None:
+            self._goodput = goodput
 
     # -- listing ------------------------------------------------------
 
@@ -318,6 +325,7 @@ class CheckpointManager:
                     if self._closed:
                         raise CheckpointError(
                             "save() on a closed CheckpointManager")
+                    tsan.note_write("checkpoint.queue", self)
                     self._pending += 1
                     self._queue.put((arrays, meta, path))
             blocked = time.perf_counter() - t0
@@ -329,6 +337,8 @@ class CheckpointManager:
             "Host-blocking portion of a checkpoint save").observe(
                 blocked)
         self.last_blocked_s = blocked
+        if self._goodput is not None:
+            self._goodput.record("checkpoint", blocked)
         return path
 
     def _snapshot(self, payload, step):
@@ -437,6 +447,7 @@ class CheckpointManager:
                     self._error = e
             finally:
                 with self._all_done:
+                    tsan.note_write("checkpoint.queue", self)
                     self._pending -= 1
                     if self._pending == 0:
                         self._all_done.notify_all()

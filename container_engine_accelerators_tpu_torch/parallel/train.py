@@ -29,21 +29,34 @@ chain: optional ``clip_by_global_norm``, then ``add_decayed_weights``
 with a mask, then ``sgd`` with momentum and a learning-rate schedule
 read at the update count before the update, as optax reads it.
 
-remat, gradient accumulation, augmentation, EMA and the eval step
-follow the JAX Trainer (``Trainer``'s docstring). Its options that
-this port does not carry (a mesh, FSDP, straggler and MFU/goodput
-telemetry, a step without state donation) raise "not yet ported".
+remat, gradient accumulation, augmentation, EMA, the eval step and the
+step telemetry (straggler detector, MFU and goodput ledgers, the
+``train.step_compile`` / ``train.step_run`` spans and the
+``train.step_summary`` event) follow the JAX Trainer (``Trainer``'s
+docstring). Its options that this port does not carry (a mesh, FSDP,
+a step without state donation) raise "not yet ported".
 """
 
 import contextlib
 import dataclasses
 import inspect
+import time
 from typing import Any
 
 import torch
 import torch.utils.checkpoint
 
+from .. import obs
 from ..models.layers import BatchNorm
+from ..obs.efficiency import (
+    TRAIN_MFU_GAUGE,
+    FlopsLedger,
+    GoodputLedger,
+    count_flops,
+    device_kind,
+    peak_flops_per_chip,
+    transformer_train_flops,
+)
 from ..utils import not_ported, step_generator
 
 
@@ -184,23 +197,49 @@ class Trainer:
     - ``ema_decay``: an EMA shadow of the parameters, seeded as their
       copy, becomes ``e * d + p * (1 - d)`` after each update;
       ``eval_params`` reads it.
+
+    Step telemetry, as the JAX Trainer's:
+
+    - ``straggler``: an ``obs.straggler.StragglerDetector`` fed every
+      step's time and data wait under ``host_id`` (default
+      ``host<rank>``); a ``train.step_summary`` journal event (p50/max
+      step time, data wait) every ``summary_every`` steps is what a
+      merged fleet view replays.
+    - ``mfu_source`` picks the per-step FLOPs numerator: "auto" counts
+      the first step (``obs.efficiency.count_flops``: FlopCounterMode's
+      products plus each flash kernel's declared products, one count on
+      the card and on the CPU; the analytic form if it counts nothing),
+      "analytic" the 6·N·B·S estimate, "off" no MFU, a number pins it.
+      The MFU ledger's denominator is the wall time between step
+      boundaries: a CUDA call returns before the device finishes, and
+      the gap to the next boundary is where the device computed.
+    - ``goodput``: the ``GoodputLedger`` (a fresh one by default, its
+      wall clock running from construction). The first step goes to
+      ``compile`` (kernel builds, cuDNN autotuning, the FLOP count)
+      under the ``train.step_compile`` span, later steps to
+      ``productive`` under ``train.step_run``; ``record_data_wait`` and
+      ``record_badput`` are the seams train.py records through.
     """
 
     def __init__(self, model, loss_fn, optimizer, mesh=None,
                  donate_state=True, remat=False, grad_accum=1,
                  augment_fn=None, ema_decay=0.0, fsdp=False,
-                 straggler=None, mfu_source="off", goodput=None):
+                 host_id=None, straggler=None, summary_every=32,
+                 mfu_source="auto", goodput=None):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1: {grad_accum}")
         if not 0.0 <= ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1): {ema_decay}")
         for option, value, default in (
                 ("mesh", mesh, None), ("donate_state", donate_state, True),
-                ("fsdp", fsdp, False), ("straggler", straggler, None),
-                ("mfu_source", mfu_source, "off"),
-                ("goodput", goodput, None)):
+                ("fsdp", fsdp, False)):
             if value != default:
                 raise not_ported(f"Trainer({option}={value!r})")
+        if not (mfu_source in ("auto", "analytic", "off")
+                or isinstance(mfu_source, (int, float))):
+            raise ValueError(
+                f"mfu_source must be auto/analytic/off or a FLOPs "
+                f"count: {mfu_source!r}")
         self.model = model
         self._loss = loss_fn
         self._tx = optimizer
@@ -210,6 +249,19 @@ class Trainer:
         self._ema_decay = float(ema_decay)
         self._wants_step = "step" in inspect.signature(
             model.forward).parameters
+        self._host_id = host_id
+        self._straggler = straggler
+        self._summary_every = max(1, int(summary_every))
+        self._steps_seen = 0
+        self._step_window = []
+        self._wait_window = []
+        self._pending_data_wait = 0.0
+        self._mfu_source = mfu_source
+        self._flops_per_step = None
+        self._mfu_ledger = None
+        self.goodput = goodput if goodput is not None else GoodputLedger()
+        self._last_step_end = None
+        self._stepped = False
 
     def init_state(self):
         """A TrainState at step 0 with fresh momentum traces (and the
@@ -233,7 +285,52 @@ class Trainer:
     def train_step(self, state, batch):
         """One step: (inputs, labels) -> (state, loss). ``state`` is
         updated in place and returned; the loss is a 0-d device
-        tensor."""
+        tensor.
+
+        The first call is the compile step (``train.step_compile``, the
+        goodput ledger's compile bucket; it also resolves the FLOPs
+        numerator); later calls run under ``train.step_run`` and feed
+        the step telemetry. With tracing off and no straggler detector
+        the span objects are skipped, the ledgers still record."""
+        if not self._stepped:
+            t0 = time.perf_counter()
+            with obs.span("train.step_compile"):
+                out = self._first_step(state, batch)
+            self._stepped = True
+            self.goodput.record("compile", time.perf_counter() - t0)
+            return out
+        if not obs.TRACER.enabled and self._straggler is None:
+            t0 = time.perf_counter()
+            out = self._step(state, batch)
+            self._record_step(time.perf_counter() - t0)
+            return out
+        t0 = time.perf_counter()
+        with obs.span("train.step_run"):
+            out = self._step(state, batch)
+        self._record_step(time.perf_counter() - t0)
+        return out
+
+    def _first_step(self, state, batch):
+        """The first step, with the FLOPs numerator pinned on it."""
+        src = self._mfu_source
+        if src == "auto":
+            out, flops = count_flops(self._step, state, batch)
+            self._flops_per_step = flops or None
+        else:
+            out = self._step(state, batch)
+            if isinstance(src, (int, float)):
+                self._flops_per_step = float(src)
+        if src in ("auto", "analytic") and self._flops_per_step is None:
+            n = sum(p.numel() for p in self.model.parameters())
+            inputs = batch[0]
+            # B·S for token models ([B, S] int batches), B for image
+            # models (the "sequence" is one sample).
+            tokens = int(inputs.shape[0]) * (
+                int(inputs.shape[1]) if inputs.dim() == 2 else 1)
+            self._flops_per_step = transformer_train_flops(n, tokens)
+        return out
+
+    def _step(self, state, batch):
         images, labels = batch
         if self._augment is not None:
             images = self._augment(step_generator(
@@ -262,6 +359,81 @@ class Trainer:
             self._update_ema(state)
         state.step += 1
         return state, loss
+
+    def host_id(self):
+        """This trainer's host identity for step telemetry."""
+        if self._host_id is None:
+            rank = (torch.distributed.get_rank()
+                    if torch.distributed.is_available()
+                    and torch.distributed.is_initialized() else 0)
+            self._host_id = f"host{rank}"
+        return self._host_id
+
+    def record_data_wait(self, seconds):
+        """Attribute input-pipeline wait to the NEXT step's telemetry
+        and to the goodput ledger; wire as ``PrefetchLoader(wait_cb=)``
+        (its one consumer is the train loop's thread)."""
+        self._pending_data_wait += float(seconds)
+        self.goodput.record("data_wait", seconds)
+
+    def record_badput(self, bucket, seconds):
+        """Attribute non-step wall time (checkpoint, restart recovery)
+        to the goodput ledger (train.py records restores here)."""
+        self.goodput.record(bucket, seconds)
+
+    def flops_per_step(self):
+        """Model FLOPs of one step (None before the first step, or with
+        mfu_source="off")."""
+        return self._flops_per_step
+
+    def _mfu(self):
+        """The MFU ledger, built at first use: the peak of the model's
+        device (a known card, or CEA_TPU_PEAK_FLOPS)."""
+        if self._mfu_ledger is None:
+            device = next(self.model.parameters()).device
+            self._mfu_ledger = FlopsLedger(
+                gauge=TRAIN_MFU_GAUGE,
+                peak_flops=peak_flops_per_chip(device_kind(device)),
+                chips=1, publish_every=self._summary_every)
+        return self._mfu_ledger
+
+    def _record_step(self, dt):
+        """Per-step telemetry: the straggler detector, the productive
+        bucket, the MFU ledger (wall time between step boundaries; the
+        first recorded step only anchors the clock) and, every
+        summary_every steps, the goodput gauges and a
+        ``train.step_summary`` journal event."""
+        host = self.host_id()
+        wait, self._pending_data_wait = self._pending_data_wait, 0.0
+        if self._straggler is not None:
+            self._straggler.observe(host, dt, wait)
+        self.goodput.record("productive", dt)
+        if self._flops_per_step:
+            now = time.perf_counter()
+            if self._last_step_end is not None:
+                self._mfu().observe(self._flops_per_step,
+                                    now - self._last_step_end)
+            self._last_step_end = now
+        self._steps_seen += 1
+        boundary = self._steps_seen % self._summary_every == 0
+        if boundary:
+            self.goodput.publish()
+        if not obs.TRACER.enabled:
+            return
+        self._step_window.append(dt)
+        self._wait_window.append(wait)
+        if not boundary or not self._step_window:
+            return
+        times = sorted(self._step_window)
+        waits = sorted(self._wait_window)
+        obs.event(
+            "train.step_summary", host=host, step=self._steps_seen,
+            steps=len(times),
+            step_time_p50_ms=round(times[len(times) // 2] * 1e3, 3),
+            step_time_max_ms=round(times[-1] * 1e3, 3),
+            data_wait_p50_ms=round(waits[len(waits) // 2] * 1e3, 3),
+            data_wait_total_ms=round(sum(waits) * 1e3, 3))
+        del self._step_window[:], self._wait_window[:]
 
     @torch.no_grad()
     def _update_ema(self, state):

@@ -69,10 +69,13 @@ the command line is parsed, with the demo's messages.
 
 SIGTERM and SIGINT drain: new POSTs answer 503 with Retry-After and
 /readyz turns unready while in-flight requests finish (within
-``CEA_TPU_DRAIN_GRACE_S``, 30 s by default), then the server stops and
-the process exits 0. SIGUSR1 starts the same drain and keeps the
-process up (a fleet router then steers around the replica, as it does
-around ``serving.fleet_worker``).
+``CEA_TPU_DRAIN_GRACE_S``, 30 s by default), then the postmortem
+capture writes the journal and the flight-record state (the drained
+requests already retired into ``serving_requests``, the KV block pool,
+the memory watermarks) to ``CEA_TPU_TRACE_FILE`` when it is set, then
+the server stops and the process exits 0. SIGUSR1 starts the same
+drain and keeps the process up (a fleet router then steers around the
+replica, as it does around ``serving.fleet_worker``).
 """
 
 import argparse
@@ -85,6 +88,7 @@ import threading
 import torch
 
 from .. import obs
+from ..obs import postmortem
 from ..models import convert
 from ..models.convert import init_flax_layout_params, load_lm, quantize_lm
 from ..models.resnet import resnet
@@ -324,10 +328,11 @@ def main(argv=None):
     server = build_server(args)
     draining = threading.Event()
 
-    def _drain_then_shutdown():
+    def _drain_then_shutdown(signum):
         if not server.drain():
             print("drain grace expired with requests in flight",
                   file=sys.stderr)
+        postmortem.capture("signal:" + signal.Signals(signum).name)
         server.shutdown()
 
     def _on_signal(signum, frame):
@@ -335,8 +340,8 @@ def main(argv=None):
             return
         draining.set()
         print(f"signal {signum}; draining then stopping", file=sys.stderr)
-        threading.Thread(target=_drain_then_shutdown, name="drain",
-                         daemon=True).start()
+        threading.Thread(target=_drain_then_shutdown, args=(signum,),
+                         name="drain", daemon=True).start()
 
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)

@@ -28,6 +28,7 @@ share ``_BaseServer``'s contract:
   GET /debug/requests   the retired-request attribution ring
                         (generation; ?n= caps it), /debug/trace and
                         /debug/varz
+  GET /debug/profile    ?seconds=N of torch.profiler trace (below)
   GET /stats, GET /v1/models/<name>
 
 Every POST runs under a ``serving.request`` span parented on the
@@ -74,9 +75,20 @@ leaves cancels its row. With a ``draft_model`` and ``speculative_k`` >=
 2 the engine speculates; ``prefix_tokens`` pins a system prompt in the
 paged arena and requests carry only their suffix.
 
+Tooling, as the JAX server wires it: GET /debug/profile?seconds=N
+captures a torch.profiler trace (obs/profiler.py: 409 while another
+capture runs, 501 where the profiler cannot); /stats carries
+``hbm_in_use_bytes`` and ``hbm_peak_bytes`` (obs/memory.py's CUDA
+allocator monitor, None on the CPU) and, for generation,
+``decode_mfu`` (2·N analytic FLOPs per active row per step, N the
+engine's ``active_param_count``, over the step's wall time and the
+card's peak; None where no peak is known); the postmortem providers
+``hbm_memory``, ``serving_requests`` and, on the paged pool,
+``serving_kv_blocks`` land in a SIGTERM or crash flight record
+(obs/postmortem.py).
+
 Not carried from the JAX server: the device plugin's health query in
-/stats (a TPU device plugin), and /debug/profile, decode MFU, the HBM
-fields and postmortem state providers.
+/stats (a TPU device plugin).
 """
 
 import json
@@ -91,6 +103,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis import tsan
 from ..models.decode import (
     DEFAULT_SPILL_BYTES,
     KV_BLOCKS_ENV,
@@ -103,7 +116,15 @@ from ..models.decode import (
     paged_kv_enabled,
 )
 from ..models.speculative import check_spec_models
-from ..obs import metric_names
+from ..obs import metric_names, postmortem
+from ..obs.efficiency import (
+    DECODE_MFU_GAUGE,
+    FlopsLedger,
+    device_kind,
+    peak_flops_per_chip,
+    transformer_decode_flops,
+)
+from ..obs.memory import get_monitor, install_postmortem_provider
 from ..obs.reqledger import RequestLedger, RequestTimeline, saturation
 from ..ops.attention import flash_fwd
 from ..utils import env_number
@@ -136,6 +157,9 @@ DEFAULT_REBUILD_BACKOFF_MS = 200.0
 # while new POSTs answer 503.
 DRAIN_GRACE_ENV = "CEA_TPU_DRAIN_GRACE_S"
 DEFAULT_DRAIN_GRACE_S = 30.0
+# Allocator stats are a runtime call: the step boundary samples them at
+# most this often.
+MEMORY_SAMPLE_INTERVAL_S = 2.0
 REBUILD_COUNTER = metric_names.SERVING_ENGINE_REBUILDS
 
 
@@ -340,7 +364,9 @@ class _EngineService:
     the occupancy, step/prefill latency, TTFT/TPOT and rehydrate
     histograms, the slot, KV-block and saturation gauges, the SLO burn
     counters and the request ledger (/stats, /metrics,
-    /debug/requests).
+    /debug/requests); the decode-MFU ledger and the memory monitor on
+    the step boundary; the ``serving_requests`` and, paged,
+    ``serving_kv_blocks`` postmortem providers.
 
     **Supervision** (armed by ``engine_factory``): when ``step()`` or an
     admission raises, the loop QUARANTINES the engine (readiness flips,
@@ -426,6 +452,24 @@ class _EngineService:
         # /stats reads) and the last admission blocker the loop saw.
         self._last_saturation = None
         self._last_block_cause = None
+        # Decode MFU: 2·N analytic FLOPs per active row per step, rated
+        # against the engine device's peak (a known card, or
+        # CEA_TPU_PEAK_FLOPS; no gauge where neither is known).
+        self._mfu = FlopsLedger(
+            gauge=DECODE_MFU_GAUGE,
+            peak_flops=peak_flops_per_chip(device_kind(engine.device)),
+            chips=1, publish_every=32)
+        self._memory = get_monitor()
+        # Flight-record state: what the last retired requests spent
+        # their time on and, paged, the block pool the engine died
+        # with. Idempotent by name (one provider a process, last engine
+        # wins); the pool goes through _kv_block_state, so a quarantine
+        # rebuild's new engine is the one dumped.
+        postmortem.register_state_provider(
+            "serving_requests", self._req_ledger.state)
+        if getattr(engine, "paged", False):
+            postmortem.register_state_provider(
+                "serving_kv_blocks", self._kv_block_state)
         self._thread = threading.Thread(
             target=self._loop, name="serving-engine", daemon=True)
         self._thread.start()
@@ -434,6 +478,11 @@ class _EngineService:
     def engine(self):
         """The live engine (a rebuild swaps it)."""
         return self._engine
+
+    def _kv_block_state(self):
+        eng = self._engine
+        return (eng.block_pool_state() if getattr(eng, "paged", False)
+                else {"paged": False})
 
     def submit_many(self, works):
         """Admit all rows or none; returns the works, or None on shed
@@ -580,6 +629,7 @@ class _EngineService:
                                 if self._slo_tpot_s else None),
                     "violations": dict(self._slo_violations),
                 },
+                "decode_mfu": self._mfu.mfu(),
                 "engine_state": self._engine_state_locked(),
                 "engine_rebuilds": self._rebuilds,
                 "quarantine_episodes": self._episodes,
@@ -643,6 +693,7 @@ class _EngineService:
         self._req_ledger.reset()
         self._ttft_hist.reset()
         self._tpot_hist.reset()
+        self._mfu.reset()
 
     def stop(self):
         with self._lock:
@@ -670,6 +721,7 @@ class _EngineService:
     def _finish(self, work, error=None, retryable=False):
         if work.slot is not None:
             self._engine.release(work.slot)
+            tsan.note_write("serving.slot_work", self)
             self._slot_work.pop(work.slot, None)
             work.slot = None
         self._admission.release(1)
@@ -872,6 +924,7 @@ class _EngineService:
             self._quarantine("prefill", fault, extra=[work])
             return False
         work.slot = slot
+        tsan.note_write("serving.slot_work", self)
         self._slot_work[slot] = work
         with self._lock:
             self._admitted += 1
@@ -895,6 +948,7 @@ class _EngineService:
         with the engine), record one quarantine event per episode, and
         rebuild."""
         victims = list(self._slot_work.values())
+        tsan.note_write("serving.slot_work", self)
         self._slot_work.clear()
         for work in victims:
             work.slot = None
@@ -1138,7 +1192,8 @@ class _EngineService:
                 # records the failed step, not the rebuild.
                 fault = e
             finally:
-                self._step_hist.observe(time.perf_counter() - t0)
+                step_dt = time.perf_counter() - t0
+                self._step_hist.observe(step_dt)
             if fault is not None:
                 if self._supervised():
                     self._quarantine("step", fault)
@@ -1159,6 +1214,15 @@ class _EngineService:
                                   "capacity lost)", residue)
                 continue
             self._publish_step(active)
+            # Decode MFU (N = the ACTIVE parameter count, so MoE's
+            # unrouted experts do not inflate it) over the step's wall
+            # time: step() returns host tokens, so it has synchronized.
+            # The memory sample is throttled.
+            self._mfu.observe(
+                transformer_decode_flops(
+                    self._engine.active_param_count, active),
+                step_dt)
+            self._memory.sample(min_interval_s=MEMORY_SAMPLE_INTERVAL_S)
             if out is None:
                 continue
             if len(out) == 2:   # one token a row
@@ -1194,6 +1258,11 @@ class _BaseServer:
         # on a CPU fallback.
         self._devices = [str(d) for d in devices]
         self._platform = devices[0].type if devices else None
+        # Device-memory telemetry: the process-wide allocator monitor,
+        # also a postmortem state provider so a flight record carries
+        # the last watermarks (idempotent by name).
+        self._memory_monitor = get_monitor()
+        install_postmortem_provider(self._memory_monitor)
         # Liveness: /healthz answers 503 until set (warm-up).
         self._ready = threading.Event()
         self._ready.set()
@@ -1233,6 +1302,12 @@ class _BaseServer:
 
             def do_GET(self):
                 path, _, query = self.path.partition("?")
+                # /debug/profile first: it carries its own status codes
+                # (409 busy, 501 unavailable).
+                prof = obs.profile_response(path, query)
+                if prof is not None:
+                    self._send(prof[0], prof[1], prof[2])
+                    return
                 debug = obs.debug_response(obs.get_tracer(), path, query)
                 if debug is not None:
                     self._send(200, *debug)
@@ -1464,6 +1539,9 @@ class _BaseServer:
     def stats(self):
         p50 = self._latency_hist.quantile(0.5)
         p99 = self._latency_hist.quantile(0.99)
+        # A fresh allocator sample (throttled); Nones on the CPU.
+        self._memory_monitor.sample(min_interval_s=1.0)
+        hbm = self._memory_monitor.totals()
         with self._stats_lock:
             out = {
                 "engine_id": self.engine_id(),
@@ -1476,6 +1554,8 @@ class _BaseServer:
                            if p50 is not None else None),
                 "p99_ms": (round(p99 * 1000, 3)
                            if p99 is not None else None),
+                "hbm_in_use_bytes": hbm["hbm_in_use_bytes"],
+                "hbm_peak_bytes": hbm["hbm_peak_bytes"],
             }
         out.update(self._extra_stats())
         return out

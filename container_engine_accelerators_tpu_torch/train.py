@@ -42,7 +42,17 @@ follow the demo.
 Prints the demo's JSON result line (model, depth, devices,
 global_batch, steps, images_per_sec, images_per_sec_per_chip,
 final_loss, tokens_per_sec for the LM, eval accuracies) with the
-kernels' launch counts added. ``--attention-window`` trains the LM
+kernels' launch counts and the efficiency readings added: ``train_mfu``
+(the Trainer's FLOPs a step, counted on the first step, times the
+timed steps over their synchronized wall time and the card's peak;
+None where no peak is known, as on the CPU unless CEA_TPU_PEAK_FLOPS
+rates it), ``flops_per_step``, and the goodput books at the end of the
+run (``goodput_ratio``, ``goodput_wall_s`` and ``goodput_buckets_s``,
+every second of the Trainer's life in one bucket: compile, productive,
+data_wait, checkpoint, restart, straggler_stall, other).
+``--profile-dir D`` traces the timed steps (after --warmup-steps)
+with torch.profiler, CPU and CUDA activity, into the Chrome trace
+``D/trace.json``. ``--attention-window`` trains the LM
 with sliding-window attention (the flash kernels' band). ``--model moe``
 trains the MoETransformerLM (``--num-experts``, top-2 routing at
 capacity factor 1.25 on the odd layers) on the next-token loss plus
@@ -62,7 +72,7 @@ checkpoint the demo driver wrote resumes here and the reverse.
         --checkpoint-every 100 --keep-checkpoints 3
 
 The flags of the demo's other paths (parallelism, expert parallelism
-included, profiles) raise "not yet ported".
+included) raise "not yet ported".
 """
 
 import argparse
@@ -98,6 +108,7 @@ from .parallel import (
     state_payload,
 )
 from .parallel.checkpoint import warn_unrecognized_checkpoints
+from .obs import efficiency, profiler
 from .utils import not_ported, wall_sync
 
 IMAGE_MODELS = ("mnist", "resnet", "inception")
@@ -210,7 +221,6 @@ def check_ported(args):
         "--pipeline-parallelism": args.pipeline_parallelism > 1,
         "--dcn-granules": args.dcn_granules > 1,
         "--fsdp": args.fsdp,
-        "--profile-dir": bool(args.profile_dir),
     }
     on = [flag for flag, bad in unported.items() if bad]
     if on:
@@ -405,14 +415,16 @@ def real_data_loader(args, device, skip, wait_cb=None):
 _managers = {}
 
 
-def _manager(model_dir, keep=None):
+def _manager(model_dir, keep=None, goodput=None):
+    """The directory's manager; explicit keep/goodput reconfigure it,
+    None leaves a setting alone (the restore path passes neither)."""
     model_dir = os.path.abspath(model_dir)
     mgr = _managers.get(model_dir)
     if mgr is None:
-        mgr = _managers[model_dir] = CheckpointManager(model_dir,
-                                                       keep=keep or 0)
+        mgr = _managers[model_dir] = CheckpointManager(
+            model_dir, keep=keep or 0, goodput=goodput)
     else:
-        mgr.configure(keep=keep)
+        mgr.configure(keep=keep, goodput=goodput)
     return mgr
 
 
@@ -422,13 +434,15 @@ def _state_layout(args):
     return config, args.lr_schedule != "constant"
 
 
-def save_checkpoint(args, state):
+def save_checkpoint(args, state, goodput=None):
     """Checkpoint the TrainState into --model-dir. Returns once the
-    state is copied to the host, with the seconds that took; the write
-    (and the retention prune) finishes in the background
+    state is copied to the host, with the seconds that took (also the
+    ``goodput`` ledger's checkpoint bucket); the write (and the
+    retention prune) finishes in the background
     (``finalize_checkpoints`` waits for it)."""
     config, schedule = _state_layout(args)
-    mgr = _manager(args.model_dir, keep=args.keep_checkpoints)
+    mgr = _manager(args.model_dir, keep=args.keep_checkpoints,
+                   goodput=goodput)
     path = mgr.save(state_payload(state, config, schedule), step=state.step)
     print(f"saving checkpoint {path} (async)", file=sys.stderr)
     return mgr.last_blocked_s
@@ -455,6 +469,27 @@ def restore_checkpoint(args, state):
     print(f"restored checkpoint step {state.step} from "
           f"{args.model_dir}", file=sys.stderr)
     return state
+
+
+def stop_profile(prof, profile_dir):
+    """Stop ``prof`` and write its Chrome trace; returns the path."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, profiler.TRACE_NAME)
+    prof.export_chrome_trace(path)
+    print(f"wrote profiler trace to {path}", file=sys.stderr)
+    return path
+
+
+def train_mfu(trainer, device, steps, elapsed):
+    """The timed steps' MFU: the Trainer's FLOPs a step times ``steps``
+    over ``elapsed`` (a synchronized wall time) and the device's peak;
+    None where a term is unknown."""
+    flops = trainer.flops_per_step()
+    peak = efficiency.peak_flops_per_chip(efficiency.device_kind(device))
+    if not (flops and peak and steps and elapsed > 0):
+        return None
+    return flops * steps / elapsed / peak
 
 
 def kernel_launches():
@@ -500,18 +535,35 @@ def run(args, on_step=None, on_batch=None):
         t_restore = time.perf_counter()
         state = restore_checkpoint(args, state)
         if state.step > 0:
+            # A restored run spent this wall time on recovery: the
+            # goodput ledger's restart bucket, and the journal event
+            # the offline goodput replay reads.
+            recovery_s = time.perf_counter() - t_restore
+            trainer.record_badput("restart", recovery_s)
             obs.event("train.restart", step=state.step,
-                      recovery_s=round(time.perf_counter() - t_restore, 6))
+                      recovery_s=round(recovery_s, 6))
     waits = []
     if loader is None:
         # Deferred: the fast-forward needs the restored step, and the
         # loader starts staging the moment it exists.
+        def on_wait(seconds):
+            waits.append(seconds)
+            trainer.record_data_wait(seconds)
+
         loader = real_data_loader(args, device, state.step,
-                                  wait_cb=waits.append)
+                                  wait_cb=on_wait)
     before = kernel_launches()
     losses, blocked = [], []
     warmup = max(args.warmup_steps, 0)
-    t_start = time.perf_counter() if warmup == 0 else None
+    prof = None
+
+    def start_timed_region():
+        nonlocal prof
+        if args.profile_dir:
+            prof = profiler.start_profiler()
+        return time.perf_counter()
+
+    t_start = start_timed_region() if warmup == 0 else None
     for step, batch in zip(range(args.steps), loader):
         if on_batch is not None:
             on_batch(step, batch)
@@ -520,25 +572,26 @@ def run(args, on_step=None, on_batch=None):
             on_step(step, loss)
         if t_start is None and step == warmup - 1:
             wall_sync(loss)
-            t_start = time.perf_counter()
+            t_start = start_timed_region()
         if step % 20 == 0 or step == args.steps - 1:
             loss_val = float(loss)
             losses.append(loss_val)
             print(f"step {step} loss {loss_val:.4f}", file=sys.stderr)
         if (args.model_dir and args.checkpoint_every
                 and (step + 1) % args.checkpoint_every == 0):
-            blocked.append(save_checkpoint(args, state))
+            blocked.append(save_checkpoint(args, state, trainer.goodput))
     wall_sync(state.model)
     t_end = time.perf_counter()
     if hasattr(loader, "close"):
         # Staged batches would otherwise stay in device memory through
         # the final checkpoint.
         loader.close()
+    trace = stop_profile(prof, args.profile_dir) if prof else None
     timed_steps = max(args.steps - warmup, 0)
+    elapsed = t_end - t_start if t_start is not None else 0.0
     if t_start is None or timed_steps == 0:
         per_sec = 0.0
     else:
-        elapsed = t_end - t_start
         per_sec = (args.batch_size * timed_steps / elapsed
                    if elapsed > 0 else 0.0)
     after = kernel_launches()
@@ -567,11 +620,19 @@ def run(args, on_step=None, on_batch=None):
         result["eval_top5_accuracy"] = round(top5, 4)
         print(f"eval accuracy top1 {result['eval_accuracy']} "
               f"top5 {result['eval_top5_accuracy']}", file=sys.stderr)
+    if trace is not None:
+        result["profile_trace"] = trace
     if args.model_dir:
-        blocked.append(save_checkpoint(args, state))
+        blocked.append(save_checkpoint(args, state, trainer.goodput))
         finalize_checkpoints()
         # Each save's blocking seconds (its host copy), in order.
         result["checkpoint_block_s"] = blocked
+    result["flops_per_step"] = trainer.flops_per_step()
+    result["train_mfu"] = train_mfu(trainer, device, timed_steps, elapsed)
+    books = trainer.goodput.publish()
+    result["goodput_ratio"] = books["goodput_ratio"]
+    result["goodput_wall_s"] = books["wall_s"]
+    result["goodput_buckets_s"] = books["buckets"]
     return result, trainer, state
 
 

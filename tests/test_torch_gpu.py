@@ -855,3 +855,76 @@ def test_async_save_on_the_card_archives_its_own_step(cuda, tmp_path):
     live = convert.params_to_flax(state.model, config)
     assert not np.array_equal(live["lm_head"]["kernel"],
                               copy["['params']['lm_head']['kernel']"])
+
+
+def test_memory_monitor_reads_the_card(cuda):
+    """The allocator monitor on the card: in-use bytes, the peak and the
+    card's total; the watermark survives an allocator peak reset."""
+    from container_engine_accelerators_tpu_torch.obs import memory
+
+    mon = memory.MemoryMonitor(soft_limit=0.99)
+    block = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    stats = mon.sample()
+    label = str(torch.device("cuda", 0))
+    total = torch.cuda.mem_get_info(0)[1]
+    assert stats[label]["bytes_in_use"] >= block.numel()
+    assert stats[label]["bytes_limit"] == total
+    peak = torch.cuda.max_memory_allocated()
+    del block
+    torch.cuda.reset_peak_memory_stats()
+    mon.sample()
+    totals = mon.totals()
+    assert peak <= totals["hbm_peak_bytes"] <= total
+    assert totals["hbm_in_use_bytes"] <= totals["hbm_peak_bytes"]
+
+
+def test_profile_capture_names_the_flash_kernel(cuda, tmp_path):
+    """/debug/profile's capture on the card records the kernels that
+    another thread launches during the window."""
+    import json
+    import threading
+
+    from container_engine_accelerators_tpu_torch.obs import profiler
+
+    q, k, v = _qkv((2, 512, 8, 64), torch.bfloat16, 0, cuda)
+    stop = threading.Event()
+
+    def launch():
+        while not stop.is_set():
+            attn.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+
+    t = threading.Thread(target=launch)
+    t.start()
+    try:
+        result = profiler.ProfileCapture().capture(
+            seconds=0.5, out_dir=str(tmp_path))
+    finally:
+        stop.set()
+        t.join(timeout=30)
+    with open(result["trace"]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    assert any("flash_fwd_wgmma_tc_kernel" in n for n in names), names
+
+
+def test_flop_count_on_the_card_equals_the_cpu_count(cuda):
+    """count_flops over a flash forward and backward gives the kernels'
+    declared products on the card, as the plain versions' count does on
+    the CPU."""
+    from container_engine_accelerators_tpu_torch.obs import efficiency
+
+    b, s, h, d = 2, 256, 4, 64
+
+    def fwd_bwd(device, dtype):
+        gen = torch.Generator(device=device).manual_seed(0)
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=device,
+                               dtype=dtype).requires_grad_()
+                   for _ in range(3))
+        return efficiency.count_flops(
+            lambda: attn.flash_attention(q, k, v, causal=True)
+            .float().sum().backward())[1]
+
+    want = 18 * d * attn.kept_pairs(s, True, 0) * b * h
+    assert fwd_bwd(cuda, torch.bfloat16) == want
+    assert fwd_bwd(torch.device("cpu"), torch.float32) == want

@@ -61,7 +61,10 @@ def test_port_has_the_slice_modules():
                 "obs.export", "obs.http", "serving.fleet_worker",
                 "obs.fleet", "serving.router", "serving.serve_fleet",
                 "serving.fleet_observer", "router_check", "models.moe",
-                "parallel.expert", "parallel.checkpoint"):
+                "parallel.expert", "parallel.checkpoint",
+                "obs.efficiency", "obs.memory", "obs.profiler",
+                "obs.postmortem", "obs.straggler", "utils.provenance",
+                "analysis", "analysis.tsan"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",

@@ -17,10 +17,8 @@ the CPU: the generate server on the paged pool, on the dense pool and
 with a draft (speculative_k 4), and the predict server. Each pair
 serves the same request first.
 
-The only keys allowed to differ: the JAX server's device-accounting
-fields that the port does not serve yet (``decode_mfu``,
-``hbm_in_use_bytes``, ``hbm_peak_bytes``), its ``plugin_devices``
-(present when a device plugin answers), and the port's listed extras.
+The only keys allowed to differ: the JAX server's ``plugin_devices``
+(present when a device plugin answers) and the port's listed extras.
 """
 
 import json
@@ -35,10 +33,8 @@ from container_engine_accelerators_tpu.serving import server as jax_server
 from container_engine_accelerators_tpu_torch.serving import server
 from tests import torch_parity
 
-# JAX-only: device accounting not served by the port yet, and the
-# device plugin's answer.
-JAX_ONLY = {"decode_mfu", "hbm_in_use_bytes", "hbm_peak_bytes",
-            "plugin_devices"}
+# JAX-only: the device plugin's answer.
+JAX_ONLY = {"plugin_devices"}
 # Port-only: its device, its flash kernel's launch count, the pool's
 # name and the tokens it generated.
 PORT_ONLY = {"device", "flash_fwd_launches", "kv_pool",

@@ -307,6 +307,12 @@ def test_wall_sync_reads_the_first_tensor():
     dict(mesh=object()), dict(fsdp=True), dict(straggler=object()),
     dict(mfu_source="auto"), dict(donate_state=False)])
 def test_unported_trainer_options_raise(option):
+    """A mesh, FSDP and a step without donation raise; the straggler
+    detector and the MFU source are ported and construct."""
+    if set(option) & {"straggler", "mfu_source"}:
+        trainer = Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1), **option)
+        assert trainer.goodput is not None
+        return
     with pytest.raises(ValueError, match="not yet ported"):
         Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1), **option)
 
@@ -368,7 +374,7 @@ def test_unported_flags_raise(flags, tmp_path):
     and a tiny MoE instead (expert parallelism still raises), and so
     are real data and checkpoints: --data-dir is ignored by the LM, as
     the demo ignores it, and --model-dir writes a checkpoint that the
-    next run resumes."""
+    next run resumes; --profile-dir writes a Chrome trace."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
     tiny = ["--vocab-size", "32", "--embed-dim", "16", "--num-heads", "2",
             "--batch-size", "2", "--steps", "2", "--warmup-steps", "1"]
@@ -380,6 +386,14 @@ def test_unported_flags_raise(flags, tmp_path):
             "--seq-len", "80", "--num-experts", "4"])
         assert np.isfinite(result["final_loss"]) and result["steps"] == 2
         assert result["model"] == model
+        return
+    if flags[0] == "--profile-dir":
+        argv = argv[:-1] + [str(tmp_path / flags[1])]
+        result = port_train.main(argv + tiny + ["--num-layers", "1",
+                                                "--seq-len", "8"])
+        assert result["profile_trace"] == str(tmp_path / "p" / "trace.json")
+        with open(result["profile_trace"]) as f:
+            assert json.load(f)["traceEvents"]
         return
     if flags[0] in ("--data-dir", "--model-dir"):
         argv = argv[:-1] + [str(tmp_path / flags[1])]
