@@ -284,6 +284,24 @@
    stream finishes, the process exits 0, and the journal holds
    ``serving_kv_blocks``, the drained request in ``serving_requests``
    and a ``cuda:0`` memory watermark.
+16. runs the distributed forms in a one-rank NCCL group it starts
+   (``drive_group``). (a) MODEL through the driver on the group's mesh,
+   once with ``--fsdp`` and once with ``--model-parallelism 1``, for
+   GROUP_STEPS steps: 8/8/8/1/1 launches a step, a falling loss, and
+   the losses of phase 7's first GROUP_STEPS steps (same init, same
+   batches) within STEP_LOSS_TOL relative (bitwise equality reported).
+   (b) ResNet-50 at bench.py's shape on the mesh: 0/0/0/1/1 launches a
+   step and the running statistics of all 53 BatchNorms moved. Every
+   mesh axis is one rank wide, so neither runs a collective (counted,
+   and gated at 0), as GSPMD does no work on a 1-wide axis. The group
+   is torn down; (c) two processes try a two-rank NCCL group on the
+   one card, and each rank's outcome (the error NCCL gives, or the
+   all-reduce) is recorded, not gated. (d) The program guard
+   (``analysis/programs.py``) over phase 6's kind of traffic (the
+   1000-token system prompt, 8 suffixed rows of it, 2 cold prompts) on
+   a paged and a dense engine at the server's buckets: one prefill
+   program a bucket, one insert (paged), one step, no CUDA-graph
+   capture; flash launches on the dense pool only.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -4977,6 +4995,300 @@ def drive_tooling(torch, train, model, kernels, rng):
                  "tooling_training": training_launches}
 
 
+# The process-group phase (16): a one-rank NCCL group on the card; the
+# LM of phase 7 and ResNet-50 of phase 8 through the driver on a mesh
+# (--fsdp, --model-parallelism 1), against phase 7's losses at the same
+# steps (STEP_LOSS_TOL); a two-rank NCCL group on one card, whose
+# outcome is recorded; the program guard over phase 6's kind of mixed
+# paged and dense traffic.
+GROUP_STEPS = 4
+GROUP_WARMUP = 1
+GROUP_RESNET_STEPS = 3
+TWO_RANK_TIMEOUT_S = 90
+GUARD_SUFFIXES = 8                   # prefix + 3-30-token suffixes
+GUARD_COLD = (100, 700)
+GUARD_NEW = 16
+
+_TWO_RANKS = r'''
+import datetime, sys, torch, torch.distributed as dist
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+try:
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("RESULT ok", t.tolist(), flush=True)
+except Exception as e:
+    print("RESULT error", type(e).__name__,
+          " ".join(str(e).split())[:1500], flush=True)
+    sys.exit(3)
+finally:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+'''
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "batch_isend_irecv", "broadcast")
+
+
+@contextlib.contextmanager
+def counting_collectives(dist):
+    """{name: calls} of torch.distributed's collectives in the body."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in COLLECTIVES:
+        setattr(dist, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def group_lm(torch, train, kernels, report, flag):
+    """(a) MODEL through the driver as the one rank of the NCCL group,
+    with ``flag`` (--fsdp, or --model-parallelism 1): 8/8/8/1/1 launches
+    a step, no collective (every mesh axis is one rank wide), a finite
+    falling loss, and the losses of phase 7's first GROUP_STEPS steps
+    (same init, same batches) within STEP_LOSS_TOL relative; whether
+    they are bitwise equal is reported."""
+    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+    with counting_collectives(torch.distributed) as calls:
+        summary, launches, trainer, _ = drive(
+            torch, train, kernels,
+            train_argv(GROUP_STEPS, GROUP_WARMUP) + flag, per_step,
+            GROUP_WARMUP)
+    losses = summary["losses"]
+    want = report["train"]["losses"][:GROUP_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    result = summary["driver_result"]
+    out = dict(flag=" ".join(flag), losses=losses, no_group_losses=want,
+               loss_rel_err_max=max(rel), bitwise_equal=losses == want,
+               step_ms_mean=summary["step_ms_mean"],
+               tokens_per_s=result["tokens_per_sec"],
+               mesh=result.get("mesh"), devices=result["devices"],
+               backend=torch.distributed.get_backend(),
+               peak_memory_gb=summary["peak_memory_gb"],
+               collectives=sum(calls.values()))
+    log(f"group lm {out['flag']}:", json.dumps(out))
+    if trainer.mesh is None or out["mesh"] != {"data": 1, "model": 1}:
+        raise AssertionError(f"(a) {flag}: the driver trained without the "
+                             f"group's mesh: {out}")
+    if out["collectives"]:
+        raise AssertionError(f"(a) {flag}: collectives on a one-rank "
+                             f"mesh: {calls}")
+    if out["backend"] != "nccl" or out["devices"] != 1:
+        raise AssertionError(f"(a) {flag}: not a one-rank NCCL group: {out}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) {flag}: the loss did not fall: {losses}")
+    if max(rel) > STEP_LOSS_TOL:
+        raise AssertionError(f"(a) {flag}: losses differ from the steps "
+                             f"without a group: {out}")
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def group_resnet(torch, train, kernels, report):
+    """(b) ResNet-50 at bench.py's shape as the one rank of the NCCL
+    group (a data mesh one rank wide: the batch statistics are the
+    global batch's, so no BatchNorm reduces them and no collective
+    runs): 0/0/0/1/1 launches a step and the running statistics of all
+    53 BNs moved; phase 8's first losses beside it."""
+    from container_engine_accelerators_tpu_torch.models.layers import (
+        BatchNorm,
+    )
+    with counting_collectives(torch.distributed) as calls:
+        summary, launches, trainer, state = drive(
+            torch, train, kernels,
+            image_argv("resnet", RESNET_BATCH, GROUP_RESNET_STEPS, 1)
+            + ["--model-parallelism", "1"], (0, 0, 0, 1, 1), 1)
+    norms = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
+    still = [i for i, m in enumerate(norms)
+             if not ((m.running_mean != 0).any()
+                     and (m.running_var != 1).any())]
+    synced = sum(m.stats_reduce is not None for m in norms)
+    want = report["resnet"]["losses"][:GROUP_RESNET_STEPS]
+    out = dict(losses=summary["losses"], no_group_losses=want,
+               loss_rel_err_max=max(abs(a - b) / abs(b) for a, b in
+                                    zip(summary["losses"], want)),
+               batch_norms=len(norms), stats_reduced=synced,
+               stats_unmoved=still, collectives=sum(calls.values()),
+               images_per_s=summary["driver_result"]["images_per_sec"],
+               step_ms_mean=summary["step_ms_mean"],
+               mesh=summary["driver_result"].get("mesh"))
+    log("group resnet:", json.dumps(out))
+    if len(norms) != 53 or synced or still or out["collectives"]:
+        raise AssertionError(f"(b) BatchNorms or collectives: {out}")
+    if out["mesh"] != {"data": 1, "model": 1}:
+        raise AssertionError(f"(b) no mesh: {out}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def two_ranks_one_card():
+    """(c) A two-rank NCCL group on the one card, each rank a process
+    on cuda:0: each rank's outcome ("ok" with its all-reduce, or the
+    error NCCL gave) and the last lines of its stderr. Recorded, not
+    gated: NCCL puts one rank on a device."""
+    from container_engine_accelerators_tpu_torch.parallel.distributed \
+        import free_local_port
+    port = str(free_local_port())
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r),
+                               port], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    out = []
+    deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+    for rank, proc in enumerate(procs):
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            result = next((line[len("RESULT "):] for line in
+                           stdout.splitlines()
+                           if line.startswith("RESULT ")), "no result")
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            result = f"timed out after {TWO_RANK_TIMEOUT_S} s"
+        tail = [line for line in stderr.splitlines() if line.strip()][-6:]
+        out.append(dict(rank=rank, returncode=proc.returncode,
+                        result=result, stderr_tail=tail))
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log("two NCCL ranks on one card:", json.dumps(out))
+    return out
+
+
+def guard_traffic(torch, engine, rng, dense_buckets=None):
+    """Phase 6's kind of traffic straight into an engine: a PAGED_PREFIX
+    system prompt alone, GUARD_SUFFIXES rows of it plus a distinct
+    3-30-token suffix, then GUARD_COLD cold prompts, GUARD_NEW steps
+    after each wave; dense rows padded to their bucket."""
+    import numpy as np
+    vocab = MODEL["vocab_size"]
+    prefix = rng.integers(0, vocab, PAGED_PREFIX)
+    suffixes = [rng.integers(0, vocab, int(n))
+                for n in 3 + rng.permutation(28)[:GUARD_SUFFIXES]]
+    waves = [[prefix],
+             [np.concatenate([prefix, s]) for s in suffixes[:4]],
+             [np.concatenate([prefix, s]) for s in suffixes[4:]],
+             [rng.integers(0, vocab, n) for n in GUARD_COLD]]
+    for wave in waves:
+        slots = []
+        for prompt in wave:
+            row = prompt
+            if dense_buckets is not None:
+                width = next(b for b in dense_buckets if b >= len(prompt))
+                row = np.zeros(width, np.int64)
+                row[:len(prompt)] = prompt
+            slots.append(engine.admit(row, len(prompt),
+                                      max_new=GUARD_NEW)[0])
+        for _ in range(GUARD_NEW):
+            engine.step()
+        for slot in slots:
+            engine.release(slot)
+    torch.cuda.synchronize()
+
+
+def guard_engines(torch, model, kernels, rng):
+    """(d) The program guard (analysis/programs.py) over the paged and
+    the dense engine at full width, the server's buckets and slot
+    length: every prefill within one program a bucket, one insert
+    (paged), one step, no CUDA-graph capture; the launch counts of each
+    pool's traffic."""
+    from container_engine_accelerators_tpu_torch.analysis import programs
+    from container_engine_accelerators_tpu_torch.models import decode
+    buckets, b = [], 16
+    max_prompt = MODEL["max_seq_len"] - MAX_NEW
+    while b < max_prompt:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_prompt)
+    out, launches = {}, {}
+    for name, paged in (("paged", True), ("dense", False)):
+        engine = decode.SlotDecodeEngine(
+            model, MAX_BATCH, max_prompt + MAX_NEW, paged=paged,
+            buckets=buckets)
+        guard = programs.engine_guard(
+            engine, prefill_budget=None if paged else len(buckets))
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        with guard:
+            guard_traffic(torch, engine, rng,
+                          None if paged else buckets)
+        launches[f"guard_{name}"] = {k.name: k.launches for k in kernels}
+        out[name] = dict(programs=guard.programs(), budgets=guard.budgets(),
+                         seconds=time.perf_counter() - t0,
+                         launches=launches[f"guard_{name}"])
+        del engine
+        torch.cuda.empty_cache()
+    log("program guard:", json.dumps(out))
+    if launches["guard_paged"]["flash_fwd"]:
+        raise AssertionError(f"(d) the paged pool launched flash: {out}")
+    if not launches["guard_dense"]["flash_fwd"]:
+        raise AssertionError(f"(d) the dense pool never launched flash: "
+                             f"{out}")
+    return out, launches
+
+
+def drive_group(torch, train, model, kernels, rng, report):
+    """Phase 16 (the module docstring): (a)-(d) in a one-rank NCCL group
+    this function starts and tears down. Returns (report, launches by
+    path)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+    )
+    t0 = time.perf_counter()
+    distributed.start_local_group("cuda:0")
+    try:
+        fsdp, fsdp_launches = group_lm(torch, train, kernels, report,
+                                       ["--fsdp"])
+        mp1, mp1_launches = group_lm(torch, train, kernels, report,
+                                     ["--model-parallelism", "1"])
+        resnet, resnet_launches = group_resnet(torch, train, kernels,
+                                               report)
+    finally:
+        dist.destroy_process_group()
+    two = two_ranks_one_card()
+    guard, guard_launches = guard_engines(torch, model, kernels, rng)
+    out = dict(lm_fsdp=fsdp, lm_model_parallelism_1=mp1, resnet=resnet,
+               two_ranks_one_card=two, guard=guard,
+               phase_s=time.perf_counter() - t0)
+    log(f"process-group phase: {out['phase_s']:.1f} s")
+    return out, dict({"group_lm_fsdp": fsdp_launches,
+                      "group_lm_mp1": mp1_launches,
+                      "group_resnet": resnet_launches}, **guard_launches)
+
+
+PATH_KERNELS.update({
+    "group_lm_fsdp": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "xent_fwd", "xent_bwd"),
+    "group_lm_mp1": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "xent_fwd", "xent_bwd"),
+    "group_resnet": ("xent_fwd", "xent_bwd"),
+    "guard_dense": ("flash_fwd",),
+})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5157,6 +5469,10 @@ def main():
     report["tooling"], tool_launches = drive_tooling(
         torch, train, model, all_kernels, rng)
 
+    # Phase 16: the process group, the mesh and the program guard.
+    report["group"], group_launches = drive_group(
+        torch, train, model, all_kernels, rng, report)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -5211,6 +5527,8 @@ def main():
         for path, counts in ckpt_launches.items():
             by_path[path] = counts[name]
         for path, counts in tool_launches.items():
+            by_path[path] = counts[name]
+        for path, counts in group_launches.items():
             by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
@@ -5274,7 +5592,12 @@ def main():
         f"s; trained draft acceptance "
         f"{ckpt_spec['acceptance']} (random "
         f"{ckpt_spec['random_draft_acceptance']}); checkpoint phase "
-        f"{report['checkpoints']['phase_s']:.1f} s")
+        f"{report['checkpoints']['phase_s']:.1f} s; one-rank NCCL group "
+        f"LM {report['group']['lm_fsdp']['step_ms_mean']:.2f} ms a step "
+        f"(--fsdp), ResNet-50 "
+        f"{report['group']['resnet']['images_per_s']:.1f} images/s; "
+        f"process-group phase {report['group']['phase_s']:.1f} s; whole "
+        f"run {report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -131,7 +131,11 @@ class BatchNorm(nn.Module):
     running ones in place (unless ``update_stats`` is off, as while
     remat recomputes a forward); in eval mode it reads the running
     ones. ``zero_scale`` marks flax's ``scale_init=zeros`` (the last BN
-    of a residual block) for the initializers."""
+    of a residual block) for the initializers. ``stats_reduce``, when
+    set (the sharded Trainer sets it on a mesh), maps the local f32
+    [mean, mean square] batch statistics to the data axis' mean of
+    them, so a data rank normalises by the global batch's statistics
+    and moves the running ones by them."""
 
     def __init__(self, features, eps, momentum=0.9, dtype=torch.bfloat16,
                  zero_scale=False, device=None):
@@ -140,6 +144,7 @@ class BatchNorm(nn.Module):
         self.compute_dtype = dtype
         self.zero_scale = zero_scale
         self.update_stats = True
+        self.stats_reduce = None
         scale = torch.zeros if zero_scale else torch.ones
         self.weight = nn.Parameter(scale(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -153,8 +158,11 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = (0, 2, 3)
             mean = xf.mean(dim=dims)
-            var = torch.clamp_min(xf.square().mean(dim=dims)
-                                  - mean.square(), 0.0)
+            mean_sq = xf.square().mean(dim=dims)
+            if self.stats_reduce is not None:
+                mean, mean_sq = self.stats_reduce(
+                    torch.stack([mean, mean_sq]))
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum

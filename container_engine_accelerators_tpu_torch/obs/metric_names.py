@@ -68,7 +68,9 @@ DECODE_MFU = "tpu_decode_mfu"
 TRAIN_GOODPUT_RATIO = "tpu_train_goodput_ratio"
 TRAIN_BADPUT_SECONDS = "tpu_train_badput_seconds"
 TRAIN_STEP_SKEW = "tpu_train_step_skew_ratio"
+TRAIN_RECOVERY = "tpu_train_recovery_total"
 TRAIN_CHECKPOINT_BLOCK = "tpu_train_checkpoint_block_seconds"
+PERF_LEDGER_APPENDS = "tpu_perf_ledger_appends"
 
 # -- memory / profiler ------------------------------------------------
 HBM_BYTES_IN_USE = "tpu_hbm_bytes_in_use"
@@ -130,7 +132,9 @@ METRICS = {
         "router placement to first upstream body line",
     ROUTER_SLO_VIOLATIONS:
         "router-measured end-to-end SLO burns per (slo, tenant)",
+    TRAIN_RECOVERY: "elastic-training recovery actions by reason",
     TRAIN_CHECKPOINT_BLOCK: "train-thread-blocking checkpoint time",
+    PERF_LEDGER_APPENDS: "perf-ledger rows appended, by source",
 }
 
 # tpu_-prefixed tokens that are NOT metric names (label keys, module

@@ -13,10 +13,12 @@
 # limitations under the License.
 
 
-"""Single-device training for the port: the Trainer, its losses, its
-synthetic and real data, and checkpoints. Counterpart of
-container_engine_accelerators_tpu/parallel/ (mesh, sharding and the
-distributed forms are not ported yet)."""
+"""Training for the port: the Trainer (on one device or as one rank
+of a ("data", "model") mesh, with FSDP), its losses, its synthetic and
+real data, checkpoints, the mesh, the sharding rules, the collectives
+and the multi-host start-up. Counterpart of
+container_engine_accelerators_tpu/parallel/ (context, expert and
+pipeline parallelism and elastic training are not ported yet)."""
 
 from .checkpoint import CheckpointManager, restore_state, state_payload
 from .data import (
@@ -25,9 +27,13 @@ from .data import (
     SyntheticLoader,
     SyntheticTokenLoader,
 )
+from .mesh import MeshSpec, build_mesh, chips_from_env
+from .sharding import batch_sharding, param_shardings, replicated
 from .train import Sgd, TrainState, Trainer, cross_entropy_loss
 
-__all__ = ["CheckpointManager", "NpzShardDataset", "PrefetchLoader", "Sgd",
-           "SyntheticLoader", "SyntheticTokenLoader", "TrainState",
-           "Trainer", "cross_entropy_loss", "restore_state",
-           "state_payload"]
+__all__ = ["CheckpointManager", "MeshSpec", "NpzShardDataset",
+           "PrefetchLoader", "Sgd", "SyntheticLoader",
+           "SyntheticTokenLoader", "TrainState", "Trainer",
+           "batch_sharding", "build_mesh", "chips_from_env",
+           "cross_entropy_loss", "param_shardings", "replicated",
+           "restore_state", "state_payload"]

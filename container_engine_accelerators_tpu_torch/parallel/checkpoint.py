@@ -37,16 +37,19 @@ template's paths (a subset of the archive restores cleanly).
 The snapshot always copies: the port updates parameters and momentum
 buffers in place, and a numpy view of a live CPU tensor would let the
 background write archive a later step's values. ``restore`` has no
-``shardings=`` argument (the port runs on one device: leaves come back
-as host numpy arrays). ``goodput`` is the Trainer's GoodputLedger (or
+``shardings=`` argument: leaves come back whole, as host numpy arrays,
+and a sharded Trainer slices them (``Trainer.full_state``). ``goodput`` is the Trainer's GoodputLedger (or
 any object with ``record(bucket, seconds)``): each save's blocking
 seconds go to its ``checkpoint`` bucket, as in the JAX manager. The
 queue's writers call the lock-order sanitizer's ``note_write`` where
 the JAX manager does. Every save is async unless
 ``save(blocking=True)``, always fsynced, and written by this process:
-the JAX manager's ``primary``, ``fsync`` and ``async_save`` switches
-come back with their callers (a fleet of writer and non-writer
-processes).
+the JAX manager's ``fsync`` and ``async_save`` switches come back
+with their callers. ``primary=False`` (a rank other than 0
+of a multi-process run) turns saves into free no-ops, as the JAX
+manager's does: exactly one process writes, every process restores by
+reading the same directory, and the archive holds whole leaves (the
+sharded Trainer makes its state whole first, ``Trainer.full_state``).
 
 ``state_payload`` and ``restore_state`` carry the port's ``TrainState``
 in the JAX TrainState's layout, through models/convert.py: ``step``
@@ -252,11 +255,13 @@ class CheckpointManager:
     """Owns one checkpoint directory: async saves, retention, restore.
     ``keep > 0`` retains only the newest ``keep`` finished
     checkpoints; ``goodput`` receives each save's blocking seconds in
-    its ``checkpoint`` bucket."""
+    its ``checkpoint`` bucket; ``primary=False`` makes saves no-ops
+    (the non-writer ranks of a multi-process run)."""
 
-    def __init__(self, directory, keep=0, goodput=None):
+    def __init__(self, directory, keep=0, goodput=None, primary=True):
         self.directory = str(directory)
         self.keep = int(keep)
+        self.primary = bool(primary)
         self._goodput = goodput
         self._seq = 0
         self._error = None
@@ -272,10 +277,12 @@ class CheckpointManager:
         # observation), for a driver's report.
         self.last_blocked_s = None
 
-    def configure(self, keep=None, goodput=None):
+    def configure(self, keep=None, goodput=None, primary=None):
         """Re-point a long-lived manager; None leaves a setting alone."""
         if keep is not None:
             self.keep = int(keep)
+        if primary is not None:
+            self.primary = bool(primary)
         if goodput is not None:
             self._goodput = goodput
 
@@ -306,9 +313,12 @@ class CheckpointManager:
     def save(self, payload, step, blocking=False):
         """Snapshot ``payload`` (a tree of mappings, sequences and named
         tuples over tensors, arrays and scalars) and schedule the write
-        of ``checkpoint_<step>``. Returns the final path. Blocks only for
-        the snapshot unless ``blocking``."""
+        of ``checkpoint_<step>``. Returns the final path (None on a
+        non-primary rank, which writes nothing). Blocks only for the
+        snapshot unless ``blocking``."""
         self._raise_pending()
+        if not self.primary:
+            return None
         step = int(step)
         path = os.path.join(self.directory,
                             f"{CHECKPOINT_PREFIX}{step}")

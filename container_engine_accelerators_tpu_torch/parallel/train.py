@@ -13,12 +13,15 @@
 # limitations under the License.
 
 
-"""Single-device trainer (counterpart of
+"""The trainer (counterpart of
 container_engine_accelerators_tpu/parallel/train.py).
 
 The JAX Trainer jit-compiles one SPMD step over a ("data", "model")
-mesh. The port runs the same step eagerly on one device: forward,
-loss, backward through the port's kernels, then the optimizer.
+mesh. The port runs the same step eagerly: forward, loss, backward
+through the port's kernels, then the optimizer; on one device, or with
+``mesh=`` (a ``parallel.mesh`` DeviceMesh) as one rank of the mesh,
+with ``fsdp=`` sharding the big kernels and their momentum over the
+data axis (``parallel/spmd.py`` holds the layout and the collectives).
 Parameters and optimizer state are updated in place (what the JAX
 step's state donation does), so ``train_step`` hands back the state it
 was given. The loss comes back as a device tensor: nothing in the step
@@ -33,8 +36,7 @@ remat, gradient accumulation, augmentation, EMA, the eval step and the
 step telemetry (straggler detector, MFU and goodput ledgers, the
 ``train.step_compile`` / ``train.step_run`` spans and the
 ``train.step_summary`` event) follow the JAX Trainer (``Trainer``'s
-docstring). Its options that this port does not carry (a mesh, FSDP,
-a step without state donation) raise "not yet ported".
+docstring). A step without state donation raises "not yet ported".
 """
 
 import contextlib
@@ -58,6 +60,8 @@ from ..obs.efficiency import (
     transformer_train_flops,
 )
 from ..utils import not_ported, step_generator
+from .mesh import build_mesh
+from .spmd import Spmd
 
 
 @dataclasses.dataclass
@@ -127,14 +131,16 @@ class Sgd:
                                momentum=self.momentum, dampening=0.0,
                                nesterov=False)
 
-    def update(self, optimizer, count):
+    def update(self, optimizer, count, norm=None):
         """Apply one update from the parameters' ``.grad``: clip, then
-        the optimizer's step at the schedule's value for ``count``."""
+        the optimizer's step at the schedule's value for ``count``.
+        ``norm``: the whole gradient's global norm where the ``.grad``
+        are shards of it (``Spmd.grad_norm``); None reads it from them."""
         if self.grad_clip > 0:
             clip_by_global_norm(
                 [p.grad for group in optimizer.param_groups
                  for p in group["params"] if p.grad is not None],
-                self.grad_clip)
+                self.grad_clip, norm=norm)
         lr = self.lr(count)
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -142,14 +148,16 @@ class Sgd:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, norm=None):
     """optax.clip_by_global_norm in place: g is left as it is when the
     global L2 norm is below ``max_norm``, else becomes
-    ``(g / norm) * max_norm``; no epsilon. Stays on the device."""
+    ``(g / norm) * max_norm``; no epsilon. Stays on the device.
+    ``norm``: the global norm when ``grads`` are not all of it."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -173,7 +181,8 @@ AUGMENT_KEY = 17  # the JAX step's PRNGKey(17) for augment_fn
 
 
 class Trainer:
-    """Owns one model's train and eval steps on one device.
+    """Owns one model's train and eval steps, on one device or as one
+    rank of a mesh.
 
     ``model(inputs) -> logits``, or ``model(inputs, step=...)`` for a
     model with step-keyed randomness (Inception's dropout; detected
@@ -197,6 +206,18 @@ class Trainer:
     - ``ema_decay``: an EMA shadow of the parameters, seeded as their
       copy, becomes ``e * d + p * (1 - d)`` after each update;
       ``eval_params`` reads it.
+    - ``mesh``: a ("data", "model") DeviceMesh (``parallel.mesh.
+      build_mesh``) this process is one rank of. ``train_step`` and
+      ``eval_step`` then take the GLOBAL batch, as the JAX steps do:
+      each data rank computes on its slice (a grad_accum chunk is cut
+      from the global batch first, then sliced), the gradients and
+      BatchNorm statistics are averaged over the data axis, wide
+      kernels are column-parallel over the model axis, and the loss
+      returned is the global batch's. ``fsdp``: big kernels, their
+      momentum and EMA shadow are stored as 1/N shards over the data
+      axis (a mesh over the whole world is built when none is given).
+      ``parallel/spmd.py`` has the details; ``full_state`` makes the
+      state whole for a checkpoint.
 
     Step telemetry, as the JAX Trainer's:
 
@@ -210,6 +231,10 @@ class Trainer:
       products plus each flash kernel's declared products, one count on
       the card and on the CPU; the analytic form if it counts nothing),
       "analytic" the 6·N·B·S estimate, "off" no MFU, a number pins it.
+      On a mesh the numerator is the global batch's step (the data
+      ranks' counts summed; on a model axis wider than one, the
+      analytic form over the whole parameters) and the ledger rates it
+      across the mesh's ranks, as the JAX Trainer across its devices.
       The MFU ledger's denominator is the wall time between step
       boundaries: a CUDA call returns before the device finishes, and
       the gap to the next boundary is where the device computed.
@@ -230,16 +255,21 @@ class Trainer:
             raise ValueError(f"grad_accum must be >= 1: {grad_accum}")
         if not 0.0 <= ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1): {ema_decay}")
-        for option, value, default in (
-                ("mesh", mesh, None), ("donate_state", donate_state, True),
-                ("fsdp", fsdp, False)):
-            if value != default:
-                raise not_ported(f"Trainer({option}={value!r})")
+        if not donate_state:
+            raise not_ported(f"Trainer(donate_state={donate_state!r})")
         if not (mfu_source in ("auto", "analytic", "off")
                 or isinstance(mfu_source, (int, float))):
             raise ValueError(
                 f"mfu_source must be auto/analytic/off or a FLOPs "
                 f"count: {mfu_source!r}")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel.mesh."
+                            f"build_mesh), got {type(mesh).__name__}")
+        if fsdp and mesh is None:
+            mesh = build_mesh()
+        self.mesh = mesh
+        self._spmd = (Spmd(mesh, model, fsdp=fsdp) if mesh is not None
+                      else None)
         self.model = model
         self._loss = loss_fn
         self._tx = optimizer
@@ -313,15 +343,23 @@ class Trainer:
     def _first_step(self, state, batch):
         """The first step, with the FLOPs numerator pinned on it."""
         src = self._mfu_source
+        spmd = self._spmd
         if src == "auto":
             out, flops = count_flops(self._step, state, batch)
+            if spmd is not None:
+                # A rank counted its slice of the batch; on a model
+                # axis its count mixes split and replicated work, which
+                # no sum over ranks undoes: the analytic form then.
+                flops = (spmd.sum_over_data(flops, self._device())
+                         if spmd.mp == 1 else 0)
             self._flops_per_step = flops or None
         else:
             out = self._step(state, batch)
             if isinstance(src, (int, float)):
                 self._flops_per_step = float(src)
         if src in ("auto", "analytic") and self._flops_per_step is None:
-            n = sum(p.numel() for p in self.model.parameters())
+            n = (spmd.whole_numel(self.model) if spmd is not None
+                 else sum(p.numel() for p in self.model.parameters()))
             inputs = batch[0]
             # B·S for token models ([B, S] int batches), B for image
             # models (the "sequence" is one sample).
@@ -329,6 +367,11 @@ class Trainer:
                 int(inputs.shape[1]) if inputs.dim() == 2 else 1)
             self._flops_per_step = transformer_train_flops(n, tokens)
         return out
+
+    def _local(self, x):
+        """This rank's slice of a global batch (the batch itself off a
+        mesh)."""
+        return x if self._spmd is None else self._spmd.local_batch(x)
 
     def _step(self, state, batch):
         images, labels = batch
@@ -338,7 +381,9 @@ class Trainer:
         state.optimizer.zero_grad(set_to_none=True)
         accum = self._grad_accum
         if accum == 1:
-            loss = self._loss(self._forward(images, state.step), labels)
+            loss = self._loss(
+                self._forward(self._local(images), state.step),
+                self._local(labels))
             loss.backward()
             loss = loss.detach()
         else:
@@ -350,11 +395,18 @@ class Trainer:
             chunks = zip(images.chunk(accum), labels.chunk(accum))
             for idx, (images_c, labels_c) in enumerate(chunks):
                 chunk_loss = self._loss(
-                    self._forward(images_c, state.step * accum + idx),
-                    labels_c)
+                    self._forward(self._local(images_c),
+                                  state.step * accum + idx),
+                    self._local(labels_c))
                 (chunk_loss / accum).backward()
                 loss = loss + chunk_loss.detach().float() / accum
-        self._tx.update(state.optimizer, state.step)
+        norm = None
+        if self._spmd is not None:
+            self._spmd.reduce_grads(self.model)
+            loss = self._spmd.mean_over_data(loss)
+            if self._tx.grad_clip > 0:
+                norm = self._spmd.grad_norm(self.model)
+        self._tx.update(state.optimizer, state.step, norm=norm)
         if self._ema_decay:
             self._update_ema(state)
         state.step += 1
@@ -390,12 +442,15 @@ class Trainer:
         """The MFU ledger, built at first use: the peak of the model's
         device (a known card, or CEA_TPU_PEAK_FLOPS)."""
         if self._mfu_ledger is None:
-            device = next(self.model.parameters()).device
             self._mfu_ledger = FlopsLedger(
                 gauge=TRAIN_MFU_GAUGE,
-                peak_flops=peak_flops_per_chip(device_kind(device)),
-                chips=1, publish_every=self._summary_every)
+                peak_flops=peak_flops_per_chip(device_kind(self._device())),
+                chips=1 if self.mesh is None else self.mesh.size(),
+                publish_every=self._summary_every)
         return self._mfu_ledger
+
+    def _device(self):
+        return next(self.model.parameters()).device
 
     def _record_step(self, dt):
         """Per-step telemetry: the straggler detector, the productive
@@ -461,16 +516,35 @@ class Trainer:
     def eval_step(self, state, images):
         """Logits of ``images`` in eval mode (BN on its running
         statistics, no dropout, no augmentation) with ``eval_params``,
-        without gradients. The model's mode is restored afterwards."""
+        without gradients. The model's mode is restored afterwards. On
+        a mesh ``images`` is the global batch: each data rank runs its
+        slice and the logits are gathered."""
         model = state.model
         was_training = model.training
         model.eval()
         try:
             with torch.no_grad():
-                return torch.func.functional_call(
-                    model, self.eval_params(state), (images,))
+                out = torch.func.functional_call(
+                    model, self.eval_params(state),
+                    (self._local(images),))
         finally:
             model.train(was_training)
+        if self._spmd is not None and self._spmd.dp > 1:
+            if isinstance(out, tuple):
+                out = (self._spmd.gather_batch(out[0]),) + out[1:]
+            else:
+                out = self._spmd.gather_batch(out)
+        return out
+
+    def full_state(self, state):
+        """A context in which ``state``'s parameters, momentum and EMA
+        shadow are whole (every rank of the mesh enters it together):
+        what a checkpoint saves and restores. Off a mesh it does
+        nothing."""
+        if self._spmd is None:
+            return contextlib.nullcontext()
+        return self._spmd.full_state(state.model, state.optimizer,
+                                     state.ema)
 
 
 @contextlib.contextmanager

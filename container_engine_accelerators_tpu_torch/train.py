@@ -14,7 +14,7 @@
 
 
 """Training driver of the port: image classification and LM training
-on one card.
+on one card, or as one rank of a data x model mesh.
 
     python -m container_engine_accelerators_tpu_torch.train \
         --model resnet --depth 50 --batch-size 128 --steps 12
@@ -71,8 +71,24 @@ checkpoint the demo driver wrote resumes here and the reverse.
         --model resnet --data-dir /data/shards --model-dir /ckpt \
         --checkpoint-every 100 --keep-checkpoints 3
 
-The flags of the demo's other paths (parallelism, expert parallelism
-included) raise "not yet ported".
+``--fsdp`` and ``--model-parallelism M`` train on a ("data", "model")
+mesh over the process group's ranks (``parallel/mesh.py``): the data
+axis is the world size over M. The group comes from the plugin's env
+contract (``parallel.distributed.initialize_from_plugin_env``: NCCL on
+the card, gloo with ``--device cpu``; one process per host); a caller
+that has started a group already keeps it, and a single process asked
+for either flag starts a one-rank group of its own. Every rank takes
+the same global batch and trains on its slice; rank 0 alone writes
+checkpoints, which hold whole leaves, so a run resumes under another
+mesh.
+
+    TPU_WORKER_HOSTNAMES=h0,h1 TPU_WORKER_ID=0 \
+    python -m container_engine_accelerators_tpu_torch.train \
+        --model transformer --fsdp --model-parallelism 1 ...
+
+The flags of the demo's other paths (expert, context and pipeline
+parallelism, ring and Ulysses attention, DCN granules) raise "not yet
+ported".
 """
 
 import argparse
@@ -84,6 +100,8 @@ import sys
 import time
 
 import torch
+
+import torch.distributed as dist
 
 from . import obs
 from .models import convert, mlp
@@ -107,7 +125,9 @@ from .parallel import (
     restore_state,
     state_payload,
 )
+from .parallel import distributed
 from .parallel.checkpoint import warn_unrecognized_checkpoints
+from .parallel.mesh import build_mesh, default_spec
 from .obs import efficiency, profiler
 from .utils import not_ported, wall_sync
 
@@ -217,10 +237,8 @@ def check_ported(args):
         "--expert-parallelism": args.expert_parallelism > 1,
         "--context-parallelism": args.context_parallelism > 1,
         "--attention ring/ulysses": args.attention != "flash",
-        "--model-parallelism": args.model_parallelism > 1,
         "--pipeline-parallelism": args.pipeline_parallelism > 1,
         "--dcn-granules": args.dcn_granules > 1,
-        "--fsdp": args.fsdp,
     }
     on = [flag for flag, bad in unported.items() if bad]
     if on:
@@ -360,6 +378,44 @@ def build_model(args, device):
     return model.train(), shape, classes
 
 
+# The process group this module started (the bootstrap's, or a one-rank
+# group), which ``run`` tears down at its end; a caller's group stays.
+_own_group = False
+
+
+def setup_mesh(args, device):
+    """The ("data", "model") mesh of the run, or None for one device
+    without a group. Starts the process group from the plugin's env
+    contract unless one is up; with --fsdp or --model-parallelism and
+    still no group, starts a one-rank group of this process on a free
+    localhost port. The data axis is the world over
+    --model-parallelism."""
+    global _own_group
+    if not dist.is_initialized():
+        _own_group = distributed.initialize_from_plugin_env(
+            device=device)
+    if not dist.is_initialized():
+        if not (args.fsdp or args.model_parallelism > 1):
+            return None
+        distributed.start_local_group(device)
+        _own_group = True
+    return build_mesh(default_spec(dist.get_world_size(),
+                                   args.model_parallelism))
+
+
+def teardown_group():
+    """Tear down the process group ``setup_mesh`` started, if any."""
+    global _own_group
+    if _own_group:
+        distributed.shutdown()
+        _own_group = False
+
+
+def is_primary():
+    """Whether this process writes checkpoints (rank 0, or no group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def build_trainer(args, device):
     """(trainer, state, loader) from the flags, after checking that
     they name a ported path and that ``device`` exists. The loader is
@@ -395,7 +451,9 @@ def build_trainer(args, device):
         if args.augment:
             print("--augment only applies to image models; ignoring",
                   file=sys.stderr)
-    trainer = Trainer(model, loss_fn, build_tx(args), remat=args.remat,
+    mesh = setup_mesh(args, device)
+    trainer = Trainer(model, loss_fn, build_tx(args), mesh=mesh,
+                      fsdp=args.fsdp, remat=args.remat,
                       grad_accum=args.grad_accum, augment_fn=augment_fn,
                       ema_decay=args.ema_decay)
     return trainer, trainer.init_state(), loader
@@ -417,14 +475,16 @@ _managers = {}
 
 def _manager(model_dir, keep=None, goodput=None):
     """The directory's manager; explicit keep/goodput reconfigure it,
-    None leaves a setting alone (the restore path passes neither)."""
+    None leaves a setting alone (the restore path passes neither). Only
+    the primary rank writes (``is_primary``)."""
     model_dir = os.path.abspath(model_dir)
     mgr = _managers.get(model_dir)
     if mgr is None:
         mgr = _managers[model_dir] = CheckpointManager(
-            model_dir, keep=keep or 0, goodput=goodput)
+            model_dir, keep=keep or 0, goodput=goodput,
+            primary=is_primary())
     else:
-        mgr.configure(keep=keep, goodput=goodput)
+        mgr.configure(keep=keep, goodput=goodput, primary=is_primary())
     return mgr
 
 
@@ -434,16 +494,21 @@ def _state_layout(args):
     return config, args.lr_schedule != "constant"
 
 
-def save_checkpoint(args, state, goodput=None):
-    """Checkpoint the TrainState into --model-dir. Returns once the
-    state is copied to the host, with the seconds that took (also the
-    ``goodput`` ledger's checkpoint bucket); the write (and the
-    retention prune) finishes in the background
-    (``finalize_checkpoints`` waits for it)."""
+def save_checkpoint(args, trainer, state):
+    """Checkpoint the TrainState into --model-dir, its leaves whole
+    (``Trainer.full_state``; every rank takes part, rank 0 writes).
+    Returns once the state is copied to the host, with the seconds that
+    took (also the Trainer's goodput checkpoint bucket; None on a rank
+    that writes nothing); the write (and the retention prune) finishes
+    in the background (``finalize_checkpoints`` waits for it)."""
     config, schedule = _state_layout(args)
     mgr = _manager(args.model_dir, keep=args.keep_checkpoints,
-                   goodput=goodput)
-    path = mgr.save(state_payload(state, config, schedule), step=state.step)
+                   goodput=trainer.goodput)
+    with trainer.full_state(state):
+        path = mgr.save(state_payload(state, config, schedule),
+                        step=state.step)
+    if path is None:
+        return None
     print(f"saving checkpoint {path} (async)", file=sys.stderr)
     return mgr.last_blocked_s
 
@@ -454,9 +519,10 @@ def finalize_checkpoints():
         mgr.wait_until_finished()
 
 
-def restore_checkpoint(args, state):
+def restore_checkpoint(args, trainer, state):
     """Resume from the newest checkpoint in --model-dir, if any (else
-    warn about entries of another format there)."""
+    warn about entries of another format there). Every rank reads the
+    whole leaves and keeps its shards of them."""
     mgr = _manager(args.model_dir)
     if mgr.latest_step() is None:
         warn_unrecognized_checkpoints(
@@ -465,7 +531,9 @@ def restore_checkpoint(args, state):
             "numbers will replace them")
         return state
     config, schedule = _state_layout(args)
-    state = restore_state(mgr, state, config=config, schedule=schedule)
+    with trainer.full_state(state):
+        state = restore_state(mgr, state, config=config,
+                              schedule=schedule)
     print(f"restored checkpoint step {state.step} from "
           f"{args.model_dir}", file=sys.stderr)
     return state
@@ -533,7 +601,7 @@ def run(args, on_step=None, on_batch=None):
         args.model_dir = ""
     if args.model_dir:
         t_restore = time.perf_counter()
-        state = restore_checkpoint(args, state)
+        state = restore_checkpoint(args, trainer, state)
         if state.step > 0:
             # A restored run spent this wall time on recovery: the
             # goodput ledger's restart bucket, and the journal event
@@ -579,7 +647,7 @@ def run(args, on_step=None, on_batch=None):
             print(f"step {step} loss {loss_val:.4f}", file=sys.stderr)
         if (args.model_dir and args.checkpoint_every
                 and (step + 1) % args.checkpoint_every == 0):
-            blocked.append(save_checkpoint(args, state, trainer.goodput))
+            blocked.append(save_checkpoint(args, trainer, state))
     wall_sync(state.model)
     t_end = time.perf_counter()
     if hasattr(loader, "close"):
@@ -595,16 +663,17 @@ def run(args, on_step=None, on_batch=None):
         per_sec = (args.batch_size * timed_steps / elapsed
                    if elapsed > 0 else 0.0)
     after = kernel_launches()
+    devices = dist.get_world_size() if dist.is_initialized() else 1
     result = {
         "model": args.model,
         "depth": args.depth if args.model == "resnet" else None,
-        "devices": 1,
+        "devices": devices,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else device.type),
         "global_batch": args.batch_size,
         "steps": args.steps,
         "images_per_sec": round(per_sec, 2),
-        "images_per_sec_per_chip": round(per_sec, 2),
+        "images_per_sec_per_chip": round(per_sec / devices, 2),
         "final_loss": losses[-1] if losses else None,
     }
     if args.model not in IMAGE_MODELS:
@@ -622,8 +691,12 @@ def run(args, on_step=None, on_batch=None):
               f"top5 {result['eval_top5_accuracy']}", file=sys.stderr)
     if trace is not None:
         result["profile_trace"] = trace
+    if trainer.mesh is not None:
+        result["mesh"] = dict(zip(trainer.mesh.mesh_dim_names,
+                                  trainer.mesh.mesh.shape))
+        result["fsdp"] = bool(args.fsdp)
     if args.model_dir:
-        blocked.append(save_checkpoint(args, state, trainer.goodput))
+        blocked.append(save_checkpoint(args, trainer, state))
         finalize_checkpoints()
         # Each save's blocking seconds (its host copy), in order.
         result["checkpoint_block_s"] = blocked
@@ -638,9 +711,13 @@ def run(args, on_step=None, on_batch=None):
 
 def main(argv=None, on_step=None):
     """Train and print the JSON result line; returns it as a dict.
-    ``on_step`` as in ``run``."""
+    ``on_step`` as in ``run``. A process group this run started is
+    torn down before it returns."""
     obs.set_role("train")
-    result, _, _ = run(parse_args(argv), on_step)
+    try:
+        result, _, _ = run(parse_args(argv), on_step)
+    finally:
+        teardown_group()
     print(json.dumps(result))
     return result
 

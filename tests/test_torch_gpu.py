@@ -928,3 +928,106 @@ def test_flop_count_on_the_card_equals_the_cpu_count(cuda):
     want = 18 * d * attn.kept_pairs(s, True, 0) * b * h
     assert fwd_bwd(cuda, torch.bfloat16) == want
     assert fwd_bwd(torch.device("cpu"), torch.float32) == want
+
+
+@pytest.fixture
+def nccl_group(cuda):
+    """A one-rank NCCL process group on the card for the test."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+    )
+
+    distributed.start_local_group("cuda:0")
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def test_trainer_in_a_one_rank_nccl_group_equals_no_group(nccl_group):
+    """Two steps of a small LM as the one rank of an NCCL mesh, with and
+    without FSDP, against the same steps without a group: the kernels
+    launch as often, and the losses and parameters are bitwise equal
+    (every collective is over one rank and every mean divides by 1)."""
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        build_mesh,
+    )
+
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=64)
+    tree = convert.init_flax_layout_params(config, 0)
+    kernels = attn.KERNELS + xent.KERNELS
+
+    def run(mesh, fsdp=False):
+        model = convert.load_lm(config, tree, device="cuda", trainable=True)
+        trainer = Trainer(
+            model, transformer.next_token_loss_fn(xent.mean_cross_entropy_loss),
+            Sgd(0.1, momentum=0.9), mesh=mesh, fsdp=fsdp)
+        state = trainer.init_state()
+        batches = SyntheticTokenLoader(2, 64, 128, device="cuda")
+        before = [kern.launches for kern in kernels]
+        losses = [float(trainer.train_step(state, next(batches))[1])
+                  for _ in range(2)]
+        launched = [kern.launches - b for kern, b in zip(kernels, before)]
+        return losses, launched, {n: p.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+    want = run(None)
+    for fsdp in (False, True):
+        got = run(build_mesh(), fsdp)
+        assert got[0] == want[0] and got[1] == want[1] == [4, 4, 4, 2, 2]
+        for name, value in want[2].items():
+            assert torch.equal(got[2][name], value), name
+
+
+def test_collectives_on_a_one_rank_nccl_group(nccl_group):
+    """Each explicit collective over a one-rank NCCL axis is the
+    identity (the ring with n = 1 included) and leaves the tensor on
+    the card."""
+    from container_engine_accelerators_tpu_torch.parallel import collectives
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        build_mesh,
+    )
+
+    mesh = build_mesh()
+    x = torch.randn(8, 3, device="cuda")
+    for fn in (collectives.all_reduce_mean, collectives.all_gather,
+               collectives.reduce_scatter, collectives.ring_all_reduce):
+        out = fn(mesh, x)
+        assert out.is_cuda and torch.equal(out, x), fn.__name__
+
+
+def test_program_guard_on_a_card_engine(cuda):
+    """The guard holds a small paged engine on the card to its bound
+    over mixed prompt lengths, and counts a CUDA-graph capture against
+    a budget of 0."""
+    from container_engine_accelerators_tpu_torch.analysis import programs
+
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=96)
+    model = convert.load_lm(config, convert.init_flax_layout_params(
+        config, 0), device="cuda")
+    engine = decode.SlotDecodeEngine(model, slots=2, slot_len=96,
+                                     paged=True, kv_block_size=8,
+                                     buckets=(16, 32, 64))
+    rng = np.random.default_rng(0)
+    guard = programs.engine_guard(engine)
+    with guard:
+        for n in (5, 12, 20, 40, 33, 9):
+            slot = engine.admit(rng.integers(0, 128, n), n, max_new=8)[0]
+            for _ in range(3):
+                engine.step()
+            engine.release(slot)
+    counts = guard.programs()
+    assert counts["engine.prefill"] <= 3 and counts["engine.step"] == 1
+    assert counts["engine.insert"] == 1
+    assert counts["cuda_graph.capture"] == 0
+    graphs = programs.ProgramGuard().watch_captures()
+    with pytest.raises(programs.ProgramBoundError, match="cuda_graph"):
+        with graphs:
+            x = torch.zeros(4, device="cuda")
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                x.add_(1)

@@ -64,7 +64,10 @@ def test_port_has_the_slice_modules():
                 "parallel.expert", "parallel.checkpoint",
                 "obs.efficiency", "obs.memory", "obs.profiler",
                 "obs.postmortem", "obs.straggler", "utils.provenance",
-                "analysis", "analysis.tsan"):
+                "analysis", "analysis.tsan", "parallel.mesh",
+                "parallel.distributed", "parallel.collectives",
+                "parallel.sharding", "parallel.spmd", "analysis.lint",
+                "analysis.programs", "perf_ledger"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",

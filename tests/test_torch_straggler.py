@@ -16,7 +16,6 @@ case with tests/test_straggler.py: the same step times give the same
 skews, gauges and episode events on both; the journal replay; and four
 port Trainers feeding one detector, one of them slow."""
 
-import time
 
 import pytest
 import torch
@@ -33,6 +32,9 @@ from container_engine_accelerators_tpu_torch.parallel import (
     Sgd,
     Trainer,
     cross_entropy_loss,
+)
+from container_engine_accelerators_tpu_torch.parallel import (
+    train as train_mod,
 )
 
 
@@ -129,12 +131,31 @@ def test_scan_events_replays_merged_journals():
     assert det.skews()["host2"] == pytest.approx(240 / 102, rel=0.05)
 
 
-def test_synthetic_slow_host_in_a_four_trainer_loop():
+class _FakeClock:
+    """The Trainer's ``time`` module stand-in: ``perf_counter`` reads
+    a counter that only ``advance`` moves, so each step's measured
+    time is exactly its synthetic cost whatever the host's load."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def perf_counter(self):
+        return self.now
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
+def test_synthetic_slow_host_in_a_four_trainer_loop(monkeypatch):
     """Four port Trainers (host0..host3, one model each) feed one
     detector; host3's step carries 3x the others' synthetic device
     cost: exactly one straggler.detected event names it, its skew
     gauge is above 1.5, and every host's train.step_summary events
-    reach the journal."""
+    reach the journal. The Trainer's clock is a fake that the stalled
+    step advances by its cost, so the skew the detector sees does not
+    depend on how loaded the CPU is."""
+    clock = _FakeClock()
+    monkeypatch.setattr(train_mod, "time", clock)
     detector = StragglerDetector(window=8, factor=1.5, min_samples=4)
     batch = (torch.ones(2, 4), torch.zeros(2, dtype=torch.long))
     hosts = []
@@ -148,8 +169,9 @@ def test_synthetic_slow_host_in_a_four_trainer_loop():
 
         def stalled(state, batch, step=trainer._step,
                     cost=0.03 if idx == 3 else 0.01):
-            time.sleep(cost)
-            return step(state, batch)
+            out = step(state, batch)
+            clock.advance(cost)
+            return out
 
         trainer._step = stalled
         hosts.append((trainer, state))

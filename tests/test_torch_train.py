@@ -307,11 +307,20 @@ def test_wall_sync_reads_the_first_tensor():
     dict(mesh=object()), dict(fsdp=True), dict(straggler=object()),
     dict(mfu_source="auto"), dict(donate_state=False)])
 def test_unported_trainer_options_raise(option):
-    """A mesh, FSDP and a step without donation raise; the straggler
-    detector and the MFU source are ported and construct."""
+    """A step without donation raises; the straggler detector and the
+    MFU source are ported and construct; a mesh and FSDP are ported
+    too (tests/test_torch_parallel.py trains on them): a mesh that is
+    not a DeviceMesh is refused by type, and FSDP without a process
+    group asks for one, neither as "not yet ported"."""
     if set(option) & {"straggler", "mfu_source"}:
         trainer = Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1), **option)
         assert trainer.goodput is not None
+        return
+    if set(option) & {"mesh", "fsdp"}:
+        want = TypeError if "mesh" in option else RuntimeError
+        with pytest.raises(want, match="DeviceMesh|process group") as err:
+            Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1), **option)
+        assert "not yet ported" not in str(err.value)
         return
     with pytest.raises(ValueError, match="not yet ported"):
         Trainer(torch.nn.Linear(2, 2), None, Sgd(0.1), **option)
@@ -374,10 +383,23 @@ def test_unported_flags_raise(flags, tmp_path):
     and a tiny MoE instead (expert parallelism still raises), and so
     are real data and checkpoints: --data-dir is ignored by the LM, as
     the demo ignores it, and --model-dir writes a checkpoint that the
-    next run resumes; --profile-dir writes a Chrome trace."""
+    next run resumes; --profile-dir writes a Chrome trace; --fsdp and
+    --model-parallelism are ported: one process trains with --fsdp as
+    a one-rank mesh, and --model-parallelism 2 needs two ranks."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
     tiny = ["--vocab-size", "32", "--embed-dim", "16", "--num-heads", "2",
             "--batch-size", "2", "--steps", "2", "--warmup-steps", "1"]
+    if flags == ["--fsdp"]:
+        result = port_train.main(argv + tiny + ["--num-layers", "1",
+                                                "--seq-len", "8"])
+        assert np.isfinite(result["final_loss"]) and result["steps"] == 2
+        assert result["mesh"] == {"data": 1, "model": 1}
+        assert result["fsdp"] is True
+        return
+    if flags == ["--model-parallelism", "2"]:
+        with pytest.raises(ValueError, match="do not factor into model=2"):
+            port_train.main(argv + tiny)
+        return
     if flags in (["--attention-window", "64"], ["--model", "moe"]):
         # Two layers for the MoE: layer 1 is its routed one.
         model = "moe" if "moe" in flags else "transformer"
