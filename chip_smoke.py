@@ -302,6 +302,34 @@
    a paged and a dense engine at the server's buckets: one prefill
    program a bucket, one insert (paged), one step, no CUDA-graph
    capture; flash launches on the dense pool only.
+17. runs tensor-parallel serving, context and expert parallelism in a
+   one-rank NCCL group it starts (``drive_parallel``). (a) MODEL on the
+   launcher's --tensor-parallel code path (``serve.build_lm_models``,
+   ``Spmd`` on a 1 x 1 mesh, ``lockstep.Channel``, the server's
+   ``LockstepEngine``) on the paged pool, the dense pool and the
+   deployed int8 form (int8 weights and KV): TP_PROMPTS greedy requests
+   at once, each stream equal to the same request's on a server without
+   a group, token for token; flash_fwd launches 8 a dense admission and
+   none paged; the program guard over the lockstep engine (buckets +
+   insert + step). (b) The ring on the card at the long-context
+   manifest's per-layer width (q/k/v [1, 32768, 16, 64] bf16, causal,
+   RING_BLOCKS blocks of 4096): ``context._flash_hop`` +
+   ``context._lse_merge`` over every hop of every block in one process
+   (the ring's code, the transport replaced by indexing) against
+   ``flash_attention`` on the whole sequence, the output and dQ/dK/dV
+   (through the lse cotangent) at phase 4's tolerance; diagonal, full
+   and masked hops counted with their launches (a masked hop launches
+   nothing); Ulysses' local attention on 16/8 heads the same way.
+   (c) demo/tpu-training/longcontext-lm-jax.yaml's model (vocab 32000,
+   E 1024, 12 layers, 16 heads, sequence 32768; batch cut from 8 to 1,
+   one chip's share) through the Trainer with ring attention on a
+   one-rank ("data", "context") mesh for LONG_STEPS steps: 12/12/12/1/1
+   launches a step, a finite falling loss, the losses of the same steps
+   with the default flash attention within STEP_LOSS_TOL relative;
+   step time and peak memory reported. (d) Phase 13's MoE through
+   ``MoETransformerLM`` bound to a one-rank expert mesh for MOE_STEPS
+   steps: 8/8/8/1/1 launches a step, the losses of phase 13's steps
+   within STEP_LOSS_TOL (bitwise equality reported).
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -5282,11 +5310,426 @@ def drive_group(torch, train, model, kernels, rng, report):
 PATH_KERNELS.update({
     "group_lm_fsdp": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                       "xent_fwd", "xent_bwd"),
+    "tp_dense": ("flash_fwd",),
+    "ring_card": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "ulysses_card": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "longctx_ring": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "xent_fwd", "xent_bwd"),
+    "moe_expert_mesh": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                        "xent_fwd", "xent_bwd"),
     "group_lm_mp1": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                      "xent_fwd", "xent_bwd"),
     "group_resnet": ("xent_fwd", "xent_bwd"),
     "guard_dense": ("flash_fwd",),
 })
+
+
+# ---------------------------------------------------------------------
+# Phase 17: tensor-parallel serving, context and expert parallelism in
+# a one-rank NCCL group (the module docstring).
+# ---------------------------------------------------------------------
+TP_PROMPTS = (16, 100, 700, 1500)        # concurrent greedy requests
+TP_NEW = 32
+RING_SEQ = 32768                         # longcontext-lm-jax.yaml
+RING_HEADS = 16
+RING_BLOCKS = 8                          # the manifest's context axis
+LONG = ["--model", "transformer", "--vocab-size", "32000",
+        "--embed-dim", "1024", "--num-layers", "12", "--num-heads", "16",
+        "--seq-len", "32768"]
+LONG_BATCH = 1                           # the manifest's 8, one chip's 1
+LONG_STEPS = 3
+
+
+def tp_traffic(server, prompts):
+    """Every prompt as one greedy request, all at once; the sequences in
+    prompt order."""
+    out, errors = [None] * len(prompts), []
+
+    def one(i):
+        try:
+            status, body = post(server.port, {
+                "prompts": [prompts[i].tolist()],
+                "max_new_tokens": TP_NEW})
+            if status != 200:
+                raise AssertionError(f"status {status}: {body}")
+            out[i] = body["sequences"][0]
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def tp_serving(torch, kernels, rng):
+    """17a: the launcher's --tensor-parallel path as the one rank of the
+    group, on the paged pool, the dense pool and the deployed int8
+    form, against the same requests on a server without a group; the
+    program guard over each lockstep engine."""
+    from container_engine_accelerators_tpu_torch.analysis import programs
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.spmd import Spmd
+    from container_engine_accelerators_tpu_torch.serving import (
+        lockstep,
+        serve,
+    )
+    from container_engine_accelerators_tpu_torch.serving.server import (
+        GenerationServer,
+    )
+    vocab = MODEL["vocab_size"]
+    prompts = [rng.integers(0, vocab, n) for n in TP_PROMPTS]
+    forms = (("paged", [], True), ("dense", [], False),
+             ("int8", ["--kv-cache-dtype", "int8", "--quantize-weights",
+                       "int8"], True))
+    mesh = build_mesh(MeshSpec(data=1, model=1))
+    out, launches = {}, {}
+    for name, flags, paged in forms:
+        args = serve.parse_args(lm_flags() + flags
+                                + ["--tensor-parallel", "1"])
+        model, _ = serve.build_lm_models(args, "cuda:0")
+        with torch.no_grad():
+            spmd = Spmd(mesh, model)
+        channel = lockstep.Channel()
+
+        def make(lk):
+            if not paged:
+                os.environ["CEA_TPU_PAGED_KV"] = "0"
+            try:
+                return GenerationServer("lm", model, port=0,
+                                        max_new_tokens=MAX_NEW,
+                                        max_batch=MAX_BATCH,
+                                        host="127.0.0.1", lockstep=lk)
+            finally:
+                os.environ.pop("CEA_TPU_PAGED_KV", None)
+
+        plain = make(None)
+        plain.start()
+        try:
+            want = tp_traffic(plain, prompts)
+        finally:
+            plain.stop()
+        del plain
+        srv = make(channel)
+        engine = srv.engine
+        if not isinstance(engine, lockstep.LockstepEngine):
+            raise AssertionError(f"(a) {name}: not a lockstep engine")
+        srv.start()
+        for kern in kernels:
+            kern.launches = 0
+        prefills0 = engine.prefills
+        t0 = time.perf_counter()
+        try:
+            got = tp_traffic(srv, prompts)
+        finally:
+            srv.stop()
+        served_s = time.perf_counter() - t0
+        launches[f"tp_{name}"] = {k.name: k.launches for k in kernels}
+        admissions = engine.prefills - prefills0
+        buckets = srv._buckets
+        guard_engine = lockstep.build_engine(
+            channel, model, slots=MAX_BATCH, slot_len=engine.slot_len,
+            paged=paged, buckets=buckets)
+        guard = programs.engine_guard(
+            guard_engine._engine,
+            prefill_budget=None if paged else len(buckets))
+        with guard:
+            guard_traffic(torch, guard_engine, rng,
+                          None if paged else buckets)
+        channel.stop()
+        mism = [dict(prompt_len=len(p), first_diff=next(
+            (i for i, (a, b) in enumerate(zip(g, w)) if a != b), None))
+            for p, g, w in zip(prompts, got, want) if g != w]
+        fl = launches[f"tp_{name}"]
+        row = dict(paged=engine.paged, kv_quant=engine.kv_quant,
+                   admissions=admissions, launches=fl, served_s=served_s,
+                   sharded=sum(lay.sharded for lay in
+                               spmd.layouts.values()),
+                   mismatches=mism, programs=guard.programs(),
+                   budgets=guard.budgets())
+        log(f"tp serving {name}:", json.dumps(row))
+        out[name] = row
+        if mism:
+            raise AssertionError(f"(a) {name}: streams differ from the "
+                                 f"server without a group: {mism}")
+        want_fwd = MODEL["num_layers"] * admissions if not paged else 0
+        if fl["flash_fwd"] != want_fwd or any(
+                fl[k] for k in fl if k != "flash_fwd"):
+            raise AssertionError(f"(a) {name}: launches {fl}, want "
+                                 f"flash_fwd {want_fwd} and nothing else")
+        if engine.paged != paged:
+            raise AssertionError(f"(a) {name}: the wrong pool")
+        del srv, engine, guard_engine, model
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def ring_on_card(torch, attn, context, kernels):
+    """17b: the ring's hop and merge over every hop of every block at
+    the long-context width, and Ulysses' local attention on its head
+    groups, against flash_attention on the whole sequence (forward and
+    dQ/dK/dV); the hops by kind and the launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    shape = (1, RING_SEQ, RING_HEADS, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    dtype = "torch.bfloat16"
+
+    def leaves():
+        return [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def timed(fn, grads):
+        """fn's result, its device-clock ms on a second, warm pass
+        beside the first (the allocator's first blocks of these sizes),
+        and the second pass's launches; ``grads``' gradients are the
+        second pass's."""
+        ms = []
+        for _ in range(2):
+            for t in grads:
+                t.grad = None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            for kern in kernels:
+                kern.launches = 0
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        return out, ms, {kern.name: kern.launches for kern in kernels}
+
+    ref, ring, uly = leaves(), leaves(), leaves()
+
+    def whole():
+        o = attn.flash_attention(*ref, causal=True)
+        o.backward(do)
+        return o
+
+    want, whole_ms, whole_launches = timed(whole, ref)
+    blk = RING_SEQ // RING_BLOCKS
+    kinds = dict.fromkeys(("diagonal", "full", "masked"), 0)
+
+    def hops():
+        qs, ks, vs = ring
+        outs = []
+        for i in range(RING_BLOCKS):
+            qi = qs[:, i * blk:(i + 1) * blk]
+            acc = torch.zeros(qi.shape, dtype=torch.float32, device="cuda")
+            m = torch.full(qi.shape[:3], -math.inf, device="cuda")
+            den = torch.zeros(qi.shape[:3], device="cuda")
+            for t in range(RING_BLOCKS):
+                j = (i - t) % RING_BLOCKS
+                kinds["diagonal" if j == i else "full" if j < i
+                      else "masked"] += 1
+                o_t, lse_t = context._flash_hop(
+                    qi, ks[:, j * blk:(j + 1) * blk],
+                    vs[:, j * blk:(j + 1) * blk], i * blk, j * blk, True)
+                acc, m, den = context._lse_merge(acc, m, den, o_t, lse_t)
+            outs.append((acc / den[..., None]).to(qi.dtype))
+        o = torch.cat(outs, dim=1)
+        o.backward(do)
+        return o
+
+    got, ring_ms, ring_launches = timed(hops, ring)
+    kinds = {k: n // 2 for k, n in kinds.items()}   # two passes
+    groups = RING_HEADS // RING_BLOCKS
+
+    def ulysses():
+        outs = []
+        for g in range(RING_BLOCKS):
+            # What the all-to-all hands a rank: every position, its
+            # heads, contiguous.
+            sl = slice(g * groups, (g + 1) * groups)
+            outs.append(attn.flash_attention(
+                *(t[:, :, sl].contiguous() for t in uly), causal=True))
+        o = torch.cat(outs, dim=2)
+        o.backward(do)
+        return o
+
+    got_u, uly_ms, uly_launches = timed(ulysses, uly)
+    errors = {}
+    for name, out, grads in (("ring", got, ring), ("ulysses", got_u, uly)):
+        errors[name] = {}
+        for what, a, b in (("o", out, want), ("dq", grads[0].grad,
+                                              ref[0].grad),
+                           ("dk", grads[1].grad, ref[1].grad),
+                           ("dv", grads[2].grad, ref[2].grad)):
+            err, tol = near(a, b, dtype)
+            errors[name][what] = dict(err=err, tol=tol)
+    hop_count = kinds["diagonal"] + kinds["full"]
+    out = dict(shape=list(shape), blocks=RING_BLOCKS, hops=kinds,
+               ring_launches=ring_launches, whole_launches=whole_launches,
+               ulysses_launches=uly_launches, errors=errors,
+               ring_fwd_bwd_ms=ring_ms[1], whole_fwd_bwd_ms=whole_ms[1],
+               ulysses_fwd_bwd_ms=uly_ms[1],
+               first_pass_ms=dict(ring=ring_ms[0], whole=whole_ms[0],
+                                  ulysses=uly_ms[0]))
+    log("ring on the card:", json.dumps(out))
+    bad = [(n, w) for n, e in errors.items() for w, x in e.items()
+           if not x["err"] <= x["tol"]]
+    if bad:
+        raise AssertionError(f"(b) beyond phase 4's tolerance: {bad}")
+    want_l = {"flash_fwd": hop_count, "flash_bwd_dq": hop_count,
+              "flash_bwd_dkv": hop_count}
+    if ({k: ring_launches[k] for k in want_l} != want_l
+            or kinds["masked"] != RING_BLOCKS * (RING_BLOCKS - 1) // 2):
+        raise AssertionError(f"(b) hops {kinds}, launches {ring_launches}")
+    if uly_launches["flash_fwd"] != RING_BLOCKS:
+        raise AssertionError(f"(b) Ulysses launches {uly_launches}")
+    del q, k, v, do, ref, ring, uly, got, got_u, want
+    torch.cuda.empty_cache()
+    return out, {"ring_card": ring_launches, "ulysses_card": uly_launches}
+
+
+def train_steps(torch, trainer, state, loader, steps, kernels, per_step):
+    """``steps`` Trainer steps with every launch count set to 0 first and
+    each step's launches checked against ``per_step``; (losses, step
+    times in ms after the first, launches)."""
+    for kern in kernels:
+        kern.launches = 0
+    losses, events, bad = [], [], []
+    prev = [0] * len(kernels)
+    for step, batch in zip(range(steps), loader):
+        state, loss = trainer.train_step(state, batch)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+        losses.append(loss)
+        counts = [kern.launches for kern in kernels]
+        got = tuple(c - p for c, p in zip(counts, prev))
+        if got != per_step:
+            bad.append((step, got))
+        prev[:] = counts
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"steps with other launches than {per_step}: "
+                             f"{bad}")
+    losses = [float(x) for x in losses]
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return losses, step_ms, {kern.name: kern.launches for kern in kernels}
+
+
+def long_context(torch, train, context, kernels):
+    """17c: the long-context manifest's model (batch 1) through the
+    Trainer with ring attention on a one-rank ("data", "context") mesh,
+    then the same steps with the default flash attention."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        SyntheticTokenLoader,
+        Trainer,
+    )
+    args = train.parse_args(LONG + [
+        "--device", "cuda", "--batch-size", str(LONG_BATCH), "--steps",
+        str(LONG_STEPS), "--seed", str(SEED)])
+    per_step = (12, 12, 12, 1, 1)
+    runs = {}
+    for name in ("ring", "flash"):
+        model, loss_fn = train.build_lm(args, "cuda")
+        mesh = None
+        if name == "ring":
+            mesh = context.build_context_mesh(context=1)
+            fn = functools.partial(context.ring_attention, mesh,
+                                   axis_name=context.CONTEXT_AXIS,
+                                   batch_axis="data")
+            for block in model.blocks:
+                block.attn.attention_fn = fn
+        trainer = Trainer(model, loss_fn, train.build_tx(args), mesh=mesh)
+        state = trainer.init_state()
+        loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
+                                      args.vocab_size, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, fl = train_steps(torch, trainer, state, loader,
+                                          LONG_STEPS, kernels, per_step)
+        runs[name] = dict(losses=losses, step_ms=step_ms, launches=fl,
+                          peak_memory_gb=torch.cuda.max_memory_allocated()
+                          / 1e9,
+                          mesh=None if mesh is None else dict(zip(
+                              mesh.mesh_dim_names, mesh.mesh.shape)))
+        del model, trainer, state, loader
+        torch.cuda.empty_cache()
+    ring, flash = runs["ring"], runs["flash"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ring["losses"],
+                                                  flash["losses"]))
+    out = dict(runs, loss_rel_err_max=rel,
+               bitwise_equal=ring["losses"] == flash["losses"],
+               tokens_per_s=LONG_BATCH * RING_SEQ * 1e3 / (
+                   sum(ring["step_ms"]) / len(ring["step_ms"])))
+    log("long context:", json.dumps(out))
+    if not ring["losses"][-1] < ring["losses"][0]:
+        raise AssertionError(f"(c) the loss did not fall: {ring}")
+    if rel > STEP_LOSS_TOL:
+        raise AssertionError(f"(c) ring losses differ from flash's: {out}")
+    return out, ring["launches"]
+
+
+def moe_expert_mesh(torch, train, kernels, report):
+    """17d: phase 13's MoE bound to a one-rank expert mesh through the
+    Trainer, against phase 13's losses at the same steps."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        SyntheticTokenLoader,
+        Trainer,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import expert
+    args = train.parse_args(train_argv(MOE_STEPS, MOE_WARMUP) + [
+        "--model", "moe", "--num-experts", str(MOE["num_experts"])])
+    model, loss_fn = train.build_lm(args, "cuda")
+    mesh = expert.build_expert_mesh(expert=1)
+    model.bind_mesh(mesh)
+    trainer = Trainer(model, loss_fn, train.build_tx(args), mesh=mesh)
+    loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
+                                  args.vocab_size, device="cuda")
+    per_step = (MOE["num_layers"],) * 3 + (1, 1)
+    losses, step_ms, fl = train_steps(torch, trainer, trainer.init_state(),
+                                      loader, MOE_STEPS, kernels, per_step)
+    want = report["moe"]["train"]["losses"][:MOE_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    out = dict(losses=losses, phase13_losses=want, loss_rel_err_max=rel,
+               bitwise_equal=losses == want, step_ms=step_ms, launches=fl,
+               mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
+    log("moe on the expert mesh:", json.dumps(out))
+    if rel > STEP_LOSS_TOL:
+        raise AssertionError(f"(d) losses differ from phase 13's: {out}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out, fl
+
+
+def drive_parallel(torch, train, attn, kernels, rng, report):
+    """Phase 17 (the module docstring): (a)-(d) in a one-rank NCCL group
+    this function starts and tears down. Returns (report, launches by
+    path)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        context,
+        distributed,
+    )
+    t0 = time.perf_counter()
+    distributed.start_local_group("cuda:0")
+    try:
+        tp, tp_launches = tp_serving(torch, kernels, rng)
+        ring, ring_launches = ring_on_card(torch, attn, context, kernels)
+        longctx, long_launches = long_context(torch, train, context,
+                                              kernels)
+        moe, moe_launches = moe_expert_mesh(torch, train, kernels, report)
+    finally:
+        dist.destroy_process_group()
+    out = dict(tensor_parallel=tp, ring=ring, long_context=longctx,
+               moe_expert_mesh=moe, phase_s=time.perf_counter() - t0)
+    log(f"parallel phase: {out['phase_s']:.1f} s")
+    return out, dict(tp_launches, **ring_launches,
+                     longctx_ring=long_launches,
+                     moe_expert_mesh=moe_launches)
 
 
 def main():
@@ -5473,6 +5916,10 @@ def main():
     report["group"], group_launches = drive_group(
         torch, train, model, all_kernels, rng, report)
 
+    # Phase 17: tensor-parallel serving, context and expert parallelism.
+    report["parallel"], parallel_launches = drive_parallel(
+        torch, train, attention, all_kernels, rng, report)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -5529,6 +5976,8 @@ def main():
         for path, counts in tool_launches.items():
             by_path[path] = counts[name]
         for path, counts in group_launches.items():
+            by_path[path] = counts[name]
+        for path, counts in parallel_launches.items():
             by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
@@ -5596,8 +6045,11 @@ def main():
         f"LM {report['group']['lm_fsdp']['step_ms_mean']:.2f} ms a step "
         f"(--fsdp), ResNet-50 "
         f"{report['group']['resnet']['images_per_s']:.1f} images/s; "
-        f"process-group phase {report['group']['phase_s']:.1f} s; whole "
-        f"run {report['wall_s']:.1f} s")
+        f"process-group phase {report['group']['phase_s']:.1f} s; "
+        f"long-context ring training "
+        f"{report['parallel']['long_context']['tokens_per_s']:.0f} "
+        f"tokens/s; parallel phase {report['parallel']['phase_s']:.1f} "
+        f"s; whole run {report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1145,13 +1145,14 @@ class EngineCapacityError(RuntimeError):
     the block budget is short): transient, a release frees capacity."""
 
 
-def _prefill_tail(logits, row, valid_len, knobs, generator):
+def _prefill_tail(logits, row, valid_len, knobs, generator, agree=None):
     """The rest of an admission prefill once the chunk's logits
     [width, V] are in: echo logprobs of the chunk's tokens (entry 0 =
     0.0), the seen-token row (the chunk's first ``valid_len`` tokens and
     the first generated one), and the first token, sampled from the
-    logits at valid_len - 1. Returns (first [1], first_lp [1], echo
-    [width] f32, seen_row [V] bool)."""
+    logits at valid_len - 1 (then passed through ``agree``, the
+    engine's seam: see ``SlotDecodeEngine.agree``). Returns (first [1],
+    first_lp [1], echo [width] f32, seen_row [V] bool)."""
     lse = torch.logsumexp(logits[:-1], dim=-1)
     chosen = torch.gather(logits[:-1], 1, row[0, 1:, None])[:, 0]
     echo = torch.cat([torch.zeros(1, device=row.device), chosen - lse])
@@ -1161,11 +1162,14 @@ def _prefill_tail(logits, row, valid_len, knobs, generator):
     last = logits[max(valid_len - 1, 0)]
     first, first_lp = _slot_sample(last[None], seen_row[None], knobs,
                                    [generator])
+    if agree is not None:
+        first = agree(first)
     seen_row[first[0]] = True
     return first, first_lp, echo, seen_row
 
 
-def _slot_prefill(model, row, prompt_len, cache, knobs, generator):
+def _slot_prefill(model, row, prompt_len, cache, knobs, generator,
+                  agree=None):
     """Dense admission prefill: ONE chunk forward of the bucket-padded
     row ([1, bucket]) into ``cache`` (a batch-1 view of the slot's rows),
     on the flash kernel. A sliding-window model's chunk rides per-row
@@ -1177,8 +1181,7 @@ def _slot_prefill(model, row, prompt_len, cache, knobs, generator):
     index = (torch.zeros((1,), dtype=torch.long, device=row.device)
              if model.attention_window else 0)
     return _prefill_tail(logits_of(model(row, cache, index))[0], row,
-                         prompt_len,
-                         knobs, generator)
+                         prompt_len, knobs, generator, agree)
 
 
 def _arena_to_dense(arena, table, slot_len):
@@ -1194,7 +1197,8 @@ def _arena_to_dense(arena, table, slot_len):
 
 
 def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
-                        suffix_len, knobs, generator, slot_len):
+                        suffix_len, knobs, generator, slot_len,
+                        agree=None):
     """Admission prefill against resident prefix blocks: gather the
     shared span's K/V out of the arena, then run the (bucket-padded)
     suffix as ONE chunk forward that attends the cache at offset
@@ -1214,7 +1218,7 @@ def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
         logits = logits_of(model(row, cache, int(shared_len),
                                  chunk_attends_cache=True))
     return (cache,) + _prefill_tail(logits[0], row, suffix_len, knobs,
-                                    generator)
+                                    generator, agree)
 
 
 def _draft_scan(draft, cache, row_pos, tok, k, span, block_table=None):
@@ -1234,7 +1238,8 @@ def _draft_scan(draft, cache, row_pos, tok, k, span, block_table=None):
     return torch.stack(props, dim=1)
 
 
-def _verify_commit(raw, proposals, gate, active, seen, knobs, generators):
+def _verify_commit(raw, proposals, gate, active, seen, knobs, generators,
+                   agree=None):
     """The verify step's tail: the chunk's raw logits [slots, k, V] to
     per-row accepted prefixes. Column 0 goes through the row's full
     sampling chain (for a gate-off row that IS the single-token step:
@@ -1243,13 +1248,17 @@ def _verify_commit(raw, proposals, gate, active, seen, knobs, generators):
     ``counts = m + 1`` tokens commit on active rows (0 on free rows).
     Only the consumed tokens are marked seen. The rejected tail's K/V
     stay in the cache past row_pos + counts, masked until the next
-    chunk rewrites them. Returns (toks [slots, k], lps [slots, k] f32,
-    counts [slots])."""
+    chunk rewrites them. ``agree`` (the engine's seam) sees the picked
+    tokens and the proposals before anything is decided from them.
+    Returns (toks [slots, k], lps [slots, k] f32, counts [slots])."""
     k = proposals.shape[1] + 1
     dev = raw.device
     tok0, lp0 = _slot_sample(raw[:, 0], seen, knobs, generators)
     toks = torch.cat([tok0[:, None], torch.argmax(raw[:, 1:], dim=-1)],
                      dim=1)
+    if agree is not None:
+        both = agree(torch.cat([toks, proposals], dim=1))
+        toks, proposals = both[:, :k], both[:, k:]
     match = (proposals == toks[:, :k - 1]).long()
     m = torch.cumprod(match, dim=1).sum(dim=1)
     m = torch.where(gate, m, torch.zeros_like(m))
@@ -1470,6 +1479,11 @@ class SlotDecodeEngine:
         self.spec_proposed = 0   # draft proposals offered (k-1 a row)
         self.spec_accepted = 0   # draft proposals accepted
         self.draft_prefills = 0
+        # The token-agreement seam: None, or a callable that takes the
+        # tokens a step or an admission picked (a device tensor) and
+        # returns the ones to commit (a lockstep follower's: rank 0's;
+        # serving/lockstep.py). It runs before any state reads them.
+        self.agree = None
         self._draft_model = None
         self._spec_k = 0
         if draft_model is not None:
@@ -1680,7 +1694,8 @@ class SlotDecodeEngine:
             self._model, self._cache,
             torch.as_tensor(prefix_table, device=self.device),
             torch.as_tensor(row, device=self.device)[None],
-            shared_len, len(suffix), knobs, generator, self.slot_len)
+            shared_len, len(suffix), knobs, generator, self.slot_len,
+            self.agree)
         return out + (generator,)
 
     def _take_commit(self, slot):
@@ -2017,7 +2032,8 @@ class SlotDecodeEngine:
             view = [tuple(a[slot:slot + 1] for a in layer)
                     for layer in self._cache]
             first, first_lp, echo, seen_row = _slot_prefill(
-                self._model, row, int(prompt_len), view, knobs, generator)
+                self._model, row, int(prompt_len), view, knobs, generator,
+                self.agree)
         # Rewind the slot's position to its true prompt length (the
         # generation then overwrites any bucket padding) and install
         # its seen-token row and generator.
@@ -2162,7 +2178,7 @@ class SlotDecodeEngine:
         toks, lps, counts = _verify_commit(
             raw, props, torch.as_tensor(gate, device=dev),
             torch.as_tensor(self._active, device=dev), self._seen,
-            self._knobs, self._generators)
+            self._knobs, self._generators, self.agree)
         toks, lps = toks.cpu().numpy(), lps.cpu().numpy()
         counts = counts.cpu().numpy()
         last = np.maximum(counts, 1) - 1
@@ -2213,6 +2229,8 @@ class SlotDecodeEngine:
             raw = logits_of(self._model(tok, self._cache, pos))
         nxt, lp = _slot_sample(raw[:, 0], self._seen, self._knobs,
                                self._generators)
+        if self.agree is not None:
+            nxt = self.agree(nxt)
         self._seen[torch.arange(self.slots, device=dev), nxt] = True
         self._row_pos += self._active
         toks = nxt.cpu().numpy()

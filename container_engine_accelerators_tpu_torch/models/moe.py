@@ -54,18 +54,29 @@ from .transformer import (
 class MoEMlp(nn.Module):
     """Top-k routed expert MLP, [B, S, d] in/out, plus the aux loss.
     ``moe_fn`` is ``expert.dense_moe``; a check may set an instance's
-    to ``expert.dense_moe_reference`` (the same signature)."""
+    to ``expert.dense_moe_reference`` (the same signature).
+
+    ``mesh`` (a mesh with an "expert" axis, as the flax module's) runs
+    the layer through ``expert.expert_parallel_moe`` on the residual
+    stream's token layout: the layer's ``w_in``/``w_out`` are then this
+    rank's E/P experts once the Trainer's layout has sliced them (or
+    whole, each rank taking its slice at use). ``token_mesh`` (set by
+    the Trainer's layout on a mesh whose tokens are split over "data"
+    or "context") routes the global batch
+    (``expert.global_batch_moe``)."""
 
     moe_fn = staticmethod(expert.dense_moe)
 
     def __init__(self, embed_dim, num_experts, mlp_ratio=4, top_k=2,
                  capacity_factor=1.25, dtype=torch.bfloat16, device=None,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, mesh=None):
         super().__init__()
         f = mlp_ratio * embed_dim
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor = capacity_factor
         self.compute_dtype = dtype
+        self.mesh = mesh
+        self.token_mesh = None
         self.gate = nn.Parameter(torch.zeros(
             (embed_dim, num_experts), dtype=torch.float32, device=device))
         self.w_in = nn.Parameter(torch.zeros(
@@ -75,10 +86,22 @@ class MoEMlp(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        out, aux = self.moe_fn(
-            x.reshape(-1, x.shape[-1]).to(dt), self.gate, self.w_in.to(dt),
-            self.w_out.to(dt), capacity_factor=self.capacity_factor,
-            top_k=self.top_k)
+        kwargs = dict(capacity_factor=self.capacity_factor,
+                      top_k=self.top_k)
+        tokens = x.reshape(-1, x.shape[-1]).to(dt)
+        w_in, w_out = self.w_in.to(dt), self.w_out.to(dt)
+        if self.mesh is not None:
+            out, aux = expert.expert_parallel_moe(
+                self.mesh, tokens, self.gate, w_in, w_out,
+                token_spec=expert.residual_token_spec(
+                    self.mesh, tokens.shape[0]), **kwargs)
+        elif self.token_mesh is not None:
+            out, aux = expert.global_batch_moe(
+                self.token_mesh, x.to(dt), self.gate, w_in, w_out,
+                **kwargs)
+        else:
+            out, aux = self.moe_fn(tokens, self.gate, w_in, w_out,
+                                   **kwargs)
         return out.reshape(x.shape), aux
 
 
@@ -90,7 +113,7 @@ class MoEBlock(nn.Module):
                  top_k=2, capacity_factor=1.25, num_kv_heads=None,
                  rope=False, dtype=torch.bfloat16, device=None,
                  param_dtype=torch.float32, attention_fn=None,
-                 weights="native", window=0):
+                 weights="native", window=0, mesh=None):
         super().__init__()
         self.attn = CausalSelfAttention(embed_dim, num_heads,
                                         num_kv_heads, rope, dtype, device,
@@ -98,7 +121,7 @@ class MoEBlock(nn.Module):
                                         window)
         self.ln = LayerNorm(embed_dim, dtype, device)
         self.moe = MoEMlp(embed_dim, num_experts, mlp_ratio, top_k,
-                          capacity_factor, dtype, device, param_dtype)
+                          capacity_factor, dtype, device, param_dtype, mesh)
 
     def forward(self, x, cache=None, index=None, block_table=None,
                 chunk_attends_cache=False, slot_pos=None):
@@ -113,8 +136,10 @@ class MoETransformerLM(TransformerLM):
 
     Odd layers are routed (GShard's every-other placement) over
     ``num_experts`` experts, ``top_k`` choices a token and
-    ``capacity_factor``; every other option and ``forward`` argument is
-    ``TransformerLM``'s."""
+    ``capacity_factor``; ``mesh`` (one with an "expert" axis) makes the
+    routed layers expert-parallel, as the flax module's argument does
+    (``bind_mesh`` sets it on a built model); every other option and
+    ``forward`` argument is ``TransformerLM``'s."""
 
     def __init__(self, vocab_size=32000, embed_dim=512, num_layers=8,
                  num_heads=8, num_experts=8, max_seq_len=2048, mlp_ratio=4,
@@ -123,7 +148,7 @@ class MoETransformerLM(TransformerLM):
                  kv_cache_dtype=None, attention_window=0,
                  weights="native", chunk_attends_cache=False, ring_slack=0,
                  kv_pages=None, device="cuda", param_dtype=torch.float32,
-                 attention_fn=None):
+                 attention_fn=None, mesh=None):
         # The dense LM without blocks; the stack is built below, in the
         # place the dense one holds in the module tree.
         super().__init__(vocab_size, embed_dim, 0, num_heads, max_seq_len,
@@ -144,11 +169,23 @@ class MoETransformerLM(TransformerLM):
                      capacity_factor, **common) if i % 2 == 1 else
             Block(embed_dim, num_heads, mlp_ratio, **common)
             for i in range(num_layers))
+        self.bind_mesh(mesh)
+
+    def bind_mesh(self, mesh):
+        """Route every MoE layer expert-parallel over ``mesh``'s
+        "expert" axis (None: on one device)."""
+        self.mesh = mesh
+        for block in self.blocks:
+            if isinstance(block, MoEBlock):
+                block.moe.mesh = mesh
+        return self
 
     def forward(self, tokens, cache=None, index=None, block_table=None,
                 chunk_attends_cache=False):
         """``TransformerLM.forward``'s arguments; returns (logits,
         aux)."""
+        if cache is None:
+            index = self.seq_offset
         x, layers, slot_pos = self._embed(tokens, cache, index)
         aux_losses = []
         for block, layer_cache in zip(self.blocks, layers):

@@ -347,7 +347,9 @@ class CausalSelfAttention(nn.Module):
         the paged arenas [num_blocks, block_size, Hkv, D]; a quantized
         cache adds the K and V scales, (K, V, K scale, V scale);
         ``index``: the write offset, an int or a [B] tensor of per-row
-        positions (the only form the paged cache takes).
+        positions (the only form the paged cache takes); without a
+        cache, the int global position of ``x``'s first token (a
+        sequence shard's offset, ``TransformerLM.seq_offset``).
         ``chunk_attends_cache``: a multi-token chunk at an int offset
         attends the cache (the paged admission prefill) instead of
         running the flash kernel on itself alone. ``slot_pos``: the
@@ -357,7 +359,10 @@ class CausalSelfAttention(nn.Module):
         heads = self.num_heads
         if cache is None:
             if self.rope:
-                pos = torch.arange(q.shape[1], device=q.device)
+                # ``index``: the chunk's global offset (a sequence
+                # shard's; 0 for the whole sequence).
+                pos = torch.arange(q.shape[1], device=q.device) + (
+                    index or 0)
                 q, k = apply_rope(q, pos), apply_rope(k, pos)
             kwargs = {"window": self.window} if self.window else {}
             attn = self.attention_fn(q, _expand_kv(k, heads),
@@ -599,6 +604,10 @@ class TransformerLM(nn.Module):
             for _ in range(num_layers))
         self.ln_f = LayerNorm(embed_dim, dtype, device)
         self.lm_head = nn.Linear(embed_dim, vocab_size, device=device)
+        # The global position of the first token of a full forward's
+        # input: nonzero on a context rank, whose input is its slice of
+        # the sequence (the Trainer on a context mesh sets it).
+        self.seq_offset = 0
 
     @property
     def device(self):
@@ -664,6 +673,8 @@ class TransformerLM(nn.Module):
         a ``RingCache``) and the write offset (int, or [B] per-row
         positions); ``block_table`` [B, n_blk] maps each row's logical
         blocks to arena blocks of a paged cache."""
+        if cache is None:
+            index = self.seq_offset
         x, layers, slot_pos = self._embed(tokens, cache, index)
         for block, layer_cache in zip(self.blocks, layers):
             x = block(x, layer_cache, index, block_table,
@@ -679,15 +690,16 @@ class TransformerLM(nn.Module):
         and a ring's slot positions (written for this call), as
         ``forward`` reads them."""
         s = tokens.shape[1]
-        if s > self.max_seq_len:
+        end = s + (index if cache is None else 0)
+        if end > self.max_seq_len:
             raise ValueError(
-                f"sequence length {s} exceeds max_seq_len "
+                f"sequence length {end} exceeds max_seq_len "
                 f"{self.max_seq_len}")
         x = self.tok_embed(tokens)
         if self.pos_embedding == "learned":
             steps = torch.arange(s, device=tokens.device)
             if cache is None:
-                pos = steps
+                pos = index + steps
             elif isinstance(index, int):
                 pos = index + steps
             else:
@@ -710,11 +722,19 @@ def next_token_loss_fn(loss):
     """Shift-by-one LM objective over a fused per-example loss:
     logits [B, S, V] + tokens [B, S] -> scalar. ``logits[:, :-1]``
     cannot merge into [B*(S-1), V] as a view, so the reshape copies it,
-    as the JAX function's reshape does before XLA fuses it."""
+    as the JAX function's reshape does before XLA fuses it.
+
+    A context rank's logits cover its slice of the sequence, and its
+    ``tokens`` are that slice plus the next rank's first token (the
+    label of the slice's last position), so every logit has a label;
+    the last rank's slice has none past its end and drops its last
+    logit, as the whole sequence does. The loss is then the mean over
+    the slice's positions (the Trainer weighs it by their share)."""
 
     def loss_fn(logits, tokens):
         v = logits.shape[-1]
-        return loss(logits[:, :-1].reshape(-1, v),
-                    tokens[:, 1:].reshape(-1))
+        n = min(logits.shape[1], tokens.shape[1] - 1)
+        return loss(logits[:, :n].reshape(-1, v),
+                    tokens[:, 1:n + 1].reshape(-1))
 
     return loss_fn

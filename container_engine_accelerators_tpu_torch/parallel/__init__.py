@@ -14,11 +14,13 @@
 
 
 """Training for the port: the Trainer (on one device or as one rank
-of a ("data", "model") mesh, with FSDP), its losses, its synthetic and
-real data, checkpoints, the mesh, the sharding rules, the collectives
-and the multi-host start-up. Counterpart of
-container_engine_accelerators_tpu/parallel/ (context, expert and
-pipeline parallelism and elastic training are not ported yet)."""
+of a ("data", "model"), ("data", "context") or ("data", "expert")
+mesh, with FSDP), its losses, its synthetic and real data,
+checkpoints, the mesh, the sharding rules, the collectives, context
+parallelism (ring and Ulysses attention), expert parallelism and the
+multi-host start-up. Counterpart of
+container_engine_accelerators_tpu/parallel/ (pipeline parallelism and
+elastic training are not ported yet)."""
 
 from .checkpoint import CheckpointManager, restore_state, state_payload
 from .data import (
@@ -27,6 +29,13 @@ from .data import (
     SyntheticLoader,
     SyntheticTokenLoader,
 )
+from .context import (
+    build_context_mesh,
+    dot_product_attention,
+    ring_attention,
+    ulysses_attention,
+)
+from .expert import build_expert_mesh, dense_moe, expert_parallel_moe
 from .mesh import MeshSpec, build_mesh, chips_from_env
 from .sharding import batch_sharding, param_shardings, replicated
 from .train import Sgd, TrainState, Trainer, cross_entropy_loss
@@ -34,6 +43,8 @@ from .train import Sgd, TrainState, Trainer, cross_entropy_loss
 __all__ = ["CheckpointManager", "MeshSpec", "NpzShardDataset",
            "PrefetchLoader", "Sgd", "SyntheticLoader",
            "SyntheticTokenLoader", "TrainState", "Trainer",
-           "batch_sharding", "build_mesh", "chips_from_env",
-           "cross_entropy_loss", "param_shardings", "replicated",
-           "restore_state", "state_payload"]
+           "batch_sharding", "build_context_mesh", "build_expert_mesh",
+           "build_mesh", "chips_from_env", "cross_entropy_loss",
+           "dense_moe", "dot_product_attention", "expert_parallel_moe",
+           "param_shardings", "replicated", "restore_state",
+           "ring_attention", "state_payload", "ulysses_attention"]

@@ -214,3 +214,116 @@ class ShardGather(torch.autograd.Function):
         n = _group_size(ctx.group)
         return (_reduce_scatter_dim(grad, ctx.dim, ctx.group) / n,
                 None, None)
+
+
+class GatherSum(torch.autograd.Function):
+    """Concatenate the group's pieces along ``dim`` into a value every
+    rank's own loss term reads (the gate logits a global routing reads
+    on each data rank); the backward sums the ranks' gradients of the
+    whole and keeps this rank's slice (a reduce-scatter): the
+    transpose of an all-gather over ranks whose losses are separate
+    terms of one mean."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_reduce_scatter_dim(grad.contiguous(), ctx.dim, ctx.group),
+                None, None)
+
+
+class MeanOfReplicated(torch.autograd.Function):
+    """The mean of the group's values, read by one loss every rank of
+    the group computes alike (a replicated loss); the backward hands
+    each rank its 1/N of the gradient without a collective."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = _group_size(group)
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / ctx.n
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def _all_to_all(x, split_dim, concat_dim, group):
+    """jax.lax.all_to_all(tiled=True) on one rank: ``x`` cut into N
+    equal chunks along ``split_dim``, chunk j sent to member j, the
+    chunks received concatenated along ``concat_dim`` in member
+    order."""
+    n = _group_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split into {n} chunks")
+    send = [c.contiguous() for c in x.chunk(n, dim=split_dim)]
+    recv = [torch.empty_like(send[0]) for _ in range(n)]
+    dist.all_to_all(recv, send, group=group)
+    return torch.cat(recv, dim=concat_dim)
+
+
+class AllToAll(torch.autograd.Function):
+    """``_all_to_all`` with its transpose, the all-to-all that splits
+    the concatenated dim and concatenates the split one (an all-to-all
+    is its own transpose with the dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(grad, concat_dim, split_dim, ctx.group),
+                None, None, None)
+
+
+def ring_peers(group):
+    """(this rank's index in ``group``, the next member's global rank,
+    the previous member's global rank)."""
+    n = _group_size(group)
+    idx = dist.get_group_rank(group, dist.get_rank())
+    return (idx, dist.get_global_rank(group, (idx + 1) % n),
+            dist.get_global_rank(group, (idx - 1) % n))
+
+
+def ring_shift(tensors, group, reverse=False):
+    """One ring hop of ``tensors``: each is sent to the next member and
+    a buffer of its shape receives the previous member's (the other way
+    round with ``reverse``). Returns the received buffers."""
+    _, nxt, prv = ring_peers(group)
+    if reverse:
+        nxt, prv = prv, nxt
+    ops, recv = [], []
+    for t in tensors:
+        buf = t.new_empty(t.shape)
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, group))
+        ops.append(dist.P2POp(dist.irecv, buf, prv, group))
+        recv.append(buf)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
+class RingShift(torch.autograd.Function):
+    """One ring hop of (K, V): each rank's pair goes to the next member
+    of the group, the previous member's arrives; the backward sends the
+    gradients the other way round the ring."""
+
+    @staticmethod
+    def forward(ctx, k, v, group):
+        ctx.group = group
+        return tuple(ring_shift((k, v), group))
+
+    @staticmethod
+    def backward(ctx, g_k, g_v):
+        g_k = torch.zeros_like(g_k) if g_k is None else g_k
+        g_v = torch.zeros_like(g_v) if g_v is None else g_v
+        return tuple(ring_shift((g_k, g_v), ctx.group, reverse=True)) + (
+            None,)

@@ -12,9 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Mixture-of-Experts routing on one device (counterpart of the
-single-device half of container_engine_accelerators_tpu/parallel/
-expert.py).
+"""Mixture-of-Experts routing, on one device and over a mesh
+(counterpart of container_engine_accelerators_tpu/parallel/expert.py).
 
 The routing is GShard's top-k capacity scheme: a group of T tokens
 (every token of one forward call) reserves ``expert_capacity`` slots
@@ -48,8 +47,26 @@ result goes through the tanh GELU and back to the compute dtype, the
 second's f32 result is combined in f32 and cast once. No Pallas kernel
 lies on this path: the JAX package computes all three steps in XLA.
 
-The expert-parallel form (``expert_parallel_moe`` over an "expert"
-mesh axis) waits for the distributed port and raises "not yet ported".
+On a mesh (each rank passes its own shard, as everywhere in the
+port's distributed code):
+
+- ``expert_parallel_moe`` is the JAX function over an "expert" axis:
+  each rank routes its own group, dispatches it into [E, C, d] slots,
+  an all-to-all gives each expert owner its E/P experts' slots from
+  every group member, the batched FFN runs on them, the reverse
+  all-to-all brings them back and the combine adds them per token.
+  Under a token spec without the expert axis (the residual stream's
+  layout) the expert-axis peers hold the same tokens: each routes its
+  contiguous T/P subgroup and an all-gather re-assembles the block.
+- ``global_batch_moe`` is what GSPMD makes of ``dense_moe`` when the
+  tokens are split over "data" (and "context"): the gate logits are
+  gathered in the global token order, every rank routes the global
+  batch alike, and runs only its own tokens through their experts.
+
+The gradients follow one rule: over "data" and "context" the ranks'
+losses are separate terms of one mean (the Trainer sums or averages
+their gradients), over "expert" (and "model") the loss is one value
+every peer computes alike.
 """
 
 import math
@@ -57,7 +74,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..utils import not_ported
+from . import collectives
+from .context import CONTEXT_AXIS
+from .mesh import DATA_AXIS, axis_group, axis_index, grid_mesh, mesh_shape
 
 EXPERT_AXIS = "expert"
 
@@ -68,13 +87,9 @@ def gelu(x):
 
 
 def build_expert_mesh(expert, data=None, devices=None):
-    """The ("data", "expert") mesh of the JAX package: not ported."""
-    raise not_ported("build_expert_mesh (expert parallelism)")
-
-
-def expert_parallel_moe(mesh, tokens, gate_w, w_in, w_out, **kwargs):
-    """MoE with experts sharded over a mesh axis: not ported."""
-    raise not_ported("expert_parallel_moe (expert parallelism)")
+    """A ("data", "expert") mesh over the world's ranks (or ``devices``,
+    a rank list); expert-axis peers are adjacent ranks."""
+    return grid_mesh(devices, data, expert, EXPERT_AXIS)
 
 
 def expert_capacity(num_tokens, num_experts, capacity_factor, top_k):
@@ -181,28 +196,31 @@ def _expert_ffn(slots, w_in, w_out, activation):
     return torch.bmm(h.float(), w_out.float())
 
 
-def dense_moe(tokens, gate_w, w_in, w_out, *, capacity_factor=1.25,
-              top_k=2, activation=gelu):
-    """Single-group MoE, the model's path: tokens [T, d], gate_w [d, E]
-    (f32), w_in [E, d, f], w_out [E, f, d] (the compute dtype). Returns
-    (out [T, d] in the tokens' dtype, aux scalar f32)."""
+def _dispatch_ffn_combine(tokens, expert, slot, keep, weight, e, cap,
+                          w_in, w_out, activation, exchange=None):
+    """The layer after the routing, on the index form: tokens [T, d]
+    copied into [E, C, d] slots (a dropped choice points at one extra
+    row past the E * C slots, which the products never read), the
+    batched expert FFN, and the weighted outputs added back per token
+    in f32, cast once. ``exchange`` (slots -> slots, outputs ->
+    outputs) moves the slots to their experts' owners and back (the
+    expert-parallel all-to-all pair); None runs every expert here."""
     t, d = tokens.shape
-    e = w_in.shape[0]
-    cap = expert_capacity(t, e, capacity_factor, top_k)
-    logits = tokens.float() @ gate_w.float()
-    expert, slot, keep, weight, aux = top_k_routing_indices(
-        logits, cap, top_k=top_k)
     # Indexed, not one-hot: at the LM training shape (T 16384, E 8,
     # capacity 5120) one f32 [T, E, C] tensor is 2.68 GB, and autograd
-    # would keep several a routed layer. Dropped choices point at one
-    # extra row past the E * C slots, which the products never read.
+    # would keep several a routed layer.
     dump = e * cap
     dest = torch.where(keep, expert * cap + slot,
                        torch.full_like(slot, dump))             # [T, k]
     k = dest.shape[1]
     buf = tokens.new_zeros((dump + 1, d)).index_copy(
         0, dest.reshape(-1), tokens[:, None].expand(t, k, d).reshape(-1, d))
-    out = _expert_ffn(buf[:dump].view(e, cap, d), w_in, w_out, activation)
+    slots = buf[:dump].view(e, cap, d)
+    if exchange is None:
+        out = _expert_ffn(slots, w_in, w_out, activation)
+    else:
+        send, back = exchange
+        out = back(_expert_ffn(send(slots), w_in, w_out, activation))
     out = torch.cat([out.reshape(dump, d), out.new_zeros((1, d))])
     # index_select, whose backward adds the kept rows' gradients back
     # with index_add_ (an advanced-indexing read sorts them instead).
@@ -210,7 +228,22 @@ def dense_moe(tokens, gate_w, w_in, w_out, *, capacity_factor=1.25,
     combined = picked[:, 0] * weight[:, :1]
     for j in range(1, k):
         combined = combined + picked[:, j] * weight[:, j:j + 1]
-    return combined.to(tokens.dtype), aux
+    return combined.to(tokens.dtype)
+
+
+def dense_moe(tokens, gate_w, w_in, w_out, *, capacity_factor=1.25,
+              top_k=2, activation=gelu):
+    """Single-group MoE, the model's path: tokens [T, d], gate_w [d, E]
+    (f32), w_in [E, d, f], w_out [E, f, d] (the compute dtype). Returns
+    (out [T, d] in the tokens' dtype, aux scalar f32)."""
+    t = tokens.shape[0]
+    e = w_in.shape[0]
+    cap = expert_capacity(t, e, capacity_factor, top_k)
+    logits = tokens.float() @ gate_w.float()
+    expert, slot, keep, weight, aux = top_k_routing_indices(
+        logits, cap, top_k=top_k)
+    return _dispatch_ffn_combine(tokens, expert, slot, keep, weight, e,
+                                 cap, w_in, w_out, activation), aux
 
 
 def dense_moe_reference(tokens, gate_w, w_in, w_out, *,
@@ -227,3 +260,158 @@ def dense_moe_reference(tokens, gate_w, w_in, w_out, *,
     out = _expert_ffn(slots, w_in, w_out, activation)
     out = torch.einsum("ecd,tec->td", out, combine)
     return out.to(tokens.dtype), aux
+
+
+def _axis_mean(mesh, value, partial_axes):
+    """``value`` averaged over every mesh axis wider than one rank: an
+    axis of ``partial_axes`` by an all-reduce whose backward sums (the
+    ranks' losses are separate terms there), any other by the mean of
+    a replicated loss (``collectives.MeanOfReplicated``)."""
+    for axis, size in mesh_shape(mesh).items():
+        if size == 1:
+            continue
+        group = axis_group(mesh, axis)
+        if axis in partial_axes:
+            value = collectives.AllReduceSum.apply(value, group) / size
+        else:
+            value = collectives.MeanOfReplicated.apply(value, group)
+    return value
+
+
+def expert_parallel_moe(mesh, tokens, gate_w, w_in, w_out, *,
+                        capacity_factor=1.25, top_k=2,
+                        axis_name=EXPERT_AXIS, activation=gelu,
+                        token_spec=None):
+    """MoE layer with the experts sharded over ``axis_name``.
+
+    ``tokens`` [T, d] is this rank's token block; ``gate_w`` [d, E] is
+    whole; ``w_in`` [E/P, d, f] and ``w_out`` [E/P, f, d] are this
+    rank's experts (member g owns experts [g E/P, (g + 1) E/P)), or the
+    whole [E, ...] stacks, of which each rank then takes its slice.
+    ``token_spec`` says how the tokens are laid out, as the JAX
+    argument does:
+
+    - None: sharded over every mesh axis jointly, so each rank routes
+      a group of its own;
+    - a tuple of axis names without ``axis_name`` (the residual
+      stream's (data, context) layout): the expert-axis peers hold the
+      same block, each routes its contiguous T/P subgroup (the groups
+      the fully sharded layout forms, in the same order) and the
+      outputs are re-assembled by an all-gather (its backward takes
+      the rank's slice; the subgroup's slice gathers the gradients).
+
+    Per shard: top-k routing with ``expert_capacity`` slots an expert,
+    the [E, C, d] dispatch, an all-to-all (expert dim split, slot dim
+    concatenated: [E/P, P C, d]), the FFN on the rank's experts, the
+    reverse all-to-all and the combine. The expert count must divide
+    by the axis size. Returns (out [T, d], aux), aux the mean over the
+    mesh."""
+    p_size = mesh_shape(mesh)[axis_name]
+    local = p_size > 1 and w_in.shape[0] * p_size == gate_w.shape[1]
+    e = gate_w.shape[1] if local else w_in.shape[0]
+    if e % p_size != 0:
+        raise ValueError(
+            f"{e} experts not divisible by {axis_name} axis size "
+            f"{p_size}")
+    spec_axes = (tuple(mesh.mesh_dim_names) if token_spec is None
+                 else tuple(token_spec))
+    subdivide = axis_name not in spec_axes
+    if subdivide and tokens.shape[0] % p_size != 0:
+        raise ValueError(
+            f"token count {tokens.shape[0]} not divisible by {p_size}x "
+            f"the token_spec shards")
+    group = axis_group(mesh, axis_name) if p_size > 1 else None
+    exchange = None
+    toks, gate = tokens, gate_w
+    if group is not None:
+        if not local:
+            w_in = collectives.SliceAlong.apply(w_in, 0, group)
+            w_out = collectives.SliceAlong.apply(w_out, 0, group)
+        if subdivide:
+            toks = collectives.SliceAlong.apply(tokens, 0, group)
+            # The peers' loss is one replicated value: the gate's
+            # gradient is the sum of their subgroups'.
+            gate = collectives.CopyToGroup.apply(gate_w, group)
+        exchange = (
+            lambda x: collectives.AllToAll.apply(x, 0, 1, group),
+            lambda x: collectives.AllToAll.apply(x, 1, 0, group))
+    cap = expert_capacity(toks.shape[0], e, capacity_factor, top_k)
+    logits = toks.float() @ gate.float()
+    expert, slot, keep, weight, aux = top_k_routing_indices(
+        logits, cap, top_k=top_k)
+    out = _dispatch_ffn_combine(toks, expert, slot, keep, weight, e, cap,
+                                w_in, w_out, activation, exchange)
+    if group is not None and subdivide:
+        out = collectives.GatherAlong.apply(out, 0, group)
+    partial = set(spec_axes) if token_spec is not None else set(
+        mesh.mesh_dim_names)
+    return out, _axis_mean(mesh, aux, partial)
+
+
+def residual_token_spec(mesh, num_tokens):
+    """The token layout of the flat [T, d] batch as the residual stream
+    shards it (the JAX model's ``_residual_token_spec``): the "data"
+    and "context" axes wider than one rank over which ``num_tokens``
+    still tiles together with the expert axis's subdivision; the expert
+    axis unused."""
+    sizes = mesh_shape(mesh)
+    group, tile = [], sizes.get(EXPERT_AXIS, 1)
+    for a in (DATA_AXIS, CONTEXT_AXIS):
+        size = sizes.get(a, 1)
+        if size > 1 and num_tokens % (tile * size) == 0:
+            group.append(a)
+            tile *= size
+    return tuple(group)
+
+
+def global_batch_moe(mesh, x, gate_w, w_in, w_out, *,
+                     capacity_factor=1.25, top_k=2, activation=gelu):
+    """``dense_moe`` over the global batch when the tokens are split
+    over the mesh's "data" and "context" axes: what GSPMD runs for the
+    JAX module without an expert axis.
+
+    ``x`` [B/dp, S/cp, d] is this rank's block of the [B, S] token grid
+    (rows over "data", positions over "context"). The f32 gate logits
+    are gathered into the grid in the global token order (b * S + s);
+    every rank routes the whole grid alike (capacity and aux over the
+    global batch) and runs only its own tokens, in slots compacted per
+    expert, through their experts. The gathers' backward sums the
+    ranks' gradients (their losses are separate terms of one mean).
+    Returns (out [B/dp * S/cp, d], aux f32), aux the global batch's on
+    every rank."""
+    b, s, d = x.shape
+    e = w_in.shape[0]
+    tokens = x.reshape(-1, d)
+    grid = (tokens.float() @ gate_w.float()).view(b, s, e)
+    sizes = mesh_shape(mesh)
+    for axis, dim in ((CONTEXT_AXIS, 1), (DATA_AXIS, 0)):
+        if sizes.get(axis, 1) > 1:
+            grid = collectives.GatherSum.apply(grid, dim,
+                                               axis_group(mesh, axis))
+    rows, cols = grid.shape[0], grid.shape[1]
+    cap = expert_capacity(rows * cols, e, capacity_factor, top_k)
+    expert, slot, keep, weight, aux = top_k_routing_indices(
+        grid.reshape(rows * cols, e), cap, top_k=top_k)
+    r0 = axis_index(mesh, DATA_AXIS) * b
+    c0 = axis_index(mesh, CONTEXT_AXIS) * s
+    dev = x.device
+    own = ((r0 + torch.arange(b, device=dev))[:, None] * cols
+           + (c0 + torch.arange(s, device=dev))[None, :]).reshape(-1)
+    expert, slot, keep, weight = (t.index_select(0, own) for t in
+                                  (expert, slot, keep, weight))
+    # This rank's kept choices, in the global slot order, renumbered
+    # from 0 within each expert: the FFN sees its own tokens only.
+    flat_e, flat_k = expert.reshape(-1), keep.reshape(-1)
+    key = torch.where(flat_k, flat_e * cap + slot.reshape(-1),
+                      torch.full_like(flat_e, e * cap))
+    order = torch.argsort(key)
+    counts = torch.bincount(flat_e[flat_k], minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    local = torch.empty_like(flat_e)
+    local[order] = (torch.arange(order.numel(), device=dev)
+                    - starts[flat_e[order]])
+    cap_local = max(int(counts.max()), 1)
+    out = _dispatch_ffn_combine(tokens, expert, local.view_as(slot), keep,
+                                weight, e, cap_local, w_in, w_out,
+                                activation)
+    return out, aux

@@ -109,7 +109,8 @@ def _param_spec(path, shape, model_parallel, expert_parallel, fsdp=0):
 @dataclasses.dataclass(frozen=True)
 class ParamLayout:
     """One parameter's layout: its flax path and shape, the JAX spec,
-    and the torch dims the data and model axes shard (None: whole)."""
+    and the torch dims the data, model and expert axes shard (None:
+    whole)."""
 
     name: str
     flax_path: tuple
@@ -117,10 +118,12 @@ class ParamLayout:
     spec: tuple
     data_dim: object = None
     model_dim: object = None
+    expert_dim: object = None
 
     @property
     def sharded(self):
-        return self.data_dim is not None or self.model_dim is not None
+        return (self.data_dim is not None or self.model_dim is not None
+                or self.expert_dim is not None)
 
 
 def _dense_dims(flax_shape):
@@ -240,15 +243,12 @@ def param_shardings(mesh, model, fsdp=False):
         for flax_dim, axis in enumerate(spec):
             if axis is None:
                 continue
-            if axis == EXPERT_AXIS:
-                raise ValueError(
-                    f"{name}: an expert-axis layout needs expert "
-                    f"parallelism, which the Trainer does not carry")
             if dims[flax_dim] is None:
                 raise ValueError(
                     f"{name}: flax dim {flax_dim} of {shape} has no "
                     f"contiguous torch dim to shard over {axis!r}")
             axes[axis] = dims[flax_dim]
         out[name] = ParamLayout(name, tuple(path), tuple(shape), spec,
-                                axes.get(DATA_AXIS), axes.get(MODEL_AXIS))
+                                axes.get(DATA_AXIS), axes.get(MODEL_AXIS),
+                                axes.get(EXPERT_AXIS))
     return out

@@ -207,7 +207,12 @@ class Trainer:
       copy, becomes ``e * d + p * (1 - d)`` after each update;
       ``eval_params`` reads it.
     - ``mesh``: a ("data", "model") DeviceMesh (``parallel.mesh.
-      build_mesh``) this process is one rank of. ``train_step`` and
+      build_mesh``), a ("data", "context") one (``context.
+      build_context_mesh``: each context rank runs its slice of the
+      sequence, an LM whose attention_fn is the ring or Ulysses
+      schedule over the axis) or a ("data", "expert") one
+      (``expert.build_expert_mesh``: a MoE bound to it holds its E/P
+      experts) this process is one rank of. ``train_step`` and
       ``eval_step`` then take the GLOBAL batch, as the JAX steps do:
       each data rank computes on its slice (a grad_accum chunk is cut
       from the global batch first, then sliced), the gradients and
@@ -347,11 +352,12 @@ class Trainer:
         if src == "auto":
             out, flops = count_flops(self._step, state, batch)
             if spmd is not None:
-                # A rank counted its slice of the batch; on a model
-                # axis its count mixes split and replicated work, which
-                # no sum over ranks undoes: the analytic form then.
+                # A rank counted its slice of the batch (and of the
+                # sequence); on a model or expert axis its count mixes
+                # split and replicated work, which no sum over ranks
+                # undoes: the analytic form then.
                 flops = (spmd.sum_over_data(flops, self._device())
-                         if spmd.mp == 1 else 0)
+                         if spmd.mp == 1 and spmd.ep == 1 else 0)
             self._flops_per_step = flops or None
         else:
             out = self._step(state, batch)
@@ -373,6 +379,30 @@ class Trainer:
         mesh)."""
         return x if self._spmd is None else self._spmd.local_batch(x)
 
+    def _context(self):
+        """Whether the step runs sequence-sharded (a context axis wider
+        than one rank)."""
+        return self._spmd is not None and self._spmd.cp > 1
+
+    def _loss_of(self, images, labels, step):
+        """The forward and the loss of one (micro)batch of the global
+        batch: this rank's data slice, and on a context axis its slice
+        of the sequence, whose loss is weighed by the slice's share of
+        the S - 1 shifted positions (the label window reaches one
+        token into the next rank's slice; ``next_token_loss_fn``)."""
+        images, labels = self._local(images), self._local(labels)
+        if not self._context():
+            return self._loss(self._forward(images, step), labels)
+        spmd = self._spmd
+        seq = images.shape[1]
+        shard, start = spmd.local_sequence(images)
+        size = shard.shape[1]
+        window = labels[:, start:start + size + 1]
+        self.model.seq_offset = start
+        valid = min(size, seq - 1 - start)
+        return self._loss(self._forward(shard, step), window) * (
+            valid / (seq - 1))
+
     def _step(self, state, batch):
         images, labels = batch
         if self._augment is not None:
@@ -381,9 +411,7 @@ class Trainer:
         state.optimizer.zero_grad(set_to_none=True)
         accum = self._grad_accum
         if accum == 1:
-            loss = self._loss(
-                self._forward(self._local(images), state.step),
-                self._local(labels))
+            loss = self._loss_of(images, labels, state.step)
             loss.backward()
             loss = loss.detach()
         else:
@@ -394,10 +422,8 @@ class Trainer:
             loss = torch.zeros((), dtype=torch.float32, device=images.device)
             chunks = zip(images.chunk(accum), labels.chunk(accum))
             for idx, (images_c, labels_c) in enumerate(chunks):
-                chunk_loss = self._loss(
-                    self._forward(self._local(images_c),
-                                  state.step * accum + idx),
-                    self._local(labels_c))
+                chunk_loss = self._loss_of(images_c, labels_c,
+                                           state.step * accum + idx)
                 (chunk_loss / accum).backward()
                 loss = loss + chunk_loss.detach().float() / accum
         norm = None
@@ -522,14 +548,17 @@ class Trainer:
         model = state.model
         was_training = model.training
         model.eval()
+        inputs = self._local(images)
+        if self._context():
+            inputs, model.seq_offset = self._spmd.local_sequence(inputs)
         try:
             with torch.no_grad():
                 out = torch.func.functional_call(
-                    model, self.eval_params(state),
-                    (self._local(images),))
+                    model, self.eval_params(state), (inputs,))
         finally:
             model.train(was_training)
-        if self._spmd is not None and self._spmd.dp > 1:
+        if self._spmd is not None and (self._spmd.dp > 1
+                                       or self._spmd.cp > 1):
             if isinstance(out, tuple):
                 out = (self._spmd.gather_batch(out[0]),) + out[1:]
             else:

@@ -67,6 +67,19 @@ driver's ``--model transformer`` at the draft's widths) can.
 the paged arena: clients send only their suffix. Both are checked when
 the command line is parsed, with the demo's messages.
 
+``--tensor-parallel N`` (the LM) shards the wide parameters over a 1 x
+N ("data", "model") mesh, column-parallel as the JAX layout has them
+(``parallel/spmd.py``), and serves from N ranks in lockstep
+(``serving/lockstep.py``): this process is rank 0 and serves HTTP; it
+starts ranks 1..N-1 as processes of the same command (cuda:r each
+under NCCL, gloo ranks with ``--device cpu``), and the world meets on
+a free localhost port. Under the plugin's env contract
+(``TPU_WORKER_HOSTNAMES``, one process a host) the world it gives is
+the group and each host's process takes its rank from it. Every rank
+builds and quantizes the same weights and keeps its shard; the
+followers replay rank 0's engine calls. A follower that exits makes
+rank 0 exit 1; rank 0's drain stops every rank.
+
 SIGTERM and SIGINT drain: new POSTs answer 503 with Retry-After and
 /readyz turns unready while in-flight requests finish (within
 ``CEA_TPU_DRAIN_GRACE_S``, 30 s by default), then the postmortem
@@ -79,9 +92,11 @@ replica, as it does around ``serving.fleet_worker``).
 """
 
 import argparse
+import datetime
 import json
 import os
 import signal
+import subprocess
 import sys
 import threading
 
@@ -176,6 +191,18 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights (the draft's: "
                         "seed + 1)")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="N > 1: shard the LM's wide parameters over an "
+                        "N-way model axis, one rank a device (cuda:0.."
+                        "N-1, or gloo ranks with --device cpu); this "
+                        "process serves HTTP as rank 0 and starts the "
+                        "N-1 others. 1 = a one-device replica")
+    # A follower's place in a --tensor-parallel group (set by rank 0
+    # when it starts the followers).
+    p.add_argument("--lockstep-rank", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--lockstep-port", type=int, default=None,
+                   help=argparse.SUPPRESS)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -253,24 +280,13 @@ def build_image_server(args):
                            port=args.port, max_batch=args.max_batch)
 
 
-def build_server(args):
-    """The server the parsed ``args`` describe."""
-    error = prefix_args_error(args)
-    if error:
-        raise SystemExit(error)
-    warm_filters = None
-    if args.warm_filters:
-        warm_filters = json.loads(args.warm_filters)
-        # A malformed spec fails startup, not the warm-up thread.
-        if (not isinstance(warm_filters, list)
-                or not all(isinstance(f, dict) for f in warm_filters)):
-            raise SystemExit("--warm-filters must be a JSON list of "
-                             f"dicts, got: {args.warm_filters!r}")
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
-    if args.model == "resnet":
-        return build_image_server(args)
-    tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
+def build_lm_models(args, device=None):
+    """(model, draft or None): the LM ``args`` describe on ``device``
+    (default ``--device``), flax-layout weights made from ``--seed`` or
+    restored from ``--model-dir`` and quantized by
+    ``--quantize-weights``, as the demo launcher does, and the draft of
+    ``--speculative-k``."""
+    device = device or args.device
     config = dict(vocab_size=args.vocab_size, embed_dim=args.embed_dim,
                   num_layers=args.num_layers, num_heads=args.num_heads,
                   num_kv_heads=args.num_kv_heads or None,
@@ -290,7 +306,7 @@ def build_server(args):
              kv_cache_dtype=(None if args.kv_cache_dtype == "bfloat16"
                              else args.kv_cache_dtype),
              weights=args.quantize_weights),
-        tree, device=args.device)
+        tree, device=device)
     draft = None
     if args.speculative_k:
         draft_heads = args.draft_num_heads or args.num_heads
@@ -308,7 +324,32 @@ def build_server(args):
         if args.draft_model_dir:
             draft_tree = load_checkpoint_variables(
                 args.draft_model_dir, {"params": draft_tree})["params"]
-        draft = load_lm(draft_config, draft_tree, device=args.device)
+        draft = load_lm(draft_config, draft_tree, device=device)
+    return model, draft
+
+
+def build_server(args, models=None, lockstep=None):
+    """The server the parsed ``args`` describe. ``models``: the LM and
+    its draft already built (``build_lm_models``; a tensor-parallel
+    rank's shard); ``lockstep``: the tensor-parallel group's channel,
+    this process serving as its rank 0."""
+    error = prefix_args_error(args)
+    if error:
+        raise SystemExit(error)
+    warm_filters = None
+    if args.warm_filters:
+        warm_filters = json.loads(args.warm_filters)
+        # A malformed spec fails startup, not the warm-up thread.
+        if (not isinstance(warm_filters, list)
+                or not all(isinstance(f, dict) for f in warm_filters)):
+            raise SystemExit("--warm-filters must be a JSON list of "
+                             f"dicts, got: {args.warm_filters!r}")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+    if args.model == "resnet":
+        return build_image_server(args)
+    tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
+    model, draft = models if models is not None else build_lm_models(args)
     prefix_tokens = args.prefix_ids
     if args.system_prefix:
         prefix_tokens = tokenizer.encode(args.system_prefix)
@@ -319,13 +360,13 @@ def build_server(args):
                             warm=args.warm, warm_async=True,
                             warm_filters=warm_filters, draft_model=draft,
                             speculative_k=args.speculative_k,
-                            prefix_tokens=prefix_tokens)
+                            prefix_tokens=prefix_tokens, lockstep=lockstep)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    obs.set_role("serving")
-    server = build_server(args)
+def serve(server, name, on_exit=None):
+    """Serve until SIGTERM or SIGINT has drained the server (SIGUSR1
+    drains and keeps serving); ``on_exit`` runs after the server
+    stops."""
     draining = threading.Event()
 
     def _drain_then_shutdown(signum):
@@ -348,12 +389,130 @@ def main(argv=None):
     signal.signal(signal.SIGUSR1, lambda *_: server.begin_drain())
     # The bound port (--port 0 picks a free one), for whoever started
     # the process.
-    print(f"serving {args.model_name or args.model!r} on port "
-          f"{server.port}", file=sys.stderr, flush=True)
+    print(f"serving {name!r} on port {server.port}", file=sys.stderr,
+          flush=True)
     try:
         server.serve_forever()
     finally:
         server.stop()
+        if on_exit is not None:
+            on_exit()
+
+
+def _fatal(message):
+    """A tensor-parallel rank that cannot go on: say why and exit 1 at
+    once (a collective with a dead peer would never return)."""
+    print(message, file=sys.stderr, flush=True)
+    os._exit(1)
+
+
+def _start_followers(args, argv, port):
+    """Rank 0 of a one-host group: start ranks 1..N-1 as processes of
+    this command with their place in the group (their own device each
+    under --device cuda)."""
+    procs = []
+    for rank in range(1, args.tensor_parallel):
+        cmd = [sys.executable, "-m", __spec__.name] + list(argv) + [
+            "--lockstep-rank", str(rank), "--lockstep-port", str(port)]
+        procs.append(subprocess.Popen(cmd))
+    return procs
+
+
+def _watch_followers(procs, stopping):
+    """Rank 0: fail the moment a follower exits before ``stopping``."""
+    def watch():
+        while not stopping.wait(0.5):
+            for rank, proc in enumerate(procs, 1):
+                code = proc.poll()
+                if code is not None and not stopping.is_set():
+                    _fatal(f"tensor-parallel rank {rank} exited with "
+                           f"{code}; stopping")
+
+    threading.Thread(target=watch, name="lockstep-watch",
+                     daemon=True).start()
+
+
+def serve_tensor_parallel(args, argv):
+    """``--tensor-parallel N``: this process's rank of the group (module
+    docstring of ``serving/lockstep.py``). Under the plugin's env
+    contract (``distributed.initialize_from_plugin_env``, one process a
+    host) the world it gives is the group; otherwise rank 0 starts the
+    followers on this host and the world meets on a free localhost
+    port. Every rank builds the same LM and keeps its shard of it; rank
+    0 serves, the followers replay its engine calls."""
+    import torch.distributed as dist
+
+    from ..parallel import distributed
+    from ..parallel.mesh import MeshSpec, build_mesh
+    from ..parallel.spmd import Spmd
+    from .lockstep import Channel, follow
+
+    n = args.tensor_parallel
+    rank, procs = args.lockstep_rank or 0, []
+    device = args.device
+    if args.lockstep_rank is None and distributed.initialize_from_plugin_env(
+            device=device):
+        rank = dist.get_rank()
+        if dist.get_world_size() != n:
+            raise SystemExit(
+                f"--tensor-parallel {n} but the plugin's world has "
+                f"{dist.get_world_size()} ranks")
+    else:
+        port = args.lockstep_port or distributed.free_local_port()
+        if rank == 0:
+            procs = _start_followers(args, argv, port)
+        if device == "cuda":
+            device = f"cuda:{rank}"
+        distributed.start_process_group(
+            backend=distributed.backend_for(device),
+            init_method=f"tcp://127.0.0.1:{port}", world_size=n,
+            rank=rank, timeout=datetime.timedelta(minutes=10),
+            device=device)
+    if rank > 0:
+        # Drain and stop are rank 0's: a follower ends when it says so.
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+    model, draft = build_lm_models(args, device)
+    with torch.no_grad():
+        Spmd(build_mesh(MeshSpec(data=1, model=n)), model)
+    channel = Channel()
+    if rank > 0:
+        try:
+            follow(channel, model, draft)
+        except Exception as e:
+            _fatal(f"tensor-parallel rank {rank}: {type(e).__name__}: {e}")
+        distributed.shutdown()
+        return
+    stopping = threading.Event()
+    _watch_followers(procs, stopping)
+    channel.start_heartbeat(lambda e: _fatal(
+        f"tensor-parallel group lost a follower: {e}"))
+    server = build_server(args, models=(model, draft), lockstep=channel)
+
+    def stop_group():
+        stopping.set()
+        channel.stop()
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+        distributed.shutdown()
+
+    serve(server, args.model_name or args.model, on_exit=stop_group)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    obs.set_role("serving")
+    if args.tensor_parallel < 1:
+        raise SystemExit(f"--tensor-parallel must be >= 1: "
+                         f"{args.tensor_parallel}")
+    if args.tensor_parallel > 1 and args.model in ("transformer", "moe"):
+        serve_tensor_parallel(args, argv)
+        return
+    serve(build_server(args), args.model_name or args.model)
 
 
 if __name__ == "__main__":

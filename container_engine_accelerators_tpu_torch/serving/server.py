@@ -129,6 +129,7 @@ from ..obs.reqledger import RequestLedger, RequestTimeline, saturation
 from ..ops.attention import flash_fwd
 from ..utils import env_number
 from .affinity import KV_BLOCK_ENV
+from .lockstep import build_engine as lockstep_engine
 
 log = logging.getLogger(__name__)
 
@@ -1700,13 +1701,18 @@ class GenerationServer(_BaseServer):
     refuses), every admission prefix-hits it and prefills only its
     suffix, clients send the suffix only and get suffix-relative
     sequences; ``repetition_penalty`` and ``logprobs`` (which need the
-    prefix's tokens) answer 400."""
+    prefix's tokens) answer 400.
+
+    ``lockstep`` (a ``serving.lockstep.Channel``) serves as rank 0 of a
+    tensor-parallel group: every engine the recipe makes is made on
+    every rank, and its state-changing calls are replayed there
+    (``serving/lockstep.py``)."""
 
     def __init__(self, model_name, model, port=8500, max_new_tokens=64,
                  max_batch=8, buckets=None, max_queue=None, host="",
                  tokenizer=None, warm=False, warm_async=False,
                  warm_filters=None, draft_model=None, speculative_k=0,
-                 prefix_tokens=None):
+                 prefix_tokens=None, lockstep=None):
         self._spec_k = int(speculative_k)
         if self._spec_k:
             if self._spec_k < 1:
@@ -1788,11 +1794,15 @@ class GenerationServer(_BaseServer):
             spec_kv_blocks=env_number(SPEC_KV_BLOCKS_ENV, None, parse=int))
 
         def build_engine():
-            engine = SlotDecodeEngine(
-                model, max_batch, slot_len, buckets=self._buckets,
-                pin_reserve_tokens=self._prefix_len,
-                draft_model=draft_model if engine_spec_k else None,
-                spec_k=engine_spec_k, **knobs)
+            kwargs = dict(slots=max_batch, slot_len=slot_len,
+                          buckets=self._buckets,
+                          pin_reserve_tokens=self._prefix_len,
+                          draft_model=draft_model if engine_spec_k else None,
+                          spec_k=engine_spec_k, **knobs)
+            if lockstep is not None:
+                engine = lockstep_engine(lockstep, model, **kwargs)
+            else:
+                engine = SlotDecodeEngine(model, **kwargs)
             if self._prefix_len:
                 # Pinned before the loop steps the engine (rebuilds run
                 # on the loop thread itself).

@@ -86,9 +86,25 @@ mesh.
     python -m container_engine_accelerators_tpu_torch.train \
         --model transformer --fsdp --model-parallelism 1 ...
 
-The flags of the demo's other paths (expert, context and pipeline
-parallelism, ring and Ulysses attention, DCN granules) raise "not yet
-ported".
+``--context-parallelism P --attention ring|ulysses`` trains the LM
+on a ("data", "context") mesh (``parallel/context.py``): each context
+rank runs its S/P slice of the sequence, and the attention is the
+ring or Ulysses schedule over the axis. ``--expert-parallelism P``
+trains ``--model moe`` on a ("data", "expert") mesh
+(``parallel/expert.py``): each rank holds E/P experts, and the routed
+slots travel by all-to-all. Both need a world the axis divides (one
+process a rank, as for --fsdp). The demo's rules hold, with its
+messages: context parallelism for the LMs only, expert parallelism
+for --model moe only, --attention ring/ulysses if and only if
+--context-parallelism > 1, context, expert and DCN mutually
+exclusive, and no --model-parallelism with the first two.
+
+    for r in 0 1; do TPU_WORKER_HOSTNAMES=127.0.0.1,127.0.0.1 \
+      TPU_WORKER_ID=$r python -m \
+      container_engine_accelerators_tpu_torch.train --model transformer \
+      --context-parallelism 2 --attention ring ... & done
+
+Pipeline parallelism and DCN granules raise "not yet ported".
 """
 
 import argparse
@@ -127,11 +143,19 @@ from .parallel import (
 )
 from .parallel import distributed
 from .parallel.checkpoint import warn_unrecognized_checkpoints
-from .parallel.mesh import build_mesh, default_spec
+from .parallel.context import (
+    CONTEXT_AXIS,
+    build_context_mesh,
+    ring_attention,
+    ulysses_attention,
+)
+from .parallel.expert import build_expert_mesh
+from .parallel.mesh import DATA_AXIS, build_mesh, default_spec
 from .obs import efficiency, profiler
 from .utils import not_ported, wall_sync
 
 IMAGE_MODELS = ("mnist", "resnet", "inception")
+LM_MODELS = ("transformer", "moe")
 
 
 def parse_args(argv=None):
@@ -231,12 +255,36 @@ def parse_args(argv=None):
 
 
 def check_ported(args):
-    """Raise "not yet ported" for every flag of a path the port does
-    not carry."""
-    unported = {
+    """Refuse the demo driver's flag combinations with its messages
+    (SystemExit), and raise "not yet ported" for every flag of a path
+    the port does not carry."""
+    if args.context_parallelism > 1 and args.model not in LM_MODELS:
+        raise SystemExit(
+            "--context-parallelism only applies to the LM models")
+    if args.expert_parallelism > 1 and args.model != "moe":
+        raise SystemExit(
+            "--expert-parallelism only applies to --model moe")
+    if (args.attention != "flash") != (args.context_parallelism > 1):
+        raise SystemExit(
+            "--attention ring/ulysses and --context-parallelism > 1 "
+            "go together: sequence-parallel schedules need a context "
+            "axis, and a context axis needs one of them")
+    exclusive = {
         "--expert-parallelism": args.expert_parallelism > 1,
         "--context-parallelism": args.context_parallelism > 1,
-        "--attention ring/ulysses": args.attention != "flash",
+        "--dcn-granules": args.dcn_granules > 1,
+    }
+    chosen = [flag for flag, on in exclusive.items() if on]
+    if len(chosen) > 1:
+        raise SystemExit(
+            f"{' and '.join(chosen)} cannot combine: each builds its "
+            f"own mesh axes")
+    if args.model_parallelism > 1 and chosen and \
+            chosen != ["--dcn-granules"]:
+        raise SystemExit(
+            f"--model-parallelism cannot combine with {chosen[0]}: "
+            f"that mesh has no 'model' axis")
+    unported = {
         "--pipeline-parallelism": args.pipeline_parallelism > 1,
         "--dcn-granules": args.dcn_granules > 1,
     }
@@ -337,14 +385,31 @@ def build_tx(args, config=None):
                grad_clip=args.grad_clip)
 
 
-def build_lm(args, device):
+def build_lm(args, device, mesh=None):
     """(model, loss_fn): the port's TransformerLM (MoETransformerLM for
     --model moe) with random weights from --seed (trainable, f32
     parameters, bf16 compute) and the next-token loss (fused kernel, or
-    the plain loss), with the router's aux loss added for the MoE."""
+    the plain loss), with the router's aux loss added for the MoE. As
+    the demo's build_lm: with --context-parallelism the attention is
+    the --attention schedule over ``mesh``'s context axis, and with
+    --expert-parallelism the MoE is bound to ``mesh``."""
     config = lm_config(args)
     tree = convert.init_flax_layout_params(config, args.seed)
     model = convert.load_lm(config, tree, device=device, trainable=True)
+    if args.context_parallelism > 1:
+        if args.attention_window:
+            # The model's refusal of a window on another schedule.
+            raise ValueError(
+                "window (sliding-window attention) needs an attention_fn "
+                "that takes window=; this one does not")
+        schedule = (ulysses_attention if args.attention == "ulysses"
+                    else ring_attention)
+        attention_fn = functools.partial(
+            schedule, mesh, axis_name=CONTEXT_AXIS, batch_axis=DATA_AXIS)
+        for block in model.blocks:
+            block.attn.attention_fn = attention_fn
+    if args.model == "moe" and args.expert_parallelism > 1:
+        model.bind_mesh(mesh)
     loss = functools.partial(
         mean_cross_entropy_loss if args.pallas_loss else cross_entropy_loss,
         label_smoothing=args.label_smoothing)
@@ -395,10 +460,16 @@ def setup_mesh(args, device):
         _own_group = distributed.initialize_from_plugin_env(
             device=device)
     if not dist.is_initialized():
-        if not (args.fsdp or args.model_parallelism > 1):
+        if not (args.fsdp or args.model_parallelism > 1
+                or args.expert_parallelism > 1
+                or args.context_parallelism > 1):
             return None
         distributed.start_local_group(device)
         _own_group = True
+    if args.model == "moe" and args.expert_parallelism > 1:
+        return build_expert_mesh(expert=args.expert_parallelism)
+    if args.context_parallelism > 1:
+        return build_context_mesh(context=args.context_parallelism)
     return build_mesh(default_spec(dist.get_world_size(),
                                    args.model_parallelism))
 
@@ -444,14 +515,15 @@ def build_trainer(args, device):
         if args.augment:
             augment_fn = make_augment_fn(flip=True,
                                          crop_padding=args.crop_padding)
+        mesh = setup_mesh(args, device)
     else:
-        model, loss_fn = build_lm(args, device)
+        mesh = setup_mesh(args, device)
+        model, loss_fn = build_lm(args, device, mesh)
         loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
                                       args.vocab_size, device=device)
         if args.augment:
             print("--augment only applies to image models; ignoring",
                   file=sys.stderr)
-    mesh = setup_mesh(args, device)
     trainer = Trainer(model, loss_fn, build_tx(args), mesh=mesh,
                       fsdp=args.fsdp, remat=args.remat,
                       grad_accum=args.grad_accum, augment_fn=augment_fn,

@@ -1031,3 +1031,94 @@ def test_program_guard_on_a_card_engine(cuda):
             g = torch.cuda.CUDAGraph()
             with torch.cuda.graph(g):
                 x.add_(1)
+
+
+def test_ring_attention_on_the_card_equals_flash(nccl_group):
+    """ring_attention on a one-rank context axis (use_flash follows the
+    CUDA tensors: one diagonal hop through flash_attention_lse and the
+    merge) against flash_attention: the output and dQ/dK/dV bitwise
+    (the merge multiplies by exactly 1 and the lse cotangent is 0), one
+    launch of each kernel; the plain schedule (use_flash=False) on the
+    same tensors within 2e-2 of the largest value."""
+    from container_engine_accelerators_tpu_torch.parallel import context
+
+    mesh = context.build_context_mesh(context=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((2, 256, 4, 64), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = [kern.launches for kern in attn.KERNELS]
+        out = fn(*leaves)
+        out.backward(do)
+        launched = [kern.launches - b for kern, b in
+                    zip(attn.KERNELS, before)]
+        return out, [t.grad for t in leaves], launched
+
+    want = run(lambda *t: attn.flash_attention(*t, causal=True))
+    got = run(lambda *t: context.ring_attention(mesh, *t, causal=True))
+    assert got[2] == want[2] == [1, 1, 1]
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g, w)
+    plain = run(lambda *t: context.ring_attention(mesh, *t, causal=True,
+                                                  use_flash=False))
+    assert plain[2] == [0, 0, 0]
+    err = (plain[0].float() - want[0].float()).abs().max().item()
+    assert err <= 2e-2 * want[0].float().abs().max().item()
+
+
+def test_expert_parallel_moe_on_a_one_rank_axis_is_dense_moe(nccl_group):
+    """expert_parallel_moe on a one-rank NCCL expert axis runs no
+    collective and equals dense_moe bitwise on the card (bf16 tokens
+    and experts, f32 gate)."""
+    from container_engine_accelerators_tpu_torch.parallel import expert
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randn((256, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    gate = torch.randn((64, 8), generator=gen, device="cuda")
+    w_in = (0.1 * torch.randn((8, 64, 128), generator=gen,
+                              device="cuda")).to(torch.bfloat16)
+    w_out = (0.1 * torch.randn((8, 128, 64), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    mesh = expert.build_expert_mesh(expert=1)
+    got, aux = expert.expert_parallel_moe(mesh, tokens, gate, w_in, w_out)
+    want, want_aux = expert.dense_moe(tokens, gate, w_in, w_out)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+
+
+def test_lockstep_engine_on_a_one_rank_group(nccl_group):
+    """The tensor-parallel engine of a one-rank group on the card: the
+    LockstepEngine's tokens equal a plain engine's on the same calls,
+    bitwise, on both pools."""
+    from container_engine_accelerators_tpu_torch.serving import lockstep
+
+    config = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4,
+                  num_kv_heads=2, pos_embedding="rope", max_seq_len=96)
+    model = convert.load_lm(config, convert.init_flax_layout_params(
+        config, 0), device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, n) for n in (5, 20, 33)]
+    for paged in (True, False):
+        kwargs = dict(slots=2, slot_len=96, paged=paged,
+                      buckets=(16, 32, 64))
+
+        def run(engine):
+            toks = []
+            for p in prompts:
+                row = np.zeros(64 if not paged else len(p), np.int64)
+                row[:len(p)] = p
+                slot, first, _, _ = engine.admit(row, len(p), max_new=8)
+                toks.append(first)
+                for _ in range(4):
+                    toks.append(int(engine.step()[0][slot]))
+                engine.release(slot)
+            return toks
+
+        channel = lockstep.Channel()
+        got = run(lockstep.build_engine(channel, model, **kwargs))
+        channel.stop()
+        want = run(decode.SlotDecodeEngine(model, **kwargs))
+        assert got == want, paged

@@ -67,7 +67,8 @@ def test_port_has_the_slice_modules():
                 "analysis", "analysis.tsan", "parallel.mesh",
                 "parallel.distributed", "parallel.collectives",
                 "parallel.sharding", "parallel.spmd", "analysis.lint",
-                "analysis.programs", "perf_ledger"):
+                "analysis.programs", "perf_ledger", "parallel.context",
+                "serving.lockstep"):
         assert f"{PORT}.{mod}" in names
     for source in ("flash_fwd.cu", "flash_bwd.cu", "xent.cu"):
         assert os.path.isfile(os.path.join(REPO_ROOT, PORT, "ops", "csrc",

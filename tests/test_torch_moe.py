@@ -211,11 +211,33 @@ def test_dense_moe_bf16_matches_jax():
 
 
 def test_expert_parallel_is_not_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        expert.expert_parallel_moe(None, None, None, None, None)
-    with pytest.raises(ValueError, match="not yet ported"):
+    """Expert parallelism is ported now (tests/test_torch_expert.py
+    holds it against the JAX function on gloo ranks): its mesh needs a
+    process group, as every mesh of the port does, and the layer on an
+    expert axis one rank wide is dense_moe."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+    )
+
+    with pytest.raises(RuntimeError, match="process group"):
         expert.build_expert_mesh(2)
     assert expert.EXPERT_AXIS == "expert"
+    rng = np.random.default_rng(0)
+    tensors = [torch.from_numpy(a) for a in (
+        rng.standard_normal((16, 8)).astype(np.float32),
+        rng.standard_normal((8, 4)).astype(np.float32),
+        rng.standard_normal((4, 8, 16)).astype(np.float32) * 0.1,
+        rng.standard_normal((4, 16, 8)).astype(np.float32) * 0.1)]
+    distributed.start_local_group("cpu")
+    try:
+        mesh = expert.build_expert_mesh(1)
+        got, aux = expert.expert_parallel_moe(mesh, *tensors)
+    finally:
+        dist.destroy_process_group()
+    want, want_aux = expert.dense_moe(*tensors)
+    assert torch.equal(got, want) and float(aux) == float(want_aux)
 
 
 # -- the model ------------------------------------------------------------

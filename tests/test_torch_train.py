@@ -380,12 +380,17 @@ def test_eval_step_gives_the_lm_logits():
 def test_unported_flags_raise(flags, tmp_path):
     """Every flag of a path the port does not carry raises; the
     sliding window and the MoE are ported and train a tiny windowed LM
-    and a tiny MoE instead (expert parallelism still raises), and so
-    are real data and checkpoints: --data-dir is ignored by the LM, as
-    the demo ignores it, and --model-dir writes a checkpoint that the
-    next run resumes; --profile-dir writes a Chrome trace; --fsdp and
-    --model-parallelism are ported: one process trains with --fsdp as
-    a one-rank mesh, and --model-parallelism 2 needs two ranks."""
+    and a tiny MoE instead, and so are real data and checkpoints:
+    --data-dir is ignored by the LM, as the demo ignores it, and
+    --model-dir writes a checkpoint that the next run resumes;
+    --profile-dir writes a Chrome trace; --fsdp and --model-parallelism
+    are ported: one process trains with --fsdp as a one-rank mesh, and
+    --model-parallelism 2 needs two ranks. Context and expert
+    parallelism are ported too: alone, --context-parallelism 2 and
+    --attention ring break the demo's rule that they go together,
+    --expert-parallelism 2 applies to --model moe only (the demo's
+    SystemExit messages), and --model moe --expert-parallelism 2 needs
+    two ranks."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
     tiny = ["--vocab-size", "32", "--embed-dim", "16", "--num-heads", "2",
             "--batch-size", "2", "--steps", "2", "--warmup-steps", "1"]
@@ -399,6 +404,18 @@ def test_unported_flags_raise(flags, tmp_path):
     if flags == ["--model-parallelism", "2"]:
         with pytest.raises(ValueError, match="do not factor into model=2"):
             port_train.main(argv + tiny)
+        return
+    if flags in (["--context-parallelism", "2"], ["--attention", "ring"]):
+        with pytest.raises(SystemExit, match="go together"):
+            port_train.main(argv + tiny)
+        return
+    if flags == ["--expert-parallelism", "2"]:
+        with pytest.raises(SystemExit, match="only applies to --model moe"):
+            port_train.main(argv + tiny)
+        return
+    if flags == ["--model", "moe", "--expert-parallelism", "2"]:
+        with pytest.raises(ValueError, match="do not factor into expert=2"):
+            port_train.main(argv + tiny + ["--num-layers", "2"])
         return
     if flags in (["--attention-window", "64"], ["--model", "moe"]):
         # Two layers for the MoE: layer 1 is its routed one.

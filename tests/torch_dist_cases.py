@@ -273,3 +273,313 @@ def late_collective(rank, port, conn):
         conn.send(("error", f"{type(e).__name__}: {e}"))
     finally:
         distributed.shutdown()
+
+
+# -- context parallelism ---------------------------------------------------
+
+
+def _ctx_coords(mesh):
+    from container_engine_accelerators_tpu_torch.parallel.context import (
+        CONTEXT_AXIS,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        axis_index,
+    )
+    return axis_index(mesh, DATA_AXIS), axis_index(mesh, CONTEXT_AXIS)
+
+
+def ctx_attention(rank, kind, q, k, v, ctx_size, data=1, causal=False,
+                  use_flash=None, kv_block=None, grads=False):
+    """This rank's shard of ``kind`` ("ring" or "ulysses") attention on a
+    (data, context) mesh over the global numpy q/k/v [B, S, H, D]: its
+    rows over data and its S/P slice over context. With ``grads`` also
+    the gradients of its q/k/v shards under the loss sum(out ** 2)
+    summed over the ranks (each rank's own output's part)."""
+    from container_engine_accelerators_tpu_torch.parallel import context
+
+    mesh = context.build_context_mesh(context=ctx_size, data=data)
+    di, ci = _ctx_coords(mesh)
+    b, s = q.shape[0] // data, q.shape[1] // ctx_size
+
+    def take(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            x[di * b:(di + 1) * b, ci * s:(ci + 1) * s])).requires_grad_(
+                grads)
+
+    ql, kl, vl = take(q), take(k), take(v)
+    saved = context._KV_BLOCK
+    if kv_block:
+        context._KV_BLOCK = kv_block
+    try:
+        fn = (context.ring_attention if kind == "ring"
+              else context.ulysses_attention)
+        out = fn(mesh, ql, kl, vl, causal=causal, use_flash=use_flash)
+        res = {"out": out.detach().numpy(), "coord": (di, ci)}
+        if grads:
+            (out ** 2).sum().backward()
+            res["grads"] = [t.grad.numpy() for t in (ql, kl, vl)]
+    finally:
+        context._KV_BLOCK = saved
+    return res
+
+
+def ctx_error(rank, context, shape):
+    """The error ulysses_attention raises for zeros of ``shape`` on a
+    context mesh of ``context`` ranks (type name, message)."""
+    from container_engine_accelerators_tpu_torch.parallel import context as c
+
+    mesh = c.build_context_mesh(context=context)
+    s = shape[1] // context
+    x = torch.zeros((shape[0], s) + tuple(shape[2:]))
+    try:
+        c.ulysses_attention(mesh, x, x, x)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def ctx_mesh_facts(rank, context, data=None):
+    """(shape, coordinate) of build_context_mesh, or the error's type
+    name and message."""
+    from container_engine_accelerators_tpu_torch.parallel import context as c
+
+    try:
+        mesh = c.build_context_mesh(context=context, data=data)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    return mesh_shape(mesh), tuple(mesh.get_coordinate())
+
+
+def train_lm_context(rank, config, tree, batches, context, data=1,
+                     attention="ring", use_flash=None, grad_clip=0.0):
+    """Train the port's TransformerLM (MoETransformerLM for a config with
+    ``num_experts``, on the loss plus the router's) of ``config`` (f32)
+    from the flax tree on global token batches as one rank of a (data,
+    context) mesh with the ``attention`` schedule bound to it, as the
+    driver binds it. Returns the losses, the whole parameters and the
+    sequence lengths the first block saw."""
+    import functools
+
+    from container_engine_accelerators_tpu_torch.parallel import context as c
+
+    torch.manual_seed(0)
+    net = convert.load_lm(config, tree, device="cpu", dtype=torch.float32,
+                          trainable=True)
+    mesh = c.build_context_mesh(context=context, data=data)
+    schedule = (c.ulysses_attention if attention == "ulysses"
+                else c.ring_attention)
+    fn = functools.partial(schedule, mesh, axis_name=c.CONTEXT_AXIS,
+                           batch_axis=DATA_AXIS, use_flash=use_flash)
+    for block in net.blocks:
+        block.attn.attention_fn = fn
+    seen = []
+    net.blocks[0].register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape)))
+    loss_fn = next_token_loss_fn(cross_entropy_loss)
+    if config.get("num_experts"):
+        from container_engine_accelerators_tpu_torch.models.moe import (
+            with_router_loss,
+        )
+        loss_fn = with_router_loss(loss_fn)
+    trainer = Trainer(net, loss_fn,
+                      Sgd(0.1, momentum=0.9, grad_clip=grad_clip),
+                      mesh=mesh, mfu_source="off")
+    state = trainer.init_state()
+    losses = []
+    for tokens in batches:
+        tokens = torch.from_numpy(np.asarray(tokens).astype(np.int64))
+        state, loss = trainer.train_step(state, (tokens, tokens))
+        losses.append(float(loss))
+    logits = trainer.eval_step(state, torch.from_numpy(
+        np.asarray(batches[0]).astype(np.int64)))
+    if isinstance(logits, tuple):
+        logits = logits[0]
+    with trainer.full_state(state):
+        params = {n: p.detach().numpy().copy()
+                  for n, p in state.model.named_parameters()}
+    return {"losses": losses, "params": params, "seen": seen,
+            "eval_logits": logits.numpy()}
+
+
+# -- expert parallelism ----------------------------------------------------
+
+
+def _expert_slice(w, mesh):
+    from container_engine_accelerators_tpu_torch.parallel.expert import (
+        EXPERT_AXIS,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        axis_index,
+        axis_size,
+    )
+    n = w.shape[0] // axis_size(mesh, EXPERT_AXIS)
+    g = axis_index(mesh, EXPERT_AXIS)
+    return np.ascontiguousarray(w[g * n:(g + 1) * n])
+
+
+def ep_moe(rank, tokens, gate, w_in, w_out, expert, data=None,
+           residual=False, grads=False, whole=False, **kwargs):
+    """expert_parallel_moe on a (data, expert) mesh from global numpy
+    tensors: with ``residual`` the tokens are the data rank's block
+    (token spec ("data",) or ()), else this rank's own group (the
+    joint sharding over every axis); the rank passes its E/P experts
+    (``whole``: the whole stacks).
+    Returns its output, aux and, with ``grads``, the gradients of its
+    w_in slice and of the gate under the global loss mean(out ** 2) +
+    0.01 aux (each rank's share of it)."""
+    from container_engine_accelerators_tpu_torch.parallel import expert as x
+
+    mesh = x.build_expert_mesh(expert=expert, data=data)
+    world = dist.get_world_size()
+    dp = world // expert
+    if residual:
+        n = tokens.shape[0] // dp
+        di = mesh.get_coordinate()[0]
+        toks = tokens[di * n:(di + 1) * n]
+        spec = (DATA_AXIS,) if dp > 1 else ()
+    else:
+        n = tokens.shape[0] // world
+        toks = tokens[rank * n:(rank + 1) * n]
+        spec = None
+    if whole:
+        wi, wo = torch.from_numpy(w_in), torch.from_numpy(w_out)
+    else:
+        wi = torch.from_numpy(_expert_slice(w_in, mesh))
+        wo = torch.from_numpy(_expert_slice(w_out, mesh))
+    wi.requires_grad_(grads)
+    g = torch.from_numpy(gate).requires_grad_(grads)
+    out, aux = x.expert_parallel_moe(mesh, torch.from_numpy(toks), g, wi,
+                                     wo, token_spec=spec, **kwargs)
+    res = {"out": out.detach().numpy(), "aux": float(aux)}
+    if grads:
+        total = tokens.size
+        if residual:
+            # The expert peers compute one replicated loss; the data
+            # ranks' are separate terms.
+            share = (out ** 2).sum() / total + 0.01 * aux / dp
+        else:
+            share = (out ** 2).sum() / total + 0.01 * aux / world
+        share.backward()
+        res["w_in_grad"] = wi.grad.numpy()
+        res["gate_grad"] = g.grad.numpy()
+    return res
+
+
+def moe_mlp_mesh(rank, x, params, expert, **options):
+    """A MoEMlp bound to an expert mesh (whole weights, each rank
+    taking its experts at use) on the global [B, S, d] input ``x``
+    (every rank the same); returns its output."""
+    from container_engine_accelerators_tpu_torch.models.moe import MoEMlp
+    from container_engine_accelerators_tpu_torch.parallel import expert as e
+
+    mesh = e.build_expert_mesh(expert=expert)
+    layer = MoEMlp(x.shape[-1], params["w_in"].shape[0],
+                   dtype=torch.float32, mesh=mesh, **options)
+    with torch.no_grad():
+        for name, value in params.items():
+            getattr(layer, name).copy_(torch.from_numpy(value))
+        out, _ = layer(torch.from_numpy(x))
+    return out.numpy()
+
+
+def train_moe(rank, config, tree, batches, expert=1, data=None, model=1):
+    """Train the port's MoETransformerLM of ``config`` (f32) on global
+    token batches: bound to a (data, expert) mesh with ``expert`` > 1,
+    else on a (data, model) mesh. Returns the losses, the whole
+    parameters and the layouts' expert dims."""
+    from container_engine_accelerators_tpu_torch.models.moe import (
+        with_router_loss,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import expert as e
+
+    torch.manual_seed(0)
+    net = convert.load_lm(config, tree, device="cpu", dtype=torch.float32,
+                          trainable=True)
+    if expert > 1:
+        mesh = e.build_expert_mesh(expert=expert, data=data)
+        net.bind_mesh(mesh)
+    else:
+        mesh = build_mesh(MeshSpec(data=data, model=model))
+    trainer = Trainer(net, with_router_loss(
+        next_token_loss_fn(cross_entropy_loss)), Sgd(0.1, momentum=0.9),
+        mesh=mesh, mfu_source="off")
+    state = trainer.init_state()
+    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()
+              if n.endswith("moe.w_in")}
+    losses = []
+    for tokens in batches:
+        tokens = torch.from_numpy(np.asarray(tokens).astype(np.int64))
+        state, loss = trainer.train_step(state, (tokens, tokens))
+        losses.append(float(loss))
+    with trainer.full_state(state):
+        params = {n: p.detach().numpy().copy()
+                  for n, p in state.model.named_parameters()}
+    return {"losses": losses, "params": params, "local_shapes": shapes}
+
+
+# -- tensor-parallel serving -----------------------------------------------
+
+
+def serve_tp(rank, config, tree, prompts, new, paged=True, weights="native",
+             fault_plan=None):
+    """A tensor-parallel GenerationServer over every rank (a 1 x N
+    mesh): rank 0 serves ``prompts`` greedily over HTTP through its
+    lockstep engine while the others follow; ``fault_plan`` is
+    installed on every rank first (utils/faults.py). Returns rank 0's
+    sequences, the model-sharded parameter names and the engine
+    rebuilds."""
+    import json
+    import os
+    import urllib.request
+
+    from container_engine_accelerators_tpu_torch.parallel.spmd import Spmd
+    from container_engine_accelerators_tpu_torch.serving import lockstep
+    from container_engine_accelerators_tpu_torch.utils import faults
+    from container_engine_accelerators_tpu_torch.serving.server import (
+        GenerationServer,
+    )
+
+    if weights == "int8":
+        tree = convert.quantize_lm(config, tree)
+    model = convert.load_lm(dict(config, weights=weights), tree,
+                            device="cpu", dtype=torch.float32)
+    spmd = Spmd(build_mesh(MeshSpec(data=1, model=dist.get_world_size())),
+                model)
+    sharded = sorted(n for n, lay in spmd.layouts.items()
+                     if lay.model_dim is not None)
+    channel = lockstep.Channel()
+    if fault_plan is not None:
+        faults.install(fault_plan)
+    saved = os.environ.get("CEA_TPU_PAGED_KV")
+    os.environ["CEA_TPU_PAGED_KV"] = "1" if paged else "0"
+    try:
+        if rank > 0:
+            lockstep.follow(channel, model)
+            faults.reset()
+            return None
+        srv = GenerationServer("lm", model, port=0, max_new_tokens=new,
+                               max_batch=4, host="127.0.0.1",
+                               lockstep=channel)
+    finally:
+        if saved is None:
+            os.environ.pop("CEA_TPU_PAGED_KV", None)
+        else:
+            os.environ["CEA_TPU_PAGED_KV"] = saved
+    srv.start()
+    try:
+        seqs = []
+        for prompt in prompts:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/v1/models/lm:generate",
+                data=json.dumps({"prompts": [prompt],
+                                 "max_new_tokens": new}).encode())
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                seqs.append(json.loads(resp.read())["sequences"][0])
+        paged_engine = srv.engine.paged
+        rebuilds = srv.stats()["engine_rebuilds"]
+    finally:
+        srv.stop()
+        channel.stop()
+        faults.reset()
+    return {"sequences": seqs, "sharded": sharded, "paged": paged_engine,
+            "rebuilds": rebuilds}
