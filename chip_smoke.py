@@ -330,6 +330,25 @@
    ``MoETransformerLM`` bound to a one-rank expert mesh for MOE_STEPS
    steps: 8/8/8/1/1 launches a step, the losses of phase 13's steps
    within STEP_LOSS_TOL (bitwise equality reported).
+18. runs pipeline parallelism and elastic recovery (``drive_pipeline``).
+   (a) demo/tpu-training/pipeline-lm-jax.yaml's model at full width
+   (vocab 32000, E 1024, 16 layers, 16 heads, sequence 2048, batch 32,
+   8 microbatches; its pipe axis cut from 4 to 1: one card is one
+   rank, so the circular schedule runs 16 laps, 128 ticks, no bubble)
+   through the port's ``run_pipeline_lm``: first the pipelined logits
+   and gradients of 8 rows in 2 microbatches against
+   ``reference_apply`` on the same weights (PIPE_LOGITS_TOL and
+   STEP_GRAD_TOL, relative L2); then PIPE_STEPS steps in a one-rank
+   NCCL group (128/128/128/1/1 launches a step, a falling loss), the
+   same with --remat (256 ``flash_fwd``; losses and final parameters
+   bitwise the group's) and without a group (bitwise the group's);
+   step time, tokens/s and peak memory of each. (b) MODEL through the
+   Trainer on a one-rank mesh: 3 steps, a checkpoint, 3 more; the
+   supervisor's ``rebuild`` after the planned eviction of a host that
+   holds no rank (one card cannot lose one): ``Trainer.remesh`` and
+   ``restore_state(shardings=)`` on a rebuilt one-rank mesh, whose next
+   3 steps must give the uninterrupted losses bitwise, with the
+   recovery in the restart bucket and one ``train.recovered`` event.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -5732,6 +5751,298 @@ def drive_parallel(torch, train, attn, kernels, rng, report):
                      moe_expert_mesh=moe_launches)
 
 
+# ---------------------------------------------------------------------
+# Phase 18: pipeline parallelism and elastic recovery (the module
+# docstring).
+# ---------------------------------------------------------------------
+# demo/tpu-training/pipeline-lm-jax.yaml's model at full width, its
+# pipe axis cut from 4 to 1: one card is one rank.
+PIPE = ["--model", "transformer", "--device", "cuda", "--vocab-size",
+        "32000", "--embed-dim", "1024", "--num-layers", "16",
+        "--num-heads", "16", "--seq-len", "2048", "--batch-size", "32",
+        "--num-microbatches", "8", "--pipeline-parallelism", "1",
+        "--seed", str(SEED)]
+PIPE_LAYERS, PIPE_M = 16, 8
+PIPE_STEPS = 4
+PIPE_WARMUP = 1
+PIPE_CHECK_BATCH, PIPE_CHECK_M = 8, 2   # 4-row microbatches, as training
+PIPE_LOGITS_TOL = 1e-2                  # relative L2, bf16 compute
+ELASTIC_STEPS = 3
+PATH_KERNELS.update({
+    "pipeline": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                 "xent_bwd"),
+    "elastic_lm": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "xent_fwd", "xent_bwd"),
+})
+
+
+def pipeline_reference(torch, train):
+    """18a(1): the pipelined logits and gradients of one batch of
+    PIPE_CHECK_BATCH rows against ``reference_apply`` (the blocks
+    folded in order on the whole batch) on the same weights, under the
+    training loss: logits within PIPE_LOGITS_TOL and every gradient
+    leaf within STEP_GRAD_TOL, relative L2."""
+    from container_engine_accelerators_tpu_torch.ops.xent import (
+        mean_cross_entropy_loss,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import (
+        PipelinedLM,
+        SyntheticTokenLoader,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        next_token_loss_fn,
+    )
+    args = train.parse_args(PIPE)
+    lm = PipelinedLM(args.vocab_size, args.embed_dim, args.num_layers,
+                     args.num_heads, args.seq_len, pipe=1, device="cuda")
+    lm.load(lm.init(SEED)).train()
+    tokens = next(iter(SyntheticTokenLoader(
+        PIPE_CHECK_BATCH, args.seq_len, args.vocab_size, device="cuda")))[0]
+    loss_fn = next_token_loss_fn(mean_cross_entropy_loss)
+    runs = {}
+    for name, fn in (("pipelined", lambda t: lm.apply(
+            t, mesh=None, num_microbatches=PIPE_CHECK_M)),
+                     ("reference", lm.reference_apply)):
+        lm.zero_grad(set_to_none=True)
+        logits = fn(tokens)
+        loss = loss_fn(logits, tokens)
+        loss.backward()
+        runs[name] = (logits.detach(), loss.item(),
+                      {n: p.grad for n, p in lm.named_parameters()})
+        del logits, loss
+    (lp, loss_p, gp), (lr, loss_r, gr) = runs["pipelined"], runs["reference"]
+    rel = {n: ((gp[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in gr.items()}
+    worst = max(rel, key=rel.get)
+    out = dict(batch=PIPE_CHECK_BATCH, microbatches=PIPE_CHECK_M,
+               logits_rel_l2=((lp - lr).norm() / lr.norm()).item(),
+               logits_max_abs_err=(lp - lr).abs().max().item(),
+               loss=loss_p, reference_loss=loss_r,
+               grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
+               grad_rel_l2_median=sorted(rel.values())[len(rel) // 2],
+               logits_tol=PIPE_LOGITS_TOL, grad_tol=STEP_GRAD_TOL)
+    log("pipelined vs reference_apply:", json.dumps(out))
+    del runs, lp, lr, gp, gr, lm
+    torch.cuda.empty_cache()
+    if (out["logits_rel_l2"] > PIPE_LOGITS_TOL
+            or out["grad_rel_l2_max"] > STEP_GRAD_TOL):
+        raise AssertionError(f"(a) pipelined step differs from "
+                             f"reference_apply: {out}")
+    return out
+
+
+def pipeline_run(torch, train, kernels, extra=()):
+    """One run of the port's ``run_pipeline_lm`` on PIPE + ``extra``
+    (in whatever group is up), every launch count set to 0 just before
+    it; each step's launches against 128/128/128/1/1 (flash_fwd 256
+    with --remat). Returns (summary, launches, final parameters on the
+    host)."""
+    remat = "--remat" in extra
+    ticks = PIPE_M * PIPE_LAYERS
+    per_step = (2 * ticks if remat else ticks, ticks, ticks, 1, 1)
+    losses, events, bad = [], [], []
+    prev = [0] * len(kernels)
+
+    def on_step(step, loss):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+        losses.append(loss)
+        counts = [kern.launches for kern in kernels]
+        got = tuple(c - p for c, p in zip(counts, prev))
+        if got != per_step:
+            bad.append((step, got))
+        prev[:] = counts
+
+    args = train.parse_args(PIPE + ["--steps", str(PIPE_STEPS),
+                                    "--warmup-steps", str(PIPE_WARMUP)]
+                            + list(extra))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    result, lm, optimizer = train.run_pipeline_lm(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    params = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+    del lm, optimizer
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in params.values())
+    summary = dict(
+        flags=list(extra), losses=losses, step_ms=step_ms,
+        step_ms_mean=sum(step_ms) / len(step_ms),
+        tokens_per_s=args.batch_size * args.seq_len * 1e3 / (
+            sum(step_ms) / len(step_ms)),
+        peak_memory_gb=peak, wall_s=wall_s, params=n_params,
+        per_step_launches_expected=per_step, bad_steps=bad,
+        group=torch.distributed.is_initialized(), driver_result=result)
+    log(f"pipeline run {' '.join(extra) or '(no remat)'} "
+        f"{'in the group' if summary['group'] else 'without a group'}: "
+        f"{summary['step_ms_mean']:.1f} ms a step, "
+        f"{summary['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GB, {n_params} parameters, losses {losses}")
+    if bad:
+        raise AssertionError(f"(a) steps with other launch counts than "
+                             f"{per_step}: {bad}")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"(a) non-finite loss: {losses}")
+    want = {kern.name: PIPE_STEPS * n for kern, n in zip(kernels, per_step)}
+    if launches != want or result["kernel_launches"] != want:
+        raise AssertionError(f"(a) launches {launches}, driver "
+                             f"{result['kernel_launches']}, want {want}")
+    return summary, launches, params
+
+
+def elastic_on_card(torch, train, kernels, root):
+    """18b: MODEL through the Trainer on a one-rank (data, model) mesh:
+    ELASTIC_STEPS steps, a checkpoint, ELASTIC_STEPS more uninterrupted;
+    then the supervisor plans the eviction of a second host that holds
+    no rank (one card cannot lose one), and its ``rebuild`` runs the
+    recovery on rank 0: a rebuilt one-rank mesh, ``Trainer.remesh``,
+    the resharded ``restore_state(shardings=)``. The next steps on the
+    same batches must give the uninterrupted losses bitwise, the
+    restart bucket must hold the recovery, and one train.recovered
+    event must be journaled. Returns (report, launches of the first
+    run)."""
+    from container_engine_accelerators_tpu_torch import obs
+    from container_engine_accelerators_tpu_torch.parallel import (
+        CheckpointManager,
+        ElasticSupervisor,
+        MeshSpec,
+        SyntheticTokenLoader,
+        Trainer,
+        build_mesh,
+        state_payload,
+    )
+    args = train.parse_args(train_argv(2 * ELASTIC_STEPS, 1))
+    config, schedule = train.lm_config(args), args.lr_schedule != "constant"
+    model, loss_fn = train.build_lm(args, "cuda")
+    trainer = Trainer(model, loss_fn, train.build_tx(args),
+                      mesh=build_mesh(MeshSpec(data=1, model=1)))
+    state = trainer.init_state()
+
+    def batches(skip=0):
+        loader = iter(SyntheticTokenLoader(args.batch_size, args.seq_len,
+                                           args.vocab_size, device="cuda"))
+        for _ in range(skip):
+            next(loader)
+        return loader
+
+    per_step = (MODEL["num_layers"],) * 3 + (1, 1)
+    loader = batches()
+    losses, step_ms, launches = train_steps(
+        torch, trainer, state, loader, ELASTIC_STEPS, kernels, per_step)
+    mgr = CheckpointManager(os.path.join(root, "elastic"),
+                            goodput=trainer.goodput)
+    with trainer.full_state(state):
+        mgr.save(state_payload(state, config, schedule), step=state.step)
+    ref = []
+    for _, batch in zip(range(ELASTIC_STEPS), loader):
+        state, loss = trainer.train_step(state, batch)
+        ref.append(loss)
+    ref = [float(x) for x in ref]
+    tracer = obs.Tracer(enabled=True)
+    sup = ElasticSupervisor(hosts=["h0", "h1"], goodput=trainer.goodput,
+                            tracer=tracer,
+                            host_devices={"h0": [0], "h1": []})
+    plan = sup.evict([("h1", "health_down")])
+    t0 = time.perf_counter()
+    new_trainer, new_state, new_mesh = sup.rebuild(
+        plan, trainer, mgr, init_state=lambda t: t.init_state(),
+        config=config, schedule=schedule)
+    rebuild_s = time.perf_counter() - t0
+    resumed_at = new_state.step
+    loader = batches(skip=ELASTIC_STEPS)
+    resumed = []
+    for _, batch in zip(range(ELASTIC_STEPS), loader):
+        new_state, loss = new_trainer.train_step(new_state, batch)
+        resumed.append(loss)
+    resumed = [float(x) for x in resumed]
+    books = trainer.goodput.publish()
+    recovered = [e for e in tracer.snapshot()["events"]
+                 if e["name"] == "train.recovered"]
+    out = dict(first_losses=losses, uninterrupted=ref, resumed=resumed,
+               bitwise_equal=resumed == ref, resume_step=resumed_at,
+               rebuild_s=rebuild_s, restart_s=books["buckets"]["restart"],
+               recovered_events=len(recovered),
+               mesh=dict(zip(new_mesh.mesh_dim_names, new_mesh.mesh.shape)),
+               plan=f"{plan.old_spec.data}x{plan.old_spec.model} -> "
+                    f"{plan.mesh_spec.data}x{plan.mesh_spec.model}",
+               step_ms=step_ms)
+    log("elastic recovery:", json.dumps(out))
+    mgr.close()
+    del model, trainer, state, new_trainer, new_state
+    torch.cuda.empty_cache()
+    if not out["bitwise_equal"] or resumed_at != ELASTIC_STEPS:
+        raise AssertionError(f"(b) the resumed losses differ from the "
+                             f"uninterrupted run's: {out}")
+    if not (out["restart_s"] > 0 and out["recovered_events"] == 1):
+        raise AssertionError(f"(b) the recovery is not in the books: {out}")
+    return out, launches
+
+
+def drive_pipeline(torch, train, kernels):
+    """Phase 18 (the module docstring): (a) in a one-rank NCCL group this
+    function starts, then without a group; (b) in the group. Returns
+    (report, launches by path)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+    )
+    t0 = time.perf_counter()
+    check = pipeline_reference(torch, train)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    distributed.start_local_group("cuda:0")
+    try:
+        grouped, launches, params = pipeline_run(torch, train, kernels)
+        remat, _, remat_params = pipeline_run(torch, train, kernels,
+                                              ["--remat"])
+        elastic, elastic_launches = elastic_on_card(torch, train, kernels,
+                                                    root)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    alone, _, alone_params = pipeline_run(torch, train, kernels)
+    remat_same = all(torch.equal(params[n], remat_params[n])
+                     for n in params)
+    alone_same = all(torch.equal(params[n], alone_params[n])
+                     for n in params)
+    out = dict(reference=check, group=grouped, remat=remat,
+               no_group=alone, elastic=elastic,
+               losses_equal_without_group=alone["losses"] == grouped["losses"],
+               params_equal_without_group=alone_same,
+               remat_losses_equal=remat["losses"] == grouped["losses"],
+               remat_params_equal=remat_same,
+               phase_s=time.perf_counter() - t0)
+    log(f"pipeline: {grouped['step_ms_mean']:.1f} ms a step, "
+        f"{grouped['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{grouped['peak_memory_gb']:.2f} GB, with --remat "
+        f"{remat['peak_memory_gb']:.2f} GB "
+        f"({remat['step_ms_mean']:.1f} ms a step)")
+    log(f"pipeline phase: {out['phase_s']:.1f} s")
+    losses = grouped["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) the loss did not fall: {losses}")
+    if not (out["losses_equal_without_group"]
+            and out["params_equal_without_group"]):
+        raise AssertionError(f"(a) the group's steps differ from the steps "
+                             f"without one: {grouped['losses']} "
+                             f"{alone['losses']}")
+    if not (out["remat_losses_equal"] and remat_same):
+        raise AssertionError(f"(a) --remat changed the steps: "
+                             f"{remat['losses']} {grouped['losses']}")
+    return out, {"pipeline": launches, "elastic_lm": elastic_launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5920,6 +6231,10 @@ def main():
     report["parallel"], parallel_launches = drive_parallel(
         torch, train, attention, all_kernels, rng, report)
 
+    # Phase 18: pipeline parallelism and elastic recovery.
+    report["pipeline"], pipeline_launches = drive_pipeline(
+        torch, train, all_kernels)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -5978,6 +6293,8 @@ def main():
         for path, counts in group_launches.items():
             by_path[path] = counts[name]
         for path, counts in parallel_launches.items():
+            by_path[path] = counts[name]
+        for path, counts in pipeline_launches.items():
             by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
@@ -6049,7 +6366,11 @@ def main():
         f"long-context ring training "
         f"{report['parallel']['long_context']['tokens_per_s']:.0f} "
         f"tokens/s; parallel phase {report['parallel']['phase_s']:.1f} "
-        f"s; whole run {report['wall_s']:.1f} s")
+        f"s; pipeline training "
+        f"{report['pipeline']['group']['tokens_per_s']:.0f} tokens/s, "
+        f"{report['pipeline']['group']['step_ms_mean']:.1f} ms a step; "
+        f"pipeline phase {report['pipeline']['phase_s']:.1f} s; whole run "
+        f"{report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,13 @@ itself: Conv HWIO <-> OIHW, Dense [in, out] <-> Linear [out, in], BN
 ``scale``/``bias`` <-> weight/bias in ``params``, and ``mean``/``var``
 in ``batch_stats`` <-> the running-statistic buffers. Their flax ranks
 are the torch ranks.
+
+The JAX PipelinedLM's tree is {"tok_embed", "pos_embed", "blocks",
+"ln", "lm_head"}, ``blocks`` being the block subtrees stacked on a
+leading axis in placement order. ``pipeline_params_from_flax`` takes a
+pipe rank's rows of it to the state_dict of the port's ``PipelinedLM``
+(the TransformerLM names of its v blocks), and
+``pipeline_params_to_flax`` takes that rank's parameters back.
 """
 
 import numpy as np
@@ -308,9 +315,11 @@ def image_layout(model):
     return out
 
 
-def _image_from_flax(model, variables, collections):
+def _image_from_flax(model, variables, collections, check_shapes=True):
     """{state_dict name: f32 CPU tensor} of the image ``model``'s
-    entries in ``collections``, read from flax ``variables``."""
+    entries in ``collections``, read from flax ``variables``; without
+    ``check_shapes`` a leaf may differ from the model's own shape (a
+    whole leaf for a model the mesh layout has sliced)."""
     out = {}
     for name, (collection, path, shape) in image_layout(model).items():
         if collection not in collections:
@@ -323,7 +332,7 @@ def _image_from_flax(model, variables, collections):
             raise ValueError(f"flax variables lack {collection}/"
                              f"{'/'.join(path)}") from None
         value = np.array(node, np.float32)
-        if value.shape != shape:
+        if check_shapes and value.shape != shape:
             raise ValueError(f"{collection}/{'/'.join(path)}: shape "
                              f"{value.shape}, want {shape}")
         if path[-1] == "kernel":
@@ -338,12 +347,14 @@ def _image_from_flax(model, variables, collections):
     return out
 
 
-def image_variables_from_flax(model, variables):
+def image_variables_from_flax(model, variables, check_shapes=True):
     """flax variables of an image model (``{"params": ...,
     "batch_stats": ...}``, nested mappings of arrays) -> a state_dict
     for the port's ``model`` (f32 CPU tensors). Raises if a leaf is
-    missing, has another shape, or is one the model does not have."""
-    return _image_from_flax(model, variables, ("params", "batch_stats"))
+    missing, has another shape (unless not ``check_shapes``), or is one
+    the model does not have."""
+    return _image_from_flax(model, variables, ("params", "batch_stats"),
+                            check_shapes)
 
 
 def _image_to_flax(model, state, tensors):
@@ -383,12 +394,14 @@ def named_params_to_flax(model, named, config=None, tensors=False):
     return _image_to_flax(model, named, tensors).get("params", {})
 
 
-def named_params_from_flax(model, tree, config=None):
+def named_params_from_flax(model, tree, config=None, check_shapes=True):
     """The inverse of ``named_params_to_flax``: {parameter name: f32
-    CPU tensor} from a flax ``params`` tree."""
+    CPU tensor} from a flax ``params`` tree (``check_shapes`` as in
+    ``image_variables_from_flax``)."""
     if config is not None:
         return params_from_flax(tree)
-    return _image_from_flax(model, {"params": tree}, ("params",))
+    return _image_from_flax(model, {"params": tree}, ("params",),
+                            check_shapes)
 
 
 def opt_state_to_flax(optimizer, model, config=None, tensors=False):
@@ -404,19 +417,24 @@ def opt_state_to_flax(optimizer, model, config=None, tensors=False):
     return named_params_to_flax(model, traces, config, tensors)
 
 
-def opt_state_from_flax(optimizer, model, trace, config=None):
+def opt_state_from_flax(optimizer, model, trace, config=None,
+                        local=None):
     """The inverse of ``opt_state_to_flax``: set every parameter's
     ``momentum_buffer`` in ``optimizer`` from the flax-layout ``trace``
     (creating it on an optimizer that has not stepped, so that the next
     update is optax's ``trace = g + momentum * trace``), on the
-    parameter's device, dtype and memory format."""
-    named = named_params_from_flax(model, trace, config)
+    parameter's device, dtype and memory format. ``local(name, whole)``
+    cuts a whole trace to the parameter's piece on a sharded model."""
+    named = named_params_from_flax(model, trace, config,
+                                   check_shapes=local is None)
     params = dict(model.named_parameters())
     if set(named) != set(params):
         raise ValueError(f"trace names differ from the model's: "
                          f"{sorted(set(named) ^ set(params))}")
     for name, value in named.items():
         param = params[name]
+        if local is not None:
+            value = local(name, value)
         optimizer.state[param]["momentum_buffer"] = (
             torch.empty_like(param).copy_(value))
 
@@ -454,6 +472,64 @@ def load_image_model(model, variables):
     place, on the model's device and memory format); returns it."""
     model.load_state_dict(image_variables_from_flax(model, variables))
     return model
+
+
+def _stack_rows(rows, tensors):
+    """Stack per-block subtrees (nested dicts) along a new leading
+    axis."""
+    first = rows[0]
+    if isinstance(first, dict):
+        return {k: _stack_rows([r[k] for r in rows], tensors)
+                for k in first}
+    return torch.stack(rows) if tensors else np.stack(rows)
+
+
+def _row(tree, i):
+    """Row ``i`` of a stacked subtree."""
+    if hasattr(tree, "keys"):
+        return {k: _row(tree[k], i) for k in tree.keys()}
+    return tree[i]
+
+
+def pipeline_tree(tree, order):
+    """A flax TransformerLM tree (``block{i}`` subtrees) -> the JAX
+    PipelinedLM's layout: {"tok_embed", "pos_embed", "blocks" (the
+    block subtrees stacked, row k holding natural block ``order[k]``),
+    "ln", "lm_head"} (numpy)."""
+    return {"tok_embed": tree["tok_embed"], "pos_embed": tree["pos_embed"],
+            "blocks": _stack_rows([tree[f"block{int(i)}"] for i in order],
+                                  tensors=False),
+            "ln": tree["LayerNorm_0"], "lm_head": tree["lm_head"]}
+
+
+def pipeline_params_from_flax(tree, rows):
+    """The JAX PipelinedLM tree (numpy or arrays; ``blocks`` stacked in
+    placement order) -> the state_dict of a port ``PipelinedLM`` holding
+    placement ``rows`` (its ``blocks.{r}`` is row ``rows[r]``): the
+    TransformerLM names of a model of len(rows) layers, through
+    ``params_from_flax``."""
+    lm = {"tok_embed": tree["tok_embed"], "pos_embed": tree["pos_embed"],
+          "LayerNorm_0": tree["ln"], "lm_head": tree["lm_head"]}
+    for r, row in enumerate(rows):
+        lm[f"block{r}"] = _row(tree["blocks"], row)
+    return params_from_flax(lm)
+
+
+def pipeline_params_to_flax(named, config, tensors=False):
+    """The inverse of ``pipeline_params_from_flax`` for one rank: {port
+    name: tensor} of a ``PipelinedLM`` (its parameters, or momentum
+    traces by parameter name) with ``config`` its TransformerLM keywords
+    (``PipelinedLM.config()``, v layers) -> the JAX layout with this
+    rank's v rows stacked as ``blocks`` (f32 numpy; ``tensors`` leaves
+    tensors on their device, as in ``params_to_flax``). A caller
+    gathers ``blocks`` over the pipe axis for the whole stack."""
+    lm = params_to_flax(named, dict(config, pos_embedding="learned"),
+                        tensors=tensors)
+    return {"tok_embed": lm["tok_embed"], "pos_embed": lm["pos_embed"],
+            "blocks": _stack_rows([lm[f"block{r}"]
+                                   for r in range(config["num_layers"])],
+                                  tensors),
+            "ln": lm["LayerNorm_0"], "lm_head": lm["lm_head"]}
 
 
 def quantize_lm(config, tree):

@@ -16,11 +16,12 @@
 """Training for the port: the Trainer (on one device or as one rank
 of a ("data", "model"), ("data", "context") or ("data", "expert")
 mesh, with FSDP), its losses, its synthetic and real data,
-checkpoints, the mesh, the sharding rules, the collectives, context
-parallelism (ring and Ulysses attention), expert parallelism and the
-multi-host start-up. Counterpart of
-container_engine_accelerators_tpu/parallel/ (pipeline parallelism and
-elastic training are not ported yet)."""
+checkpoints, the mesh (with DCN granules), the sharding rules, the
+collectives, context parallelism (ring and Ulysses attention), expert
+parallelism, pipeline parallelism (GPipe and circular schedules, the
+PipelinedLM), elastic training (eviction supervisor, resharded
+restore) and the multi-host start-up. Counterpart of
+container_engine_accelerators_tpu/parallel/."""
 
 from .checkpoint import CheckpointManager, restore_state, state_payload
 from .data import (
@@ -35,16 +36,45 @@ from .context import (
     ring_attention,
     ulysses_attention,
 )
+from .data import reassign_shards, shard_assignment
+from .elastic import (
+    ElasticSupervisor,
+    EvictionPolicy,
+    FleetExhausted,
+    ReshapePlan,
+)
 from .expert import build_expert_mesh, dense_moe, expert_parallel_moe
-from .mesh import MeshSpec, build_mesh, chips_from_env
+from .mesh import (
+    MeshSpec,
+    build_hybrid_mesh,
+    build_mesh,
+    chips_from_env,
+    reshape_spec,
+)
+from .pipeline import (
+    PIPELINE_AXIS,
+    build_pipeline_mesh,
+    circular_pipeline_apply,
+    circular_stage_order,
+    pipeline_apply,
+    stack_stage_params,
+    stage_sharding,
+)
+from .pipeline_lm import PipelinedLM
 from .sharding import batch_sharding, param_shardings, replicated
 from .train import Sgd, TrainState, Trainer, cross_entropy_loss
 
-__all__ = ["CheckpointManager", "MeshSpec", "NpzShardDataset",
-           "PrefetchLoader", "Sgd", "SyntheticLoader",
+__all__ = ["CheckpointManager", "ElasticSupervisor", "EvictionPolicy",
+           "FleetExhausted", "MeshSpec", "NpzShardDataset",
+           "PIPELINE_AXIS", "PipelinedLM", "PrefetchLoader",
+           "ReshapePlan", "Sgd", "SyntheticLoader",
            "SyntheticTokenLoader", "TrainState", "Trainer",
            "batch_sharding", "build_context_mesh", "build_expert_mesh",
-           "build_mesh", "chips_from_env", "cross_entropy_loss",
-           "dense_moe", "dot_product_attention", "expert_parallel_moe",
-           "param_shardings", "replicated", "restore_state",
-           "ring_attention", "state_payload", "ulysses_attention"]
+           "build_hybrid_mesh", "build_mesh", "build_pipeline_mesh",
+           "chips_from_env", "circular_pipeline_apply",
+           "circular_stage_order", "cross_entropy_loss", "dense_moe",
+           "dot_product_attention", "expert_parallel_moe",
+           "param_shardings", "pipeline_apply", "reassign_shards",
+           "replicated", "reshape_spec", "restore_state",
+           "ring_attention", "shard_assignment", "stack_stage_params",
+           "stage_sharding", "state_payload", "ulysses_attention"]

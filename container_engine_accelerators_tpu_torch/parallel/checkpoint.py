@@ -36,9 +36,12 @@ template's paths (a subset of the archive restores cleanly).
 
 The snapshot always copies: the port updates parameters and momentum
 buffers in place, and a numpy view of a live CPU tensor would let the
-background write archive a later step's values. ``restore`` has no
-``shardings=`` argument: leaves come back whole, as host numpy arrays,
-and a sharded Trainer slices them (``Trainer.full_state``). ``goodput`` is the Trainer's GoodputLedger (or
+background write archive a later step's values. Leaves come back
+whole, as host numpy arrays; ``restore(shardings=)`` and
+``restore_state(shardings=)`` lay them out for the restoring mesh
+(``Trainer.state_shardings``: each rank keeps its FSDP or column
+shard, whatever mesh wrote the archive), and a sharded Trainer can
+also restore inside ``Trainer.full_state``. ``goodput`` is the Trainer's GoodputLedger (or
 any object with ``record(bucket, seconds)``): each save's blocking
 seconds go to its ``checkpoint`` bucket, as in the JAX manager. The
 queue's writers call the lock-order sanitizer's ``note_write`` where
@@ -505,13 +508,19 @@ class CheckpointManager:
 
     # -- restore ------------------------------------------------------
 
-    def restore(self, template, step=None, missing="error"):
+    def restore(self, template, step=None, missing="error",
+                shardings=None):
         """``template``'s tree rebuilt from ``checkpoint_<step>``
         (default: newest) as host numpy arrays. The template gives only
         the structure: values are looked up by path, so a template
         holding part of the saved tree restores cleanly.
         ``missing="template"`` keeps the template's own leaf for a path
-        the archive lacks; ``"error"`` (default) raises KeyError."""
+        the archive lacks; ``"error"`` (default) raises KeyError.
+        ``shardings``: a tree like ``template`` whose leaves are
+        callables ``whole leaf -> this rank's leaf`` (None keeps a leaf
+        whole), applied to each restored leaf: the archive holds whole
+        leaves whatever mesh wrote it, and this lays them out for the
+        restoring one (the JAX argument's NamedSharding pytree)."""
         if missing not in ("error", "template"):
             raise ValueError(f"missing must be error|template: "
                              f"{missing!r}")
@@ -536,7 +545,12 @@ class CheckpointManager:
                         f"checkpoint {path} has no leaf {key}; saved "
                         f"keys: {sorted(files)[:8]}...")
 
-                return _rebuild(template, leaf)
+                out = _rebuild(template, leaf)
+        if shardings is not None:
+            fns = dict(keystr_items(shardings))
+            out = _rebuild(out, lambda key, value: value
+                           if fns.get(key) is None else fns[key](value))
+        return out
 
     def has_leaf(self, key_substring, step=None):
         """True when the checkpoint archives any path containing
@@ -582,7 +596,8 @@ def state_payload(state, config=None, schedule=False):
     return payload
 
 
-def restore_state(manager, state, step=None, config=None, schedule=False):
+def restore_state(manager, state, step=None, config=None, schedule=False,
+                  shardings=None):
     """Load ``manager``'s newest (or ``step``'s) checkpoint into
     ``state`` in place and return it: the parameters and BN statistics
     into the model, the momentum traces into the optimizer (created if
@@ -590,7 +605,14 @@ def restore_state(manager, state, step=None, config=None, schedule=False):
     ``schedule`` as in ``state_payload``. A state tracking EMA takes
     the archived shadow when there is one and re-seeds it from the
     restored parameters otherwise (a checkpoint written before EMA was
-    turned on)."""
+    turned on).
+
+    ``shardings`` (``Trainer.state_shardings``) lays the whole leaves
+    out for a sharded ``state``, whatever mesh wrote them: each
+    parameter, momentum trace and EMA shadow takes its piece under the
+    restoring Trainer's layout (FSDP shards, column shards), with no
+    collective. Without it ``state`` must be whole (a Trainer off a
+    mesh, or inside ``Trainer.full_state``)."""
     template = state_payload(state, config, schedule)
     track_ema = state.ema is not None
     archived_ema = track_ema and manager.has_leaf("['ema_params']",
@@ -599,21 +621,29 @@ def restore_state(manager, state, step=None, config=None, schedule=False):
         del template["ema_params"]
     restored = manager.restore(template, step=step)
     model = state.model
+    local = None if shardings is None else shardings.local
     if config is None:
         variables = {"params": restored["params"]}
         if restored["batch_stats"]:
             variables["batch_stats"] = restored["batch_stats"]
-        convert.load_image_model(model, variables)
+        whole = convert.image_variables_from_flax(
+            model, variables, check_shapes=local is None)
     else:
-        model.load_state_dict(convert.params_from_flax(restored["params"]))
+        whole = convert.params_from_flax(restored["params"])
+    if local is not None:
+        whole = {name: local(name, value) for name, value in whole.items()}
+    model.load_state_dict(whole)
     convert.opt_state_from_flax(state.optimizer, model,
-                                restored["opt_state"][2][0].trace, config)
+                                restored["opt_state"][2][0].trace, config,
+                                local=local)
     state.step = int(restored["step"])
     if track_ema:
         source = (restored["ema_params"] if archived_ema
                   else restored["params"])
-        named = convert.named_params_from_flax(model, source, config)
+        named = convert.named_params_from_flax(
+            model, source, config, check_shapes=local is None)
         with torch.no_grad():
             for name, shadow in state.ema.items():
-                shadow.copy_(named[name])
+                value = named[name]
+                shadow.copy_(value if local is None else local(name, value))
     return state

@@ -26,9 +26,8 @@ iterator (``NpzShardDataset`` reads ``.npz`` shard files, yielding the
 JAX reader's batches bitwise): a background thread pins each batch and
 copies it to the card on a side stream while the previous step runs,
 and the consumer's stream waits on that copy before it reads the
-batch. The elastic shard helpers (``shard_assignment``,
-``reassign_shards``) belong to the elastic supervisor and are not
-ported yet.
+batch. ``shard_assignment`` and ``reassign_shards`` are the elastic
+supervisor's unit of data reassignment.
 """
 
 import os
@@ -84,6 +83,45 @@ def synthetic_step_batch(step, batch_size, image_shape, num_classes,
     labels = rng.integers(0, num_classes, size=(batch_size,),
                           dtype=np.int32)
     return images, labels
+
+
+def shard_assignment(num_shards, hosts):
+    """{host: [shard indices]}: contiguous blocks, the remainder to the
+    leading hosts. A "shard" is whatever the pipeline splits by host (a
+    batch-row range, an .npz file set)."""
+    hosts = list(hosts)
+    if not hosts:
+        raise ValueError("no hosts to assign shards to")
+    if num_shards < len(hosts):
+        raise ValueError(
+            f"{num_shards} shards cannot cover {len(hosts)} hosts; "
+            f"an unfed host would idle its chips")
+    base, extra = divmod(num_shards, len(hosts))
+    out, next_shard = {}, 0
+    for i, host in enumerate(hosts):
+        n = base + (1 if i < extra else 0)
+        out[host] = list(range(next_shard, next_shard + n))
+        next_shard += n
+    return out
+
+
+def reassign_shards(assignment, departed):
+    """Fold departed hosts' shards onto the survivors: each survivor
+    keeps its own shards in order and gains the orphans appended
+    least-loaded first (ties by host name), so the load stays within
+    one shard."""
+    departed = set(departed)
+    survivors = {h: list(s) for h, s in assignment.items()
+                 if h not in departed}
+    if not survivors:
+        raise ValueError("eviction would leave no hosts")
+    orphaned = sorted(s for h in departed & set(assignment)
+                      for s in assignment[h])
+    order = sorted(survivors)
+    for shard in orphaned:
+        host = min(order, key=lambda h: len(survivors[h]))
+        survivors[host].append(shard)
+    return survivors
 
 
 class SyntheticLoader(_PoolLoader):

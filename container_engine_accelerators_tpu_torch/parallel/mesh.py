@@ -33,7 +33,7 @@ init_process_group``); the mesh's device type follows its backend:
 import dataclasses
 import logging
 
-from ..utils import env_str, not_ported
+from ..utils import env_str
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -183,9 +183,62 @@ def host_grid_mesh(process_bounds, devices=None):
                       mesh_dim_names=HOST_AXES + ("chip",))
 
 
-def build_hybrid_mesh(model=1, num_granules=None, devices=None):
-    """The DCN-granule mesh (multislice); not carried yet."""
-    raise not_ported("build_hybrid_mesh (DCN granules)")
+def _granules(devices, num_granules, hosts=None):
+    """Split ranks into DCN granules (hosts or slices).
+
+    Groups by ``hosts`` (a granule key a rank, aligned with
+    ``devices``) when it tells ranks apart; otherwise cuts even chunks
+    in rank order, which is host-major under the usual launch order
+    (and emulates a split for tests)."""
+    if hosts is not None:
+        hosts = list(hosts)
+        if len(hosts) != len(devices):
+            raise ValueError(f"{len(hosts)} host keys for "
+                             f"{len(devices)} devices")
+        if len(set(hosts)) > 1:
+            groups = {}
+            for d, h in zip(devices, hosts):
+                groups.setdefault(h, []).append(d)
+            granules = [groups[k] for k in sorted(groups)]
+            if num_granules is not None and len(granules) != num_granules:
+                raise ValueError(
+                    f"found {len(granules)} host granules, expected "
+                    f"{num_granules}")
+            return granules
+    if num_granules is None:
+        raise ValueError(
+            "single-granule device set: pass num_granules to emulate "
+            "a DCN split")
+    if len(devices) % num_granules != 0:
+        raise ValueError(
+            f"{len(devices)} devices do not split into "
+            f"{num_granules} granules")
+    per = len(devices) // num_granules
+    return [devices[i * per:(i + 1) * per]
+            for i in range(num_granules)]
+
+
+def build_hybrid_mesh(model=1, num_granules=None, devices=None,
+                      hosts=None):
+    """("data", "model") mesh spanning DCN granules (hybrid ICI x DCN).
+
+    The model axis stays inside one granule, so its collectives ride
+    the fast links; the data axis is granule-major, so its all-reduce
+    decomposes into reductions within granules plus one ring across
+    them. ``hosts`` names each rank's granule (``_granules``); without
+    it ``num_granules`` cuts the ranks into even, rank-ordered
+    granules. The JAX module's errors."""
+    devices = list(devices if devices is not None else world_ranks())
+    granules = _granules(devices, num_granules, hosts)
+    per = len(granules[0])
+    if any(len(g) != per for g in granules):
+        raise ValueError("granules are unevenly sized")
+    if per % model != 0:
+        raise ValueError(
+            f"model={model} does not divide the {per} devices of a "
+            f"granule; tensor parallelism cannot span DCN")
+    flat = [d for granule in granules for d in granule]
+    return grid_mesh(flat, None, model, MODEL_AXIS)
 
 
 def mesh_shape(mesh):

@@ -40,6 +40,7 @@ docstring). A step without state donation raises "not yet ported".
 """
 
 import contextlib
+import copy
 import dataclasses
 import inspect
 import time
@@ -222,7 +223,10 @@ class Trainer:
       momentum and EMA shadow are stored as 1/N shards over the data
       axis (a mesh over the whole world is built when none is given).
       ``parallel/spmd.py`` has the details; ``full_state`` makes the
-      state whole for a checkpoint.
+      state whole for a checkpoint, ``state_shardings`` lays a
+      checkpoint's whole leaves out for this rank, and ``remesh``
+      rebinds the configuration to another mesh (elastic recovery,
+      ``parallel/elastic.py``).
 
     Step telemetry, as the JAX Trainer's:
 
@@ -273,6 +277,15 @@ class Trainer:
         if fsdp and mesh is None:
             mesh = build_mesh()
         self.mesh = mesh
+        self._fsdp = bool(fsdp)
+        # The model's structure before the layout slices it, for remesh
+        # (meta tensors: no storage).
+        self._skeleton = None
+        if mesh is not None:
+            try:
+                self._skeleton = _meta_copy(model, keep=(mesh,))
+            except Exception as e:  # raised by remesh, which needs it
+                self._skeleton = e
         self._spmd = (Spmd(mesh, model, fsdp=fsdp) if mesh is not None
                       else None)
         self.model = model
@@ -298,11 +311,50 @@ class Trainer:
         self._last_step_end = None
         self._stepped = False
 
-    def init_state(self):
+    def init_state(self, params=None):
         """A TrainState at step 0 with fresh momentum traces (and the
-        EMA shadow when ``ema_decay`` is on)."""
+        EMA shadow when ``ema_decay`` is on). ``params``: a whole
+        state_dict ({name: tensor}, buffers included) loaded into the
+        model first, each entry laid out for the mesh
+        (``state_shardings``), as the JAX ``init_state(variables)``
+        places its variables."""
+        if params is not None:
+            local = self.state_shardings(None).local
+            self.model.load_state_dict(
+                {name: local(name, value) for name, value in params.items()})
         return self.ensure_ema(TrainState(
             step=0, model=self.model, optimizer=self._tx.init(self.model)))
+
+    def state_shardings(self, state):
+        """How a whole checkpoint leaf lays out on this rank
+        (``restore_state(shardings=)``): a ``StateShardings`` over this
+        Trainer's layout (the identity off a mesh). ``state`` is
+        accepted for the JAX signature; the layout is the Trainer's."""
+        return StateShardings(self._spmd)
+
+    def remesh(self, mesh):
+        """A fresh Trainer bound to ``mesh`` with this one's exact
+        configuration, the elastic-recovery path. Its model is a new
+        instance of this one's structure on the same device, whole
+        before the new layout slices it, with uninitialized values: a
+        restore (``restore_state(shardings=)``) or ``init_state(params=)``
+        fills them. The goodput ledger carries over (recovery is one
+        run's wall time, not a new run); the host identity re-resolves
+        lazily (ranks renumber after an eviction)."""
+        source = self._skeleton
+        if isinstance(source, Exception):
+            raise ValueError(f"remesh needs a copy of the model's "
+                             f"structure, which failed: {source}")
+        if source is None:
+            source = _meta_copy(self.model)
+        model = _meta_copy(source).to_empty(device=self._device())
+        return Trainer(model, self._loss, self._tx, mesh=mesh,
+                       remat=self._remat, grad_accum=self._grad_accum,
+                       augment_fn=self._augment,
+                       ema_decay=self._ema_decay, fsdp=self._fsdp,
+                       straggler=self._straggler,
+                       summary_every=self._summary_every,
+                       mfu_source=self._mfu_source, goodput=self.goodput)
 
     def _forward(self, images, step):
         def forward(x):
@@ -574,6 +626,38 @@ class Trainer:
             return contextlib.nullcontext()
         return self._spmd.full_state(state.model, state.optimizer,
                                      state.ema)
+
+
+class StateShardings:
+    """The layout of a Trainer's state on this rank: ``local(name,
+    whole)`` is this rank's piece of parameter ``name``'s whole tensor
+    (or of its momentum trace or EMA shadow, which share its layout),
+    the tensor itself for a leaf whole on the mesh or a Trainer off
+    one. No collective: each rank cuts its own piece."""
+
+    def __init__(self, spmd):
+        self._spmd = spmd
+
+    def local(self, name, whole):
+        spmd = self._spmd
+        layout = None if spmd is None else spmd.layouts.get(name)
+        if layout is None or not layout.sharded:
+            return whole
+        return spmd._local(whole, layout)
+
+
+def _meta_copy(module, keep=()):
+    """A deep copy of ``module`` whose parameters and buffers are meta
+    tensors (no storage is copied); objects in ``keep`` (a mesh a
+    module is bound to) are shared, not copied."""
+    memo = {id(obj): obj for obj in keep}
+    for param in module.parameters():
+        memo[id(param)] = torch.nn.Parameter(
+            torch.empty_like(param, device="meta"),
+            requires_grad=param.requires_grad)
+    for buf in module.buffers():
+        memo[id(buf)] = torch.empty_like(buf, device="meta")
+    return copy.deepcopy(module, memo)
 
 
 @contextlib.contextmanager

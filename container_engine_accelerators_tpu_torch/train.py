@@ -104,7 +104,25 @@ exclusive, and no --model-parallelism with the first two.
       container_engine_accelerators_tpu_torch.train --model transformer \
       --context-parallelism 2 --attention ring ... & done
 
-Pipeline parallelism and DCN granules raise "not yet ported".
+``--dcn-granules G`` lays the ("data", "model") mesh over G granules
+(``mesh.build_hybrid_mesh``: the model axis inside a granule, the data
+axis granule-major; the ranks cut into G even, rank-ordered granules).
+
+``--pipeline-parallelism K`` (K > 1) trains the PipelinedLM
+(``parallel/pipeline_lm.py``: the transformer blocks as circular
+pipeline stages over a ("data", "pipe") mesh, K ranks a pipe,
+``--num-microbatches`` a step) with its own step, as the demo's
+run_pipeline_lm: --remat, --pallas-loss and --label-smoothing apply,
+the flags that assume the Trainer's state are refused with the demo's
+message, and --model-dir checkpoints its {step, params, opt_state}
+payload (whole leaves, rank 0 writing; either driver resumes the
+other's). ``--pipeline-parallelism 1`` takes the Trainer path, as in
+the demo; ``run_pipeline_lm`` runs a one-rank pipe too.
+
+    for r in 0 1; do TPU_WORKER_HOSTNAMES=127.0.0.1,127.0.0.1 \
+      TPU_WORKER_ID=$r python -m \
+      container_engine_accelerators_tpu_torch.train --model transformer \
+      --pipeline-parallelism 2 --num-microbatches 4 ... & done
 """
 
 import argparse
@@ -150,9 +168,18 @@ from .parallel.context import (
     ulysses_attention,
 )
 from .parallel.expert import build_expert_mesh
-from .parallel.mesh import DATA_AXIS, build_mesh, default_spec
+from .parallel.mesh import (
+    DATA_AXIS,
+    axis_index,
+    build_hybrid_mesh,
+    build_mesh,
+    default_spec,
+)
+from .parallel import pipeline_lm
+from .parallel.pipeline import PIPELINE_AXIS, build_pipeline_mesh
+from .parallel.pipeline_lm import PipelinedLM
 from .obs import efficiency, profiler
-from .utils import not_ported, wall_sync
+from .utils import wall_sync
 
 IMAGE_MODELS = ("mnist", "resnet", "inception")
 LM_MODELS = ("transformer", "moe")
@@ -256,8 +283,7 @@ def parse_args(argv=None):
 
 def check_ported(args):
     """Refuse the demo driver's flag combinations with its messages
-    (SystemExit), and raise "not yet ported" for every flag of a path
-    the port does not carry."""
+    (SystemExit)."""
     if args.context_parallelism > 1 and args.model not in LM_MODELS:
         raise SystemExit(
             "--context-parallelism only applies to the LM models")
@@ -284,13 +310,6 @@ def check_ported(args):
         raise SystemExit(
             f"--model-parallelism cannot combine with {chosen[0]}: "
             f"that mesh has no 'model' axis")
-    unported = {
-        "--pipeline-parallelism": args.pipeline_parallelism > 1,
-        "--dcn-granules": args.dcn_granules > 1,
-    }
-    on = [flag for flag, bad in unported.items() if bad]
-    if on:
-        raise not_ported(", ".join(on))
 
 
 def lm_config(args):
@@ -345,13 +364,14 @@ def join_schedules(schedules, boundaries):
     return schedule
 
 
-def build_tx(args, config=None):
+def build_tx(args, config=None, decay_mask=None):
     """The demo's optimizer (--lr-schedule + --grad-clip + weight decay
     on flax-rank >= 2 leaves + SGD/momentum) as an ``Sgd``. ``config``:
     the TransformerLM config the decay mask reads the flax ranks of
     (default: from the flags). An image model's flax ranks are its
     torch ranks: conv and linear weights decay, BN and biases do
-    not."""
+    not. ``decay_mask`` replaces the mask (the pipeline's, whose
+    blocks are stacked)."""
     if args.lr_schedule == "constant":
         lr = args.lr
     elif args.lr_schedule == "cosine":
@@ -369,19 +389,20 @@ def build_tx(args, config=None):
                              max(args.steps - args.lr_warmup_steps, 1))],
             [args.lr_warmup_steps])
     if args.model in IMAGE_MODELS:
-        def decay_mask(_name, param):
+        def mask(_name, param):
             return param.dim() >= 2
-    else:
+    elif decay_mask is None:
         shapes = convert.flax_shapes(config or lm_config(args))
 
-        def decay_mask(name, _param):
+        def mask(name, _param):
             # The flax leaf's rank, not the torch tensor's: the
             # attention biases are [3, H, D] / [H, D] / [2, Hkv, D]
             # there and decay.
             return len(shapes[name][1]) >= 2
 
     return Sgd(lr, momentum=args.momentum,
-               weight_decay=args.weight_decay, decay_mask=decay_mask,
+               weight_decay=args.weight_decay,
+               decay_mask=mask if decay_mask is None else decay_mask,
                grad_clip=args.grad_clip)
 
 
@@ -462,7 +483,8 @@ def setup_mesh(args, device):
     if not dist.is_initialized():
         if not (args.fsdp or args.model_parallelism > 1
                 or args.expert_parallelism > 1
-                or args.context_parallelism > 1):
+                or args.context_parallelism > 1
+                or args.dcn_granules > 1):
             return None
         distributed.start_local_group(device)
         _own_group = True
@@ -470,6 +492,9 @@ def setup_mesh(args, device):
         return build_expert_mesh(expert=args.expert_parallelism)
     if args.context_parallelism > 1:
         return build_context_mesh(context=args.context_parallelism)
+    if args.dcn_granules > 1:
+        return build_hybrid_mesh(model=args.model_parallelism,
+                                 num_granules=args.dcn_granules)
     return build_mesh(default_spec(dist.get_world_size(),
                                    args.model_parallelism))
 
@@ -494,10 +519,7 @@ def build_trainer(args, device):
     makes it once the restored step is known."""
     check_ported(args)
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() "
-                           "is False (pass --device cpu to run the plain "
-                           "versions on the CPU)")
+    check_device(device)
     if device.type == "cuda":
         # cuDNN picks each convolution's algorithm by timing in the
         # first steps (XLA autotunes at compile); --warmup-steps keeps
@@ -781,13 +803,195 @@ def run(args, on_step=None, on_batch=None):
     return result, trainer, state
 
 
+def check_device(device):
+    """Refuse --device cuda without a card (no fallback)."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch.cuda.is_available() "
+                           "is False (pass --device cpu to run the plain "
+                           "versions on the CPU)")
+
+
+PIPELINE_UNSUPPORTED = (
+    ("--model-parallelism", lambda a: a.model_parallelism > 1),
+    ("--context-parallelism", lambda a: a.context_parallelism > 1),
+    ("--expert-parallelism", lambda a: a.expert_parallelism > 1),
+    ("--dcn-granules", lambda a: a.dcn_granules > 1),
+    ("--fsdp", lambda a: a.fsdp),
+    ("--grad-accum", lambda a: a.grad_accum > 1),
+    ("--ema-decay", lambda a: a.ema_decay > 0),
+    ("--eval-batches", lambda a: a.eval_batches > 0),
+    ("--data-dir", lambda a: bool(a.data_dir)),
+    ("--num-kv-heads", lambda a: a.num_kv_heads > 0),
+    ("--attention-window", lambda a: a.attention_window > 0),
+    ("--pos-embedding rope", lambda a: a.pos_embedding == "rope"),
+    ("--attention ring/ulysses", lambda a: a.attention != "flash"),
+)
+
+
+def build_pipeline(args, device):
+    """(model, optimizer, tx, mesh) of ``run_pipeline_lm``, after the
+    demo's flag checks (SystemExit with its messages). Starts the
+    process group from the plugin's env contract unless one is up; with
+    none, the pipe is this one process (``mesh`` None)."""
+    global _own_group
+    pp = args.pipeline_parallelism
+    if args.model != "transformer":
+        raise SystemExit(
+            "--pipeline-parallelism applies to --model transformer")
+    on = [flag for flag, bad in PIPELINE_UNSUPPORTED if bad(args)]
+    if on:
+        raise SystemExit(
+            f"--pipeline-parallelism does not support {', '.join(on)}")
+    check_device(device)
+    if not dist.is_initialized():
+        _own_group = distributed.initialize_from_plugin_env(device=device)
+    devices = dist.get_world_size() if dist.is_initialized() else 1
+    if devices % pp != 0:
+        raise SystemExit(f"{devices} devices do not fold onto pipe={pp}")
+    mesh = (build_pipeline_mesh(pp, data=devices // pp)
+            if dist.is_initialized() else None)
+    stage = 0 if mesh is None else axis_index(mesh, PIPELINE_AXIS)
+    lm = PipelinedLM(vocab_size=args.vocab_size, embed_dim=args.embed_dim,
+                     num_layers=args.num_layers, num_heads=args.num_heads,
+                     max_seq_len=args.seq_len, pipe=pp, remat=args.remat,
+                     stage=stage, device=device)
+    lm.load(lm.init(args.seed)).train()
+    tx = build_tx(args, lm.config(),
+                  decay_mask=pipeline_lm.decay_mask(lm))
+    return lm, tx.init(lm), tx, mesh
+
+
+def save_pipeline_checkpoint(args, lm, optimizer, step, mesh):
+    """Checkpoint the pipeline payload ({step, params, opt_state}, whole
+    leaves: the block rows gathered over the pipe axis, every rank
+    entering, rank 0 writing) into --model-dir, under the same
+    checkpoint_N naming as the Trainer path. Returns the path (None on
+    a rank that writes nothing)."""
+    mgr = _manager(args.model_dir, keep=args.keep_checkpoints)
+    path = mgr.save(pipeline_lm.pipeline_payload(
+        lm, optimizer, step, mesh, schedule=args.lr_schedule != "constant"),
+        step=step)
+    if path is not None:
+        print(f"saving checkpoint {path} (async)", file=sys.stderr)
+    return path
+
+
+def restore_pipeline_checkpoint(args, lm, optimizer, mesh):
+    """Load the newest finished checkpoint in --model-dir into this
+    rank's rows; returns its step, or None when the directory holds
+    none (after warning about entries of another format)."""
+    mgr = _manager(args.model_dir)
+    if mgr.latest_step() is None:
+        warn_unrecognized_checkpoints(
+            args.model_dir,
+            "they will NOT be restored, and saves at the same step "
+            "numbers will replace them")
+        return None
+    template = pipeline_lm.pipeline_payload(
+        lm, optimizer, 0, mesh, schedule=args.lr_schedule != "constant",
+        whole=False)
+    return pipeline_lm.load_payload(lm, optimizer, mgr.restore(template))
+
+
+def run_pipeline_lm(args, on_step=None):
+    """Train the PipelinedLM as the flags say (the module docstring; the
+    demo's run_pipeline_lm); returns (result dict, model, optimizer).
+    ``on_step(step, loss)`` as in ``run``. Each rank takes the global
+    batch and trains on its data rank's rows; the gradients are
+    averaged over the data axis, the reported loss too."""
+    device = torch.device(args.device)
+    lm, optimizer, tx, mesh = build_pipeline(args, device)
+    pp, m = args.pipeline_parallelism, args.num_microbatches
+    devices = dist.get_world_size() if dist.is_initialized() else 1
+    if args.model_dir.startswith("gs://"):
+        print("WARNING: gs:// model dirs need a GCS-enabled image; "
+              "skipping checkpointing", file=sys.stderr)
+        args.model_dir = ""
+    step0 = 0
+    if args.model_dir:
+        restored = restore_pipeline_checkpoint(args, lm, optimizer, mesh)
+        if restored is not None:
+            step0 = restored
+            print(f"restored checkpoint step {step0} from "
+                  f"{args.model_dir}", file=sys.stderr)
+    loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
+                                  args.vocab_size, device=device)
+    lm_loss = next_token_loss_fn(functools.partial(
+        mean_cross_entropy_loss if args.pallas_loss else cross_entropy_loss,
+        label_smoothing=args.label_smoothing))
+
+    def train_step(count, tokens):
+        optimizer.zero_grad(set_to_none=True)
+        tokens = pipeline_lm.local_batch(mesh, tokens)
+        loss = lm_loss(lm.apply(tokens, mesh=mesh, num_microbatches=m),
+                       tokens)
+        loss.backward()
+        pipeline_lm.reduce_grads(lm, mesh)
+        norm = (pipeline_lm.grad_norm(lm, mesh) if tx.grad_clip > 0
+                else None)
+        tx.update(optimizer, count, norm=norm)
+        return pipeline_lm.mean_over_data(loss, mesh)
+
+    before = kernel_launches()
+    losses = []
+    warmup = max(args.warmup_steps, 0)
+    t_start = time.perf_counter() if warmup == 0 else None
+    for step, (tokens, _) in zip(range(args.steps), loader):
+        loss = train_step(step0 + step, tokens)
+        if on_step is not None:
+            on_step(step, loss)
+        if t_start is None and step == warmup - 1:
+            wall_sync(loss)
+            t_start = time.perf_counter()
+        if step % 20 == 0 or step == args.steps - 1:
+            loss_val = float(loss)
+            losses.append(loss_val)
+            print(f"step {step} loss {loss_val:.4f}", file=sys.stderr)
+        if (args.model_dir and args.checkpoint_every
+                and (step + 1) % args.checkpoint_every == 0):
+            save_pipeline_checkpoint(args, lm, optimizer, step0 + step + 1,
+                                     mesh)
+    wall_sync(lm)
+    t_end = time.perf_counter()
+    timed_steps = max(args.steps - warmup, 0)
+    elapsed = (t_end - t_start) if t_start is not None else 0.0
+    seqs_per_sec = (args.batch_size * timed_steps / elapsed
+                    if elapsed > 0 and timed_steps else 0.0)
+    if args.model_dir:
+        save_pipeline_checkpoint(args, lm, optimizer, step0 + args.steps,
+                                 mesh)
+        finalize_checkpoints()
+    after = kernel_launches()
+    result = {
+        "model": "transformer",
+        "pipeline_parallelism": pp,
+        "num_microbatches": m,
+        "devices": devices,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else device.type),
+        "global_batch": args.batch_size,
+        "steps": args.steps,
+        "images_per_sec": round(seqs_per_sec, 2),
+        "images_per_sec_per_chip": round(seqs_per_sec / devices, 2),
+        "tokens_per_sec": round(seqs_per_sec * args.seq_len, 2),
+        "final_loss": losses[-1] if losses else None,
+        "kernel_launches": {name: after[name] - before[name]
+                            for name in after},
+    }
+    return result, lm, optimizer
+
+
 def main(argv=None, on_step=None):
     """Train and print the JSON result line; returns it as a dict.
     ``on_step`` as in ``run``. A process group this run started is
     torn down before it returns."""
     obs.set_role("train")
+    args = parse_args(argv)
     try:
-        result, _, _ = run(parse_args(argv), on_step)
+        if args.pipeline_parallelism > 1:
+            result, _, _ = run_pipeline_lm(args, on_step)
+        else:
+            result, _, _ = run(args, on_step)
     finally:
         teardown_group()
     print(json.dumps(result))

@@ -390,7 +390,10 @@ def test_unported_flags_raise(flags, tmp_path):
     --attention ring break the demo's rule that they go together,
     --expert-parallelism 2 applies to --model moe only (the demo's
     SystemExit messages), and --model moe --expert-parallelism 2 needs
-    two ranks."""
+    two ranks. Pipeline parallelism and DCN granules are ported: one
+    process is one device, which --pipeline-parallelism 2 does not
+    fold onto (the demo's SystemExit) and --dcn-granules 2 does not
+    split into two granules (the mesh's ValueError)."""
     argv = ["--device", "cpu", "--model", "transformer"] + flags
     tiny = ["--vocab-size", "32", "--embed-dim", "16", "--num-heads", "2",
             "--batch-size", "2", "--steps", "2", "--warmup-steps", "1"]
@@ -449,8 +452,15 @@ def test_unported_flags_raise(flags, tmp_path):
         else:
             assert "checkpoint_block_s" not in result
         return
-    with pytest.raises(ValueError, match="not yet ported"):
-        port_train.main(argv)
+    if flags == ["--pipeline-parallelism", "2"]:
+        with pytest.raises(SystemExit,
+                           match="1 devices do not fold onto pipe=2"):
+            port_train.main(argv + tiny)
+        return
+    assert flags == ["--dcn-granules", "2"], flags
+    with pytest.raises(ValueError,
+                       match="1 devices do not split into 2 granules"):
+        port_train.main(argv + tiny)
 
 
 @pytest.mark.parametrize("flags", [

@@ -583,3 +583,288 @@ def serve_tp(rank, config, tree, prompts, new, paged=True, weights="native",
         faults.reset()
     return {"sequences": seqs, "sharded": sharded, "paged": paged_engine,
             "rebuilds": rebuilds}
+
+
+# -- pipeline parallelism ----------------------------------------------------
+
+
+def _toy_stage(w, h):
+    return torch.tanh(h @ w["w"] + w["b"])
+
+
+def pipe_toy(rank, kind, params, x, pipe, data, microbatches,
+             layout="rows"):
+    """The port's ``kind`` schedule ("gpipe" or "circular") over a (data,
+    pipe) mesh on the toy stage tanh(h @ w + b), from the whole natural
+    stack ``params`` ({"w": [S, D, D], "b": [S, D]}) and the global
+    batch ``x``: this rank holds its placement rows (``layout`` "rows",
+    the circular schedule's ``pre_permuted``) or the whole natural stack
+    ("whole"). Under the loss sum(out ** 2) of its data rank's outputs,
+    returns the outputs, its coordinate, the rows it holds, the
+    gradients of what it holds and of its input rows, and its stage
+    calls; a ValueError comes back as (type name, message)."""
+    from container_engine_accelerators_tpu_torch.parallel import pipeline
+
+    mesh = pipeline.build_pipeline_mesh(pipe, data=data)
+    coord = tuple(mesh.get_coordinate())
+    di, d = coord
+    n = params["w"].shape[0]
+    if layout == "whole":
+        rows, held = list(range(n)), params
+    else:
+        order = pipeline.circular_stage_order(n, pipe)
+        span = pipeline.stage_sharding(mesh, n)[d]
+        # The natural stage of each held placement row.
+        rows = [int(order[k]) for k in span]
+        held = {k: v[rows] for k, v in params.items()}
+    local = {k: torch.from_numpy(np.ascontiguousarray(v)).requires_grad_()
+             for k, v in held.items()}
+    b = x.shape[0] // data
+    xl = torch.from_numpy(np.ascontiguousarray(
+        x[di * b:(di + 1) * b])).requires_grad_()
+    calls = []
+
+    def stage_fn(w, h):
+        calls.append(1)
+        return _toy_stage(w, h)
+
+    try:
+        if kind == "gpipe":
+            out = pipeline.pipeline_apply(mesh, stage_fn, local, xl,
+                                          num_microbatches=microbatches)
+        else:
+            out = pipeline.circular_pipeline_apply(
+                mesh, stage_fn, local, xl, num_microbatches=microbatches,
+                pre_permuted=layout != "whole")
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    (out ** 2).sum().backward()
+    return {"coord": coord, "rows": rows, "out": out.detach().numpy(),
+            "grads": {k: t.grad.numpy() for k, t in local.items()},
+            "x_grad": xl.grad.numpy(), "calls": len(calls)}
+
+
+def _pipe_lm(config, tree, pipe, stage, remat=False):
+    from container_engine_accelerators_tpu_torch.parallel.pipeline_lm import (
+        PipelinedLM,
+    )
+    lm = PipelinedLM(**config, pipe=pipe, stage=stage, remat=remat,
+                     dtype=torch.float32, device="cpu")
+    return lm.load(tree).train()
+
+
+def pipe_lm(rank, config, tree, tokens, pipe, data, microbatches,
+            remat=False, model_pipe=None):
+    """The port's PipelinedLM (f32) of ``config`` loaded with this
+    rank's rows of the JAX-layout ``tree`` on a (data, pipe) mesh:
+    its data rank's logits and next-token loss on the global
+    ``tokens``, the gradients (averaged over the data axis) as this
+    rank's rows in the JAX layout and their global norm (the clip's,
+    over every stage), the reference_apply logits of a
+    model holding every row, and the launches a step would count (the
+    blocks' forwards). ``model_pipe`` builds the model for another pipe
+    size: a ValueError comes back as (type name, message)."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        pipeline,
+        pipeline_lm,
+    )
+
+    mesh = pipeline.build_pipeline_mesh(pipe, data=data)
+    di, d = mesh.get_coordinate()
+    stage = d if model_pipe is None else 0
+    lm = _pipe_lm(config, tree, model_pipe or pipe, stage, remat)
+    calls = []
+    for block in lm.blocks:
+        block.register_forward_pre_hook(lambda *a: calls.append(1))
+    tok = torch.from_numpy(pipeline_lm.local_batch(
+        mesh, np.asarray(tokens)).astype(np.int64))
+    try:
+        logits = lm.apply(tok, mesh=mesh, num_microbatches=microbatches)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    loss = next_token_loss_fn(cross_entropy_loss)(logits, tok)
+    loss.backward()
+    pipeline_lm.reduce_grads(lm, mesh)
+    norm = pipeline_lm.grad_norm(lm, mesh)
+    grads = convert.pipeline_params_to_flax(
+        {n: p.grad for n, p in lm.named_parameters()}, lm.config())
+    ref = _pipe_lm(config, tree, pipe, None)
+    with torch.no_grad():
+        ref_logits = ref.reference_apply(tok)
+    return {"coord": (di, d), "rows": list(lm.rows),
+            "logits": logits.detach().numpy(),
+            "loss": float(pipeline_lm.mean_over_data(loss, mesh)),
+            "grads": _numpy(grads), "ref_logits": ref_logits.numpy(),
+            "norm": None if norm is None else float(norm),
+            "calls": len(calls)}
+
+
+def pipe_driver(rank, argv):
+    """The port's driver main(argv) on this rank of the pool's world (a
+    caller's group: the driver keeps it). Returns the result and each
+    step's loss."""
+    from container_engine_accelerators_tpu_torch import train as port_train
+
+    losses = []
+    result = port_train.main(
+        argv, on_step=lambda step, loss: losses.append(float(loss)))
+    return {"result": result, "losses": losses}
+
+
+# -- elastic training ------------------------------------------------------
+
+
+def _step_batch(step, batch=24):
+    from container_engine_accelerators_tpu_torch.parallel.data import (
+        synthetic_step_batch,
+    )
+    images, labels = synthetic_step_batch(step, batch, (28, 28, 1), 10,
+                                          seed=7)
+    return torch.from_numpy(images), torch.from_numpy(labels.astype(np.int64))
+
+
+def _elastic_trainer(tree, hidden, mesh):
+    return Trainer(_mlp(tree, hidden).train(), cross_entropy_loss,
+                   Sgd(0.1, momentum=0.9), mesh=mesh, mfu_source="off")
+
+
+def _whole(trainer, state):
+    """(params, momentum) of ``state`` as whole numpy leaves by name
+    (collective over the trainer's mesh)."""
+    with trainer.full_state(state):
+        params = {n: p.detach().numpy().copy()
+                  for n, p in state.model.named_parameters()}
+        moms = {n: state.optimizer.state[p]["momentum_buffer"].numpy().copy()
+                for n, p in state.model.named_parameters()}
+    return params, moms
+
+
+def elastic_restore(rank, tree, hidden, directory, targets):
+    """Train the MLP 2 steps on a 2 x 2 (data, model) mesh and checkpoint
+    it (rank 0 writes whole leaves); then, for each (data, model) in
+    ``targets`` over the leading ranks, restore it into a fresh Trainer
+    through ``restore_state(shardings=)``. Returns the saved whole
+    params and momentum, and for each target this rank's coordinate,
+    the restored ones made whole again, the local shapes of the sharded
+    leaves, the restored step and a next step's loss (None on a rank
+    the target mesh leaves out)."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        CheckpointManager,
+        restore_state,
+        state_payload,
+    )
+
+    torch.manual_seed(0)
+    trainer = _elastic_trainer(tree, hidden,
+                               build_mesh(MeshSpec(data=2, model=2)))
+    state = trainer.init_state()
+    for step in range(2):
+        state, _ = trainer.train_step(state, _step_batch(step))
+    mgr = CheckpointManager(directory, primary=rank == 0)
+    with trainer.full_state(state):
+        mgr.save(state_payload(state), step=state.step, blocking=True)
+    dist.barrier()
+    saved = _whole(trainer, state)
+    out = {"saved": saved, "targets": []}
+    for data, model in targets:
+        n = data * model
+        mesh = build_mesh(MeshSpec(data=data, model=model),
+                          devices=list(range(n)))
+        if mesh.get_coordinate() is None:
+            out["targets"].append(None)
+            continue
+        mesh_trainer = _elastic_trainer(tree, hidden, mesh)
+        template = mesh_trainer.init_state()
+        restored = restore_state(
+            mgr, template, shardings=mesh_trainer.state_shardings(template))
+        shapes = {name: tuple(p.shape)
+                  for name, p in restored.model.named_parameters()}
+        whole, step = _whole(mesh_trainer, restored), restored.step
+        _, loss = mesh_trainer.train_step(restored, _step_batch(2))
+        out["targets"].append({
+            "coord": tuple(mesh_trainer.mesh.get_coordinate()),
+            "step": step, "whole": whole, "shapes": shapes,
+            "loss": float(loss)})
+    return out
+
+
+def elastic_rebuild(rank, tree, hidden, directory, hosts, model, evict,
+                    checkpoint=True):
+    """The in-process recovery: the MLP on a (len(hosts) x ranks a host /
+    model, model) mesh, 3 steps, a checkpoint (skipped without
+    ``checkpoint``), 3 more steps uninterrupted; then the supervisor
+    evicts ``evict`` (health down), every rank calls rebuild, and the
+    survivors resume from the checkpoint on the reshaped mesh and run
+    the same 3 steps (from the init without a checkpoint). Returns the
+    uninterrupted losses (the first 3 and the 3 after the checkpoint),
+    the survivors' losses, the new mesh's shape, the resume step and
+    the restart bucket (None for the rebuilt values on a departed
+    rank)."""
+    from container_engine_accelerators_tpu_torch import obs
+    from container_engine_accelerators_tpu_torch.parallel import (
+        CheckpointManager,
+        ElasticSupervisor,
+        state_payload,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        mesh_shape,
+    )
+
+    torch.manual_seed(0)
+    per_host = dist.get_world_size() // len(hosts)
+    trainer = _elastic_trainer(tree, hidden, build_mesh(MeshSpec(
+        data=dist.get_world_size() // model, model=model)))
+    state = trainer.init_state()
+    mgr = CheckpointManager(directory, goodput=trainer.goodput,
+                            primary=rank == 0)
+    first = []
+    for step in range(3):
+        state, loss = trainer.train_step(state, _step_batch(step))
+        first.append(float(loss))
+    if checkpoint:
+        with trainer.full_state(state):
+            mgr.save(state_payload(state), step=state.step)
+    ref = []
+    for step in range(3, 6):
+        state, loss = trainer.train_step(state, _step_batch(step))
+        ref.append(float(loss))
+    sup = ElasticSupervisor(
+        hosts=hosts, chips_per_host=per_host, model_parallel=model,
+        goodput=trainer.goodput, tracer=obs.Tracer(enabled=False),
+        host_devices={h: list(range(i * per_host, (i + 1) * per_host))
+                      for i, h in enumerate(hosts)})
+    plan = sup.observe(down=[evict])
+    mgr.wait_until_finished()
+    dist.barrier()
+    whole = convert.image_variables_from_flax(_mlp(tree, hidden), tree)
+    new_trainer, new_state, new_mesh = sup.rebuild(
+        plan, trainer, mgr, init_state=lambda t: t.init_state(whole))
+    out = {"first": first, "ref": ref, "mesh": mesh_shape(new_mesh),
+           "plan": (plan.mesh_spec.data, plan.mesh_spec.model),
+           "survivors": plan.survivors, "losses": None}
+    if new_trainer is None:
+        return out
+    out["resume_step"] = plan.resume_step
+    out["state_step"] = new_state.step
+    losses = []
+    for step in range(new_state.step, new_state.step + 3):
+        new_state, loss = new_trainer.train_step(new_state,
+                                                 _step_batch(step))
+        losses.append(float(loss))
+    out["losses"] = losses
+    out["restart_s"] = trainer.goodput.publish()["buckets"]["restart"]
+    out["same_ledger"] = new_trainer.goodput is trainer.goodput
+    return out
+
+
+def hybrid_mesh(rank, model, granules):
+    """(shape, the mesh's rank grid) of build_hybrid_mesh over the world,
+    or the error's (type name, message)."""
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        build_hybrid_mesh,
+    )
+    try:
+        mesh = build_hybrid_mesh(model=model, num_granules=granules)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    return mesh_shape(mesh), mesh.mesh.tolist()
