@@ -349,6 +349,21 @@
    ``restore_state(shardings=)`` on a rebuilt one-rank mesh, whose next
    3 steps must give the uninterrupted losses bitwise, with the
    recovery in the restart bucket and one ``train.recovered`` event.
+19. runs the multichip dryrun and the combined ("data", "context",
+   "expert") step in a one-rank NCCL group it starts
+   (``drive_dryrun``). (a) ``parallel.dryrun.dryrun_multichip(1)`` on
+   the card, as the driver's one-chip validation calls it: stage 1
+   (ResNet-50 width 16 on the (1, 1) mesh) runs, a finite loss and
+   step 1; stages 1b-4 report skipped with the JAX dryrun's gates. (b)
+   Phase 13's MoE through the Trainer on a (1, 1, 1) ("data",
+   "context", "expert") mesh (``dryrun.combined_mesh``): ring
+   attention over "context", the routed layers bound to "expert", the
+   driver's MoE loss, COMBINED_STEPS steps at S 2048, batch 8: 8/8/8/1/1
+   launches a step, no collective (every axis one rank wide), the
+   losses of phase 13's steps within STEP_LOSS_TOL; step time, tokens/s
+   and peak memory reported. (c) The dryrun's stage 2 at its own shape
+   (vocab 32, E 32, 2 layers, head dim 8, f32) on a (1, 1, 1) mesh: a
+   finite loss, step 1, 2/2/2/0/0 launches (the f32 flash kernels).
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -5080,7 +5095,8 @@ finally:
 
 
 COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
-               "reduce_scatter_tensor", "batch_isend_irecv", "broadcast")
+               "reduce_scatter_tensor", "batch_isend_irecv", "broadcast",
+               "all_to_all", "all_to_all_single")
 
 
 @contextlib.contextmanager
@@ -6043,6 +6059,138 @@ def drive_pipeline(torch, train, kernels):
     return out, {"pipeline": launches, "elastic_lm": elastic_launches}
 
 
+# ---------------------------------------------------------------------
+# Phase 19: the multichip dryrun and the combined ("data", "context",
+# "expert") MoE step (the module docstring).
+# ---------------------------------------------------------------------
+COMBINED_STEPS = 3
+# The dryrun's stage 2 at its own shape: 2 layers (#1/#3/#4 each, f32
+# at head dim 8), the plain loss.
+DRYRUN_STAGE2_PER_STEP = (2, 2, 2, 0, 0)
+PATH_KERNELS.update({
+    "combined_moe": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "xent_fwd", "xent_bwd"),
+    "dryrun_stage2": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+})
+
+
+def dryrun_one_chip(torch, dryrun, kernels):
+    """19a: ``dryrun_multichip(1)`` on the card, as the driver's one-chip
+    validation calls it: stage 1 runs (a finite loss, step 1) and every
+    other stage reports skipped, as the JAX gates say at n = 1."""
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    summary = dryrun.dryrun_multichip(1, device="cuda")
+    torch.cuda.synchronize()
+    out = dict(summary, seconds=time.perf_counter() - t0,
+               launches={k.name: k.launches for k in kernels})
+    log("dryrun on one card:", json.dumps(out))
+    stages = summary["stages"]
+    ran = [name for name, st in stages.items() if st["ran"]]
+    loss = stages["dp_tp"].get("loss", float("nan"))
+    if (ran != ["dp_tp"] or stages["dp_tp"]["step"] != 1
+            or not math.isfinite(loss)
+            or any(stages[n]["skipped"] != why for n, why in
+                   dryrun.gates(1).items() if why is not None)):
+        raise AssertionError(f"(a) the one-card dryrun: {out}")
+    return out
+
+
+def combined_step(torch, train, dryrun, kernels, report):
+    """19b: phase 13's MoE through the Trainer on a (1, 1, 1) ("data",
+    "context", "expert") mesh, ring attention over "context" and the
+    routed layers bound to "expert", the driver's MoE loss, against
+    phase 13's losses at the same steps; no collective a step."""
+    from container_engine_accelerators_tpu_torch.parallel import (
+        SyntheticTokenLoader,
+        Trainer,
+    )
+    args = train.parse_args(train_argv(COMBINED_STEPS, MOE_WARMUP) + [
+        "--model", "moe", "--num-experts", str(MOE["num_experts"])])
+    model, loss_fn = train.build_lm(args, "cuda")
+    mesh = dryrun.combined_mesh(1, 1, 1)
+    dryrun.bind_combined(model, mesh)
+    trainer = Trainer(model, loss_fn, train.build_tx(args), mesh=mesh)
+    loader = SyntheticTokenLoader(args.batch_size, args.seq_len,
+                                  args.vocab_size, device="cuda")
+    per_step = (MOE["num_layers"],) * 3 + (1, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counting_collectives(torch.distributed) as calls:
+        losses, step_ms, fl = train_steps(
+            torch, trainer, trainer.init_state(), loader, COMBINED_STEPS,
+            kernels, per_step)
+    want = report["moe"]["train"]["losses"][:COMBINED_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    mean_ms = sum(step_ms) / len(step_ms)
+    out = dict(losses=losses, phase13_losses=want, loss_rel_err_max=rel,
+               bitwise_equal=losses == want, step_ms=step_ms,
+               step_ms_mean=mean_ms,
+               tokens_per_s=args.batch_size * args.seq_len * 1e3 / mean_ms,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               collectives=dict(calls), launches=fl,
+               mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+               local_experts=int(model.blocks[1].moe.w_in.shape[0]))
+    log("combined (data, context, expert) MoE step:", json.dumps(out))
+    if sum(calls.values()):
+        raise AssertionError(f"(b) collectives on a one-rank mesh: {out}")
+    if rel > STEP_LOSS_TOL:
+        raise AssertionError(f"(b) losses differ from phase 13's: {out}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out, fl
+
+
+def dryrun_stage2_on_card(torch, dryrun, kernels):
+    """19c: the dryrun's stage 2 at its own shape on a (1, 1, 1) mesh on
+    the card: a finite loss, step 1, the f32 flash kernels launched
+    (2/2/2/0/0: two layers, the plain loss)."""
+    for kern in kernels:
+        kern.launches = 0
+    out = dryrun.stage_dp_sp_ep(1, "cuda", shape=(1, 1, 1))
+    torch.cuda.synchronize()
+    got = tuple(kern.launches for kern in kernels)
+    res = dict(loss=out["loss"], step=out["step"], mesh=out["mesh"],
+               local_experts=out["local_experts"],
+               launches={k.name: k.launches for k in kernels})
+    log("dryrun stage 2 on the card:", json.dumps(res))
+    if (got != DRYRUN_STAGE2_PER_STEP or out["step"] != 1
+            or not math.isfinite(out["loss"])):
+        raise AssertionError(f"(c) stage 2 on the card: {res}")
+    return res, res["launches"]
+
+
+def drive_dryrun(torch, train, kernels, report):
+    """Phase 19 (the module docstring): (a)-(c) in a one-rank NCCL group
+    this function starts and tears down. Returns (report, launches by
+    path)."""
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import (
+        distributed,
+        dryrun,
+    )
+    t0 = time.perf_counter()
+    distributed.start_local_group("cuda:0")
+    try:
+        one_chip = dryrun_one_chip(torch, dryrun, kernels)
+        combined, combined_launches = combined_step(torch, train, dryrun,
+                                                    kernels, report)
+        stage2, stage2_launches = dryrun_stage2_on_card(torch, dryrun,
+                                                        kernels)
+    finally:
+        dist.destroy_process_group()
+    out = dict(one_chip=one_chip, combined=combined, stage2=stage2,
+               phase_s=time.perf_counter() - t0)
+    log(f"combined step: {combined['step_ms_mean']:.2f} ms a step, "
+        f"{combined['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{combined['peak_memory_gb']:.2f} GB on {smi_line()}")
+    log(f"dryrun phase: {out['phase_s']:.1f} s")
+    return out, {"combined_moe": combined_launches,
+                 "dryrun_stage2": stage2_launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6235,6 +6383,10 @@ def main():
     report["pipeline"], pipeline_launches = drive_pipeline(
         torch, train, all_kernels)
 
+    # Phase 19: the multichip dryrun and the combined MoE step.
+    report["dryrun"], dryrun_launches = drive_dryrun(
+        torch, train, all_kernels, report)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -6295,6 +6447,8 @@ def main():
         for path, counts in parallel_launches.items():
             by_path[path] = counts[name]
         for path, counts in pipeline_launches.items():
+            by_path[path] = counts[name]
+        for path, counts in dryrun_launches.items():
             by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
@@ -6369,7 +6523,10 @@ def main():
         f"s; pipeline training "
         f"{report['pipeline']['group']['tokens_per_s']:.0f} tokens/s, "
         f"{report['pipeline']['group']['step_ms_mean']:.1f} ms a step; "
-        f"pipeline phase {report['pipeline']['phase_s']:.1f} s; whole run "
+        f"pipeline phase {report['pipeline']['phase_s']:.1f} s; combined "
+        f"(data, context, expert) MoE step "
+        f"{report['dryrun']['combined']['step_ms_mean']:.2f} ms, dryrun "
+        f"phase {report['dryrun']['phase_s']:.1f} s; whole run "
         f"{report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -44,6 +44,11 @@ Rules:
   ``optax``, ``orbax`` or the JAX package
   (``container_engine_accelerators_tpu``) at any scope,
   or names one to ``importlib.import_module`` / ``__import__``.
+- ``lock-with``: no bare blocking ``.acquire()`` (argument-less); a
+  lock is held by ``with`` (a checked non-blocking probe is fine);
+- ``ledger-writer``: no write-mode ``open`` and no ``replace``/
+  ``rename`` of a path that names ``PERF_LEDGER`` statically outside
+  the port's writer, ``perf_ledger.py`` (its ``append_row``).
 
 Escapes, as the JAX lint's grammar: ``# lint: disable=rule-a,rule-b``
 trailing a line suppresses those rules on that line; ``# lint:
@@ -81,6 +86,8 @@ TORCH_ROOTS = ("torch", "triton")
 JAX_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", JAX_PACKAGE)
 _TORCH_FREE_MARKER = "# lint: torch-free"
 _REGISTRY_REL = f"{PACKAGE_NAME}/obs/metric_names.py"
+_LEDGER_WRITER_REL = f"{PACKAGE_NAME}/perf_ledger.py"
+LEDGER_TOKEN = "PERF_LEDGER"
 
 
 class Finding:
@@ -452,8 +459,95 @@ class JaxImportRule:
                     break
 
 
+class LockWithRule:
+    """``lock-with``: a lock is held by ``with``, never by a bare
+    blocking ``.acquire()`` whose ``release()`` an early return or an
+    exception can skip (every later waiter wedges, far from the bug).
+    A checked non-blocking probe (``acquire(blocking=False)``,
+    ``acquire(timeout=...)``) is fine: only an argument-less
+    ``.acquire()`` fires."""
+
+    id = "lock-with"
+    hint = ("hold the lock with `with lock:` (or use a checked "
+            "non-blocking acquire, released in try/finally)")
+
+    def check(self, ctx, project):
+        for node in ast.walk(ctx.tree):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "acquire"
+                    and not node.args and not node.keywords):
+                yield Finding(ctx.rel, node.lineno, self.id,
+                              "bare blocking .acquire() call", self.hint)
+
+
+def _open_mode(ctx, call):
+    for kw in call.keywords:
+        if kw.arg == "mode":
+            return ctx.resolve_str(kw.value) or ""
+    if len(call.args) >= 2:
+        return ctx.resolve_str(call.args[1]) or ""
+    return "r"
+
+
+def _mentions_ledger(ctx, call):
+    """Whether an argument expression names the ledger statically: a
+    string literal holding ``PERF_LEDGER``, or a name bound to one at
+    module level."""
+    for arg in list(call.args) + [kw.value for kw in call.keywords]:
+        for node in ast.walk(arg):
+            value = None
+            if isinstance(node, ast.Constant) and isinstance(node.value,
+                                                             str):
+                value = node.value
+            elif isinstance(node, ast.Name):
+                value = ctx.constants.get(node.id)
+            if value and LEDGER_TOKEN in value:
+                return True
+    return False
+
+
+class LedgerWriterRule:
+    """``ledger-writer``: the port's ledger rows go through its one
+    writer, ``perf_ledger.append_row`` (the row schema, the rig
+    fingerprint, the ``tpu_perf_ledger_appends`` count). A write-mode
+    ``open`` ('w', 'a', 'x', '+'), or a ``replace``/``rename``/
+    ``renames``, whose arguments name ``PERF_LEDGER`` statically fires;
+    read-only opens are fine, and paths assembled at run time from
+    non-literal parts are the rule's blind spot. The writer itself is
+    exempt."""
+
+    id = "ledger-writer"
+    hint = ("append through perf_ledger.append_row, the one writer that "
+            "validates the row schema, stamps the rig fingerprint and "
+            "counts the append")
+
+    def check(self, ctx, project):
+        if _rel(ctx) == _LEDGER_WRITER_REL:
+            return
+        for node in ast.walk(ctx.tree):
+            if not isinstance(node, ast.Call):
+                continue
+            func = node.func
+            tail = (func.id if isinstance(func, ast.Name) else
+                    func.attr if isinstance(func, ast.Attribute) else None)
+            if tail == "open":
+                if not any(c in _open_mode(ctx, node) for c in "wax+"):
+                    continue
+                if _mentions_ledger(ctx, node):
+                    yield Finding(ctx.rel, node.lineno, self.id,
+                                  "perf ledger opened for writing outside "
+                                  "the shared writer", self.hint)
+            elif tail in ("replace", "rename", "renames"):
+                if _mentions_ledger(ctx, node):
+                    yield Finding(ctx.rel, node.lineno, self.id,
+                                  f"{tail}() targets the perf ledger: "
+                                  "staged files must land through the "
+                                  "shared writer", self.hint)
+
+
 _RULES = (BareEnvReadRule, MetricRegistryRule, TorchFreeImportRule,
-          JaxImportRule)
+          JaxImportRule, LockWithRule, LedgerWriterRule)
 
 
 def rule_ids():

@@ -353,7 +353,7 @@ class _SanLockBase:
         return self._real.locked()
 
     def __enter__(self):
-        self.acquire()
+        self.acquire()  # lint: disable=lock-with (IS the `with` impl)
         return self
 
     def __exit__(self, *exc):

@@ -57,10 +57,11 @@ class MoEMlp(nn.Module):
     to ``expert.dense_moe_reference`` (the same signature).
 
     ``mesh`` (a mesh with an "expert" axis, as the flax module's) runs
-    the layer through ``expert.expert_parallel_moe`` on the residual
-    stream's token layout: the layer's ``w_in``/``w_out`` are then this
-    rank's E/P experts once the Trainer's layout has sliced them (or
-    whole, each rank taking its slice at use). ``token_mesh`` (set by
+    the layer through ``expert.residual_moe`` on this rank's block of
+    the residual stream (rows over "data", positions over "context"):
+    the layer's ``w_in``/``w_out`` are then this rank's E/P experts
+    once the Trainer's layout has sliced them (or whole, each rank
+    taking its slice at use). ``token_mesh`` (set by
     the Trainer's layout on a mesh whose tokens are split over "data"
     or "context") routes the global batch
     (``expert.global_batch_moe``)."""
@@ -91,10 +92,8 @@ class MoEMlp(nn.Module):
         tokens = x.reshape(-1, x.shape[-1]).to(dt)
         w_in, w_out = self.w_in.to(dt), self.w_out.to(dt)
         if self.mesh is not None:
-            out, aux = expert.expert_parallel_moe(
-                self.mesh, tokens, self.gate, w_in, w_out,
-                token_spec=expert.residual_token_spec(
-                    self.mesh, tokens.shape[0]), **kwargs)
+            out, aux = expert.residual_moe(self.mesh, x.to(dt), self.gate,
+                                           w_in, w_out, **kwargs)
         elif self.token_mesh is not None:
             out, aux = expert.global_batch_moe(
                 self.token_mesh, x.to(dt), self.gate, w_in, w_out,

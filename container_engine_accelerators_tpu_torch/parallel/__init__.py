@@ -14,13 +14,14 @@
 
 
 """Training for the port: the Trainer (on one device or as one rank
-of a ("data", "model"), ("data", "context") or ("data", "expert")
-mesh, with FSDP), its losses, its synthetic and real data,
-checkpoints, the mesh (with DCN granules), the sharding rules, the
-collectives, context parallelism (ring and Ulysses attention), expert
-parallelism, pipeline parallelism (GPipe and circular schedules, the
-PipelinedLM), elastic training (eviction supervisor, resharded
-restore) and the multi-host start-up. Counterpart of
+of a ("data", "model"), ("data", "context"), ("data", "expert") or
+("data", "context", "expert") mesh, with FSDP; SGD or Adam), its
+losses, its synthetic and real data, checkpoints, the mesh (with DCN
+granules), the sharding rules, the collectives, context parallelism
+(ring and Ulysses attention), expert parallelism, pipeline parallelism
+(GPipe and circular schedules, the PipelinedLM), elastic training
+(eviction supervisor, resharded restore), the multi-host start-up and
+the multichip dryrun (``dryrun.dryrun_multichip``). Counterpart of
 container_engine_accelerators_tpu/parallel/."""
 
 from .checkpoint import CheckpointManager, restore_state, state_payload
@@ -62,10 +63,10 @@ from .pipeline import (
 )
 from .pipeline_lm import PipelinedLM
 from .sharding import batch_sharding, param_shardings, replicated
-from .train import Sgd, TrainState, Trainer, cross_entropy_loss
+from .train import Adam, Sgd, TrainState, Trainer, cross_entropy_loss
 
-__all__ = ["CheckpointManager", "ElasticSupervisor", "EvictionPolicy",
-           "FleetExhausted", "MeshSpec", "NpzShardDataset",
+__all__ = ["Adam", "CheckpointManager", "ElasticSupervisor",
+           "EvictionPolicy", "FleetExhausted", "MeshSpec", "NpzShardDataset",
            "PIPELINE_AXIS", "PipelinedLM", "PrefetchLoader",
            "ReshapePlan", "Sgd", "SyntheticLoader",
            "SyntheticTokenLoader", "TrainState", "Trainer",

@@ -36,6 +36,11 @@ Environment read:
   ``CEA_TPU_COORD_BACKOFF_MS`` (first pause, default 500, doubling,
   capped at 30 s).
 
+``start_world`` also reads ``torchrun``'s environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; one
+rank a local device) before the plugin's, and starts a one-rank group
+where neither names a world.
+
 The deadline bounds the rendezvous only, as the JAX module's
 ``initialization_timeout`` bounds its connect: the group's collectives
 keep torch's default timeout, so a rank that comes late to one (a cold
@@ -133,10 +138,10 @@ def start_process_group(*, backend, init_method, world_size, rank,
                             world_size=world_size, rank=rank, **kwargs)
 
 
-def start_local_group(device):
+def start_local_group(device, _initialize=None):
     """A one-rank group of this process on ``device``'s backend, on a
     free localhost port (a mesh one rank wide)."""
-    start_process_group(
+    (_initialize or start_process_group)(
         backend=backend_for(device),
         init_method=f"tcp://127.0.0.1:{free_local_port()}", world_size=1,
         rank=0, timeout=datetime.timedelta(minutes=5), device=device)
@@ -226,6 +231,32 @@ def initialize_from_plugin_env(coordinator_port=None, timeout_ms=None,
         f"process group start failed after {retries + 1} attempt(s) "
         f"against {coordinator} (timeout {timeout_ms}ms each): "
         f"{last_error}") from last_error
+
+
+def start_world(device="cuda", _initialize=None):
+    """Start this process's rank of the world: from ``torchrun``'s
+    environment (a CUDA rank on card ``LOCAL_RANK``), else the plugin's
+    env contract (``initialize_from_plugin_env``; card 0), else a
+    one-rank group on a free localhost port (card 0). Returns the
+    rank's device. ``_initialize``: the test seam, as
+    ``initialize_from_plugin_env``'s."""
+    import torch
+
+    world, rank = env_str("WORLD_SIZE", ""), env_str("RANK", "")
+    index = int(env_str("LOCAL_RANK", "") or 0) if world and rank else 0
+    kind = torch.device(device).type
+    local = f"cuda:{index}" if kind == "cuda" else kind
+    if world and rank:
+        addr = env_str("MASTER_ADDR", "") or "127.0.0.1"
+        port = env_str("MASTER_PORT", "") or "29500"
+        (_initialize or start_process_group)(
+            backend=backend_for(local), init_method=f"tcp://{addr}:{port}",
+            world_size=int(world), rank=int(rank),
+            timeout=datetime.timedelta(minutes=5), device=local)
+    elif not initialize_from_plugin_env(device=local,
+                                        _initialize=_initialize):
+        start_local_group(local, _initialize)
+    return local
 
 
 _barrier_calls = {}

@@ -58,6 +58,9 @@ port's distributed code):
   Under a token spec without the expert axis (the residual stream's
   layout) the expert-axis peers hold the same tokens: each routes its
   contiguous T/P subgroup and an all-gather re-assembles the block.
+  ``residual_moe`` feeds it a rank's block of the residual stream in
+  the JAX layer's groups, re-laid out over "context" where the
+  sequence is split.
 - ``global_batch_moe`` is what GSPMD makes of ``dense_moe`` when the
   tokens are split over "data" (and "context"): the gate logits are
   gathered in the global token order, every rank routes the global
@@ -351,9 +354,10 @@ def expert_parallel_moe(mesh, tokens, gate_w, w_in, w_out, *,
 def residual_token_spec(mesh, num_tokens):
     """The token layout of the flat [T, d] batch as the residual stream
     shards it (the JAX model's ``_residual_token_spec``): the "data"
-    and "context" axes wider than one rank over which ``num_tokens``
-    still tiles together with the expert axis's subdivision; the expert
-    axis unused."""
+    and "context" axes wider than one rank over which ``num_tokens``,
+    the GLOBAL token count B·S (the JAX function reads the global
+    array's), still tiles together with the expert axis's subdivision;
+    the expert axis unused."""
     sizes = mesh_shape(mesh)
     group, tile = [], sizes.get(EXPERT_AXIS, 1)
     for a in (DATA_AXIS, CONTEXT_AXIS):
@@ -362,6 +366,44 @@ def residual_token_spec(mesh, num_tokens):
             group.append(a)
             tile *= size
     return tuple(group)
+
+
+def residual_moe(mesh, x, gate_w, w_in, w_out, **kwargs):
+    """``expert_parallel_moe`` on this rank's block of the residual
+    stream, as the flax MoEMlp bound to ``mesh`` runs it: ``x`` [B/dp,
+    S/cp, d], the rows over "data" and the positions over "context"
+    (the Trainer's split). The JAX layer flattens the global [B, S]
+    grid in row-major order and shards the flat tokens over
+    ``residual_token_spec``'s axes, so a routing group is a contiguous
+    run of b·S/cp tokens of its data rank's rows, all positions of
+    those rows, not a rank's own positions. On a context axis wider
+    than one the block is re-laid out to those groups: the data rank's
+    [B/dp, S, d] grid gathered over "context", this rank's contiguous
+    1/cp of its flat tokens routed, the outputs gathered back and this
+    rank's positions kept. Both gathers are ``GatherSum`` (their
+    backward sums the context ranks' gradients: each rank's loss is a
+    separate term). Returns (out [B/dp, S/cp, d], aux)."""
+    sizes = mesh_shape(mesh)
+    cp = sizes.get(CONTEXT_AXIS, 1)
+    b, s, d = x.shape
+    spec = residual_token_spec(mesh,
+                               b * s * sizes.get(DATA_AXIS, 1) * cp)
+    if cp == 1:
+        out, aux = expert_parallel_moe(mesh, x.reshape(-1, d), gate_w,
+                                       w_in, w_out, token_spec=spec,
+                                       **kwargs)
+        return out.view(b, s, d), aux
+    if CONTEXT_AXIS not in spec:
+        raise ValueError(
+            f"{b * s * cp} tokens of a data rank do not tile over "
+            f"{CONTEXT_AXIS}={cp} and the expert axis")
+    group = axis_group(mesh, CONTEXT_AXIS)
+    grid = collectives.GatherSum.apply(x, 1, group)          # [b, S, d]
+    tokens = collectives.local_slice(grid.reshape(-1, d), 0, group)
+    out, aux = expert_parallel_moe(mesh, tokens, gate_w, w_in, w_out,
+                                   token_spec=spec, **kwargs)
+    out = collectives.GatherSum.apply(out, 0, group).view(b, s * cp, d)
+    return collectives.local_slice(out, 1, group), aux
 
 
 def global_batch_moe(mesh, x, gate_w, w_in, w_out, *,

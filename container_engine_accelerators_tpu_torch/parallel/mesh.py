@@ -24,6 +24,10 @@ model-axis peers are adjacent ranks (adjacent cards of one host under
 the usual launch order). Every rank of the world must build the same
 mesh: the axis groups are made collectively.
 
+``named_mesh`` builds a mesh of any shape and axis names (the
+multichip dryrun's ("data", "context", "expert") mesh); ``grid_mesh``
+is its two-axis form.
+
 The process group must exist first (``distributed.
 initialize_from_plugin_env``, or ``torch.distributed.
 init_process_group``); the mesh's device type follows its backend:
@@ -96,6 +100,39 @@ def mesh_device_type():
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
+def named_mesh(shape, axis_names, devices=None):
+    """A DeviceMesh of ``shape`` named ``axis_names`` over the world's
+    ranks (or ``devices``, a rank list), laid out row-major: the JAX
+    ``Mesh(np.array(devices).reshape(shape), axis_names)``, the last
+    axis varying fastest. As ``grid_mesh``: a shape that names more
+    ranks than exist is an error; one that names fewer takes the
+    leading ranks (the others hold no coordinate in it, and warn)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    devices = list(devices if devices is not None else world_ranks())
+    shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+            axis_names):
+        raise ValueError(f"mesh shape {shape} needs as many distinct axis "
+                         f"names: {axis_names}")
+    if any(n < 1 for n in shape):
+        raise ValueError(f"mesh factors must be >= 1: {shape}")
+    size = 1
+    for n in shape:
+        size *= n
+    dims = "x".join(str(n) for n in shape)
+    if size > len(devices):
+        raise ValueError(
+            f"mesh spec {dims} needs {size} devices; only {len(devices)} "
+            f"visible")
+    if size < len(devices):
+        log.warning("mesh %s uses %d of %d visible devices", dims, size,
+                    len(devices))
+    grid = torch.tensor(devices[:size], dtype=torch.int64).reshape(shape)
+    return DeviceMesh(mesh_device_type(), grid, mesh_dim_names=axis_names)
+
+
 def grid_mesh(devices, major, minor, minor_axis):
     """Factor ranks into a row-major (DATA_AXIS, minor_axis) grid.
 
@@ -104,9 +141,6 @@ def grid_mesh(devices, major, minor, minor_axis):
     mesh takes the leading major*minor ranks (the others hold no
     coordinate in it, and warn); an inferred factor (major=None) spans
     every rank; asking for more ranks than exist is an error."""
-    import torch
-    from torch.distributed.device_mesh import DeviceMesh
-
     devices = list(devices if devices is not None else world_ranks())
     if minor < 1 or (major is not None and major < 1):
         raise ValueError(f"mesh factors must be >= 1: {major}x{minor}")
@@ -116,17 +150,7 @@ def grid_mesh(devices, major, minor, minor_axis):
                 f"{len(devices)} devices do not factor into "
                 f"{minor_axis}={minor}")
         major = len(devices) // minor
-    if major * minor > len(devices):
-        raise ValueError(
-            f"mesh spec {major}x{minor} needs {major * minor} devices; "
-            f"only {len(devices)} visible")
-    if major * minor < len(devices):
-        log.warning("mesh %dx%d uses %d of %d visible devices",
-                    major, minor, major * minor, len(devices))
-    grid = torch.tensor(devices[:major * minor],
-                        dtype=torch.int64).reshape(major, minor)
-    return DeviceMesh(mesh_device_type(), grid,
-                      mesh_dim_names=(DATA_AXIS, minor_axis))
+    return named_mesh((major, minor), (DATA_AXIS, minor_axis), devices)
 
 
 def build_mesh(spec=None, devices=None):
@@ -166,9 +190,6 @@ def host_grid_mesh(process_bounds, devices=None):
     (w // pz) % py, w % pz). The world's ranks are host-major (a
     host's local ranks are consecutive), so a plain reshape puts every
     host's local ranks on the "chip" axis."""
-    import torch
-    from torch.distributed.device_mesh import DeviceMesh
-
     devices = list(devices if devices is not None else world_ranks())
     px, py, pz = process_bounds
     n_proc = px * py * pz
@@ -176,11 +197,8 @@ def host_grid_mesh(process_bounds, devices=None):
         raise ValueError(
             f"{len(devices)} devices do not factor into a "
             f"{px}x{py}x{pz} host grid")
-    local = len(devices) // n_proc
-    grid = torch.tensor(devices, dtype=torch.int64).reshape(
-        px, py, pz, local)
-    return DeviceMesh(mesh_device_type(), grid,
-                      mesh_dim_names=HOST_AXES + ("chip",))
+    return named_mesh((px, py, pz, len(devices) // n_proc),
+                      HOST_AXES + ("chip",), devices)
 
 
 def _granules(devices, num_granules, hosts=None):

@@ -42,7 +42,9 @@ What ``shard_map``'s transposes give JAX is written out:
   Every rank runs every hop, and every hop's output is read through
   ``torch.where``, as the JAX body selects: a received activation a
   rank does not use still gets its (zero) gradient, so every rank runs
-  every hop's backward, in the same order (the chain of ticks orders
+  every hop's backward (the input joins the graph even when the caller
+  takes no gradient of it: a bubble tick hops its input on), in the
+  same order (the chain of ticks orders
   them), and the point-to-point transfers of the backward pair up.
   The last tick's hop, whose output nothing reads, is left out on
   every rank.
@@ -225,6 +227,11 @@ def _schedule(stage_fn, stages, x, m, p, d, group, wrap, ticks):
                          f"{m} microbatches")
     if group is not None:
         x = CopyToGroup.apply(x, group)
+        if torch.is_grad_enabled() and not x.requires_grad:
+            # A bubble tick passes its input on: an input outside the
+            # graph would leave that hop without a backward on this
+            # rank while its peer waits for the hop's gradient.
+            x = x.detach().requires_grad_()
     x_mb = x.reshape((m, b_local // m) + tuple(x.shape[1:]))
     yes = torch.ones((), dtype=torch.bool, device=x.device)
     no = torch.zeros((), dtype=torch.bool, device=x.device)

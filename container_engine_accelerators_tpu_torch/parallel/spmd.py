@@ -78,12 +78,21 @@ Two more axes:
   rest of the model runs replicated over the axis. A MoE layer not
   bound to the mesh gathers the expert-sharded kernels at use.
 
-A MoE layer on a mesh whose tokens are split over "data" or
-"context" routes the global batch, as GSPMD runs ``dense_moe`` there
-(``expert.global_batch_moe``); on a model axis its tokens are
-replicated and it routes them as one device does, on its kernels
-gathered whole at use (the JAX rule shards their last dims over
-"model", as it does any wide kernel's).
+The three together (the multichip dryrun's ("data", "context",
+"expert") mesh, ``parallel/dryrun.py``) compose as written: each
+context rank runs its sequence slice, the bound MoE layers re-lay their
+(data, context) block out to the JAX layer's routing groups
+(``expert.residual_moe``), the gradients are summed over "context" and
+then averaged over "data" (the expert-sharded kernels too, once each;
+nothing is reduced over "expert"), and the clip's norm sums the
+expert-sharded squares over "expert".
+
+A MoE layer not bound to the mesh, on a mesh whose tokens are split
+over "data" or "context", routes the global batch, as GSPMD runs
+``dense_moe`` there (``expert.global_batch_moe``); on a model axis its
+tokens are replicated and it routes them as one device does, on its
+kernels gathered whole at use (the JAX rule shards their last dims
+over "model", as it does any wide kernel's).
 """
 
 import contextlib
@@ -426,30 +435,36 @@ class Spmd:
 
     @contextlib.contextmanager
     def full_state(self, model, optimizer, ema=None):
-        """Every sharded parameter, momentum buffer and EMA shadow made
-        whole for the body (collective: every rank enters), then sliced
-        back, keeping what the body wrote (a restore)."""
+        """Every sharded parameter, its optimizer state (the momentum
+        buffer, Adam's moments) and EMA shadow made whole for the body
+        (collective: every rank enters), then sliced back, keeping what
+        the body wrote (a restore)."""
         sharded = [(name, param, self.layouts[name])
                    for name, param in model.named_parameters()
                    if name in self.layouts and self.layouts[name].sharded]
-        with torch.no_grad():
+
+        def relayout(fn):
             for name, param, layout in sharded:
-                param.data = self._whole(param.data, layout)
                 st = optimizer.state.get(param, {})
-                if st.get("momentum_buffer") is not None:
-                    st["momentum_buffer"] = self._whole(
-                        st["momentum_buffer"], layout)
+                for key in _moments(st, param):
+                    st[key] = fn(st[key], layout)
+                param.data = fn(param.data, layout)
                 if ema is not None and name in ema:
-                    ema[name] = self._whole(ema[name], layout)
+                    ema[name] = fn(ema[name], layout)
+
+        with torch.no_grad():
+            relayout(self._whole)
         try:
             yield
         finally:
             with torch.no_grad():
-                for name, param, layout in sharded:
-                    param.data = self._local(param.data, layout)
-                    st = optimizer.state.get(param, {})
-                    if st.get("momentum_buffer") is not None:
-                        st["momentum_buffer"] = self._local(
-                            st["momentum_buffer"], layout)
-                    if ema is not None and name in ema:
-                        ema[name] = self._local(ema[name], layout)
+                relayout(self._local)
+
+
+def _moments(state, param):
+    """The keys of a parameter's optimizer state laid out as the
+    parameter (SGD's momentum buffer, Adam's two moments; not Adam's
+    0-d step count)."""
+    return [key for key, value in state.items()
+            if isinstance(value, torch.Tensor) and value.dim() > 0
+            and value.shape == param.shape]

@@ -148,6 +148,23 @@ class Sgd:
         optimizer.step()
 
 
+ADAM_BETAS = (0.9, 0.999)  # optax.adam's b1, b2
+ADAM_EPS = 1e-8
+
+
+class Adam(Sgd):
+    """optax.adam(learning_rate) with its default b1, b2 and eps:
+    ``torch.optim.Adam``'s step (no weight decay, no amsgrad). ``Sgd``'s
+    interface with no clip (optax.adam clips nothing). The multichip
+    dryrun's MoE stage trains on it, as the JAX dryrun on optax's."""
+
+    def init(self, model):
+        """A torch.optim.Adam over ``model``'s trainable parameters."""
+        return torch.optim.Adam(
+            [p for p in model.parameters() if p.requires_grad],
+            lr=self.lr(0), betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm, norm=None):
     """optax.clip_by_global_norm in place: g is left as it is when the
@@ -189,7 +206,7 @@ class Trainer:
     model with step-keyed randomness (Inception's dropout; detected
     from the forward's signature, as the JAX Trainer detects a ``step``
     argument of its apply function); ``loss_fn(logits, labels) ->
-    scalar``; ``optimizer``: an ``Sgd``.
+    scalar``; ``optimizer``: an ``Sgd`` or an ``Adam``.
 
     - ``remat``: the forward runs under ``torch.utils.checkpoint``
       (non-reentrant) and is recomputed in the backward, as
@@ -211,9 +228,10 @@ class Trainer:
       build_mesh``), a ("data", "context") one (``context.
       build_context_mesh``: each context rank runs its slice of the
       sequence, an LM whose attention_fn is the ring or Ulysses
-      schedule over the axis) or a ("data", "expert") one
+      schedule over the axis), a ("data", "expert") one
       (``expert.build_expert_mesh``: a MoE bound to it holds its E/P
-      experts) this process is one rank of. ``train_step`` and
+      experts) or the three axes at once (``dryrun.combined_mesh``)
+      this process is one rank of. ``train_step`` and
       ``eval_step`` then take the GLOBAL batch, as the JAX steps do:
       each data rank computes on its slice (a grad_accum chunk is cut
       from the global batch first, then sliced), the gradients and

@@ -868,3 +868,105 @@ def hybrid_mesh(rank, model, granules):
     except ValueError as e:
         return type(e).__name__, str(e)
     return mesh_shape(mesh), mesh.mesh.tolist()
+
+
+# -- the multichip dryrun ----------------------------------------------------
+
+
+def named_mesh_facts(rank, shape, names):
+    """(shape dict, coordinate or None, each axis' peers in group-rank
+    order, axis_size/axis_index of every axis) of named_mesh(shape,
+    names) over the world, or the error's (type name, message)."""
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        axis_index,
+        axis_size,
+        named_mesh,
+    )
+    try:
+        mesh = named_mesh(shape, names)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return mesh_shape(mesh), None, None, None
+    peers = {a: dist.get_process_group_ranks(axis_group(mesh, a))
+             for a in names}
+    return (mesh_shape(mesh), tuple(coord), peers,
+            {a: (axis_size(mesh, a), axis_index(mesh, a)) for a in names})
+
+
+def dryrun_stage(rank, name, **inputs):
+    """One stage of the port's dryrun on the pool's world (f32 on the
+    CPU) from numpy ``inputs`` (the JAX init and batch); its output."""
+    import functools
+
+    from container_engine_accelerators_tpu_torch.parallel import dryrun
+
+    fns = {"dp_tp": dryrun.stage_dp_tp,
+           "fsdp": functools.partial(dryrun.stage_dp_tp, fsdp=True),
+           "dp_sp_ep": dryrun.stage_dp_sp_ep, "pp": dryrun.stage_pp,
+           "host_grid": dryrun.stage_host_grid}
+    torch.manual_seed(0)
+    return fns[name](dist.get_world_size(), "cpu", **inputs)
+
+
+def dryrun_all(rank, n):
+    """``dryrun_multichip(n, device="cpu")`` on this rank."""
+    from container_engine_accelerators_tpu_torch.parallel import dryrun
+
+    return dryrun.dryrun_multichip(n, device="cpu")
+
+
+def combined_grads(rank, tree, tokens, shape, aux_only=False):
+    """The dryrun's MoE LM (f32) from the flax ``tree`` bound to the
+    ``shape`` (data, context, expert) mesh, through the Trainer's
+    sequence-sharded forward and loss on the global ``tokens`` (the
+    next-token loss plus the router's aux; ``aux_only``: 0.01 aux
+    alone), the backward and the gradient reductions of one step,
+    without its update. Returns the reported loss, the whole gradients
+    in the flax layout, the clip's global norm, and the all-reduces the
+    reduction issued as (group's ranks, elements)."""
+    from container_engine_accelerators_tpu_torch.models.moe import (
+        with_router_loss,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import dryrun
+
+    mesh = dryrun.combined_mesh(*shape)
+    model = dryrun.bind_combined(convert.load_lm(
+        dryrun.MOE_LM, tree, device="cpu", dtype=torch.float32,
+        trainable=True), mesh)
+    loss_fn = ((lambda outputs, labels: 0.01 * outputs[1]) if aux_only
+               else with_router_loss(next_token_loss_fn(cross_entropy_loss)))
+    trainer = Trainer(model, loss_fn, Sgd(0.1), mesh=mesh,
+                      mfu_source="off")
+    spmd = trainer._spmd
+    t = torch.from_numpy(np.asarray(tokens).astype(np.int64))
+    loss = trainer._loss_of(t, t, 0)
+    loss.backward()
+    calls, real = [], dist.all_reduce
+
+    def counted(tensor, *args, group=None, **kwargs):
+        calls.append((dist.get_process_group_ranks(group), tensor.numel()))
+        return real(tensor, *args, group=group, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        spmd.reduce_grads(model)
+    finally:
+        dist.all_reduce = real
+    norm = spmd.grad_norm(model)
+    reported = spmd.mean_over_data(loss)
+    grads = {}
+    for name, param in model.named_parameters():
+        layout = spmd.layouts.get(name)
+        # No gradient reaches w_out through the aux alone: zero, as
+        # jax.grad gives it.
+        g = torch.zeros_like(param) if param.grad is None else param.grad
+        if layout is not None and layout.sharded:
+            g = spmd._whole(g, layout)
+        grads[name] = g
+    local = sum(p.numel() for p in model.parameters())
+    return {"loss": float(reported),
+            "grads": _numpy(convert.params_to_flax(grads, dryrun.MOE_LM)),
+            "norm": None if norm is None else float(norm),
+            "all_reduces": calls, "local_numel": local}
