@@ -30,10 +30,15 @@
    at head dims 16, 40, 64 and 128, lengths 17 and 1000, the window
    band, B 1 at S 1920, grids with one and with several consumer
    warpgroups a block, and on q/k/v/dO rows that do not start on 16
-   bytes (the mma.sync kernels, ``attention.tma_rows``); launches the
-   three tensor-core kernels (bf16 flash forward, dQ, dK/dV) twice on
-   the same inputs at the training and the serving prefill's shapes
-   and requires bitwise-equal outputs; and counts the tensor-core
+   bytes (the mma.sync kernels, ``attention.tma_rows``); every flash
+   kernel, f32 and bf16, at head dims 4 and 12 (padded to 8 and 16) and
+   136, 192, 256, 320 and 640 (the wide kernels), causal at S 17 and
+   with the W 200 band at S 1000 (HEAD_DIM_CASES); one causal W 64
+   forward at S 4 194 368, past the old grid.y limit of 65 535 row
+   tiles (``check_long_sequence``); launches the three tensor-core
+   kernels (bf16 flash forward, dQ, dK/dV) twice on the same inputs at
+   the training and the serving prefill's shapes and at D 256, and
+   requires bitwise-equal outputs; and counts the tensor-core
    instructions in their SASS (cuobjdump): HMMA or HGMMA in every
    ``*_tc_kernel``, HGMMA in each wgmma kernel, and all three wgmma
    kernels present;
@@ -45,7 +50,9 @@
    CUDA-graph replay (device time; ``launch_ms`` launched back to back)
    beside the mma.sync design's time where one was taken
    (``MMA_SYNC_MS``), and the next-token objective's logits copy
-   alone;
+   alone; the flash forward, dQ and dK/dV at D 256 (WIDE_SHAPE,
+   GPT-J-6B's attention) beside their bounds and SDPA's; and a line of
+   this run's D <= 128 times over PERF.md's (``recorded_ratios``);
 5. serves the full-width LM (the architecture of
    demo/serving/lm-serving.yaml without its int8 options: vocab 32000,
    E 512, 8 layers, 8 heads, 2 KV heads, rope, max_seq_len 2048; bf16,
@@ -364,6 +371,20 @@
    and peak memory reported. (c) The dryrun's stage 2 at its own shape
    (vocab 32, E 32, 2 layers, head dim 8, f32) on a (1, 1, 1) mesh: a
    finite loss, step 1, 2/2/2/0/0 launches (the f32 flash kernels).
+   (d) The dryrun's stage 3 on one rank (``stage_pp(1)``, outside the
+   JAX gate, which skips it below two devices): the circular
+   PipelinedLM at head dim 4, f32, through the kernels (D 4 padded to
+   8), 4/4/4/0/0 launches, its loss within DRYRUN_STAGE3_TOL of the
+   same step with the kernels replaced by their plain versions.
+20. trains and serves head dim 256 (``drive_d256``): GPT-J-6B's
+   attention widths (E 4096 over 16 heads, rope; vocab 32000; depth cut
+   from 28 layers to 4). (a) D256_STEPS steps through the driver at S
+   2048, batch 4: 4/4/4/1/1 launches a step, a finite and falling
+   loss, step time, tokens/s and peak memory; (b) the batch-2 kernel
+   step against the plain step at phase 7's limits; (c) the launcher's
+   dense pool serves one greedy prompt: 4 ``flash_fwd`` launches for
+   its one admission, the stream under the near-tie rule against
+   greedy_decode.
 
 Where a training step's device time goes is measured by
 ``container_engine_accelerators_tpu_torch.train_profile`` (a
@@ -640,6 +661,21 @@ BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
                  ((8, 512, 8, 64), "bfloat16", False, 0, False),
                  ((2, 150, 4, 128), "bfloat16", True, 64, True)]
 
+# Head dims past the multiples of 8 up to 128 (``attention.
+# head_dim_route``): D 4 and 12 run zero-padded to 8 and 16, D 136 to
+# 320 the wide kernels (128-column chunks of each output over the grid,
+# bf16 on mma.sync). f32 and bf16, causal at length 17 and with the
+# W 200 band at length 1000, and one ragged-row case at D 256; D 640
+# (bf16, aligned and ragged rows) stages its own tile again each partner
+# tile, past the four 128-column slabs the wide kernels hold.
+HEAD_DIM_CASES = [((b, s, 2, d), dtype, True, w, False)
+                  for d in (4, 12, 136, 192, 256, 320)
+                  for dtype in ("float32", "bfloat16")
+                  for b, s, w in ((2, 17, 0), (1, 1000, 200))]
+HEAD_DIM_CASES += [((2, 150, 4, 256), "bfloat16", True, 64, True),
+                   ((1, 200, 2, 640), "bfloat16", True, 64, False),
+                   ((2, 100, 2, 640), "bfloat16", True, 0, True)]
+
 # The bf16 forward's, dQ's and dK/dV's times on the mma.sync design
 # the Hopper kernels replaced (the same measurement on one NVIDIA H100
 # 80GB HBM3 at 700 W), printed beside the new times: {(name, shape,
@@ -661,7 +697,7 @@ def check_flash(torch, attn):
     cases += [((2, 200, 4, 32), "float32", False, 0, False),
               ((1, 300, 4, 64), "float32", True, 64, False),
               ((1, 1920, 8, 64), "bfloat16", True, 256, False)]
-    cases += BF16_TC_CASES
+    cases += BF16_TC_CASES + HEAD_DIM_CASES
     results = []
     for shape, dtype, causal, window, misaligned in cases:
         dtype = getattr(torch, dtype)
@@ -676,6 +712,7 @@ def check_flash(torch, attn):
         case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
                     window=window, rows_aligned=attn.rows_aligned(q, k, v),
                     tma_rows=attn.tma_rows(q, k, v),
+                    head_dim_route=attn.head_dim_route(shape[3]),
                     err_o=err_o, err_lse=err_l, tol=tol)
         log("flash check", json.dumps(case))
         if not (err_o <= tol and err_l <= tol):
@@ -755,7 +792,7 @@ def check_backward(torch, attn):
     cases += [((2, 200, 4, 32), "float32", False, 0, False, False),
               ((1, 300, 4, 64), "float32", True, 64, False, True),
               ((1, 2048, 8, 64), "bfloat16", True, 256, False, False)]
-    cases += [case + (True,) for case in BF16_TC_CASES]
+    cases += [case + (True,) for case in BF16_TC_CASES + HEAD_DIM_CASES]
     results = []
     for shape, dtype, causal, window, misaligned, lse_grad in cases:
         dtype = getattr(torch, dtype)
@@ -769,6 +806,7 @@ def check_backward(torch, attn):
         case = dict(shape=list(shape), dtype=str(dtype), causal=causal,
                     window=window, rows_aligned=attn.rows_aligned(*args[:4]),
                     tma_rows=attn.tma_rows(*args[:4]),
+                    head_dim_route=attn.head_dim_route(shape[3]),
                     lse_cotangent=lse_grad)
         ok = True
         for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
@@ -785,14 +823,16 @@ def check_backward(torch, attn):
 
 def check_repeat(torch, attn):
     """Phase 3: the tensor-core kernels (bf16 flash forward, dQ, dK/dV)
-    at the training shape (two consumer warpgroups a block) and at the
-    serving prefill's [1, 1920, 8, 64] (one), launched twice on the
-    same inputs, give bitwise-equal outputs (each output tile has one
-    owner block and there are no atomics)."""
+    at the training shape (two consumer warpgroups a block), at the
+    serving prefill's [1, 1920, 8, 64] (one) and at D 256 (the wide
+    kernels), launched twice on the same inputs, give bitwise-equal
+    outputs (each output tile has one owner block and there are no
+    atomics)."""
     heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     out = {}
-    for shape in ((TRAIN_BATCH, TRAIN_SEQ, heads, d), (1, 1920, heads, d)):
+    for shape in ((TRAIN_BATCH, TRAIN_SEQ, heads, d), (1, 1920, heads, d),
+                  (2, 1000, 4, 256)):
         args = bwd_inputs(torch, attn, shape, torch.bfloat16, True, 0, gen,
                           True)
         for name, run in (
@@ -809,6 +849,45 @@ def check_repeat(torch, attn):
     log("bitwise repeat:", json.dumps(out))
     if not all(out.values()):
         raise AssertionError(f"two launches on the same inputs differ: {out}")
+    return out
+
+
+# The grid's sequence limit: one causal W 64 forward at S 4 194 368
+# (65 537 row tiles of 64, past the 65 535 a grid.y takes), [1, S, 1, 8]
+# bf16. With the band, row p sees keys (p - 64, p] alone, so the last
+# 1000 rows equal the plain version on the last W + 1000 positions.
+LONG_SEQ = 4194368
+LONG_WINDOW = 64
+LONG_ROWS = 1000
+
+
+def check_long_sequence(torch, attn):
+    """Phase 3: the forward past the old 65 535-tile limit (above)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q, k, v = attn_operands(torch, (1, LONG_SEQ, 1, 8), torch.bfloat16, 3,
+                            gen)
+    before = attn.flash_fwd.launches
+    o, lse = attn.flash_attention_lse(q, k, v, causal=True,
+                                      window=LONG_WINDOW)
+    torch.cuda.synchronize()
+    tail = LONG_WINDOW + LONG_ROWS
+    ro, rl = attn.flash_attention_reference(
+        q[:, -tail:], k[:, -tail:], v[:, -tail:], True, LONG_WINDOW)
+    tol = TOL["torch.bfloat16"]
+    out = dict(shape=[1, LONG_SEQ, 1, 8], window=LONG_WINDOW,
+               tiles=-(-LONG_SEQ // 64), rows_checked=LONG_ROWS,
+               launches=attn.flash_fwd.launches - before,
+               err_o=(o[:, -LONG_ROWS:].float()
+                      - ro[:, -LONG_ROWS:].float()).abs().max().item(),
+               err_lse=(lse[:, -LONG_ROWS:]
+                        - rl[:, -LONG_ROWS:]).abs().max().item(),
+               finite=bool(torch.isfinite(o.float()).all()), tol=tol)
+    log("long sequence:", json.dumps(out))
+    if not (out["launches"] == 1 and out["finite"] and out["err_o"] <= tol
+            and out["err_lse"] <= tol):
+        raise AssertionError(f"the forward at S {LONG_SEQ}: {out}")
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
     return out
 
 
@@ -997,9 +1076,10 @@ def check_xent(torch, xent):
     return results
 
 
-def time_flash_kernels(torch, attn, window, gen):
-    """The flash forward, dQ and dK/dV at q/k/v [8, 2048, 8, 64] bf16
-    causal (with the ``window`` band when > 0): {name: row} with each
+def time_flash_kernels(torch, attn, window, gen, shape=None):
+    """The flash forward, dQ and dK/dV at q/k/v ``shape`` (default the
+    training shape, [8, 2048, 8, 64]) bf16 causal (with the ``window``
+    band when > 0): {name: row} with each
     kernel's device time (``graph_ms``) and its time launched back to
     back (``launch_ms``), its plain version's, the library yardstick's
     (never called by the port: SDPA forward, causal or with the band as
@@ -1009,11 +1089,12 @@ def time_flash_kernels(torch, attn, window, gen):
     pairs and the mma.sync design's time where one was taken."""
     import torch.nn.functional as F
     heads, d = MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"]
-    shape = (TRAIN_BATCH, TRAIN_SEQ, heads, d)
+    shape = tuple(shape or (TRAIN_BATCH, TRAIN_SEQ, heads, d))
+    seq = shape[1]
     bf16 = "torch.bfloat16"
     q, k, v, do, lse, delta = bwd_inputs(torch, attn, shape, torch.bfloat16,
                                          True, window, gen, False)
-    mask = (dict(attn_mask=attn._keep_mask(TRAIN_SEQ, window, "cuda"))
+    mask = (dict(attn_mask=attn._keep_mask(seq, window, "cuda"))
             if window else dict(is_causal=True))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -1066,6 +1147,33 @@ def time_flash_kernels(torch, attn, window, gen):
     del q, k, v, do, lse, delta, qt, kt, vt, sdpa_out, sdpa_g, o, ro, mask
     torch.cuda.empty_cache()
     return rows
+
+
+# PERF.md §6's device times at the D <= 128 shapes phase 4 times (NVIDIA
+# H100 80GB HBM3, 700 W; before the head-dim routes and the flattened
+# grid), beside which phase 4 prints this run's: {(name, shape): ms}.
+RECORDED_MS = {("flash_fwd", (8, 2048, 8, 64)): 0.1178,
+               ("flash_bwd_dq", (8, 2048, 8, 64)): 0.1683,
+               ("flash_bwd_dkv", (8, 2048, 8, 64)): 0.2613,
+               ("flash_fwd", (1, 1920, 8, 64)): 0.0272}
+# The wide kernels' shape in phase 4: GPT-J-6B's attention (16 heads of
+# 256) at batch 4, S 2048.
+WIDE_SHAPE = (4, 2048, 16, 256)
+
+
+def recorded_ratios(report):
+    """This run's times at RECORDED_MS's shapes over the recorded ones:
+    {"name shape": ratio}."""
+    rows = dict(report["train_kernel_times"])
+    big = report["flash_times"][-1]
+    out = {}
+    for (name, shape), ms in RECORDED_MS.items():
+        row = rows.get(name)
+        if shape == tuple(big["shape"]) and name == "flash_fwd":
+            row = big
+        if row is not None and tuple(row["shape"]) == shape:
+            out[f"{name} {list(shape)}"] = row["kernel_ms"] / ms
+    return out
 
 
 def sdpa_backward_ms(torch, fn):
@@ -1559,17 +1667,19 @@ def healthz(port):
         return e.code
 
 
-def launch_deployed(serve, paged=True):
-    """The port's launcher on the manifest's arguments and --port=0
-    (CEA_TPU_PAGED_KV=0 while it builds when not ``paged``); polls
-    /healthz from the first moment until warm-up is done. Returns
-    (server, {"health": first codes, "ready_s": launch to 200})."""
+def launch_deployed(serve, paged=True, argv=None):
+    """The port's launcher on ``argv`` (default the manifest's arguments
+    and --port=0; CEA_TPU_PAGED_KV=0 while it builds when not
+    ``paged``); polls /healthz from the first moment until warm-up is
+    done. Returns (server, {"health": first codes, "ready_s": launch to
+    200})."""
     t0 = time.perf_counter()
+    if argv is None:
+        argv = manifest_argv() + ["--port=0"]
     if not paged:
         os.environ["CEA_TPU_PAGED_KV"] = "0"
     try:
-        server = serve.build_server(
-            serve.build_parser().parse_args(manifest_argv() + ["--port=0"]))
+        server = serve.build_server(serve.build_parser().parse_args(argv))
     finally:
         os.environ.pop("CEA_TPU_PAGED_KV", None)
     server.start()
@@ -6067,10 +6177,17 @@ COMBINED_STEPS = 3
 # The dryrun's stage 2 at its own shape: 2 layers (#1/#3/#4 each, f32
 # at head dim 8), the plain loss.
 DRYRUN_STAGE2_PER_STEP = (2, 2, 2, 0, 0)
+# The dryrun's stage 3 on one rank: the circular PipelinedLM of 2 layers
+# over 2 microbatches (head dim 4, f32), one flash call a layer a
+# microbatch each way; the plain loss. Its loss against the same step
+# through the plain versions.
+DRYRUN_STAGE3_PER_STEP = (4, 4, 4, 0, 0)
+DRYRUN_STAGE3_TOL = 1e-4
 PATH_KERNELS.update({
     "combined_moe": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                      "xent_fwd", "xent_bwd"),
     "dryrun_stage2": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "dryrun_stage3": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
 })
 
 
@@ -6161,12 +6278,63 @@ def dryrun_stage2_on_card(torch, dryrun, kernels):
     return res, res["launches"]
 
 
+@contextlib.contextmanager
+def plain_flash(attn):
+    """The three flash wrappers' kernels replaced by their plain
+    versions on the operands the route hands them (``run``: padded to
+    the kernel head dim, the true head dim's scale); nothing launches
+    meanwhile."""
+    fns = {
+        attn.flash_fwd: attn.flash_attention_reference,
+        attn.flash_bwd_dq: lambda *a: (attn.flash_attention_dq_reference(
+            *a),),
+        attn.flash_bwd_dkv: attn.flash_attention_dkv_reference,
+    }
+    for kern, fn in fns.items():
+        kern.run = fn
+    try:
+        yield
+    finally:
+        for kern in fns:
+            del kern.run
+
+
+def dryrun_stage3_on_card(torch, attn, dryrun, kernels):
+    """19d: the dryrun's stage 3 on one rank (``stage_pp(1)``: the GPipe
+    toy and the circular PipelinedLM at PIPE_LM's widths, head dim 4,
+    f32) through the kernels, then the same step with the kernels
+    replaced by their plain versions (``plain_flash``): a finite loss,
+    step 1, DRYRUN_STAGE3_PER_STEP launches, the two LM losses within
+    DRYRUN_STAGE3_TOL (relative)."""
+    for kern in kernels:
+        kern.launches = 0
+    out = dryrun.stage_pp(1, "cuda")
+    torch.cuda.synchronize()
+    got = tuple(kern.launches for kern in kernels)
+    with plain_flash(attn):
+        plain = dryrun.stage_pp(1, "cuda")
+    rel = abs(out["lm_loss"] - plain["lm_loss"]) / abs(plain["lm_loss"])
+    res = dict(lm_loss=out["lm_loss"], plain_lm_loss=plain["lm_loss"],
+               lm_loss_rel_err=rel, toy_loss=out["loss"],
+               step=out["step"], mesh=out["mesh"],
+               head_dim=dryrun.PIPE_LM["embed_dim"]
+               // dryrun.PIPE_LM["num_heads"],
+               launches={k.name: k.launches for k in kernels})
+    log("dryrun stage 3 on the card:", json.dumps(res))
+    if (got != DRYRUN_STAGE3_PER_STEP or out["step"] != 1
+            or not math.isfinite(out["lm_loss"])
+            or rel > DRYRUN_STAGE3_TOL):
+        raise AssertionError(f"(d) stage 3 on the card: {res}")
+    return res, res["launches"]
+
+
 def drive_dryrun(torch, train, kernels, report):
     """Phase 19 (the module docstring): (a)-(c) in a one-rank NCCL group
     this function starts and tears down. Returns (report, launches by
     path)."""
     import torch.distributed as dist
 
+    from container_engine_accelerators_tpu_torch.ops import attention
     from container_engine_accelerators_tpu_torch.parallel import (
         distributed,
         dryrun,
@@ -6179,16 +6347,132 @@ def drive_dryrun(torch, train, kernels, report):
                                                     kernels, report)
         stage2, stage2_launches = dryrun_stage2_on_card(torch, dryrun,
                                                         kernels)
+        stage3, stage3_launches = dryrun_stage3_on_card(torch, attention,
+                                                        dryrun, kernels)
     finally:
         dist.destroy_process_group()
     out = dict(one_chip=one_chip, combined=combined, stage2=stage2,
-               phase_s=time.perf_counter() - t0)
+               stage3=stage3, phase_s=time.perf_counter() - t0)
     log(f"combined step: {combined['step_ms_mean']:.2f} ms a step, "
         f"{combined['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{combined['peak_memory_gb']:.2f} GB on {smi_line()}")
     log(f"dryrun phase: {out['phase_s']:.1f} s")
     return out, {"combined_moe": combined_launches,
-                 "dryrun_stage2": stage2_launches}
+                 "dryrun_stage2": stage2_launches,
+                 "dryrun_stage3": stage3_launches}
+
+
+# ---------------------------------------------------------------------
+# Phase 20: head dim 256 at full width (GPT-J-6B's attention: n_embd
+# 4096 over 16 heads; rotary positions; vocab cut to the slice's 32000)
+# through the port's driver and launcher. Depth cut from 28 layers to 4.
+# ---------------------------------------------------------------------
+D256 = dict(vocab_size=32000, embed_dim=4096, num_layers=4, num_heads=16,
+            num_kv_heads=16, pos_embedding="rope", max_seq_len=2048)
+D256_BATCH = 4
+D256_STEPS = 3
+D256_WARMUP = 1
+D256_PROMPT = 24
+D256_NEW = 16
+PATH_KERNELS.update({
+    "d256_training": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "xent_fwd", "xent_bwd"),
+    "d256_serving": ("flash_fwd",),
+})
+
+
+def d256_flags():
+    """D256's widths as flags of both the driver and the launcher."""
+    return ["--vocab-size", str(D256["vocab_size"]),
+            "--embed-dim", str(D256["embed_dim"]),
+            "--num-layers", str(D256["num_layers"]),
+            "--num-heads", str(D256["num_heads"]),
+            "--num-kv-heads", str(D256["num_kv_heads"]),
+            "--pos-embedding", D256["pos_embedding"]]
+
+
+def d256_training(torch, attn, convert, train, kernels):
+    """20a-b: D256_STEPS steps of D256 at S 2048, batch D256_BATCH,
+    through ``train.run`` (``drive``: 4/4/4/1/1 launches a step, a
+    finite loss that falls; step time, tokens/s, peak memory), then
+    the batch-2 kernel step against the plain step at phase 7's
+    limits (``check_plain_step``)."""
+    per_step = (D256["num_layers"],) * 3 + (1, 1)
+    summary, launches, trainer, state = drive(
+        torch, train, kernels,
+        train_argv(D256_STEPS, D256_WARMUP, D256_BATCH) + d256_flags(),
+        per_step, D256_WARMUP)
+    del trainer, state
+    losses, result = summary["losses"], summary["driver_result"]
+    summary["tokens_per_s"] = result["tokens_per_sec"]
+    log("D 256 training:", json.dumps(summary))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) D 256 loss did not fall: {losses}")
+    torch.cuda.empty_cache()
+    plain = check_plain_step(torch, attn, convert, train, extra=d256_flags())
+    return summary, plain, launches
+
+
+def d256_serving(torch, kernels, rng):
+    """20c: the launcher on the dense pool at D256's widths serves one
+    greedy prompt: D256["num_layers"] flash_fwd launches for its one
+    admission, nothing else, and the stream under the near-tie rule
+    against greedy_decode (``stream_divergence``)."""
+    from container_engine_accelerators_tpu_torch.serving import serve
+    argv = (["--model", "transformer", "--model-name", "lm"] + d256_flags()
+            + ["--max-seq-len", str(D256["max_seq_len"]),
+               "--max-new-tokens", str(D256_NEW), "--max-batch", "2",
+               "--seed", str(SEED), "--port=0"])
+    server, launch = launch_deployed(serve, paged=False, argv=argv)
+    engine = server.engine
+    try:
+        if engine.paged:
+            raise AssertionError("CEA_TPU_PAGED_KV=0 built a paged engine")
+        prompt = rng.integers(0, D256["vocab_size"], D256_PROMPT).tolist()
+        prefills0 = engine.prefills
+        for kern in kernels:
+            kern.launches = 0
+        status, body = post(server.port, {"prompts": [prompt],
+                                          "max_new_tokens": D256_NEW})
+        launches = {kern.name: kern.launches for kern in kernels}
+        admissions = engine.prefills - prefills0
+    finally:
+        server.stop()
+    seq = body["sequences"][0] if status == 200 else None
+    diverged = (stream_divergence(torch, engine._model, prompt, D256_NEW,
+                                  seq) if seq else None)
+    out = dict(argv=argv, launch=launch, status=status,
+               admissions=admissions, launches=launches,
+               new_tokens=len(seq) - len(prompt) if seq else 0,
+               diverged=diverged)
+    log("D 256 serving:", json.dumps(out))
+    if (status != 200 or admissions != 1
+            or launches["flash_fwd"] != D256["num_layers"] * admissions
+            or any(n for k, n in launches.items() if k != "flash_fwd")
+            or out["new_tokens"] != D256_NEW
+            or (diverged is not None and not diverged["near_tie"])):
+        raise AssertionError(f"(c) D 256 serving: {out}")
+    del server, engine
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def drive_d256(torch, attn, convert, train, kernels, rng):
+    """Phase 20 (the module docstring). Returns (report, launches by
+    path)."""
+    t0 = time.perf_counter()
+    summary, plain, train_launches = d256_training(torch, attn, convert,
+                                                   train, kernels)
+    serving, serve_launches = d256_serving(torch, kernels, rng)
+    out = dict(config=D256, batch=D256_BATCH, seq=TRAIN_SEQ,
+               cut="28 layers to 4", train=summary, plain_step=plain,
+               serving=serving, phase_s=time.perf_counter() - t0)
+    log(f"D 256 phase: {summary['step_ms_mean']:.2f} ms a step, "
+        f"{summary['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{summary['peak_memory_gb']:.2f} GB; {out['phase_s']:.1f} s on "
+        f"{smi_line()}")
+    return out, {"d256_training": train_launches,
+                 "d256_serving": serve_launches}
 
 
 def main():
@@ -6240,6 +6524,7 @@ def main():
     report["flash_checks"] = check_flash(torch, attention)
     report["flash_bwd_checks"] = check_backward(torch, attention)
     report["bitwise_repeat"] = check_repeat(torch, attention)
+    report["long_sequence"] = check_long_sequence(torch, attention)
     report["xent_checks"] = check_xent(torch, xent)
     widths = [16, 128, 1024, 1920]
     report["flash_times"] = time_flash(torch, attention, widths)
@@ -6249,6 +6534,14 @@ def main():
         d=SPEC_DRAFT["embed_dim"] // MODEL["num_heads"])
     report["train_kernel_times"] = time_training_kernels(torch, attention,
                                                          xent)
+    report["wide_kernel_times"] = time_flash_kernels(
+        torch, attention, 0, torch.Generator(device="cuda").manual_seed(
+            SEED + 7), WIDE_SHAPE)
+    for name, row in report["wide_kernel_times"].items():
+        log("wide kernel time", name, json.dumps(row))
+    report["recorded_ratios"] = recorded_ratios(report)
+    log(f"D <= 128 times over PERF.md's recorded ones: "
+        f"{json.dumps(report['recorded_ratios'])} on {smi}")
     report["image_kernel_times"] = time_image_xent(torch, xent)
 
     # Phase 5: the server at full width.
@@ -6387,6 +6680,10 @@ def main():
     report["dryrun"], dryrun_launches = drive_dryrun(
         torch, train, all_kernels, report)
 
+    # Phase 20: head dim 256 through the driver and the launcher.
+    report["d256"], d256_launches = drive_d256(
+        torch, attention, convert, train, all_kernels, rng)
+
     big = report["flash_times"][-1]
     tk = report["train_kernel_times"]
     ik = report["image_kernel_times"]
@@ -6450,6 +6747,8 @@ def main():
             by_path[path] = counts[name]
         for path, counts in dryrun_launches.items():
             by_path[path] = counts[name]
+        for path, counts in d256_launches.items():
+            by_path[path] = counts[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"{src}{kern.library}.cu",
@@ -6462,6 +6761,11 @@ def main():
         entry["launches_by_path"] = by_path
         if name == "flash_fwd":
             entry.update({f"train_{key}": tk[name][
+                "kernel_ms" if key == "ms" else key] for key in timed})
+        dk = report["wide_kernel_times"]
+        if name in dk:
+            # The flash kernels at head dim 256 (WIDE_SHAPE).
+            entry.update({f"wide_{key}": dk[name][
                 "kernel_ms" if key == "ms" else key] for key in timed})
         wk = report["window"]["kernel_times"]
         if name in wk:
@@ -6526,7 +6830,9 @@ def main():
         f"pipeline phase {report['pipeline']['phase_s']:.1f} s; combined "
         f"(data, context, expert) MoE step "
         f"{report['dryrun']['combined']['step_ms_mean']:.2f} ms, dryrun "
-        f"phase {report['dryrun']['phase_s']:.1f} s; whole run "
+        f"phase {report['dryrun']['phase_s']:.1f} s; D 256 training "
+        f"{report['d256']['train']['step_ms_mean']:.2f} ms a step, D 256 "
+        f"phase {report['d256']['phase_s']:.1f} s; whole run "
         f"{report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

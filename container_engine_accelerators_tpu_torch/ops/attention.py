@@ -32,6 +32,9 @@ takes the plain version (``flash_attention_reference``,
 ``flash_attention_dq_reference``, ``flash_attention_dkv_reference``),
 a CUDA tensor launches ``csrc/flash_fwd.cu`` / ``csrc/flash_bwd.cu``
 or raises. There is no fallback from a kernel to its plain version.
+The kernels take every head dim the plain versions take
+(``head_dim_route``): a head dim that is not a multiple of 8 is
+zero-padded to one, and one above 128 runs the wide kernels.
 
 Each wrapper declares its products (``attention_flops``, over the kept
 pairs) to ``obs.efficiency.count_flops``, which cannot see a kernel:
@@ -42,6 +45,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..obs.efficiency import kernel_flops
 from ..utils import env_number
@@ -52,8 +56,9 @@ from . import _build
 _DEFAULT_BLOCK = env_number("CEA_FLASH_BLOCK", 0, parse=int)
 _NEG = -1e9
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
-_MAX_TILES = 65535  # grid.y limit; 64-row tiles
+# Output columns a block of the wide kernels owns
+# (csrc/flash_grid.cuh's kWideCols).
+_WIDE_COLS = 128
 
 
 def _keep_mask(s, window, device):
@@ -65,11 +70,15 @@ def _keep_mask(s, window, device):
     return keep
 
 
-def _masked_scores(qf, kf, causal, window):
-    """[B, H, S, D] f32 q/k -> [B, H, S, S] f32 scaled scores with the
-    kernels' -1e9 masks."""
+def _scale(d, scale):
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def _masked_scores(qf, kf, causal, window, scale=None):
+    """[B, H, S, D] f32 q/k -> [B, H, S, S] f32 scaled scores (by
+    ``scale``, 1/sqrt(D) by default) with the kernels' -1e9 masks."""
     s, d = qf.shape[2], qf.shape[3]
-    scores = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * _scale(d, scale)
     if causal:
         keep = _keep_mask(s, window, qf.device)
         scores = torch.where(keep, scores, torch.full_like(scores, _NEG))
@@ -80,45 +89,47 @@ def _heads_first(*xs):
     return [x.float().transpose(1, 2) for x in xs]
 
 
-def flash_attention_reference(q, k, v, causal=False, window=0):
+def flash_attention_reference(q, k, v, causal=False, window=0, scale=None):
     """Plain PyTorch version: dense f32 scores with the kernels' -1e9
-    masks. Returns (o [B, S, H, D] in q's dtype, lse [B, S, H] f32)."""
+    masks. Returns (o [B, S, H, D] in q's dtype, lse [B, S, H] f32).
+    ``scale`` (default 1/sqrt(D)) as the kernels take it."""
     qf, kf, vf = _heads_first(q, k, v)
-    scores = _masked_scores(qf, kf, causal, window)
+    scores = _masked_scores(qf, kf, causal, window, scale)
     lse = torch.logsumexp(scores, dim=-1)             # [B, H, S]
     probs = torch.exp(scores - lse[..., None])
     o = torch.matmul(probs, vf).transpose(1, 2)       # [B, S, H, D]
     return o.to(q.dtype), lse.transpose(1, 2).contiguous()
 
 
-def _bwd_terms(q, k, v, do, lse, delta, causal, window):
+def _bwd_terms(q, k, v, do, lse, delta, causal, window, scale=None):
     """The backward's recomputed terms, heads first and in f32:
     (p, ds, qf, kf, dof) with p = exp(s - lse) and
     ds = p * (dO.V^T - delta) * scale (``_dq_step``/``_dkv_step``)."""
     qf, kf, vf, dof = _heads_first(q, k, v, do)
-    scores = _masked_scores(qf, kf, causal, window)
+    scores = _masked_scores(qf, kf, causal, window, scale)
     p = torch.exp(scores - lse.transpose(1, 2)[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta.transpose(1, 2)[..., None]) * (
-        1.0 / math.sqrt(q.shape[3]))
+    ds = p * (dp - delta.transpose(1, 2)[..., None]) * _scale(
+        q.shape[3], scale)
     return p, ds, qf, kf, dof
 
 
 def flash_attention_dq_reference(q, k, v, do, lse, delta, causal=False,
-                                 window=0):
+                                 window=0, scale=None):
     """Plain version of the dQ kernel. q/k/v/do [B, S, H, D], lse and
     delta [B, S, H] f32 (delta = rowsum(dO*O) - g_lse). Returns dQ
     [B, S, H, D] in q's dtype."""
-    _, ds, _, kf, _ = _bwd_terms(q, k, v, do, lse, delta, causal, window)
+    _, ds, _, kf, _ = _bwd_terms(q, k, v, do, lse, delta, causal, window,
+                                 scale)
     return torch.matmul(ds, kf).transpose(1, 2).to(q.dtype)
 
 
 def flash_attention_dkv_reference(q, k, v, do, lse, delta, causal=False,
-                                  window=0):
+                                  window=0, scale=None):
     """Plain version of the dK/dV kernel: (dK, dV) [B, S, H, D] in
     k's and v's dtypes, dV = p^T.dO and dK = ds^T.Q."""
     p, ds, qf, _, dof = _bwd_terms(q, k, v, do, lse, delta, causal,
-                                   window)
+                                   window, scale)
     dv = torch.matmul(p.transpose(-1, -2), dof).transpose(1, 2)
     dk = torch.matmul(ds.transpose(-1, -2), qf).transpose(1, 2)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -167,18 +178,54 @@ def rows_aligned(*xs):
 
 
 def tma_rows(*xs):
-    """The route of the bf16 kernels, passed to every entry point as
-    its ``aligned`` flag. 1 when a TMA tensor map can describe each
-    operand in place: its rows are aligned (``rows_aligned``) and no
-    stepped stride is 0 (a broadcast dim). The forward, dQ and dK/dV
-    then run their Hopper kernels (wgmma, TMA). 0 otherwise (a view
-    whose rows start off 16 bytes, a broadcast): they take their
-    mma.sync kernels, which stage rows with 2-byte loads. No other case
-    reaches an mma.sync kernel, and no failure falls back to one."""
+    """1 when a TMA tensor map can describe each operand in place: its
+    rows are aligned (``rows_aligned``) and no stepped stride is 0 (a
+    broadcast dim); 0 otherwise (a view whose rows start off 16 bytes,
+    a broadcast). ``kernel_route`` reads it."""
     if not rows_aligned(*xs):
         return 0
     return int(all(x.stride(i) for x in xs for i in range(3)
                    if x.shape[i] > 1))
+
+
+def head_dim_route(d):
+    """(kd, chunks) for head dim ``d``: the head dim the kernels run at,
+    d rounded up to a multiple of 8 (the wrappers zero-pad q, k, v and
+    dO to it, pass the true d's scale 1/sqrt(d) and slice the outputs
+    back: zero columns add nothing to a score, and their output columns
+    are dropped), and the 128-column chunks of O, dQ, dK and dV the
+    kernels split over their grid: 1 up to kd 128 (the kernels at DMAX
+    64 and 128), ceil(kd / 128) above (the wide kernels)."""
+    kd = -(-d // 8) * 8
+    return kd, -(-kd // _WIDE_COLS)
+
+
+def kernel_route(kd, *xs):
+    """The one place the route of a launch is decided, passed to every
+    entry point as its ``aligned`` flag, for operands ``xs`` at kernel
+    head dim ``kd`` (``head_dim_route``). f32 runs the FMA kernels
+    whatever the flag. bf16 up to kd 128: ``tma_rows`` (1: the Hopper
+    kernels, wgmma and TMA; 0: the mma.sync kernels, which stage rows
+    with 2-byte loads). Above 128 bf16 runs the wide mma.sync kernels
+    whatever the flag, which is ``rows_aligned`` there (1: they stage
+    rows by 16-byte loads; 0: by 2-byte loads). No failure falls back
+    from one route to another."""
+    return tma_rows(*xs) if kd <= _WIDE_COLS else rows_aligned(*xs)
+
+
+def _padded(kd, *xs):
+    """``xs`` zero-padded on the head dim to ``kd`` (the same tensors
+    when they have it)."""
+    if xs[0].shape[3] == kd:
+        return xs
+    return tuple(F.pad(x, (0, kd - x.shape[3])) for x in xs)
+
+
+def _unpadded(d, *outs):
+    """The first ``d`` head-dim columns of each kernel output,
+    contiguous (the outputs themselves when they have d)."""
+    return tuple(o if o.shape[3] == d else o[..., :d].contiguous()
+                 for o in outs)
 
 
 def _check_tensors(what, tensors):
@@ -195,17 +242,11 @@ def _check_tensors(what, tensors):
             f"{what} takes float32 or bfloat16 operands of one dtype: "
             f"{sorted(map(str, dtypes))}")
     b, s, h, d = first.shape
-    if d > _MAX_HEAD_DIM or d % 8:
-        raise ValueError(
-            f"{what} head dim must be a multiple of 8 up to "
-            f"{_MAX_HEAD_DIM}: {d}")
     for name, x in tensors.items():
         if x.stride(3) != 1 or min(x.stride()) < 0:
             raise ValueError(
                 f"{what} needs {name} with a contiguous head dim and "
                 f"non-negative strides: {x.stride()}")
-    if -(-s // 64) > _MAX_TILES:
-        raise ValueError(f"sequence too long for {what}: {s}")
     return b, s, h, d
 
 
@@ -221,8 +262,8 @@ def _check_rows(what, b, s, h, rows):
 
 class FlashForward(_build.Kernel):
     """The flash-forward kernel's wrapper: checks, allocation, launch
-    and a count of launches. bf16 takes the Hopper kernel, or the
-    mma.sync kernel where ``tma_rows`` is 0; both count here."""
+    and a count of launches. The route (``head_dim_route``,
+    ``kernel_route``) picks the kernel; every one counts here."""
 
     name = library = "flash_fwd"
     symbol = "cea_flash_fwd"
@@ -239,9 +280,18 @@ class FlashForward(_build.Kernel):
             return self.launch(q, k, v, causal, window)
 
     def launch(self, q, k, v, causal, window):
-        """Launch the kernel on CUDA tensors (no device dispatch)."""
-        b, s, h, d = _check_tensors("flash kernel",
-                                    {"q": q, "k": k, "v": v})
+        """Launch the kernel on CUDA tensors (no device dispatch), at
+        any head dim (``head_dim_route``)."""
+        d = _check_tensors("flash kernel", {"q": q, "k": k, "v": v})[3]
+        kd, _ = head_dim_route(d)
+        o, lse = self.run(*_padded(kd, q, k, v), causal, window,
+                          1.0 / math.sqrt(d))
+        return _unpadded(d, o)[0], lse
+
+    def run(self, q, k, v, causal, window, scale):
+        """The kernel on checked operands at a head dim it runs at (a
+        multiple of 8), scores scaled by ``scale``."""
+        b, s, h, d = q.shape
         o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
         if o.numel() == 0:
@@ -249,7 +299,7 @@ class FlashForward(_build.Kernel):
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
                      b, s, h, d, *_strides(q, k, v), int(bool(causal)),
-                     int(window), 1.0 / math.sqrt(d), tma_rows(q, k, v),
+                     int(window), scale, kernel_route(d, q, k, v),
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
         return o, lse
 
@@ -271,12 +321,23 @@ class _FlashBackward(_build.Kernel):
     n_out = 1
 
     def launch(self, q, k, v, do, lse, delta, causal, window):
-        """Launch on CUDA tensors (no device dispatch). Returns the
-        outputs, contiguous [B, S, H, D] in the input dtype."""
+        """Launch on CUDA tensors (no device dispatch), at any head dim
+        (``head_dim_route``). Returns the outputs, contiguous
+        [B, S, H, D] in the input dtype."""
         b, s, h, d = _check_tensors(
             f"{self.name} kernel", {"q": q, "k": k, "v": v, "do": do})
         _check_rows(f"{self.name} kernel", b, s, h,
                     {"lse": lse, "delta": delta})
+        kd, _ = head_dim_route(d)
+        outs = self.run(*_padded(kd, q, k, v, do), lse, delta, causal,
+                        window, 1.0 / math.sqrt(d))
+        return _unpadded(d, *outs)
+
+    def run(self, q, k, v, do, lse, delta, causal, window, scale):
+        """The kernel on checked operands at a head dim it runs at (a
+        multiple of 8), scores scaled by ``scale``: a tuple of its
+        outputs."""
+        b, s, h, d = q.shape
         outs = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                 for _ in range(self.n_out)]
         if q.numel() == 0:
@@ -286,16 +347,15 @@ class _FlashBackward(_build.Kernel):
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      *ptrs, _DTYPE_CODES[q.dtype], b, s, h, d,
                      *_strides(q, k, v, do), int(bool(causal)),
-                     int(window), 1.0 / math.sqrt(d),
-                     tma_rows(q, k, v, do),
+                     int(window), scale, kernel_route(d, q, k, v, do),
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
         return tuple(outs)
 
 
 class FlashBackwardDQ(_FlashBackward):
     """dQ kernel's wrapper (Pallas ``_dq_kernel``/``_dq_kernel_stream``).
-    bf16 takes the Hopper kernel, or the mma.sync kernel where
-    ``tma_rows`` is 0; both count here."""
+    The route (``head_dim_route``, ``kernel_route``) picks the kernel;
+    every one counts here."""
 
     name = "flash_bwd_dq"
     symbol = "cea_flash_bwd_dq"
@@ -310,8 +370,8 @@ class FlashBackwardDQ(_FlashBackward):
 
 class FlashBackwardDKV(_FlashBackward):
     """dK/dV kernel's wrapper (Pallas ``_dkv_kernel``/
-    ``_dkv_kernel_stream``). bf16 takes the Hopper kernel, or the
-    mma.sync kernel where ``tma_rows`` is 0; both count here."""
+    ``_dkv_kernel_stream``). The route (``head_dim_route``,
+    ``kernel_route``) picks the kernel; every one counts here."""
 
     name = "flash_bwd_dkv"
     symbol = "cea_flash_bwd_dkv"

@@ -46,9 +46,17 @@
 // bound is feeding them and the elementwise step between the products
 // (an exp2 a score on the special-function unit).
 //
-// Six kernels, chosen by the role, the input type and (bf16) the rows'
-// alignment. Only wgmma reaches the tensor cores' full rate on this
-// card, so bf16 runs on the Hopper kernels (wgmma + TMA; wgmma_tma.cuh
+// Head dims: the wrapper pads a head dim that is not a multiple of 8
+// to one and passes the true head dim's scale (`head_dim_route`), so
+// `dim` here is a multiple of 8. Up to 128 the six kernels below run
+// at DMAX 64 or 128; above, four wide kernels (after the mma.sync
+// ones) split the outputs' columns into 128-column chunks over grid.y.
+// Row tiles and heads share grid.x (flash_grid.cuh), so no sequence
+// length meets a grid limit.
+//
+// Six kernels up to D 128, chosen by the role, the input type and
+// (bf16) the rows' alignment. Only wgmma reaches the tensor cores' full
+// rate on this card, so bf16 runs on the Hopper kernels (wgmma + TMA; wgmma_tma.cuh
 // has the building blocks) for every input a TMA tensor map can
 // describe (the wrapper's `tma_rows`), and on the mma.sync kernels
 // (mma.m16n8k16 bf16 with f32 accumulators, the helpers of
@@ -83,8 +91,9 @@
 //   dQ stays in f32 registers for the whole loop and is written once.
 // dQ, bf16 rows a tensor map cannot describe (`tma_rows` 0: a view
 //   whose rows start off 16 bytes, a broadcast stride), and no other
-//   case: the mma.sync kernel (`flash_bwd_dq_tc_kernel`): 128-thread
-//   blocks of 4 warps, each warp owning 16 rows of a 64-row Q tile; Q
+//   case up to D 128: the mma.sync kernel (`flash_bwd_dq_tc_kernel`):
+//   128-thread blocks of 4 warps, each warp owning 16 rows of a 64-row
+//   Q tile; Q
 //   and dO staged once and held as A fragments (re-read from shared
 //   memory at each step at DMAX 128), K/V tiles in two buffers (rows
 //   by 2-byte loads); per tile S and dP, then dQ += dS.K with dS as the
@@ -116,8 +125,9 @@
 //   every output keeps one owner block.
 // dK/dV, bf16 rows a tensor map cannot describe (`tma_rows` 0: a view
 //   whose rows start off 16 bytes, a broadcast stride), and no other
-//   case: the mma.sync kernel (`flash_bwd_dkv_tc_kernel`): 128-thread
-//   blocks, one per (batch*head, 64-key tile); K and V staged once (the
+//   case up to D 128: the mma.sync kernel (`flash_bwd_dkv_tc_kernel`):
+//   128-thread blocks, one per (batch*head, 64-key tile); K and V
+//   staged once (the
 //   mma.sync kernels stage rows by 2-byte loads); Q and dO tiles
 //   (64 queries, 32 at D > 64) with their lse and delta rows; per tile
 //   S^T and dP^T, then dV and dK with P^T and dS^T as A fragments from
@@ -141,11 +151,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_grid.cuh"
 #include "mma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
+using cea_grid::kWideCols;
+using cea_grid::Place;
+using cea_grid::place;
 using cea_mma::bf16;
 
 constexpr int kTile = 64;  // rows of the block's own tile and of a partner tile
@@ -197,17 +211,13 @@ __device__ __forceinline__ void stage(float* dst, const float* base,
   }
 }
 
-// acc[a][b] = sum_c x[row(a)][c] * y[col(b)][c] over the first `dim`
+// acc[a][b] += sum_c x[row(a)][c] * y[col(b)][c] over the first `dim`
 // columns: rows ty + 16a of x, rows tx + 16b of y.
 template <int DMAX>
-__device__ __forceinline__ void dot_tile(float (&acc)[kPer][kPer],
-                                         const float* x, const float* y,
-                                         int dim, int ty, int tx) {
+__device__ __forceinline__ void dot_tile_add(float (&acc)[kPer][kPer],
+                                             const float* x, const float* y,
+                                             int dim, int ty, int tx) {
   constexpr int kLd = DMAX + 1;
-#pragma unroll
-  for (int a = 0; a < kPer; ++a)
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) acc[a][b] = 0.f;
 #pragma unroll 4
   for (int c = 0; c < dim; ++c) {
     float xv[kPer], yv[kPer];
@@ -220,6 +230,22 @@ __device__ __forceinline__ void dot_tile(float (&acc)[kPer][kPer],
 #pragma unroll
       for (int b = 0; b < kPer; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
   }
+}
+
+__device__ __forceinline__ void zero_tile(float (&acc)[kPer][kPer]) {
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int b = 0; b < kPer; ++b) acc[a][b] = 0.f;
+}
+
+// acc[a][b] = sum_c x[row(a)][c] * y[col(b)][c] (dot_tile_add from 0).
+template <int DMAX>
+__device__ __forceinline__ void dot_tile(float (&acc)[kPer][kPer],
+                                         const float* x, const float* y,
+                                         int dim, int ty, int tx) {
+  zero_tile(acc);
+  dot_tile_add<DMAX>(acc, x, y, dim, ty, tx);
 }
 
 // out[a][c] += sum_j w[row(a)][j] * y[j][col(c)]: rows ty + 16a of the
@@ -245,11 +271,11 @@ __device__ __forceinline__ void accumulate(float (&out)[kPer][DMAX / kThreadsX],
 }
 
 // Write rows ty + 16a of a tile starting at r0 into a contiguous
-// [B, S, H, D] output.
+// [B, S, H, D] output, columns from c0 on.
 template <int DMAX>
 __device__ __forceinline__ void write_tile(
     void* out, const float (&acc)[kPer][DMAX / kThreadsX], const Params& p,
-    int b, int h, int r0, int ty, int tx) {
+    int b, int h, int r0, int ty, int tx, int c0 = 0) {
   constexpr int kCols = DMAX / kThreadsX;
 #pragma unroll
   for (int a = 0; a < kPer; ++a) {
@@ -260,7 +286,7 @@ __device__ __forceinline__ void write_tile(
     float* dst = static_cast<float*>(out) + row * p.dim;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const int col = tx + kThreadsX * c;
+      const int col = c0 + tx + kThreadsX * c;
       if (col < p.dim) dst[col] = acc[a][c];
     }
   }
@@ -289,9 +315,10 @@ flash_bwd_dq_kernel(const Params p) {
 
   const int tx = threadIdx.x % kThreadsX;
   const int ty = threadIdx.x / kThreadsX;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kTile;
   const int seq = p.seq;
 
   const float* qg =
@@ -370,10 +397,11 @@ flash_bwd_dkv_kernel(const Params p) {
 
   const int tx = threadIdx.x % kThreadsX;
   const int ty = threadIdx.x / kThreadsX;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
   // Causal: the first key tiles see the most queries; run them first.
-  const int k0 = (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * kTile;
+  const int k0 = (p.causal ? pl.rank : pl.tiles - 1 - pl.rank) * kTile;
   const int seq = p.seq;
 
   const float* qg =
@@ -479,9 +507,10 @@ flash_bwd_dq_tc_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kTile;
   const int seq = p.seq;
   const int dim = p.dim;
 
@@ -674,10 +703,11 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
   // Causal: the first key tiles see the most queries; run them first.
-  const int k0 = (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * kTile;
+  const int k0 = (p.causal ? pl.rank : pl.tiles - 1 - pl.rank) * kTile;
   const int seq = p.seq;
   const int dim = p.dim;
 
@@ -826,6 +856,595 @@ flash_bwd_dkv_tc_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kNd; ++j) {
       const int col = j * 8 + 2 * t;
+      if (col >= dim) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dkg + col) =
+          __floats2bfloat162_rn(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvg + col) =
+          __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Head dims above 128: the wide kernels, f32 (FMA) and bf16 (mma.sync).
+//
+// A block owns its 64-row tile and one 128-column chunk of dQ (or of
+// dK and dV; grid.y, flash_grid.cuh). S and dP run over the whole head
+// dim, their operands staged slab by slab (64 columns in f32, 128 in
+// bf16), then the block's products run over its chunk's columns of the
+// partner operand alone (K for dQ; dO and Q for dV and dK). The
+// registers stay those of the D 128 kernels at any D; the price is S
+// and dP computed once a chunk. f32 stages the chunk's partner columns
+// beside the slabs. bf16 visits its own chunk's slab last, so the
+// partner slab then in shared memory is the chunk (the summation order
+// of S differs between chunks, which share nothing), holds the block's
+// own slabs (Q and dO; K and V) for the whole partner loop up to D 512
+// and stages one again a partner tile above, and stages rows by
+// 16-byte loads where every row starts on 16 bytes (the wrapper's
+// flag), by 2-byte loads otherwise. At [4, 2048, 16, 256] causal dQ
+// and dK/dV take about 11x their bounds (PERF.md §6); a wgmma design
+// for D > 128 is future work.
+
+constexpr int kF32Slab = 64;  // columns of a staged f32 slab
+constexpr int kLdS = kF32Slab + 1;
+constexpr int kLdW = kWideCols + 1;
+
+constexpr size_t f32_wide_smem_bytes() {
+  // Four slabs, two chunk tiles, two weight tiles, two rows.
+  return sizeof(float) * (size_t)(4 * kTile * kLdS + 2 * kTile * kLdW +
+                                  2 * kTile * kLdT + 2 * kTile);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32_wide_kernel(const Params p) {
+  constexpr int kCols = kWideCols / kThreadsX;
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // slabs, [kTile][kLdS]
+  float* do_s = q_s + kTile * kLdS;
+  float* k_s = do_s + kTile * kLdS;
+  float* v_s = k_s + kTile * kLdS;
+  float* kc_s = v_s + kTile * kLdS;   // K's chunk, [kTile][kLdW]
+  float* ds_s = kc_s + 2 * kTile * kLdW;  // [kTile][kLdT]
+  float* lse_s = ds_s + 2 * kTile * kLdT;
+  float* delta_s = lse_s + kTile;
+
+  const int tx = threadIdx.x % kThreadsX;
+  const int ty = threadIdx.x / kThreadsX;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kTile;
+  const int c0 = blockIdx.y * kWideCols;  // this block's dQ columns
+  const int seq = p.seq;
+  const int dim = p.dim;
+
+  const float* qg =
+      static_cast<const float*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
+  const float* kg =
+      static_cast<const float*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
+  const float* vg =
+      static_cast<const float*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
+  const float* dog = static_cast<const float*>(p.dout) + b * p.do_stride[0] +
+                     h * p.do_stride[2];
+
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int pos = q0 + r;
+    const long long row = (static_cast<long long>(b) * seq + pos) * p.heads + h;
+    lse_s[r] = pos < seq ? p.lse[row] : 0.f;
+    delta_s[r] = pos < seq ? p.delta[row] : 0.f;
+  }
+
+  // The key range this Q tile sees, as in flash_bwd_dq_kernel.
+  const int q_last = min(q0 + kTile, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+
+  float dq[kPer][kCols];
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dq[a][c] = 0.f;
+
+  for (int kt = k_lo / kTile; kt <= k_hi / kTile; ++kt) {
+    const int k0 = kt * kTile;
+    float s[kPer][kPer], dp[kPer][kPer];
+    zero_tile(s);
+    zero_tile(dp);
+    for (int d0 = 0; d0 < dim; d0 += kF32Slab) {
+      const int w = min(kF32Slab, dim - d0);
+      __syncthreads();  // the last slab's (or tile's) readers are done
+      stage<kF32Slab>(q_s, qg + d0, p.q_stride[1], q0, seq, w);
+      stage<kF32Slab>(do_s, dog + d0, p.do_stride[1], q0, seq, w);
+      stage<kF32Slab>(k_s, kg + d0, p.k_stride[1], k0, seq, w);
+      stage<kF32Slab>(v_s, vg + d0, p.v_stride[1], k0, seq, w);
+      __syncthreads();
+      dot_tile_add<kF32Slab>(s, q_s, k_s, w, ty, tx);
+      dot_tile_add<kF32Slab>(dp, do_s, v_s, w, ty, tx);
+    }
+    stage<kWideCols>(kc_s, kg + c0, p.k_stride[1], k0, seq, dim - c0);
+#pragma unroll
+    for (int a = 0; a < kPer; ++a) {
+      const int r = ty + kThreadsY * a;
+      const int q_pos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = tx + kThreadsX * j;
+        const int k_pos = k0 + c;
+        const bool keep = q_pos < seq && k_pos < seq && sees(p, q_pos, k_pos);
+        const float pr = keep ? expf(s[a][j] * p.scale - lse_s[r]) : 0.f;
+        ds_s[r * kLdT + c] = pr * (dp[a][j] - delta_s[r]) * p.scale;
+      }
+    }
+    __syncthreads();
+    accumulate<kWideCols>(dq, ds_s, kc_s, ty, tx);
+  }
+  write_tile<kWideCols>(p.out0, dq, p, b, h, q0, ty, tx, c0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_f32_wide_kernel(const Params p) {
+  constexpr int kCols = kWideCols / kThreadsX;
+  extern __shared__ float smem[];
+  float* k_s = smem;                  // slabs, [kTile][kLdS]
+  float* v_s = k_s + kTile * kLdS;
+  float* q_s = v_s + kTile * kLdS;
+  float* do_s = q_s + kTile * kLdS;
+  float* qc_s = do_s + kTile * kLdS;  // Q's and dO's chunks, [kTile][kLdW]
+  float* doc_s = qc_s + kTile * kLdW;
+  float* pt_s = doc_s + kTile * kLdW;  // p^T  [key][query]
+  float* dst_s = pt_s + kTile * kLdT;  // ds^T [key][query]
+  float* lse_s = dst_s + kTile * kLdT;
+  float* delta_s = lse_s + kTile;
+
+  const int tx = threadIdx.x % kThreadsX;
+  const int ty = threadIdx.x / kThreadsX;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  // Causal: the first key tiles see the most queries; run them first.
+  const int k0 = (p.causal ? pl.rank : pl.tiles - 1 - pl.rank) * kTile;
+  const int c0 = blockIdx.y * kWideCols;  // this block's dK/dV columns
+  const int seq = p.seq;
+  const int dim = p.dim;
+
+  const float* qg =
+      static_cast<const float*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
+  const float* kg =
+      static_cast<const float*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
+  const float* vg =
+      static_cast<const float*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
+  const float* dog = static_cast<const float*>(p.dout) + b * p.do_stride[0] +
+                     h * p.do_stride[2];
+
+  // The query range that sees this key tile, as in flash_bwd_dkv_kernel.
+  const int k_last = min(k0 + kTile, seq) - 1;
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi =
+      (p.causal && p.window) ? min(seq - 1, k_last + p.window - 1) : seq - 1;
+
+  float dk[kPer][kCols], dv[kPer][kCols];
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dk[a][c] = dv[a][c] = 0.f;
+
+  for (int qt = q_lo / kTile; qt <= q_hi / kTile; ++qt) {
+    const int q0 = qt * kTile;
+    float st[kPer][kPer], dpt[kPer][kPer];
+    zero_tile(st);
+    zero_tile(dpt);
+    for (int d0 = 0; d0 < dim; d0 += kF32Slab) {
+      const int w = min(kF32Slab, dim - d0);
+      __syncthreads();  // the last slab's (or tile's) readers are done
+      stage<kF32Slab>(k_s, kg + d0, p.k_stride[1], k0, seq, w);
+      stage<kF32Slab>(v_s, vg + d0, p.v_stride[1], k0, seq, w);
+      stage<kF32Slab>(q_s, qg + d0, p.q_stride[1], q0, seq, w);
+      stage<kF32Slab>(do_s, dog + d0, p.do_stride[1], q0, seq, w);
+      if (d0 == 0) {
+        for (int r = threadIdx.x; r < kTile; r += kThreads) {
+          const int pos = q0 + r;
+          const long long row =
+              (static_cast<long long>(b) * seq + pos) * p.heads + h;
+          lse_s[r] = pos < seq ? p.lse[row] : 0.f;
+          delta_s[r] = pos < seq ? p.delta[row] : 0.f;
+        }
+      }
+      __syncthreads();
+      // Transposed scores: rows are this block's keys, columns queries.
+      dot_tile_add<kF32Slab>(st, k_s, q_s, w, ty, tx);
+      dot_tile_add<kF32Slab>(dpt, v_s, do_s, w, ty, tx);
+    }
+    stage<kWideCols>(qc_s, qg + c0, p.q_stride[1], q0, seq, dim - c0);
+    stage<kWideCols>(doc_s, dog + c0, p.do_stride[1], q0, seq, dim - c0);
+#pragma unroll
+    for (int a = 0; a < kPer; ++a) {
+      const int r = ty + kThreadsY * a;
+      const int k_pos = k0 + r;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int c = tx + kThreadsX * j;
+        const int q_pos = q0 + c;
+        const bool keep = q_pos < seq && k_pos < seq && sees(p, q_pos, k_pos);
+        const float pr = keep ? expf(st[a][j] * p.scale - lse_s[c]) : 0.f;
+        pt_s[r * kLdT + c] = pr;
+        dst_s[r * kLdT + c] = pr * (dpt[a][j] - delta_s[c]) * p.scale;
+      }
+    }
+    __syncthreads();
+    accumulate<kWideCols>(dv, pt_s, doc_s, ty, tx);
+    accumulate<kWideCols>(dk, dst_s, qc_s, ty, tx);
+  }
+  write_tile<kWideCols>(p.out0, dk, p, b, h, k0, ty, tx, c0);
+  write_tile<kWideCols>(p.out1, dv, p, b, h, k0, ty, tx, c0);
+}
+
+constexpr int kLdWide = kWideCols + 8;  // bf16 slab and chunk rows
+
+size_t dq_wide_tc_smem_bytes(int dim) {
+  // The Q and dO slabs held, a K and a V slab, [kTile][kLdWide] bf16
+  // each.
+  return sizeof(bf16) * (size_t)(2 * cea_grid::held_slabs(dim) + 2) *
+         kTile * kLdWide;
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_wide_tc_kernel(const Params p) {
+  using namespace cea_mma;
+  constexpr int kLd = kLdWide;
+  constexpr int kNb = kTile / 8;      // 8-key blocks of a score tile
+  constexpr int kNd = kWideCols / 8;  // 8-column blocks of the dQ chunk
+  constexpr int kTileSz = kTile * kLd;
+  const int slabs = cea_grid::wide_chunks(p.dim);
+  const bool held = slabs <= cea_grid::kHeldSlabs;  // Q and dO staged once
+  const int n_held = held ? slabs : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [n_held][kTile][kLd]
+  bf16* do_s = q_s + n_held * kTileSz;            // [n_held][kTile][kLd]
+  bf16* k_s = do_s + n_held * kTileSz;            // slabs, [kTile][kLd]
+  bf16* v_s = k_s + kTileSz;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kTile;
+  const int c0 = blockIdx.y * kWideCols;  // this block's dQ columns
+  const int seq = p.seq;
+  const int dim = p.dim;
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
+                   h * p.q_stride[2];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_stride[0] +
+                   h * p.k_stride[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_stride[0] +
+                   h * p.v_stride[2];
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.do_stride[0] +
+                    h * p.do_stride[2];
+
+  // The key range this Q tile sees, as in flash_bwd_dq_kernel.
+  const int q_last = min(q0 + kTile, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+
+  // This lane's rows row0 and row0 + 8: lse in log2 units, and delta.
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = row0 + 8 * i;
+    const long long row =
+        (static_cast<long long>(b) * seq + pos) * p.heads + h;
+    lse2[i] = pos < seq ? p.lse[row] * kLog2e : 0.f;
+    delta[i] = pos < seq ? p.delta[row] : 0.f;
+  }
+
+  const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+  if (held) {  // published by the K loop's first barrier
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int d0 = sl * kWideCols;
+      stage_rows_by<kTile, kWideCols, kTcThreads>(
+          p.aligned, q_s + sl * kTileSz, qg + d0, p.q_stride[1], q0, seq,
+          dim - d0);
+      stage_rows_by<kTile, kWideCols, kTcThreads>(
+          p.aligned, do_s + sl * kTileSz, dog + d0, p.do_stride[1], q0, seq,
+          dim - d0);
+    }
+  }
+  float dq[kNd][4];
+#pragma unroll
+  for (int j = 0; j < kNd; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int kt = k_lo / kTile; kt <= k_hi / kTile; ++kt) {
+    const int k0 = kt * kTile;
+    // S = Q.K^T and dP = dO.V^T for this warp's 16 rows, slab by slab.
+    float s[kNb][4], dp[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // The slabs in turn, this block's chunk last: its K slab is then
+    // the K chunk of the dQ product.
+    for (int i = 1; i <= slabs; ++i) {
+      const int sl = (blockIdx.y + i) % slabs;
+      const int d0 = sl * kWideCols;
+      __syncthreads();  // the last slab's (or tile's) readers are done
+      if (!held) {
+        stage_rows_by<kTile, kWideCols, kTcThreads>(
+            p.aligned, q_s, qg + d0, p.q_stride[1], q0, seq, dim - d0);
+        stage_rows_by<kTile, kWideCols, kTcThreads>(
+            p.aligned, do_s, dog + d0, p.do_stride[1], q0, seq, dim - d0);
+      }
+      stage_rows_by<kTile, kWideCols, kTcThreads>(
+          p.aligned, k_s, kg + d0, p.k_stride[1], k0, seq, dim - d0);
+      stage_rows_by<kTile, kWideCols, kTcThreads>(
+          p.aligned, v_s, vg + d0, p.v_stride[1], k0, seq, dim - d0);
+      __syncthreads();
+      // This warp's Q and dO rows of the slab.
+      const int own = ((held ? sl : 0) * kTile + warp * 16) * kLd;
+      const bf16* qw = q_s + own;
+      const bf16* dow = do_s + own;
+      const int steps = (min(kWideCols, dim - d0) + 15) / 16;
+      for (int ks = 0; ks < steps; ++ks) {
+        uint32_t qa[4], da[4];
+        load_a(qa, qw, kLd, ks * 16, lane);
+        load_a(da, dow, kLd, ks * 16, lane);
+#pragma unroll
+        for (int j = 0; j < kNb; j += 2) {
+          uint32_t bk[4], bv[4];
+          load_b_rows(bk, k_s, kLd, j * 8, ks * 16, lane);
+          load_b_rows(bv, v_s, kLd, j * 8, ks * 16, lane);
+          mma(s[j], qa, bk[0], bk[1]);
+          mma(s[j + 1], qa, bk[2], bk[3]);
+          mma(dp[j], da, bv[0], bv[1]);
+          mma(dp[j + 1], da, bv[2], bv[3]);
+        }
+      }
+    }
+    // P and dS on the fragments, as in flash_bwd_dq_tc_kernel.
+    const bool masked =
+        k0 + kTile > seq ||
+        (p.causal && (k0 + kTile - 1 > q0 ||
+                      (p.window && k0 <= q0 + kTile - 1 - p.window)));
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr = exp2f(fmaf(s[j][e], scale2, -lse2[i]));
+        if (masked) {
+          const int q_pos = row0 + 8 * i;
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          bool keep = k_pos < seq;
+          if (p.causal) {
+            keep = keep && q_pos >= k_pos;
+            if (p.window) keep = keep && k_pos > q_pos - p.window;
+          }
+          pr = keep ? pr : 0.f;
+        }
+        s[j][e] = pr * (dp[j][e] - delta[i]) * p.scale;
+      }
+
+    // dQ += dS.K over the chunk, dS in bf16 as the A operand.
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * ks], s[2 * ks + 1]);
+#pragma unroll
+      for (int j = 0; j < kNd; j += 2) {
+        uint32_t bk[4];
+        load_b_cols(bk, k_s, kLd, ks * 16, j * 8, lane);
+        mma(dq[j], a, bk[0], bk[1]);
+        mma(dq[j + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = row0 + 8 * i;
+    if (pos >= seq) continue;
+    bf16* dqg = static_cast<bf16*>(p.out0) +
+                ((static_cast<long long>(b) * seq + pos) * p.heads + h) * dim;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int col = c0 + j * 8 + 2 * t;
+      if (col < dim)
+        *reinterpret_cast<__nv_bfloat162*>(dqg + col) =
+            __floats2bfloat162_rn(dq[j][2 * i], dq[j][2 * i + 1]);
+    }
+  }
+}
+
+constexpr int kQWide = 32;  // queries a partner tile (dK/dV, bf16)
+
+size_t dkv_wide_tc_smem_bytes(int dim) {
+  // The K and V slabs held and a Q and a dO slab, in bf16; lse and
+  // delta rows in f32.
+  return sizeof(bf16) *
+             (size_t)(2 * cea_grid::held_slabs(dim) * kTile + 2 * kQWide) *
+             kLdWide +
+         sizeof(float) * 2 * kQWide;
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_wide_tc_kernel(const Params p) {
+  using namespace cea_mma;
+  constexpr int kQ = kQWide;
+  constexpr int kLd = kLdWide;
+  constexpr int kNb = kQ / 8;         // 8-query blocks of a score tile
+  constexpr int kNd = kWideCols / 8;  // 8-column blocks of dK, dV chunks
+  constexpr int kTileSz = kTile * kLd;
+  const int slabs = cea_grid::wide_chunks(p.dim);
+  const bool held = slabs <= cea_grid::kHeldSlabs;  // K and V staged once
+  const int n_held = held ? slabs : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [n_held][kTile][kLd]
+  bf16* v_s = k_s + n_held * kTileSz;             // [n_held][kTile][kLd]
+  bf16* q_s = v_s + n_held * kTileSz;             // slabs, [kQ][kLd]
+  bf16* do_s = q_s + kQ * kLd;
+  float* lse_s = reinterpret_cast<float*>(do_s + kQ * kLd);  // [kQ]
+  float* delta_s = lse_s + kQ;                                // [kQ]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  // Causal: the first key tiles see the most queries; run them first.
+  const int k0 = (p.causal ? pl.rank : pl.tiles - 1 - pl.rank) * kTile;
+  const int c0 = blockIdx.y * kWideCols;  // this block's dK/dV columns
+  const int seq = p.seq;
+  const int dim = p.dim;
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
+                   h * p.q_stride[2];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_stride[0] +
+                   h * p.k_stride[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_stride[0] +
+                   h * p.v_stride[2];
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.do_stride[0] +
+                    h * p.do_stride[2];
+
+  // The query range that sees this key tile, as in the f32 kernel.
+  const int k_last = min(k0 + kTile, seq) - 1;
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi =
+      (p.causal && p.window) ? min(seq - 1, k_last + p.window - 1) : seq - 1;
+
+  const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+  const int key0 = k0 + warp * 16 + g;     // this lane's keys: key0, key0 + 8
+  if (held) {  // published by the Q loop's first barrier
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int d0 = sl * kWideCols;
+      stage_rows_by<kTile, kWideCols, kTcThreads>(
+          p.aligned, k_s + sl * kTileSz, kg + d0, p.k_stride[1], k0, seq,
+          dim - d0);
+      stage_rows_by<kTile, kWideCols, kTcThreads>(
+          p.aligned, v_s + sl * kTileSz, vg + d0, p.v_stride[1], k0, seq,
+          dim - d0);
+    }
+  }
+  float dk[kNd][4], dv[kNd][4];
+#pragma unroll
+  for (int j = 0; j < kNd; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int qt = q_lo / kQ; qt <= q_hi / kQ; ++qt) {
+    const int q0 = qt * kQ;
+    // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 keys, slab by
+    // slab.
+    float st[kNb][4], dpt[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    // The slabs in turn, this block's chunk last: its Q and dO slabs
+    // are then the chunks of the dK and dV products.
+    for (int i = 1; i <= slabs; ++i) {
+      const int sl = (blockIdx.y + i) % slabs;
+      const int d0 = sl * kWideCols;
+      __syncthreads();  // the last slab's (or tile's) readers are done
+      if (!held) {
+        stage_rows_by<kTile, kWideCols, kTcThreads>(
+            p.aligned, k_s, kg + d0, p.k_stride[1], k0, seq, dim - d0);
+        stage_rows_by<kTile, kWideCols, kTcThreads>(
+            p.aligned, v_s, vg + d0, p.v_stride[1], k0, seq, dim - d0);
+      }
+      stage_rows_by<kQ, kWideCols, kTcThreads>(
+          p.aligned, q_s, qg + d0, p.q_stride[1], q0, seq, dim - d0);
+      stage_rows_by<kQ, kWideCols, kTcThreads>(
+          p.aligned, do_s, dog + d0, p.do_stride[1], q0, seq, dim - d0);
+      if (i == 1) {
+        for (int r = threadIdx.x; r < kQ; r += kTcThreads) {
+          const int pos = q0 + r;
+          const long long row =
+              (static_cast<long long>(b) * seq + pos) * p.heads + h;
+          lse_s[r] = pos < seq ? p.lse[row] : 0.f;
+          delta_s[r] = pos < seq ? p.delta[row] : 0.f;
+        }
+      }
+      __syncthreads();
+      // This warp's K and V rows of the slab.
+      const int own = ((held ? sl : 0) * kTile + warp * 16) * kLd;
+      const bf16* kw = k_s + own;
+      const bf16* vw = v_s + own;
+      const int steps = (min(kWideCols, dim - d0) + 15) / 16;
+      for (int ks = 0; ks < steps; ++ks) {
+        uint32_t ka[4], va[4];
+        load_a(ka, kw, kLd, ks * 16, lane);
+        load_a(va, vw, kLd, ks * 16, lane);
+#pragma unroll
+        for (int j = 0; j < kNb; j += 2) {
+          uint32_t bq[4], bd[4];
+          load_b_rows(bq, q_s, kLd, j * 8, ks * 16, lane);
+          load_b_rows(bd, do_s, kLd, j * 8, ks * 16, lane);
+          mma(st[j], ka, bq[0], bq[1]);
+          mma(st[j + 1], ka, bq[2], bq[3]);
+          mma(dpt[j], va, bd[0], bd[1]);
+          mma(dpt[j + 1], va, bd[2], bd[3]);
+        }
+      }
+    }
+
+    // P^T and dS^T on the fragments, as in flash_bwd_dkv_tc_kernel.
+    const bool masked =
+        q0 + kQ > seq || k0 + kTile > seq ||
+        (p.causal && (q0 < k0 + kTile - 1 ||
+                      (p.window && k0 <= q0 + kQ - 1 - p.window)));
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        float pr = exp2f(fmaf(st[j][e], scale2, -lse_s[c] * kLog2e));
+        if (masked) {
+          const int q_pos = q0 + c;
+          const int k_pos = key0 + (e >> 1) * 8;
+          bool keep = q_pos < seq && k_pos < seq;
+          if (p.causal) {
+            keep = keep && q_pos >= k_pos;
+            if (p.window) keep = keep && k_pos > q_pos - p.window;
+          }
+          pr = keep ? pr : 0.f;
+        }
+        st[j][e] = pr;
+        dpt[j][e] = pr * (dpt[j][e] - delta_s[c]) * p.scale;
+      }
+
+    // dV += P^T.dO and dK += dS^T.Q over the chunks, 16 queries a step.
+#pragma unroll
+    for (int ks = 0; ks < kQ / 16; ++ks) {
+      uint32_t pa[4], da[4];
+      c_to_a(pa, st[2 * ks], st[2 * ks + 1]);
+      c_to_a(da, dpt[2 * ks], dpt[2 * ks + 1]);
+#pragma unroll
+      for (int j = 0; j < kNd; j += 2) {
+        uint32_t bd[4], bq[4];
+        load_b_cols(bd, do_s, kLd, ks * 16, j * 8, lane);
+        load_b_cols(bq, q_s, kLd, ks * 16, j * 8, lane);
+        mma(dv[j], pa, bd[0], bd[1]);
+        mma(dv[j + 1], pa, bd[2], bd[3]);
+        mma(dk[j], da, bq[0], bq[1]);
+        mma(dk[j + 1], da, bq[2], bq[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = key0 + 8 * i;
+    if (pos >= seq) continue;
+    const long long off =
+        ((static_cast<long long>(b) * seq + pos) * p.heads + h) * dim;
+    bf16* dkg = static_cast<bf16*>(p.out0) + off;
+    bf16* dvg = static_cast<bf16*>(p.out1) + off;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int col = c0 + j * 8 + 2 * t;
       if (col >= dim) continue;
       *reinterpret_cast<__nv_bfloat162*>(dkg + col) =
           __floats2bfloat162_rn(dk[j][2 * i], dk[j][2 * i + 1]);
@@ -1000,11 +1619,12 @@ flash_bwd_dkv_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   uint64_t* empty = full + kStages;
 
   const Params& p = tp.p;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
+  const Place pl = place(p.batch, p.heads, p.seq, C::kKeys);
+  const int b = pl.b;
+  const int h = pl.h;
   // Causal: the first key tiles see the most queries; run them first.
   const int k0 =
-      (p.causal ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * C::kKeys;
+      (p.causal ? pl.rank : pl.tiles - 1 - pl.rank) * C::kKeys;
   const int seq = p.seq;
   // The query range that sees the block's keys, as in the f32 kernel.
   const int k_last = min(k0 + C::kKeys, seq) - 1;
@@ -1214,7 +1834,9 @@ cudaError_t launch_dkv_wg_n(const Params& p, cudaStream_t stream) {
                                   keys ? C::kKeys : C::kQ);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(p.batch * p.heads, (p.seq + C::kKeys - 1) / C::kKeys);
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, C::kKeys, 1, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, C::kThreads, smem, stream>>>(tp);
   return cudaGetLastError();
 }
@@ -1366,10 +1988,11 @@ flash_bwd_dq_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   uint64_t* empty = full + kStages;  // [kStages]: every consumer done
 
   const Params& p = tp.p;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
+  const Place pl = place(p.batch, p.heads, p.seq, C::kRowsQ);
+  const int b = pl.b;
+  const int h = pl.h;
   // Causal: the last Q tiles see the most keys; run them first.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRowsQ;
+  const int q0 = (pl.tiles - 1 - pl.rank) * C::kRowsQ;
   const int seq = p.seq;
   // The key range the block's Q tile sees, as in the f32 kernel.
   const int q_last = min(q0 + C::kRowsQ, seq) - 1;
@@ -1575,7 +2198,9 @@ cudaError_t launch_dq_wg_n(const Params& p, cudaStream_t stream) {
                                   keys ? kTile : C::kRowsQ);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(p.batch * p.heads, (p.seq + C::kRowsQ - 1) / C::kRowsQ);
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, C::kRowsQ, 1, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, C::kThreads, smem, stream>>>(tp);
   return cudaGetLastError();
 }
@@ -1598,14 +2223,18 @@ cudaError_t launch_dq_wg(const Params& p, cudaStream_t stream) {
                       : launch_dq_wg_n<DMAX, 1>(p, stream);
 }
 
+// 64-row tiles over every head, and `chunks` column chunks (the wide
+// kernels; 1 otherwise).
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Params& p, size_t smem, int threads,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int chunks = 1) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.batch * p.heads, (p.seq + kTile - 1) / kTile);
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, kTile, chunks, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -1628,6 +2257,26 @@ cudaError_t dispatch(const Params& p, int dtype, bool dkv,
                         DkvTc<DMAX>::smem_bytes(), kTcThreads, stream)
                : launch(flash_bwd_dq_tc_kernel<DMAX>, p,
                         DqTc<DMAX>::smem_bytes(), kTcThreads, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Head dims above 128: the wide kernels, bf16 on mma.sync whatever the
+// rows' alignment (which picks 16-byte or 2-byte staging).
+cudaError_t dispatch_wide(const Params& p, int dtype, bool dkv,
+                          cudaStream_t stream) {
+  const int chunks = cea_grid::wide_chunks(p.dim);
+  if (dtype == 0)
+    return dkv ? launch(flash_bwd_dkv_f32_wide_kernel, p,
+                        f32_wide_smem_bytes(), kThreads, stream, chunks)
+               : launch(flash_bwd_dq_f32_wide_kernel, p,
+                        f32_wide_smem_bytes(), kThreads, stream, chunks);
+  if (dtype == 1)
+    return dkv ? launch(flash_bwd_dkv_wide_tc_kernel, p,
+                        dkv_wide_tc_smem_bytes(p.dim), kTcThreads, stream,
+                        chunks)
+               : launch(flash_bwd_dq_wide_tc_kernel, p,
+                        dq_wide_tc_smem_bytes(p.dim), kTcThreads, stream,
+                        chunks);
   return cudaErrorInvalidValue;
 }
 
@@ -1660,6 +2309,8 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   p.scale = scale;
   p.aligned = aligned;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim > kWideCols)
+    return static_cast<int>(dispatch_wide(p, dtype, dkv, st));
   return static_cast<int>(dim > 64 ? dispatch<128>(p, dtype, dkv, st)
                                    : dispatch<64>(p, dtype, dkv, st));
 }
@@ -1667,15 +2318,17 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Both entry points: dtype 0 = float32, 1 = bfloat16; strides in
-// elements, (batch, seq, head) for q, k, v, dO in that order; aligned
-// = 1 when a TMA tensor map can read q, k, v and dO in place (16-byte
-// base, every stepped stride a nonzero multiple of 16 bytes): bf16
-// dQ and dK/dV take the Hopper kernels; 0: the mma.sync kernels with
-// 2-byte loads. Return
-// the cudaError_t of the launch (0 = success); the caller raises on
-// anything else. The wrapper has checked shapes, types, the head dim
-// (<= 128, multiple of 8) and that it is contiguous, and that lse and
-// delta are contiguous [B, S, H] f32.
+// elements, (batch, seq, head) for q, k, v, dO in that order. Up to
+// head dim 128, aligned = 1 when a TMA tensor map can read q, k, v and
+// dO in place (16-byte base, every stepped stride a nonzero multiple
+// of 16 bytes): bf16 dQ and dK/dV take the Hopper kernels; 0: the
+// mma.sync kernels with 2-byte loads. Above 128, the wide kernels, and
+// aligned = 1 when every row starts on 16 bytes (16-byte staging).
+// Return the cudaError_t of the launch (0 = success); the caller
+// raises on anything else. The wrapper has checked shapes, types, that
+// the head dim is contiguous and that lse and delta are contiguous
+// [B, S, H] f32, and hands over a head dim that is a multiple of 8
+// (any, padded) with the true head dim's scale.
 #define CEA_BWD_ARGS                                                         \
   const void *q, const void *k, const void *v, const void *dout,             \
       const void *lse, const void *delta, void *out0, void *out1, int dtype, \

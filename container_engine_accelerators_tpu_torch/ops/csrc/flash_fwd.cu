@@ -39,7 +39,16 @@
 // kernel from it is feeding the tensor cores and the softmax between
 // the two products (an exp2 a score on the special-function unit).
 //
-// Three kernels, chosen by the input type and the rows' alignment:
+// Head dims: the wrapper pads a head dim that is not a multiple of 8
+// to one and passes the true head dim's scale (`head_dim_route`), so
+// `dim` here is a multiple of 8. Up to 128 the kernels below run at
+// DMAX 64 or 128; above, the wide kernels (at the end of this file)
+// split O's columns into 128-column chunks over grid.y. Row tiles and
+// heads share grid.x (flash_grid.cuh), so no sequence length meets a
+// grid limit.
+//
+// Five kernels, chosen by the input type, the head dim and the rows'
+// alignment (the wrapper's `kernel_route`):
 //
 // bf16, the Hopper kernel (`flash_fwd_wgmma_tc_kernel`, for every
 // input a TMA tensor map can describe: the wrapper's `tma_rows`). Only
@@ -76,7 +85,10 @@
 // kernel (`flash_fwd_tc_kernel`, FlashAttention-2's shape): 4 warps
 // per 64-row Q tile, K/V tiles staged by 2-byte loads into padded
 // shared memory (mma_bf16.cuh), S and P.V by mma.m16n8k16. No other
-// case reaches it.
+// case up to D 128 reaches it.
+//
+// Above D 128: `flash_fwd_wide_tc_kernel` (bf16, mma.sync, whatever
+// the rows) and `flash_fwd_f32_wide_kernel` (f32, FMA).
 //
 // f32, the exact FMA kernel (`flash_fwd_f32_kernel`): the tensor cores
 // would round f32 inputs to TF32 (10-bit mantissa), outside the f32
@@ -92,11 +104,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_grid.cuh"
 #include "mma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
+using cea_grid::kWideCols;
+using cea_grid::Place;
+using cea_grid::place;
 using cea_mma::bf16;
 
 constexpr int kBlockQ = 64;   // query rows per block
@@ -162,9 +178,10 @@ flash_fwd_f32_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int tx = tid % kThreadsX;
   const int ty = tid / kThreadsX;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const Place pl = place(p.batch, p.heads, p.seq, kBlockQ);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kBlockQ;
   const int seq = p.seq;
   const int dim = p.dim;
 
@@ -323,9 +340,10 @@ flash_fwd_tc_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const Place pl = place(p.batch, p.heads, p.seq, kBlockQ);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kBlockQ;
   const int seq = p.seq;
   const int dim = p.dim;
 
@@ -628,9 +646,10 @@ flash_fwd_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   uint64_t* empty = full + kStages;  // [kStages]: every consumer done
 
   const Params& p = tp.p;
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRowsQ;
+  const Place pl = place(p.batch, p.heads, p.seq, C::kRowsQ);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * C::kRowsQ;
   const int seq = p.seq;
   // The key range the block's Q tile sees, as in the other kernels.
   const int q_last = min(q0 + C::kRowsQ, seq) - 1;
@@ -820,6 +839,382 @@ flash_fwd_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   }
 }
 
+// ---------------------------------------------------------------------
+// Head dims above 128: the wide kernels, f32 (FMA) and bf16 (mma.sync).
+//
+// A block owns 64 query rows and one 128-column chunk of O (grid.y;
+// flash_grid.cuh). S = Q.K^T runs over the whole head dim, Q and K
+// staged slab by slab (64 columns in f32, 128 in bf16), then P.V runs
+// over the chunk's V columns alone. The registers stay those of the D
+// 128 kernels at any D; the price is S computed once a chunk
+// (ceil(D / 128) times). Every chunk's block computes S in the same
+// order, so m and the row sums are bitwise equal across the chunks,
+// and chunk 0 writes lse. bf16 holds the block's Q slabs for the whole
+// K loop up to D 512 and stages one again a K tile above; it stages
+// rows by 16-byte loads where every row starts on 16 bytes (the
+// wrapper's flag), by 2-byte loads otherwise. At [4, 2048, 16, 256]
+// causal it takes about 8x its bound (PERF.md §6); a wgmma design for
+// D > 128 is future work.
+
+constexpr int kF32Slab = 64;  // Q/K columns staged at a time (f32)
+
+constexpr size_t f32_wide_smem_bytes() {
+  // Q and K slabs, the V chunk and P.
+  return sizeof(float) * (size_t)(2 * kBlockK * (kF32Slab + 1) +
+                                  kBlockK * (kWideCols + 1) +
+                                  kBlockQ * (kBlockK + 1));
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32_wide_kernel(const Params p) {
+  constexpr int kLdS = kF32Slab + 1;
+  constexpr int kLdV = kWideCols + 1;
+  constexpr int kCols = kWideCols / kThreadsX;
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // [kBlockQ][kLdS]
+  float* k_s = q_s + kBlockQ * kLdS;  // [kBlockK][kLdS]
+  float* v_s = k_s + kBlockK * kLdS;  // [kBlockK][kLdV]
+  float* p_s = v_s + kBlockK * kLdV;  // [kBlockQ][kBlockK + 1]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kThreadsX;
+  const int ty = tid / kThreadsX;
+  const Place pl = place(p.batch, p.heads, p.seq, kBlockQ);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kBlockQ;
+  const int c0 = blockIdx.y * kWideCols;  // this block's O columns
+  const int seq = p.seq;
+  const int dim = p.dim;
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_stride[0] +
+                    h * p.q_stride[2];
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_stride[0] +
+                    h * p.k_stride[2];
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_stride[0] +
+                    h * p.v_stride[2];
+
+  // The key range, as in flash_fwd_f32_kernel.
+  const int q_last = min(q0 + kBlockQ, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+
+  float m[kRowsPerThread], den[kRowsPerThread];
+  float acc[kRowsPerThread][kCols];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    m[i] = kNeg;
+    den[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = k_lo / kBlockK; kt <= k_hi / kBlockK; ++kt) {
+    const int k0 = kt * kBlockK;
+    float s[kRowsPerThread][kKeysPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeysPerThread; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < dim; d0 += kF32Slab) {
+      const int w = min(kF32Slab, dim - d0);
+      __syncthreads();  // the last slab's (or tile's) readers are done
+      for (int i = tid; i < kBlockK * kF32Slab; i += kThreads) {
+        const int r = i / kF32Slab, c = i % kF32Slab;
+        const int q_pos = q0 + r, k_pos = k0 + r;
+        q_s[r * kLdS + c] = (q_pos < seq && c < w)
+                                ? qg[q_pos * p.q_stride[1] + d0 + c]
+                                : 0.f;
+        k_s[r * kLdS + c] = (k_pos < seq && c < w)
+                                ? kg[k_pos * p.k_stride[1] + d0 + c]
+                                : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < w; ++c) {
+        float qv[kRowsPerThread], kv[kKeysPerThread];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+          qv[i] = q_s[(ty + kThreadsY * i) * kLdS + c];
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; ++j)
+          kv[j] = k_s[(tx + kThreadsX * j) * kLdS + c];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+          for (int j = 0; j < kKeysPerThread; ++j)
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+    // This tile's V chunk (its last readers were done before the slab
+    // loop's first barrier; the barrier after P publishes it).
+    for (int i = tid; i < kBlockK * kWideCols; i += kThreads) {
+      const int r = i / kWideCols, c = i % kWideCols;
+      const int pos = k0 + r;
+      v_s[r * kLdV + c] = (pos < seq && c0 + c < dim)
+                              ? vg[pos * p.v_stride[1] + c0 + c]
+                              : 0.f;
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = ty + kThreadsY * i;
+      const int q_pos = q0 + r;
+      float block_max = kNeg;
+#pragma unroll
+      for (int j = 0; j < kKeysPerThread; ++j) {
+        const int k_pos = k0 + tx + kThreadsX * j;
+        bool keep = k_pos < seq;
+        if (p.causal) {
+          keep = keep && q_pos >= k_pos;
+          if (p.window) keep = keep && k_pos > q_pos - p.window;
+        }
+        s[i][j] = keep ? s[i][j] * p.scale : kNeg;
+        block_max = fmaxf(block_max, s[i][j]);
+      }
+      const float new_m = fmaxf(m[i], row_max(block_max));
+      const float corr = expf(m[i] - new_m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeysPerThread; ++j) {
+        const float e = expf(s[i][j] - new_m);
+        p_s[r * (kBlockK + 1) + tx + kThreadsX * j] = e;
+        sum += e;
+      }
+      den[i] = den[i] * corr + row_sum(sum);
+      m[i] = new_m;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      float pv[kRowsPerThread], vv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        pv[i] = p_s[(ty + kThreadsY * i) * (kBlockK + 1) + j];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        vv[c] = v_s[j * kLdV + tx + kThreadsX * c];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int q_pos = q0 + ty + kThreadsY * i;
+    if (q_pos >= seq) continue;
+    const long long row =
+        (static_cast<long long>(b) * seq + q_pos) * p.heads + h;
+    float* og = static_cast<float*>(p.o) + row * dim;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + tx + kThreadsX * c;
+      if (col < dim) og[col] = acc[i][c] / den[i];
+    }
+    if (tx == 0 && blockIdx.y == 0) p.lse[row] = m[i] + logf(den[i]);
+  }
+}
+
+size_t tc_wide_smem_bytes(int dim) {
+  // The Q slabs held, a K slab and the V chunk, [64][kWideCols + 8]
+  // bf16 each.
+  return sizeof(bf16) *
+         (size_t)(cea_grid::held_slabs(dim) * kBlockQ + 2 * kBlockK) *
+         (kWideCols + 8);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_wide_tc_kernel(const Params p) {
+  using namespace cea_mma;
+  constexpr int kLd = kWideCols + 8;
+  constexpr int kNb = kBlockK / 8;    // 8-key blocks of a score tile
+  constexpr int kNd = kWideCols / 8;  // 8-column blocks of the O chunk
+  const int slabs = cea_grid::wide_chunks(p.dim);
+  const bool held = slabs <= cea_grid::kHeldSlabs;  // Q staged once
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [slabs or 1][kBlockQ][kLd]
+  bf16* k_s = q_s + (held ? slabs : 1) * kBlockQ * kLd;  // [kBlockK][kLd]
+  bf16* v_s = k_s + kBlockK * kLd;                        // [kBlockK][kLd]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Place pl = place(p.batch, p.heads, p.seq, kBlockQ);
+  const int b = pl.b;
+  const int h = pl.h;
+  const int q0 = (pl.tiles - 1 - pl.rank) * kBlockQ;
+  const int c0 = blockIdx.y * kWideCols;  // this block's O columns
+  const int seq = p.seq;
+  const int dim = p.dim;
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_stride[0] +
+                   h * p.q_stride[2];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_stride[0] +
+                   h * p.k_stride[2];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_stride[0] +
+                   h * p.v_stride[2];
+
+  // The key range, as in the f32 kernel.
+  const int q_last = min(q0 + kBlockQ, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+
+  // Scores in log2 units, as in flash_fwd_tc_kernel.
+  const float scale2 = p.scale * kLog2e;
+  const float neg2 = kNeg * kLog2e;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  if (held) {  // published by the K loop's first barrier
+    for (int sl = 0; sl < slabs; ++sl)
+      stage_rows_by<kBlockQ, kWideCols, kTcThreads>(
+          p.aligned, q_s + sl * kBlockQ * kLd, qg + sl * kWideCols,
+          p.q_stride[1], q0, seq, dim - sl * kWideCols);
+  }
+  float o[kNd][4];
+  float m[2] = {neg2, neg2};
+  float den[2] = {0.f, 0.f};  // this lane's share of the row sums
+#pragma unroll
+  for (int j = 0; j < kNd; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int kt = k_lo / kBlockK; kt <= k_hi / kBlockK; ++kt) {
+    const int k0 = kt * kBlockK;
+    float s[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int d0 = sl * kWideCols;
+      __syncthreads();  // the last slab's (or tile's) readers are done
+      if (!held)
+        stage_rows_by<kBlockQ, kWideCols, kTcThreads>(
+            p.aligned, q_s, qg + d0, p.q_stride[1], q0, seq, dim - d0);
+      stage_rows_by<kBlockK, kWideCols, kTcThreads>(
+          p.aligned, k_s, kg + d0, p.k_stride[1], k0, seq, dim - d0);
+      __syncthreads();
+      const bf16* qw = q_s + ((held ? sl : 0) * kBlockQ + warp * 16) * kLd;
+      const int steps = (min(kWideCols, dim - d0) + 15) / 16;
+      for (int ks = 0; ks < steps; ++ks) {
+        uint32_t qa[4];
+        load_a(qa, qw, kLd, ks * 16, lane);
+#pragma unroll
+        for (int j = 0; j < kNb; j += 2) {
+          uint32_t bk[4];
+          load_b_rows(bk, k_s, kLd, j * 8, ks * 16, lane);
+          mma(s[j], qa, bk[0], bk[1]);
+          mma(s[j + 1], qa, bk[2], bk[3]);
+        }
+      }
+    }
+    // This tile's V chunk (its last readers were done before the slab
+    // loop's first barrier).
+    stage_rows_by<kBlockK, kWideCols, kTcThreads>(
+        p.aligned, v_s, vg + c0, p.v_stride[1], k0, seq, dim - c0);
+    __syncthreads();
+
+    const bool masked =
+        k0 + kBlockK > seq ||
+        (p.causal && (k0 + kBlockK - 1 > q0 ||
+                      (p.window && k0 <= q0 + kBlockQ - 1 - p.window)));
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < kNb; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q_pos = row0 + (e >> 1) * 8;
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          bool keep = k_pos < seq;
+          if (p.causal) {
+            keep = keep && q_pos >= k_pos;
+            if (p.window) keep = keep && k_pos > q_pos - p.window;
+          }
+          s[j][e] = keep ? s[j][e] * scale2 : neg2;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNb; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < kNb; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      const float new_m = quad_max(mx);
+      const float corr = exp2f(m[i] - new_m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNb; ++j) {
+        s[j][2 * i] = exp2f(s[j][2 * i] - new_m);
+        s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - new_m);
+        sum += s[j][2 * i] + s[j][2 * i + 1];
+      }
+      den[i] = den[i] * corr + sum;
+      m[i] = new_m;
+#pragma unroll
+      for (int j = 0; j < kNd; ++j) {
+        o[j][2 * i] *= corr;
+        o[j][2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P.V over the chunk, P in bf16 as the A operand.
+#pragma unroll
+    for (int ks = 0; ks < kBlockK / 16; ++ks) {
+      uint32_t pa[4];
+      c_to_a(pa, s[2 * ks], s[2 * ks + 1]);
+#pragma unroll
+      for (int j = 0; j < kNd; j += 2) {
+        uint32_t bv[4];
+        load_b_cols(bv, v_s, kLd, ks * 16, j * 8, lane);
+        mma(o[j], pa, bv[0], bv[1]);
+        mma(o[j + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q_pos = row0 + 8 * i;
+    const float total = quad_sum(den[i]);
+    if (q_pos >= seq) continue;
+    const float inv = 1.f / total;
+    const long long row =
+        (static_cast<long long>(b) * seq + q_pos) * p.heads + h;
+    bf16* og = static_cast<bf16*>(p.o) + row * dim;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int col = c0 + j * 8 + 2 * t;
+      if (col < dim)
+        *reinterpret_cast<__nv_bfloat162*>(og + col) =
+            __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    }
+    if (t == 0 && blockIdx.y == 0) p.lse[row] = m[i] * kLn2 + logf(total);
+  }
+}
+
+// A wide kernel over 64-row tiles and the head dim's column chunks.
+template <typename Kernel>
+cudaError_t launch_wide(Kernel kernel, const Params& p, size_t smem,
+                        int threads, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, kBlockQ,
+                          cea_grid::wide_chunks(p.dim), &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int DMAX>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(DMAX);
@@ -827,7 +1222,9 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
       flash_fwd_f32_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.batch * p.heads, (p.seq + kBlockQ - 1) / kBlockQ);
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, kBlockQ, 1, &grid);
+  if (err != cudaSuccess) return err;
   flash_fwd_f32_kernel<DMAX><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -839,7 +1236,9 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
       flash_fwd_tc_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.batch * p.heads, (p.seq + kBlockQ - 1) / kBlockQ);
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, kBlockQ, 1, &grid);
+  if (err != cudaSuccess) return err;
   flash_fwd_tc_kernel<DMAX><<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -864,7 +1263,9 @@ cudaError_t launch_wg_n(const Params& p, cudaStream_t stream) {
                                   i == 0 ? C::kRowsQ : kBlockK);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(p.batch * p.heads, (p.seq + C::kRowsQ - 1) / C::kRowsQ);
+  dim3 grid;
+  err = cea_grid::grid_of(p.batch, p.heads, p.seq, C::kRowsQ, 1, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, C::kThreads, smem, stream>>>(tp);
   return cudaGetLastError();
 }
@@ -884,14 +1285,16 @@ cudaError_t launch_wg(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor cores).
-// Strides are in elements; aligned = 1 when a TMA tensor map can read
-// q, k and v in place (16-byte base, every stepped stride a nonzero
-// multiple of 16 bytes): the Hopper kernel; 0: the mma.sync kernel
-// with 2-byte loads. Returns the cudaError_t of the
-// launch (0 = success); the caller raises on anything else. The
-// wrapper has checked shapes, types, head dim (<= 128, multiple of 8)
-// and that the head dim is contiguous.
+// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor cores).
+// Strides are in elements. Up to head dim 128, aligned = 1 when a TMA
+// tensor map can read q, k and v in place (16-byte base, every stepped
+// stride a nonzero multiple of 16 bytes): the Hopper kernel; 0: the
+// mma.sync kernel with 2-byte loads. Above 128, the wide kernels, and
+// aligned = 1 when every row starts on 16 bytes (16-byte staging).
+// Returns the cudaError_t of the launch (0 = success); the caller
+// raises on anything else. The wrapper has checked shapes, types and
+// that the head dim is contiguous, and hands over a head dim that is a
+// multiple of 8 (any, padded) with the true head dim's scale.
 extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int batch,
                              int seq, int heads, int dim, long long q_sb,
@@ -924,6 +1327,17 @@ extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.aligned = aligned;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim > kWideCols) {
+    if (dtype == 0)
+      return static_cast<int>(launch_wide(flash_fwd_f32_wide_kernel, p,
+                                          f32_wide_smem_bytes(), kThreads,
+                                          st));
+    if (dtype == 1)
+      return static_cast<int>(launch_wide(flash_fwd_wide_tc_kernel, p,
+                                          tc_wide_smem_bytes(p.dim), kTcThreads,
+                                          st));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool wide = dim > 64;
   if (dtype == 0)
     return static_cast<int>(wide ? launch_f32<128>(p, st)

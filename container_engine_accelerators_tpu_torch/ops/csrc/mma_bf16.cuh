@@ -13,10 +13,11 @@
 // limitations under the License.
 
 // Building blocks of the bf16 mma.sync flash kernels (flash_fwd.cu,
-// flash_bwd.cu; the inputs a TMA tensor map cannot describe): staging
-// of [rows][D] tiles into padded shared memory by 2-byte loads, 4-byte
-// cp.async for row vectors, ldmatrix fragment loads and the
-// mma.sync.m16n8k16 bf16 product with f32 accumulators.
+// flash_bwd.cu; the inputs a TMA tensor map cannot describe, and head
+// dims above 128): staging of [rows][D] tiles into padded shared memory
+// by 2-byte loads (or 16-byte loads where every row starts on 16
+// bytes), 4-byte cp.async for row vectors, ldmatrix fragment loads and
+// the mma.sync.m16n8k16 bf16 product with f32 accumulators.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, lane = 4 * g + t):
 //   A 16x16 (row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -154,6 +155,38 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
     dst[r * kLd + c] = (pos < seq && c < dim) ? src[pos * row_stride + c]
                                               : __float2bfloat16_rn(0.f);
   }
+}
+
+// stage_rows by 16-byte loads, for rows that start on 16 bytes (the
+// pointer and the row stride) with the columns in range, `dim`, a
+// multiple of 8.
+template <int ROWS, int DMAX, int THREADS>
+__device__ __forceinline__ void stage_rows16(bf16* dst, const bf16* src,
+                                             long long row_stride, int r0,
+                                             int seq, int dim) {
+  constexpr int kLd = DMAX + 8;
+  constexpr int kVecs = DMAX / 8;  // 16-byte vectors a row
+  for (int i = threadIdx.x; i < ROWS * kVecs; i += THREADS) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    const int pos = r0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (pos < seq && c < dim)
+      v = *reinterpret_cast<const uint4*>(src + pos * row_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) = v;
+  }
+}
+
+// stage_rows16 where `vec` (every row on 16 bytes), stage_rows
+// otherwise.
+template <int ROWS, int DMAX, int THREADS>
+__device__ __forceinline__ void stage_rows_by(bool vec, bf16* dst,
+                                              const bf16* src,
+                                              long long row_stride, int r0,
+                                              int seq, int dim) {
+  if (vec)
+    stage_rows16<ROWS, DMAX, THREADS>(dst, src, row_stride, r0, seq, dim);
+  else
+    stage_rows<ROWS, DMAX, THREADS>(dst, src, row_stride, r0, seq, dim);
 }
 
 // Quad reductions: the four lanes 4g .. 4g + 3 share a fragment row.

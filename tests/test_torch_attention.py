@@ -42,9 +42,9 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-def _qkv(seed):
+def _qkv(seed, shape=(B, S, H, D)):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return [rng.standard_normal(shape).astype(np.float32)
             for _ in range(3)]
 
 
@@ -66,6 +66,27 @@ def test_plain_matches_pallas(dtype, causal, window):
         window=window)
     assert got_o.dtype == tdt and got_lse.dtype == torch.float32
     assert tuple(got_lse.shape) == (B, S, H)
+    np.testing.assert_allclose(
+        got_o.float().numpy(), np.asarray(want_o, np.float32),
+        rtol=tol, atol=tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [4, 12, 256])
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_plain_matches_pallas_at_head_dims(dtype, d):
+    """Head dims the kernels take only through their route (D 4 and 12
+    zero-padded to 8 and 16, D 256 on the wide kernels): o and lse,
+    causal with the W 24 band at S 48, against the Pallas kernel."""
+    jdt, tdt, tol = _DTYPES[dtype]
+    q, k, v = _qkv(3, (2, 48, 2, d))
+    want_o, want_lse = jax_attn.flash_attention_lse(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), causal=True, window=24)
+    got_o, got_lse = attn.flash_attention_lse(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=True,
+        window=24)
+    assert tuple(got_o.shape) == (2, 48, 2, d)
     np.testing.assert_allclose(
         got_o.float().numpy(), np.asarray(want_o, np.float32),
         rtol=tol, atol=tol)

@@ -46,11 +46,11 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-def _inputs(seed):
+def _inputs(seed, shape=(B, S, H, D)):
     rng = np.random.default_rng(seed)
-    q, k, v, g_o = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+    q, k, v, g_o = (rng.standard_normal(shape).astype(np.float32)
                     for _ in range(4))
-    g_lse = rng.standard_normal((B, S, H)).astype(np.float32)
+    g_lse = rng.standard_normal(shape[:3]).astype(np.float32)
     return q, k, v, g_o, g_lse
 
 
@@ -78,7 +78,7 @@ def _port_grads(q, k, v, g_o, g_lse, dtype, **kw):
                 + (lse * torch.from_numpy(g_lse)).sum())
     loss.backward()
     for t in (tq, tk, tv):
-        assert t.grad.dtype == dtype and tuple(t.grad.shape) == (B, S, H, D)
+        assert t.grad.dtype == dtype and t.grad.shape == q.shape
     return [t.grad.float().numpy() for t in (tq, tk, tv)]
 
 
@@ -104,6 +104,21 @@ def test_output_gradients_match_pallas(causal):
     kw = dict(causal=causal, block=128)
     want = _jax_grads(q, k, v, g_o, None, jnp.float32, **kw)
     got = _port_grads(q, k, v, g_o, None, torch.float32, **kw)
+    for name, w, g in zip("qkv", want, got):
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [4, 12, 256])
+def test_gradients_match_pallas_at_head_dims(d):
+    """Head dims the kernels take only through their route (D 4 and 12
+    zero-padded to 8 and 16, D 256 on the wide kernels): the gradients
+    of o and lse, f32, causal with the W 24 band at S 48, against the
+    Pallas backward."""
+    q, k, v, g_o, g_lse = _inputs(4, (1, 48, 2, d))
+    kw = dict(causal=True, window=24, block=128)
+    want = _jax_grads(q, k, v, g_o, g_lse, jnp.float32, **kw)
+    got = _port_grads(q, k, v, g_o, g_lse, torch.float32, **kw)
     for name, w, g in zip("qkv", want, got):
         np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
                                    err_msg=f"d{name}")

@@ -571,11 +571,13 @@ def test_start_world_reads_torchrun_then_the_plugin_env(monkeypatch, env,
 
 def test_stage3_head_dim_is_refused_on_the_card_path(monkeypatch):
     """Stage 3's PipelinedLM (E 16 over 4 heads: head dim 4, the JAX
-    dryrun's widths) runs its plain attention on the CPU, while the card
-    path refuses it: the flash kernels take head dims that are
-    multiples of 8, and a tensor that is not on the CPU reaches the
-    kernel's checks, never the plain version. So the card entry point
-    cannot run stage 3 (n >= 2 cards) at these widths."""
+    dryrun's widths) on the card path, which refused head dim 4 until
+    the flash kernels took every head dim. ``_device_type`` says cuda,
+    so each flash call goes through the wrappers' route (D 4 zero-padded
+    to 8, the scale 1/sqrt(4)), and each kernel (``run``, what the route
+    hands over) is replaced by its plain version. The next-token loss
+    on the JAX init and tokens equals the JAX PipelinedLM's within
+    LOSS_RTOL, and the backward runs through the route as well."""
     import torch
 
     from container_engine_accelerators_tpu_torch.ops import attention
@@ -583,14 +585,44 @@ def test_stage3_head_dim_is_refused_on_the_card_path(monkeypatch):
         PipelinedLM as PortPipelinedLM,
     )
 
+    jplm = JaxPipelinedLM(**dryrun.PIPE_LM, num_layers=2, pipe=1,
+                          dtype=jnp.float32)
+    params = jax.jit(jplm.init)(jax.random.PRNGKey(7))
+    tokens = np.asarray(jax.random.randint(
+        jax.random.PRNGKey(8), (2, dryrun.PIPE_SEQ), 0,
+        dryrun.PIPE_LM["vocab_size"]))
+    logp = jax.nn.log_softmax(
+        jax.jit(jplm.reference_apply)(params, tokens)[:, :-1])
+    want = -float(jnp.mean(jnp.take_along_axis(
+        logp, jnp.asarray(tokens)[:, 1:, None], axis=-1)))
+
+    seen = []
+
+    def plain(fn, wrap=lambda x: x):
+        def run(*args):
+            seen.append((fn.__name__, args[0].shape[3], args[-1]))
+            return wrap(fn(*args))
+        return run
+
+    monkeypatch.setattr(attention, "_device_type", lambda *xs: "cuda")
+    monkeypatch.setattr(attention.flash_fwd, "run",
+                        plain(attention.flash_attention_reference))
+    monkeypatch.setattr(attention.flash_bwd_dq, "run", plain(
+        attention.flash_attention_dq_reference, lambda x: (x,)))
+    monkeypatch.setattr(attention.flash_bwd_dkv, "run",
+                        plain(attention.flash_attention_dkv_reference))
     plm = PortPipelinedLM(**dryrun.PIPE_LM, num_layers=2, pipe=1,
                           dtype=torch.float32, stage=None, device="cpu")
-    plm.load(plm.init(7))
-    tokens = torch.from_numpy(np.random.default_rng(8).integers(
-        0, dryrun.PIPE_LM["vocab_size"], (2, dryrun.PIPE_SEQ)))
-    assert torch.isfinite(plm.reference_apply(tokens)).all()
-    monkeypatch.setattr(attention, "_device_type", lambda *xs: "cuda")
-    with pytest.raises(ValueError, match="head dim must be a multiple of "
-                                         "8 up to .*: 4$"):
-        plm.reference_apply(tokens)
+    plm.load(_np(params))
+    tok = torch.from_numpy(tokens.copy()).long()
+    logits = plm.reference_apply(tok)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    loss = -torch.mean(logp.gather(-1, tok[:, 1:, None]))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), want, rtol=LOSS_RTOL)
+    assert all(torch.isfinite(p.grad).all() for p in plm.parameters())
+    names = ("flash_attention_reference", "flash_attention_dq_reference",
+             "flash_attention_dkv_reference")
+    assert sorted(seen) == sorted(
+        (name, 8, 0.5) for name in names for _ in range(2))
 

@@ -24,6 +24,7 @@ import importlib.util
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,3 +130,104 @@ def test_wgmma_kernels_name_the_three_hopper_kernels():
         for name in names:
             assert re.search(r"__global__[^;{]*\b" + name + r"\(", source), (
                 f"{name} is not a kernel of {lib}.cu")
+
+
+@pytest.mark.parametrize("d,want", [
+    (1, (8, 1)), (4, (8, 1)), (8, (8, 1)), (12, (16, 1)), (64, (64, 1)),
+    (127, (128, 1)), (128, (128, 1)), (129, (136, 2)), (136, (136, 2)),
+    (256, (256, 2)), (257, (264, 3)), (320, (320, 3)), (1000, (1000, 8))])
+def test_head_dim_route(d, want):
+    """Every head dim >= 1 has a route: padded up to a multiple of 8,
+    split into 128-column chunks above 128."""
+    assert attn.head_dim_route(d) == want
+
+
+def test_kernel_route_reads_the_rows_above_128():
+    """Up to kernel head dim 128 the flag is ``tma_rows``; above, where
+    bf16 runs the wide mma.sync kernels whatever it says, it is
+    ``rows_aligned`` (16-byte or 2-byte staging): a broadcast row
+    stride that a tensor map refuses still stages by 16 bytes."""
+    aligned = torch.zeros((2, 10, H, 256), dtype=torch.bfloat16)
+    broadcast = torch.zeros((2, 1, H, 256), dtype=torch.bfloat16).expand(
+        2, 10, H, 256)
+    assert attn.kernel_route(256, aligned) == 1
+    assert attn.tma_rows(broadcast) == 0
+    assert attn.kernel_route(256, aligned, broadcast) == 1
+    assert attn.kernel_route(256, aligned[:, :, :, 1:]) == 0
+    q, k, v = _fused(3)
+    assert attn.kernel_route(D, q, k, v) == attn.tma_rows(q, k, v) == 1
+    q, k, v = _fused(3, extra=1)
+    assert attn.kernel_route(D, q, k, v) == 0
+
+
+@pytest.mark.parametrize("d", [4, 12, 64, 136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_route_pads_and_keeps_the_true_scale(monkeypatch, d, dtype):
+    """The card-side route on the CPU: ``_device_type`` says cuda, and
+    each wrapper's kernel (``run``, what the route hands over) is
+    replaced by its plain version. The kernels see the head dim padded
+    to a multiple of 8 (the caller's tensors themselves when it is one)
+    with the true head dim's scale, and the outputs and gradients equal
+    the plain path's."""
+    rng = np.random.default_rng(d)
+    shape = (2, 24, 2, d)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype) for _ in range(4))
+    g_lse = torch.from_numpy(rng.standard_normal(shape[:3]).astype(
+        np.float32))
+
+    leaves = []
+
+    def grads():
+        leaves[:] = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, lse = attn.flash_attention_lse(*leaves, causal=True, window=16)
+        ((o.float() * g.float()).sum() + (lse * g_lse).sum()).backward()
+        return [o, lse] + [x.grad for x in leaves]
+
+    want = grads()
+    seen = []
+
+    def plain(fn, wrap=lambda x: x):
+        def run(*args):
+            seen.append((args[0].shape[3], args[-1], all(
+                a.data_ptr() == x.data_ptr() for a, x in zip(args, leaves))))
+            return wrap(fn(*args))
+        return run
+
+    monkeypatch.setattr(attn, "_device_type", lambda *xs: "cuda")
+    monkeypatch.setattr(attn.flash_fwd, "run",
+                        plain(attn.flash_attention_reference))
+    monkeypatch.setattr(attn.flash_bwd_dq, "run", plain(
+        attn.flash_attention_dq_reference, lambda x: (x,)))
+    monkeypatch.setattr(attn.flash_bwd_dkv, "run",
+                        plain(attn.flash_attention_dkv_reference))
+    got = grads()
+    kd, _ = attn.head_dim_route(d)
+    assert [s[:2] for s in seen] == [(kd, 1.0 / np.sqrt(d))] * 3
+    # Padding copies the operands; a multiple of 8 hands them over.
+    assert all(s[2] == (kd == d) for s in seen)
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d,kd,want", [(12, 16, 1), (256, 256, 1),
+                                       (132, 136, 1)])
+def test_wrappers_pass_the_kernel_head_dim(recorded, d, kd, want):
+    """Each entry point gets the kernel head dim, the true head dim's
+    scale and ``kernel_route``'s flag."""
+    q, k, v, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
+                   for _ in range(4))
+    lse = torch.zeros((2, 10, H), dtype=torch.float32)
+    attn.flash_fwd.launch(q, k, v, True, 0)
+    attn.flash_bwd_dq.launch(q, k, v, do, lse, lse, True, 0)
+    attn.flash_bwd_dkv.launch(q, k, v, do, lse, lse, True, 0)
+    # fwd: 5 pointers, dtype, b, s, h, d; bwd: 8 pointers, dtype, b, s,
+    # h, d. The scale and the flag end each argument list.
+    dims = {name: args[9 if name == "flash_fwd" else 12]
+            for name, args in recorded.items()}
+    assert dims == dict.fromkeys(dims, kd) and len(dims) == 3
+    for args in recorded.values():
+        assert args[-2] == pytest.approx(1.0 / np.sqrt(d))
+        assert args[-1] == want

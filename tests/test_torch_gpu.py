@@ -77,6 +77,12 @@ def _qkv(shape, dtype, seed, device):
     ((2, 200, 4, 32), torch.float32, False, 0),
     ((1, 300, 4, 64), torch.float32, True, 64),
     ((1, 1, 2, 8), torch.float32, False, 0),
+    # Head dims past the multiples of 8 up to 128: D 4 runs zero-padded
+    # to 8, D 256 the wide kernels (attention.head_dim_route).
+    ((2, 100, 2, 4), torch.float32, True, 0),
+    ((2, 100, 2, 4), torch.bfloat16, True, 32),
+    ((2, 150, 4, 256), torch.float32, True, 0),
+    ((2, 150, 4, 256), torch.bfloat16, True, 64),
 ])
 def test_kernel_matches_plain_version(cuda, shape, dtype, causal, window):
     q, k, v = _qkv(shape, dtype, sum(shape), cuda)
@@ -108,9 +114,6 @@ def test_kernel_reads_strided_slices(cuda):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        attn.flash_attention(q, q, q)
-    q = torch.zeros((1, 8, 2, 256), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
         attn.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 64), device=cuda).transpose(1, 3)
     with pytest.raises(ValueError):
@@ -256,6 +259,10 @@ def _assert_near(got, want, dtype, what):
     ((2, 200, 4, 32), torch.float32, False, 0),
     ((1, 300, 4, 64), torch.float32, True, 64),
     ((1, 1, 2, 8), torch.float32, False, 0),
+    ((2, 100, 2, 4), torch.float32, True, 0),
+    ((2, 100, 2, 4), torch.bfloat16, True, 32),
+    ((2, 150, 4, 256), torch.float32, True, 0),
+    ((2, 150, 4, 256), torch.bfloat16, True, 64),
 ])
 def test_backward_kernels_match_plain_versions(cuda, shape, dtype, causal,
                                                window):

@@ -102,19 +102,29 @@ def _flat(tree, prefix=()):
             yield "/".join(prefix + (key,)), np.asarray(tree[key])
 
 
+# Head dim 256 (E 512 over 2 heads): the kernels' wide route on the card.
+WIDE_HEAD = dict(vocab_size=64, embed_dim=512, num_layers=2, num_heads=2,
+                 max_seq_len=48, pos_embedding="rope", num_kv_heads=None)
+
+
 def _flax(variant):
-    """(flax model, tree, config): a TINY TransformerLM variant, or for
+    """(flax model, tree, config): a TINY TransformerLM variant, for
     "moe" the rope/GQA MoETransformerLM with a dropping router (4
-    experts, top-2, capacity factor 1.25)."""
+    experts, top-2, capacity factor 1.25), for "wide_head" the
+    WIDE_HEAD LM."""
     if variant == "moe":
         return torch_parity.flax_moe("rope_gqa", "f32")
+    if variant == "wide_head":
+        return torch_parity.flax_lm_of(seed=1, **WIDE_HEAD)
     return torch_parity.flax_lm(variant, "f32")
 
 
-@pytest.mark.parametrize("variant", sorted(torch_parity.VARIANTS) + ["moe"])
+@pytest.mark.parametrize("variant", sorted(torch_parity.VARIANTS)
+                         + ["moe", "wide_head"])
 def test_three_steps_match_the_jax_trainer(variant):
     """The moe case trains on the loss plus 0.01 x the router's aux
-    loss (``with_router_loss`` on both sides)."""
+    loss (``with_router_loss`` on both sides); wide_head is an LM whose
+    head dim (256) is above 128."""
     model, tree, config = _flax(variant)
     argv = _argv("--steps", "3")
     # JAX: the demo's optimizer, the Pallas loss, a 1x1 mesh.
