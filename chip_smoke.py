@@ -32,8 +32,12 @@
    warpgroups a block, and on q/k/v/dO rows that do not start on 16
    bytes (the mma.sync kernels, ``attention.tma_rows``); every flash
    kernel, f32 and bf16, at head dims 4 and 12 (padded to 8 and 16) and
-   136, 192, 256, 320 and 640 (the wide kernels), causal at S 17 and
-   with the W 200 band at S 1000 (HEAD_DIM_CASES); one causal W 64
+   136, 192, 256, 320 and 640 (the wide kernels; the bf16 dQ and dK/dV
+   at 136-256 on TMA rows the Hopper kernels at DMAX 256, each launch's
+   route held: the D 256 rows off 16 bytes and k, v broadcast over the
+   heads take the wide mma.sync kernels), causal at S 17 and with the
+   W 200 band at S 1000, bf16 causal at S 2048 (HEAD_DIM_CASES); one
+   causal W 64
    forward at S 4 194 368, past the old grid.y limit of 65 535 row
    tiles (``check_long_sequence``); launches the three tensor-core
    kernels (bf16 flash forward, dQ, dK/dV) twice on the same inputs at
@@ -51,7 +55,9 @@
    beside the mma.sync design's time where one was taken
    (``MMA_SYNC_MS``), and the next-token objective's logits copy
    alone; the flash forward, dQ and dK/dV at D 256 (WIDE_SHAPE,
-   GPT-J-6B's attention) beside their bounds and SDPA's; and a line of
+   GPT-J-6B's attention) beside their bounds and SDPA's, dQ and dK/dV
+   (the Hopper kernels) beside the wide mma.sync kernels' times they
+   replaced (``MMA_SYNC_MS``); and a line of
    this run's D <= 128 times over PERF.md's (``recorded_ratios``);
 5. serves the full-width LM (the architecture of
    demo/serving/lm-serving.yaml without its int8 options: vocab 32000,
@@ -379,7 +385,8 @@
 20. trains and serves head dim 256 (``drive_d256``): GPT-J-6B's
    attention widths (E 4096 over 16 heads, rope; vocab 32000; depth cut
    from 28 layers to 4). (a) D256_STEPS steps through the driver at S
-   2048, batch 4: 4/4/4/1/1 launches a step, a finite and falling
+   2048, batch 4: 4/4/4/1/1 launches a step, every dQ and dK/dV launch
+   on the Hopper kernels (``hopper_launches``), a finite and falling
    loss, step time, tokens/s and peak memory; (b) the batch-2 kernel
    step against the plain step at phase 7's limits; (c) the launcher's
    dense pool serves one greedy prompt: 4 ``flash_fwd`` launches for
@@ -630,11 +637,20 @@ def xent_bound_ms(n, c, role):
 def attn_operands(torch, shape, dtype, n, gen, misaligned=False):
     """n random [B, S, H, D] operands. misaligned: slices of one fused
     [B, S, n*H*D + 1] projection starting one element in, so no row
-    starts on 16 bytes (the kernels' narrow-load staging)."""
+    starts on 16 bytes (the kernels' narrow-load staging); "broadcast":
+    the second and third (k, v) expanded over the heads from [B, S, 1,
+    D] (rows on 16 bytes, a head stride of 0 that no TMA tensor map
+    takes)."""
+    b, s, h, d = shape
+    if misaligned == "broadcast":
+        xs = [torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+              for _ in range(n)]
+        xs[1:3] = [torch.randn((b, s, 1, d), generator=gen, device="cuda",
+                               dtype=dtype).expand(shape) for _ in range(2)]
+        return xs
     if not misaligned:
         return [torch.randn(shape, generator=gen, device="cuda",
                             dtype=dtype) for _ in range(n)]
-    b, s, h, d = shape
     fused = torch.randn((b, s, n * h * d + 1), generator=gen,
                         device="cuda", dtype=dtype)
     return [fused[:, :, 1 + i * h * d:1 + (i + 1) * h * d].unflatten(
@@ -664,16 +680,25 @@ BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
 # Head dims past the multiples of 8 up to 128 (``attention.
 # head_dim_route``): D 4 and 12 run zero-padded to 8 and 16, D 136 to
 # 320 the wide kernels (128-column chunks of each output over the grid,
-# bf16 on mma.sync). f32 and bf16, causal at length 17 and with the
-# W 200 band at length 1000, and one ragged-row case at D 256; D 640
-# (bf16, aligned and ragged rows) stages its own tile again each partner
-# tile, past the four 128-column slabs the wide kernels hold.
+# bf16 on mma.sync), except the bf16 dQ and dK/dV at D 136-256 on rows a
+# TMA tensor map describes, which run the Hopper kernels at DMAX 256
+# (136 and 192 zero-filled past their last column). f32 and bf16,
+# causal at length 17 and with the W 200 band at length 1000; bf16
+# causal at length 2048 (D 136, 192, 256); at D 256 the ragged S 150
+# with the W 64 band on TMA rows (Hopper), on rows off 16 bytes and on k
+# and v broadcast over the heads (both the wide mma.sync kernels,
+# ``check_backward`` holds the route); D 640 (bf16, aligned and ragged
+# rows) stages its own tile again each partner tile, past the four
+# 128-column slabs the wide kernels hold.
 HEAD_DIM_CASES = [((b, s, 2, d), dtype, True, w, False)
                   for d in (4, 12, 136, 192, 256, 320)
                   for dtype in ("float32", "bfloat16")
                   for b, s, w in ((2, 17, 0), (1, 1000, 200))]
-HEAD_DIM_CASES += [((2, 150, 4, 256), "bfloat16", True, 64, True),
-                   ((1, 200, 2, 640), "bfloat16", True, 64, False),
+HEAD_DIM_CASES += [((1, 2048, 2, d), "bfloat16", True, 0, False)
+                   for d in (136, 192, 256)]
+HEAD_DIM_CASES += [((2, 150, 4, 256), "bfloat16", True, 64, rows)
+                   for rows in (False, True, "broadcast")]
+HEAD_DIM_CASES += [((1, 200, 2, 640), "bfloat16", True, 64, False),
                    ((2, 100, 2, 640), "bfloat16", True, 0, True)]
 
 # The bf16 forward's, dQ's and dK/dV's times on the mma.sync design
@@ -686,7 +711,11 @@ MMA_SYNC_MS = {("flash_fwd", (8, 2048, 8, 64), 0): 0.1949,
                ("flash_fwd", (8, 2048, 8, 64), 512): 0.1137,
                ("flash_bwd_dkv", (8, 2048, 8, 64), 512): 0.2284,
                ("flash_bwd_dq", (8, 2048, 8, 64), 512): 0.1481,
-               ("flash_fwd", (1, 1920, 8, 64), 0): 0.0460}
+               ("flash_fwd", (1, 1920, 8, 64), 0): 0.0460,
+               # The wide mma.sync dQ and dK/dV the D 256 Hopper kernels
+               # replaced on TMA rows (PERF.md, PR 21).
+               ("flash_bwd_dq", (4, 2048, 16, 256), 0): 2.4167,
+               ("flash_bwd_dkv", (4, 2048, 16, 256), 0): 3.1527}
 
 
 def check_flash(torch, attn):
@@ -794,10 +823,16 @@ def check_backward(torch, attn):
               ((1, 2048, 8, 64), "bfloat16", True, 256, False, False)]
     cases += [case + (True,) for case in BF16_TC_CASES + HEAD_DIM_CASES]
     results = []
+    kernels = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
     for shape, dtype, causal, window, misaligned, lse_grad in cases:
         dtype = getattr(torch, dtype)
         args = bwd_inputs(torch, attn, shape, dtype, causal, window, gen,
                           lse_grad, misaligned)
+        # The route of what the wrapper hands the kernels (padded to kd).
+        kd, _ = attn.head_dim_route(shape[3])
+        handed = attn._padded(kd, *args[:4])
+        route = attn.kernel_route(kd, *handed, backward=True)
+        hopper0 = [kern.hopper_launches for kern in kernels]
         dq = attn.flash_bwd_dq(*args, causal, window)
         dk, dv = attn.flash_bwd_dkv(*args, causal, window)
         torch.cuda.synchronize()
@@ -807,8 +842,19 @@ def check_backward(torch, attn):
                     window=window, rows_aligned=attn.rows_aligned(*args[:4]),
                     tma_rows=attn.tma_rows(*args[:4]),
                     head_dim_route=attn.head_dim_route(shape[3]),
+                    route=route, hopper_launches=[
+                        kern.hopper_launches - n
+                        for kern, n in zip(kernels, hopper0)],
                     lse_cotangent=lse_grad)
-        ok = True
+        # bf16 runs the Hopper dQ and dK/dV exactly where a tensor map
+        # describes the rows up to kernel head dim 256; the wide D 256
+        # inputs it cannot describe take the mma.sync kernels.
+        hopper = (dtype == torch.bfloat16 and kd <= 256
+                  and attn.tma_rows(*handed) == 1)
+        ok = case["hopper_launches"] == [int(hopper)] * 2
+        if kd > 128 and dtype == torch.bfloat16 and not hopper:
+            ok = ok and route == (attn.ROUTE_ROWS16
+                                  * attn.rows_aligned(*handed))
         for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
                                 ("dv", dv, rv)):
             err, tol = near(got, want, str(dtype))
@@ -6398,6 +6444,8 @@ def d256_training(torch, attn, convert, train, kernels):
     the batch-2 kernel step against the plain step at phase 7's
     limits (``check_plain_step``)."""
     per_step = (D256["num_layers"],) * 3 + (1, 1)
+    bwd = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    hopper0 = [kern.hopper_launches for kern in bwd]
     summary, launches, trainer, state = drive(
         torch, train, kernels,
         train_argv(D256_STEPS, D256_WARMUP, D256_BATCH) + d256_flags(),
@@ -6405,9 +6453,15 @@ def d256_training(torch, attn, convert, train, kernels):
     del trainer, state
     losses, result = summary["losses"], summary["driver_result"]
     summary["tokens_per_s"] = result["tokens_per_sec"]
+    # Every dQ and dK/dV launch of the steps ran the Hopper kernels.
+    summary["hopper_launches"] = {
+        kern.name: kern.hopper_launches - n for kern, n in zip(bwd, hopper0)}
     log("D 256 training:", json.dumps(summary))
     if not losses[-1] < losses[0]:
         raise AssertionError(f"(a) D 256 loss did not fall: {losses}")
+    if summary["hopper_launches"] != {k.name: launches[k.name] for k in bwd}:
+        raise AssertionError(f"(a) D 256 backward off the Hopper kernels: "
+                             f"{summary['hopper_launches']} of {launches}")
     torch.cuda.empty_cache()
     plain = check_plain_step(torch, attn, convert, train, extra=d256_flags())
     return summary, plain, launches

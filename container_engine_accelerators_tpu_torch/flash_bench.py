@@ -39,10 +39,12 @@ import sys
 
 # (shape, window) at the paths' shapes: the training slice causal and
 # with the W 512 band, the serving prefill's buckets, the demo draft's
-# D 16, and D 128.
+# D 16, D 128, and GPT-J-6B's attention at D 256 causal and with the
+# W 512 band.
 SHAPES = [((8, 2048, 8, 64), 0), ((8, 2048, 8, 64), 512),
           ((1, 1920, 8, 64), 0), ((1, 128, 8, 64), 0), ((1, 16, 8, 64), 0),
-          ((1, 1920, 8, 16), 0), ((4, 1024, 8, 128), 0)]
+          ((1, 1920, 8, 16), 0), ((4, 1024, 8, 128), 0),
+          ((4, 2048, 16, 256), 0), ((4, 2048, 16, 256), 512)]
 
 
 def main(argv=None):

@@ -134,10 +134,12 @@ class Kernel:
 
     def _kernel(self):
         if self._fn is None:
-            fn = getattr(load(self.library), self.symbol)
-            fn.argtypes = list(self.argtypes)
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with self._lock:
+                if self._fn is None:
+                    fn = getattr(load(self.library), self.symbol)
+                    fn.argtypes = list(self.argtypes)
+                    fn.restype = ctypes.c_int
+                    self._fn = fn
         return self._fn
 
     def _launch(self, device, *args, what=""):

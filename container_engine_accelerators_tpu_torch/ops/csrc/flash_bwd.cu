@@ -49,20 +49,38 @@
 // Head dims: the wrapper pads a head dim that is not a multiple of 8
 // to one and passes the true head dim's scale (`head_dim_route`), so
 // `dim` here is a multiple of 8. Up to 128 the six kernels below run
-// at DMAX 64 or 128; above, four wide kernels (after the mma.sync
-// ones) split the outputs' columns into 128-column chunks over grid.y.
-// Row tiles and heads share grid.x (flash_grid.cuh), so no sequence
-// length meets a grid limit.
+// at DMAX 64 or 128. Above 128, bf16 on rows a TMA tensor map
+// describes runs the Hopper dQ and dK/dV at DMAX 256 up to head dim
+// 256 (the wrapper's route kRouteHopper; 136-248 zero-filled by TMA
+// past the last column); everything else runs four wide kernels (after
+// the mma.sync ones) that split the outputs' columns into 128-column
+// chunks over grid.y. Row tiles and heads share grid.x
+// (flash_grid.cuh), so no sequence length meets a grid limit.
 //
 // Six kernels up to D 128, chosen by the role, the input type and
 // (bf16) the rows' alignment. Only wgmma reaches the tensor cores' full
-// rate on this card, so bf16 runs on the Hopper kernels (wgmma + TMA; wgmma_tma.cuh
-// has the building blocks) for every input a TMA tensor map can
-// describe (the wrapper's `tma_rows`), and on the mma.sync kernels
-// (mma.m16n8k16 bf16 with f32 accumulators, the helpers of
+// rate on this card, so bf16 runs on the Hopper kernels (wgmma + TMA;
+// wgmma_tma.cuh has the building blocks) for every input a TMA tensor
+// map can describe (the wrapper's `tma_rows`), and on the mma.sync
+// kernels (mma.m16n8k16 bf16 with f32 accumulators, the helpers of
 // mma_bf16.cuh) otherwise. Every kernel evaluates masks only on the
 // tiles a mask can touch (the diagonal, the window edge, the ragged
 // end) and runs scores in log2 units (exp2, scale * log2 e folded in).
+//
+// At DMAX 256 (`flash_bwd_dq_wgmma_tc_kernel<256,1>`,
+// `flash_bwd_dkv_wgmma_tc_kernel<256,2>`) every product runs once over
+// the whole head dim, as at DMAX 128; what changes is the budget. dQ:
+// one consumer warpgroup on 64 query rows, one block an SM, dQ in 128
+// f32 registers, Q and dO (64 KB) loaded once, K and V in rings of
+// their own (three and two 32 KB stages: V frees once the scores are
+// in, K a tile later, after the dQ product). dK/dV: one 64-key tile a
+// block; dK and dV of 64 keys x 256 columns (256 registers a thread in
+// one warpgroup) split over two consumer warpgroups of 128 columns
+// each, which also split each Q/dO tile's 64 query columns of S^T and
+// dP^T (m64n32) and hand each other their halves of P^T and dS^T in
+// bf16 through shared memory behind a named barrier; no producer
+// warpgroup (the consumers issue the loads), so each thread may hold
+// 255 registers.
 //
 // dQ, bf16, the Hopper kernel (`flash_bwd_dq_wgmma_tc_kernel`): the
 //   forward's structure with one more product. One block per
@@ -183,8 +201,18 @@ struct Params {
   long long q_stride[3], k_stride[3], v_stride[3], do_stride[3];
   int causal, window;
   float scale;
-  int aligned;  // a TMA tensor map describes q, k, v, dO (`tma_rows`)
+  // The route (the wrapper's `kernel_route(..., backward=True)`): up to
+  // head dim 128, kRouteHopper when a TMA tensor map describes q, k, v
+  // and dO (`tma_rows`), 0 otherwise; above, kRouteHopper for the Hopper
+  // kernels at DMAX 256, 2 (the wrapper's ROUTE_ROWS16) or 0 for the wide
+  // mma.sync kernels (16-byte or 2-byte staging).
+  int aligned;
 };
+
+constexpr int kRouteHopper = 1;
+// The largest head dim of the bf16 Hopper kernels (kernel head dims
+// 136-256 run at DMAX 256).
+constexpr int kHopperWideDim = 256;
 
 // ---------------------------------------------------------------------
 // f32: the exact FMA kernels.
@@ -881,9 +909,10 @@ flash_bwd_dkv_tc_kernel(const Params p) {
 // own slabs (Q and dO; K and V) for the whole partner loop up to D 512
 // and stages one again a partner tile above, and stages rows by
 // 16-byte loads where every row starts on 16 bytes (the wrapper's
-// flag), by 2-byte loads otherwise. At [4, 2048, 16, 256] causal dQ
-// and dK/dV take about 11x their bounds (PERF.md §6); a wgmma design
-// for D > 128 is future work.
+// flag), by 2-byte loads otherwise. bf16 on rows a TMA tensor map
+// describes runs the Hopper kernels up to head dim 256 instead (DMAX
+// 256, dispatch_wide); these serve bf16 broadcast or off-16-byte rows,
+// head dims above 256, and f32.
 
 constexpr int kF32Slab = 64;  // columns of a staged f32 slab
 constexpr int kLdS = kF32Slab + 1;
@@ -1464,37 +1493,63 @@ struct TmaParams {
   Params p;
 };
 
-// One block: WG consumer warpgroups of 64 keys each (the block's key
-// tile is 64 * WG) and one producer warpgroup. Its first warp loads K
-// and V once by TMA, then streams Q/dO tiles of kQ queries by TMA with
-// their lse and delta rows (plain loads by its 32 lanes) through a
-// two-stage ring. kQ is 64, or 32 at DMAX 128, where dK and dV alone
-// take 128 accumulator registers a thread.
+// One block: WG consumer warpgroups and a producer (a warpgroup; one
+// warp at DMAX 256). Up to DMAX 128 each consumer owns 64 keys (the
+// block's key tile is 64 * WG) and every column of their dK and dV. At
+// DMAX 256 (kSplit) dK and dV
+// of 64 keys take 256 f32 registers a thread, more than one warpgroup
+// holds, so a block owns one 64-key tile and its two consumers split
+// the columns: each holds 128 columns of dK and dV (kOwnChunks 64-column
+// chunks, 128 registers) and computes kQHalf = 32 of a Q/dO tile's 64
+// query columns of S^T and dP^T, and the two hand each other their
+// halves of P^T and dS^T in bf16 through shared memory (kPdsBytes a
+// tile, two buffers) behind a named barrier, so every product runs
+// once. The producer's first warp loads K and V once by TMA, then
+// streams Q/dO tiles of kQ queries by TMA with their lse and delta rows
+// (plain loads by its 32 lanes) through a ring of kStages. kQ is 64, or
+// 32 at DMAX 128, where dK and dV alone take 128 accumulator registers
+// a thread.
 template <int DMAX, int WG>
 struct DkvWg {
+  static constexpr bool kSplit = DMAX > 128;
   static constexpr int kChunks = DMAX / 64;
-  static constexpr int kKeys = 64 * WG;
-  static constexpr int kQ = DMAX <= 64 ? 64 : 32;
+  static constexpr int kKeys = kSplit ? 64 : 64 * WG;
+  static constexpr int kQ = DMAX == 128 ? 32 : 64;
+  static constexpr int kQHalf = kQ / WG;
+  static constexpr int kOwnChunks = kSplit ? kChunks / WG : kChunks;
   // K and V as register A operands of the score products (D 64 only).
   static constexpr bool kHoldKV = DMAX <= 64;
   static constexpr int kHeldSteps = kHoldKV ? DMAX / 16 : 1;
-  static constexpr int kStages = 3;
-  static constexpr int kThreads = 128 * (WG + 1);
+  // At DMAX 256 two 64 KB stages fit beside K, V and the P^T/dS^T
+  // buffers; three do not.
+  static constexpr int kStages = kSplit ? 2 : 3;
+  // kSplit: no producer warpgroup (the consumers issue the loads) and no
+  // setmaxnreg, so every thread may hold 255 registers. Beside a producer
+  // warpgroup ptxas held these consumers to the block's 168 whatever
+  // setmaxnreg gave them, spilled and serialized the wgmma; a producer
+  // warp alone (288 threads) is charged registers as a warpgroup.
+  static constexpr int kThreads = 128 * (kSplit ? WG : WG + 1);
   static constexpr int kMinBlocks = WG == 2 ? 1 : 2;
-  static constexpr int kRegsProducer = 24;
-  static constexpr int kRegsConsumer = WG == 2 ? 240 : 232;
+  static constexpr int kRegsProducer = kSplit ? 0 : 24;
+  static constexpr int kRegsConsumer = kSplit ? 0 : WG == 2 ? 240 : 232;
   static constexpr int kChunkK = kKeys * cea_hopper::kRowBytes;
   static constexpr int kKBytes = kChunks * kChunkK;  // K or V
   static constexpr int kChunkQ = kQ * cea_hopper::kRowBytes;
   static constexpr int kQBytes = kChunks * kChunkQ;  // Q or dO
   static constexpr int kStageBytes = 2 * kQBytes;
+  // P^T, then dS^T: [kKeys][kQ] bf16 each, one swizzled chunk.
+  static constexpr int kPdsBytes = kSplit ? 2 * kKeys * kQ * 2 : 0;
   static constexpr size_t smem_bytes() {
-    // Alignment slack, K, V, the Q/dO ring, the lse/delta ring, the
-    // barriers.
-    return 1024 + 2 * kKBytes + kStages * kStageBytes +
+    // Alignment slack, K, V, the Q/dO ring, the P^T/dS^T buffers, the
+    // lse/delta ring, the barriers (and K's and V's addresses).
+    return 1024 + 2 * kKBytes + kStages * kStageBytes + 2 * kPdsBytes +
            sizeof(float) * kStages * 2 * kQ +
-           sizeof(uint64_t) * (1 + 2 * kStages);
+           sizeof(uint64_t) * (1 + 2 * kStages + (kSplit ? 1 : 0));
   }
+  static_assert(!kSplit || (WG == 2 && kQ == cea_hopper::kChunkCols &&
+                            kChunks % WG == 0),
+                "the column split: two consumers, one 64-query chunk");
+  static_assert(smem_bytes() <= 232448, "an H100 block's shared memory");
 };
 
 // S^T = K.Q^T and dP^T = V.dO^T of one ring stage (`qd`: its Q tile,
@@ -1600,10 +1655,10 @@ __device__ __forceinline__ void dkv_update(
   wgmma_commit();
 }
 
+// The block's work up to DMAX 128: each consumer warpgroup owns 64
+// keys and every column of their dK and dV.
 template <int DMAX, int WG>
-__global__ void __launch_bounds__(DkvWg<DMAX, WG>::kThreads,
-                                  DkvWg<DMAX, WG>::kMinBlocks)
-flash_bwd_dkv_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+__device__ __forceinline__ void dkv_own_keys(const TmaParams& tp) {
   using namespace cea_hopper;
   using C = DkvWg<DMAX, WG>;
   constexpr int kStages = C::kStages;
@@ -1812,6 +1867,334 @@ flash_bwd_dkv_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   }
 }
 
+// S^T and dP^T of one ring stage (`qd`: its Q tile, then its dO tile)
+// for consumer `wg` of the column split: its kQHalf query columns
+// against the block's 64 keys (K and V the A operands from shared
+// memory, m64n32 over the whole head dim), issued and committed as one
+// wgmma group, not waited for.
+//
+// K's and V's shared addresses come from `kv_addr` (shared memory), read
+// at each call: their 32 descriptors are then formed beside their wgmma
+// inside the loop. Hoisted out of it, as the compilers do with
+// addresses they see are fixed, they held 64 registers across it.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_split_scores(
+    float (&st)[DkvWg<DMAX, WG>::kQHalf / 2],
+    float (&dpt)[DkvWg<DMAX, WG>::kQHalf / 2], const uint32_t* kv_addr,
+    const unsigned char* qd, int wg) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  const uint32_t k_a = ld_shared_volatile(kv_addr);
+  const uint32_t v_a = ld_shared_volatile(kv_addr + 1);
+  // Rows kQHalf * wg .. of every chunk: whole 8-row swizzle groups.
+  const unsigned char* qh = qd + wg * C::kQHalf * kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_ss<C::kQHalf, 0>(st, kmajor_desc_at(k_a, C::kChunkK, kk),
+                           kmajor_desc(qh, C::kChunkQ, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_ss<C::kQHalf, 0>(dpt, kmajor_desc_at(v_a, C::kChunkK, kk),
+                           kmajor_desc(qh + C::kQBytes, C::kChunkQ, kk),
+                           kk > 0);
+  wgmma_commit();
+}
+
+// dV += P^T.dO and dK += dS^T.Q over the tile's kQ queries for
+// consumer `wg`'s columns (its kOwnChunks chunks): P^T and dS^T the
+// K-major A operands from the shared buffer `pds`, dO and Q the
+// MN-major B operands from the stage `qd`; issued and committed as one
+// wgmma group, not waited for.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_split_update(
+    float (&dk)[DkvWg<DMAX, WG>::kOwnChunks][32],
+    float (&dv)[DkvWg<DMAX, WG>::kOwnChunks][32], const unsigned char* pds,
+    const unsigned char* qd, int wg) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  const unsigned char* ds = pds + C::kPdsBytes / 2;
+#pragma unroll
+  for (int kk = 0; kk < C::kQ / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < C::kOwnChunks; ++c) {
+      const int chunk = C::kOwnChunks * wg + c;
+      wgmma_ss_n64<1>(dv[c], kmajor_desc(pds, 0, kk),
+                      mnmajor_desc(qd + C::kQBytes, C::kChunkQ, chunk, kk),
+                      1);
+      wgmma_ss_n64<1>(dk[c], kmajor_desc(ds, 0, kk),
+                      mnmajor_desc(qd, C::kChunkQ, chunk, kk), 1);
+    }
+  wgmma_commit();
+}
+
+// Consumer `wg`'s half of P^T and dS^T for the query tile at q0 from
+// its score accumulators (element e is key key0 + 8 ((e >> 1) & 1),
+// query column 8 (e >> 2) + 2t + (e & 1) of its kQHalf columns; `rows`:
+// the stage's lse of those columns, their delta kQ after): P^T =
+// exp2(S^T * scale * log2 e - lse * log2 e), zero where a mask drops
+// the pair (exp2 on the special-function unit alone), and dS^T = P^T *
+// (dP^T - delta) * scale, each pair written as bf16 into buffer `pds`
+// (its query columns of the [64 keys][kQ] swizzled tiles, P^T then
+// dS^T) as soon as it is formed; then the stores are made visible to
+// wgmma.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_split_terms(
+    float (&st)[DkvWg<DMAX, WG>::kQHalf / 2],
+    float (&dpt)[DkvWg<DMAX, WG>::kQHalf / 2], const float* rows,
+    const Params& p, int k0, int q0, int key0, int wg, int warp, int g,
+    int t, float scale2, unsigned char* pds) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  const int seq = p.seq;
+  const float* lse_b = rows;
+  const float* delta_b = lse_b + C::kQ;
+  const int qc = q0 + C::kQHalf * wg;  // this consumer's first query
+  const bool masked =
+      k0 + C::kKeys > seq || q0 + C::kQ > seq ||
+      (p.causal && (q0 < k0 + C::kKeys - 1 ||
+                    (p.window && k0 <= q0 + C::kQ - 1 - p.window)));
+  fence_regs(st);
+  fence_regs(dpt);
+#pragma unroll
+  for (int e = 0; e < C::kQHalf / 2; e += 2) {
+    float pr[2], ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int col = (e >> 2) * 8 + 2 * t + u;
+      pr[u] = fast_exp2(fmaf(st[e + u], scale2, -lse_b[col] * kLog2e));
+      if (masked) {
+        const int q_pos = qc + col;
+        const int k_pos = key0 + ((e >> 1) & 1) * 8;
+        bool keep = q_pos < seq && k_pos < seq;
+        if (p.causal) {
+          keep = keep && q_pos >= k_pos;
+          if (p.window) keep = keep && k_pos > q_pos - p.window;
+        }
+        pr[u] = keep ? pr[u] : 0.f;
+      }
+      ds[u] = pr[u] * (dpt[e + u] - delta_b[col]) * p.scale;
+    }
+    const int row = warp * 16 + g + ((e >> 1) & 1) * 8;
+    const int col = C::kQHalf * wg + (e >> 2) * 8 + 2 * t;
+    store_sw128_pair(pds, row, col, pr[0], pr[1]);
+    store_sw128_pair(pds + C::kPdsBytes / 2, row, col, ds[0], ds[1]);
+  }
+  fence_proxy_async();
+}
+
+// The loads of query tile qt (ring slot `slot`) for the column split,
+// issued by the consumers themselves: thread 0 the Q and dO tiles by
+// TMA, the first warp's lanes the tile's lse and delta rows by
+// cp.async (zeros past the sequence), each lane arriving on the slot's
+// barrier once its copies land.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_split_load(
+    const TmaParams& tp, unsigned char* qd_s, float* rows_s, uint64_t* full,
+    int slot, int qt, int b, int h) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  constexpr int kQ = C::kQ;
+  const Params& p = tp.p;
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int q0 = qt * kQ;
+  if (lane == 0) {
+    unsigned char* qs = qd_s + slot * C::kStageBytes;
+    mbar_arrive_expect_tx(&full[slot], C::kStageBytes);
+    for (int c = 0; c < C::kChunks; ++c) {
+      tma_load_4d(qs + c * C::kChunkQ, &tp.tq, &full[slot], 64 * c, h, q0,
+                  b);
+      tma_load_4d(qs + C::kQBytes + c * C::kChunkQ, &tp.tdo, &full[slot],
+                  64 * c, h, q0, b);
+    }
+  }
+  // lse and delta of (b, position, h) at (b * seq + pos) * heads + h.
+  float* lse_s = rows_s + 2 * slot * kQ;
+  const long long row_base = static_cast<long long>(b) * p.seq * p.heads + h;
+#pragma unroll
+  for (int u = 0; u < kQ / 32; ++u) {
+    const int pos = q0 + lane + 32 * u;
+    const bool in = pos < p.seq;
+    const long long row =
+        in ? row_base + static_cast<long long>(pos) * p.heads : row_base;
+    cea_mma::cp_async4(lse_s + lane + 32 * u, p.lse + row, in);
+    cea_mma::cp_async4(lse_s + kQ + lane + 32 * u, p.delta + row, in);
+  }
+  cp_async_mbar_arrive(&full[slot]);
+}
+
+// The block's work at DMAX 256 (DkvWg::kSplit): one 64-key tile, two
+// consumer warpgroups splitting its columns, and no producer
+// warpgroup: the consumers load K and V, and each query tile into the
+// ring's slot the tile two before it used, past the named barrier at
+// which both consumers have finished with that slot
+// (dkv_split_load). For each Q/dO tile i but the last a consumer queues
+// its products of tile i (reading buffer i % 2), then the scores of
+// tile i + 1, whose load lands while the products run, on the tensor
+// cores; once both are in it writes its half of P^T and dS^T of tile
+// i + 1 into buffer (i + 1) % 2 and meets the other consumer at the
+// named barrier. Buffer (i + 1) % 2 was last read by the products of
+// tile i - 1, which both consumers finished before the barrier of tile
+// i. Both consumers see the same query tiles, so each meets every
+// barrier.
+template <int DMAX, int WG>
+__device__ __forceinline__ void dkv_split_cols(const TmaParams& tp) {
+  using namespace cea_hopper;
+  using C = DkvWg<DMAX, WG>;
+  constexpr int kStages = C::kStages;
+  constexpr int kQ = C::kQ;
+  constexpr int kOwn = C::kOwnChunks;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = align1024(smem_raw);
+  unsigned char* v_s = k_s + C::kKBytes;
+  unsigned char* qd_s = v_s + C::kKBytes;  // stage s: Q, then dO
+  // buffer u: P^T, then dS^T
+  unsigned char* pds_s = qd_s + kStages * C::kStageBytes;
+  float* rows_s = reinterpret_cast<float*>(pds_s + 2 * C::kPdsBytes);
+  // stage s: lse at rows_s + 2 s kQ, delta after it
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s + kStages * 2 * kQ);
+  uint64_t* full = kv_full + 1;  // [kStages]: the slot's tile landed
+  // K's and V's shared addresses (dkv_split_scores).
+  uint32_t* kv_addr = reinterpret_cast<uint32_t*>(full + kStages);
+
+  const Params& p = tp.p;
+  const Place pl = place(p.batch, p.heads, p.seq, C::kKeys);
+  const int b = pl.b;
+  const int h = pl.h;
+  // Causal: the first key tiles see the most queries; run them first.
+  const int k0 = (p.causal ? pl.rank : pl.tiles - 1 - pl.rank) * C::kKeys;
+  const int seq = p.seq;
+  // The query range that sees the block's keys, as in the f32 kernel.
+  const int k_last = min(k0 + C::kKeys, seq) - 1;
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi =
+      (p.causal && p.window) ? min(seq - 1, k_last + p.window - 1) : seq - 1;
+  const int qt_lo = q_lo / kQ;
+  const int n = q_hi / kQ - qt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    // Thread 0's expect_tx arrival and one cp.async arrival a lane of
+    // the first warp.
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1 + 32);
+    kv_addr[0] = smem_u32(k_s);
+    kv_addr[1] = smem_u32(v_s);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(&tp.tq);
+    tma_prefetch_map(&tp.tdo);
+    mbar_arrive_expect_tx(kv_full, 2 * C::kKBytes);
+    for (int c = 0; c < C::kChunks; ++c) {
+      tma_load_4d(k_s + c * C::kChunkK, &tp.tk, kv_full, 64 * c, h, k0, b);
+      tma_load_4d(v_s + c * C::kChunkK, &tp.tv, kv_full, 64 * c, h, k0, b);
+    }
+  }
+  for (int i = 0; i < kStages && i < n; ++i)
+    dkv_split_load<DMAX, WG>(tp, qd_s, rows_s, full, i, qt_lo + i, b, h);
+
+  // Consumer warpgroup wg: query columns kQHalf * wg .. of each tile's
+  // scores, chunks kOwnChunks * wg .. of dK and dV.
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this lane's keys: key0, +8
+  const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+  auto stage = [&](int i) { return qd_s + (i % kStages) * C::kStageBytes; };
+  // The stage's lse and delta rows of this consumer's query columns.
+  auto lse_rows = [&](int i) {
+    return rows_s + 2 * (i % kStages) * kQ + C::kQHalf * wg;
+  };
+  auto wait_tile = [&](int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+  };
+
+  float st[C::kQHalf / 2], dpt[C::kQHalf / 2];
+  float dk[kOwn][32], dv[kOwn][32];
+#pragma unroll
+  for (int c = 0; c < kOwn; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
+
+  // The first tile: its scores, then its half of P^T and dS^T into
+  // buffer 0.
+  mbar_wait(kv_full, 0);
+  wait_tile(0);
+  wgmma_fence();
+  dkv_split_scores<DMAX, WG>(st, dpt, kv_addr, stage(0), wg);
+  wgmma_wait<0>();
+  dkv_split_terms<DMAX, WG>(st, dpt, lse_rows(0), p, k0, qt_lo * kQ, key0,
+                            wg, warp, g, t, scale2, pds_s);
+  named_barrier_sync(1, 128 * WG);
+  for (int i = 0; i + 1 < n; ++i) {
+    const int next = i + 1;
+    wgmma_fence();
+    dkv_split_update<DMAX, WG>(dk, dv, pds_s + (i & 1) * C::kPdsBytes,
+                               stage(i), wg);
+    wait_tile(next);
+    dkv_split_scores<DMAX, WG>(st, dpt, kv_addr, stage(next), wg);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kOwn; ++c) {
+      fence_regs(dv[c]);
+      fence_regs(dk[c]);
+    }
+    dkv_split_terms<DMAX, WG>(st, dpt, lse_rows(next), p, k0,
+                              (qt_lo + next) * kQ, key0, wg, warp, g, t,
+                              scale2, pds_s + (next & 1) * C::kPdsBytes);
+    named_barrier_sync(1, 128 * WG);
+    // Both consumers are done with tile i's slot: load tile i + kStages.
+    if (i + kStages < n)
+      dkv_split_load<DMAX, WG>(tp, qd_s, rows_s, full, i % kStages,
+                               qt_lo + i + kStages, b, h);
+  }
+  // The last tile's products.
+  wgmma_fence();
+  dkv_split_update<DMAX, WG>(dk, dv, pds_s + ((n - 1) & 1) * C::kPdsBytes,
+                             stage(n - 1), wg);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < kOwn; ++c) {
+    fence_regs(dv[c]);
+    fence_regs(dk[c]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = key0 + 8 * r;
+    if (pos >= seq) continue;
+    const long long off =
+        ((static_cast<long long>(b) * seq + pos) * p.heads + h) * p.dim;
+    bf16* dkg = static_cast<bf16*>(p.out0) + off;
+    bf16* dvg = static_cast<bf16*>(p.out1) + off;
+#pragma unroll
+    for (int c = 0; c < kOwn; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * (kOwn * wg + c) + j * 8 + 2 * t;
+        if (col >= p.dim) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dkg + col) =
+            __floats2bfloat162_rn(dk[c][4 * j + 2 * r],
+                                  dk[c][4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + col) =
+            __floats2bfloat162_rn(dv[c][4 * j + 2 * r],
+                                  dv[c][4 * j + 2 * r + 1]);
+      }
+  }
+}
+
+template <int DMAX, int WG>
+__global__ void __launch_bounds__(DkvWg<DMAX, WG>::kThreads,
+                                  DkvWg<DMAX, WG>::kMinBlocks)
+flash_bwd_dkv_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+  if constexpr (DkvWg<DMAX, WG>::kSplit)
+    dkv_split_cols<DMAX, WG>(tp);
+  else
+    dkv_own_keys<DMAX, WG>(tp);
+}
+
 template <int DMAX, int WG>
 cudaError_t launch_dkv_wg_n(const Params& p, cudaStream_t stream) {
   using C = DkvWg<DMAX, WG>;
@@ -1842,13 +2225,19 @@ cudaError_t launch_dkv_wg_n(const Params& p, cudaStream_t stream) {
 }
 
 // Two consumer warpgroups (128-key tiles, one block an SM) once the
-// grid of such tiles fills the card's 132 SMs; otherwise one.
+// grid of such tiles fills the card's 132 SMs; otherwise one. At DMAX
+// 256 always two, splitting a 64-key tile's columns (2048 blocks at
+// [4, 2048, 16, 256]).
 template <int DMAX>
 cudaError_t launch_dkv_wg(const Params& p, cudaStream_t stream) {
-  const long long tiles128 =
-      static_cast<long long>(p.batch) * p.heads * ((p.seq + 127) / 128);
-  return tiles128 >= 132 ? launch_dkv_wg_n<DMAX, 2>(p, stream)
-                         : launch_dkv_wg_n<DMAX, 1>(p, stream);
+  if constexpr (DkvWg<DMAX, 2>::kSplit) {
+    return launch_dkv_wg_n<DMAX, 2>(p, stream);
+  } else {
+    const long long tiles128 =
+        static_cast<long long>(p.batch) * p.heads * ((p.seq + 127) / 128);
+    return tiles128 >= 132 ? launch_dkv_wg_n<DMAX, 2>(p, stream)
+                           : launch_dkv_wg_n<DMAX, 1>(p, stream);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1859,9 +2248,14 @@ cudaError_t launch_dkv_wg(const Params& p, cudaStream_t stream) {
 // loads Q and dO once by TMA, then streams K/V tiles of 64 keys by TMA
 // through a ring of kStages. Unlike dK/dV, a consumer's lse and delta
 // rows are fixed for the whole loop, so they sit in its registers and
-// need no ring.
+// need no ring. At DMAX 256 (kWide: kernel head dims 136-256) a block
+// is one consumer, one block an SM (dq_wide_body): Q and dO take 64 KB,
+// K and V stream through rings of their own (kKStages and kVStages
+// tiles of 32 KB), and the consumer holds dQ in 128 f32 registers a
+// thread beside S and dP (64) and dS's A operands (16).
 template <int DMAX, int WG>
 struct DqWg {
+  static constexpr bool kWide = DMAX > 128;
   static constexpr int kChunks = DMAX / 64;
   static constexpr int kRowsQ = 64 * WG;
   // Q and dO as register A operands of the score products where the
@@ -1872,22 +2266,37 @@ struct DqWg {
   static constexpr bool kHoldQ = DMAX <= 64 && WG == 1;
   static constexpr int kHeldSteps = kHoldQ ? DMAX / 16 : 1;
   // Three stages where they fit, two where two blocks an SM at D 128
-  // would not.
+  // would not (kWide: kKStages and kVStages).
   static constexpr int kStages = (WG == 1 && DMAX > 64) ? 2 : 3;
   static constexpr int kThreads = 128 * (WG + 1);
-  static constexpr int kMinBlocks = WG == 1 ? 2 : 1;
-  static constexpr int kRegsProducer = 24;
-  static constexpr int kRegsConsumer = WG == 1 ? 232 : WG == 2 ? 240 : 160;
+  static constexpr int kMinBlocks = (WG == 1 && !kWide) ? 2 : 1;
+  // A lone consumer at one block an SM takes what the block holds (the
+  // 256-thread block's 255 registers a thread to start with).
+  static constexpr int kRegsProducer = kWide ? 56 : 24;
+  static constexpr int kRegsConsumer =
+      kWide ? 256 : WG == 1 ? 232 : WG == 2 ? 240 : 160;
   static constexpr int kChunkQ = kRowsQ * cea_hopper::kRowBytes;
   static constexpr int kQBytes = kChunks * kChunkQ;  // Q or dO
   static constexpr int kChunkK = kTile * cea_hopper::kRowBytes;
   static constexpr int kKBytes = kChunks * kChunkK;  // one K or V tile
   static constexpr int kStageBytes = 2 * kKBytes;
+  // kWide: V is read by the score products alone, so its slot frees
+  // once a tile's scores are in; K is read again by the tile's dQ
+  // product, a tile later. Three K stages and two V stages keep each
+  // load a tile ahead of its use, where one ring of two K/V stages
+  // freed a slot only as the tile after it began.
+  static constexpr int kKStages = 3;
+  static constexpr int kVStages = 2;
   static constexpr size_t smem_bytes() {
-    // Alignment slack, Q and dO, the K/V ring, the barriers.
-    return 1024 + 2 * kQBytes + kStages * kStageBytes +
-           sizeof(uint64_t) * (1 + 2 * kStages);
+    // Alignment slack, Q and dO, the K/V ring (kWide: the K ring and the
+    // V ring), the barriers (kWide: and Q's and dO's addresses).
+    return kWide ? 1024 + 2 * kQBytes + (kKStages + kVStages) * kKBytes +
+                       sizeof(uint64_t) * (2 + 2 * (kKStages + kVStages))
+                 : 1024 + 2 * kQBytes + kStages * kStageBytes +
+                       sizeof(uint64_t) * (1 + 2 * kStages);
   }
+  static_assert(!kWide || WG == 1, "D 256: one consumer");
+  static_assert(smem_bytes() <= 232448, "an H100 block's shared memory");
 };
 
 // S = Q.K^T and dP = dO.V^T of one ring stage (`kv`: its K tile, then
@@ -1971,10 +2380,10 @@ __device__ __forceinline__ void dq_product(float (&dq)[DMAX / 64][32],
   wgmma_commit();
 }
 
+// The block's work up to DMAX 128: WG consumer warpgroups of 64 query
+// rows each, one K/V ring.
 template <int DMAX, int WG>
-__global__ void __launch_bounds__(DqWg<DMAX, WG>::kThreads,
-                                  DqWg<DMAX, WG>::kMinBlocks)
-flash_bwd_dq_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+__device__ __forceinline__ void dq_own_rows(const TmaParams& tp) {
   using namespace cea_hopper;
   using C = DqWg<DMAX, WG>;
   constexpr int kStages = C::kStages;
@@ -2176,6 +2585,227 @@ flash_bwd_dq_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   }
 }
 
+// S = Q.K^T and dP = dO.V^T for the lone consumer at DMAX 256, Q and
+// dO from shared memory at the addresses `qd_addr` holds, K and V from
+// their own rings (`k_t`, `v_t`): issued and committed as one wgmma
+// group, not waited for. Q's and dO's addresses are read at each call
+// (as K's and V's in dkv_split_scores): their 32 descriptors are formed
+// beside their wgmma, not held in 64 registers across the loop.
+template <int DMAX>
+__device__ __forceinline__ void dq_wide_scores(
+    float (&s)[32], float (&dp)[32], const uint32_t* qd_addr,
+    const unsigned char* k_t, const unsigned char* v_t) {
+  using namespace cea_hopper;
+  using C = DqWg<DMAX, 1>;
+  const uint32_t q_a = ld_shared_volatile(qd_addr);
+  const uint32_t do_a = ld_shared_volatile(qd_addr + 1);
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_ss_n64<0>(s, kmajor_desc_at(q_a, C::kChunkQ, kk),
+                    kmajor_desc(k_t, C::kChunkK, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_ss_n64<0>(dp, kmajor_desc_at(do_a, C::kChunkQ, kk),
+                    kmajor_desc(v_t, C::kChunkK, kk), kk > 0);
+  wgmma_commit();
+}
+
+// The block's work at DMAX 256 (DqWg::kWide): one consumer warpgroup on
+// 64 query rows, every key tile of their range. Per tile it queues the
+// next tile's scores and this tile's dQ product, frees the next tile's
+// V slot once the scores are in, forms the next dS while the product
+// runs, then frees this tile's K slot.
+template <int DMAX>
+__device__ __forceinline__ void dq_wide_body(const TmaParams& tp) {
+  using namespace cea_hopper;
+  using C = DqWg<DMAX, 1>;
+  constexpr int kKStages = C::kKStages;
+  constexpr int kVStages = C::kVStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);
+  unsigned char* do_s = q_s + C::kQBytes;
+  unsigned char* k_ring = do_s + C::kQBytes;
+  unsigned char* v_ring = k_ring + kKStages * C::kKBytes;
+  uint64_t* qd_full =
+      reinterpret_cast<uint64_t*>(v_ring + kVStages * C::kKBytes);
+  uint64_t* k_full = qd_full + 1;        // [kKStages]: K tile landed
+  uint64_t* k_empty = k_full + kKStages;  // [kKStages]: its products done
+  uint64_t* v_full = k_empty + kKStages;  // [kVStages]
+  uint64_t* v_empty = v_full + kVStages;  // [kVStages]: its scores done
+  // Q's and dO's shared addresses (dq_wide_scores).
+  uint32_t* qd_addr = reinterpret_cast<uint32_t*>(v_empty + kVStages);
+
+  const Params& p = tp.p;
+  const Place pl = place(p.batch, p.heads, p.seq, kTile);
+  const int b = pl.b;
+  const int h = pl.h;
+  // Causal: the last Q tiles see the most keys; run them first.
+  const int q0 = (pl.tiles - 1 - pl.rank) * kTile;
+  const int seq = p.seq;
+  // The key range the block's Q tile sees, as in the f32 kernel.
+  const int q_last = min(q0 + kTile, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+  const int kt_lo = k_lo / kTile, kt_hi = k_hi / kTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 4);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 4);
+    }
+    qd_addr[0] = smem_u32(q_s);
+    qd_addr[1] = smem_u32(do_s);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // Producer: Q and dO once, then each key tile's K and V.
+    setmaxnreg_dec<C::kRegsProducer>();
+    if (threadIdx.x == 128) {
+      tma_prefetch_map(&tp.tk);
+      tma_prefetch_map(&tp.tv);
+      mbar_arrive_expect_tx(qd_full, 2 * C::kQBytes);
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_load_4d(q_s + c * C::kChunkQ, &tp.tq, qd_full, 64 * c, h, q0, b);
+        tma_load_4d(do_s + c * C::kChunkQ, &tp.tdo, qd_full, 64 * c, h, q0,
+                    b);
+      }
+      for (int kt = kt_lo, i = 0; kt <= kt_hi; ++kt, ++i) {
+        const int sk = i % kKStages, sv = i % kVStages;
+        mbar_wait(&k_empty[sk], ((i / kKStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[sk], C::kKBytes);
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load_4d(k_ring + sk * C::kKBytes + c * C::kChunkK, &tp.tk,
+                      &k_full[sk], 64 * c, h, kt * kTile, b);
+        mbar_wait(&v_empty[sv], ((i / kVStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&v_full[sv], C::kKBytes);
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load_4d(v_ring + sv * C::kKBytes + c * C::kChunkK, &tp.tv,
+                      &v_full[sv], 64 * c, h, kt * kTile, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<C::kRegsConsumer>();
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x / 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, +8
+    const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x * log2 e)
+    auto k_tile = [&](int i) { return k_ring + (i % kKStages) * C::kKBytes; };
+    auto v_tile = [&](int i) { return v_ring + (i % kVStages) * C::kKBytes; };
+    auto wait_kv = [&](int i) {
+      mbar_wait(&k_full[i % kKStages], (i / kKStages) & 1);
+      mbar_wait(&v_full[i % kVStages], (i / kVStages) & 1);
+    };
+    // A tile's scores need their masks if a mask can reach one of them.
+    auto masked = [&](int k0) {
+      return k0 + kTile > seq ||
+             (p.causal && (k0 + kTile - 1 > q0 ||
+                           (p.window && k0 <= q0 + kTile - 1 - p.window)));
+    };
+    // This lane's rows' lse (log2 units) and delta * scale.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pos = row0 + 8 * r;
+      const long long row =
+          (static_cast<long long>(b) * seq + pos) * p.heads + h;
+      lse2[r] = pos < seq ? p.lse[row] * kLog2e : 0.f;
+      delta[r] = pos < seq ? p.delta[row] * p.scale : 0.f;
+    }
+    float dq[C::kChunks][32];
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dq[c][e] = 0.f;
+    float s[32], dp[32];
+    uint32_t dsa[kTile / 16][4];
+    mbar_wait(qd_full, 0);
+    // The first tile: its scores, then its dS.
+    wait_kv(0);
+    wgmma_fence();
+    dq_wide_scores<DMAX>(s, dp, qd_addr, k_tile(0), v_tile(0));
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&v_empty[0]);
+    fence_regs(s);
+    fence_regs(dp);
+    dq_ds(s, dp, lse2, delta, p, kt_lo * kTile, row0, t,
+          masked(kt_lo * kTile), scale2);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) acc_to_a(dsa[kk], s, kk);
+    // Each tile but the last: the next tile's scores, then this tile's
+    // dQ product; the next dS once the scores are in, while the product
+    // runs.
+    const int n = kt_hi - kt_lo + 1;
+    for (int i = 0; i + 1 < n; ++i) {
+      const int next = i + 1;
+      wait_kv(next);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+      wgmma_fence();
+      dq_wide_scores<DMAX>(s, dp, qd_addr, k_tile(next), v_tile(next));
+      dq_product<DMAX, 1>(dq, dsa, k_tile(i));
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(&v_empty[next % kVStages]);
+      fence_regs(s);
+      fence_regs(dp);
+      dq_ds(s, dp, lse2, delta, p, (kt_lo + next) * kTile, row0, t,
+            masked((kt_lo + next) * kTile), scale2);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+      if (lane == 0) mbar_arrive(&k_empty[i % kKStages]);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) acc_to_a(dsa[kk], s, kk);
+    }
+    {  // the last tile's dQ product
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+      wgmma_fence();
+      dq_product<DMAX, 1>(dq, dsa, k_tile(n - 1));
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) fence_regs(dq[c]);
+      if (lane == 0) mbar_arrive(&k_empty[(n - 1) % kKStages]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pos = row0 + 8 * r;
+      if (pos >= seq) continue;
+      bf16* dqg = static_cast<bf16*>(p.out0) +
+                  ((static_cast<long long>(b) * seq + pos) * p.heads + h) *
+                      p.dim;
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * c + j * 8 + 2 * t;
+          if (col < p.dim)
+            *reinterpret_cast<__nv_bfloat162*>(dqg + col) =
+                __floats2bfloat162_rn(dq[c][4 * j + 2 * r],
+                                      dq[c][4 * j + 2 * r + 1]);
+        }
+    }
+  }
+}
+
+template <int DMAX, int WG>
+__global__ void __launch_bounds__(DqWg<DMAX, WG>::kThreads,
+                                  DqWg<DMAX, WG>::kMinBlocks)
+flash_bwd_dq_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+  if constexpr (DqWg<DMAX, WG>::kWide)
+    dq_wide_body<DMAX>(tp);
+  else
+    dq_own_rows<DMAX, WG>(tp);
+}
+
 template <int DMAX, int WG>
 cudaError_t launch_dq_wg_n(const Params& p, cudaStream_t stream) {
   using C = DqWg<DMAX, WG>;
@@ -2213,14 +2843,19 @@ cudaError_t launch_dq_wg_n(const Params& p, cudaStream_t stream) {
 // dO in registers or read them from shared memory (flash_bench.py on
 // an NVIDIA H100 80GB HBM3 at 700 W, before the dS step overlapped the
 // dQ product): the third warpgroup's dS step hides behind the others'
-// products.
+// products. At DMAX 256 always one (64-row tiles, one block an SM;
+// 2048 blocks at [4, 2048, 16, 256]).
 template <int DMAX>
 cudaError_t launch_dq_wg(const Params& p, cudaStream_t stream) {
-  constexpr int kWide = DMAX == 64 ? 3 : 2;
-  const long long tiles = static_cast<long long>(p.batch) * p.heads *
-                          ((p.seq + 64 * kWide - 1) / (64 * kWide));
-  return tiles >= 132 ? launch_dq_wg_n<DMAX, kWide>(p, stream)
-                      : launch_dq_wg_n<DMAX, 1>(p, stream);
+  if constexpr (DqWg<DMAX, 1>::kWide) {
+    return launch_dq_wg_n<DMAX, 1>(p, stream);
+  } else {
+    constexpr int kWg = DMAX == 64 ? 3 : 2;
+    const long long tiles = static_cast<long long>(p.batch) * p.heads *
+                            ((p.seq + 64 * kWg - 1) / (64 * kWg));
+    return tiles >= 132 ? launch_dq_wg_n<DMAX, kWg>(p, stream)
+                        : launch_dq_wg_n<DMAX, 1>(p, stream);
+  }
 }
 
 // 64-row tiles over every head, and `chunks` column chunks (the wide
@@ -2260,10 +2895,19 @@ cudaError_t dispatch(const Params& p, int dtype, bool dkv,
   return cudaErrorInvalidValue;
 }
 
-// Head dims above 128: the wide kernels, bf16 on mma.sync whatever the
-// rows' alignment (which picks 16-byte or 2-byte staging).
+// Head dims above 128. bf16 whose rows a tensor map describes (the
+// route kRouteHopper, which the wrapper passes up to kernel head dim
+// kHopperWideDim) runs the Hopper kernels at DMAX 256; every other
+// input the wide kernels: f32 on FMA, bf16 on mma.sync with rows staged
+// by 16-byte loads (2, the wrapper's ROUTE_ROWS16) or by 2-byte loads
+// (0).
 cudaError_t dispatch_wide(const Params& p, int dtype, bool dkv,
                           cudaStream_t stream) {
+  if (dtype == 1 && p.aligned == kRouteHopper) {
+    if (p.dim > kHopperWideDim) return cudaErrorInvalidValue;
+    return dkv ? launch_dkv_wg<kHopperWideDim>(p, stream)
+               : launch_dq_wg<kHopperWideDim>(p, stream);
+  }
   const int chunks = cea_grid::wide_chunks(p.dim);
   if (dtype == 0)
     return dkv ? launch(flash_bwd_dkv_f32_wide_kernel, p,
@@ -2318,12 +2962,14 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Both entry points: dtype 0 = float32, 1 = bfloat16; strides in
-// elements, (batch, seq, head) for q, k, v, dO in that order. Up to
-// head dim 128, aligned = 1 when a TMA tensor map can read q, k, v and
-// dO in place (16-byte base, every stepped stride a nonzero multiple
-// of 16 bytes): bf16 dQ and dK/dV take the Hopper kernels; 0: the
-// mma.sync kernels with 2-byte loads. Above 128, the wide kernels, and
-// aligned = 1 when every row starts on 16 bytes (16-byte staging).
+// elements, (batch, seq, head) for q, k, v, dO in that order. `aligned`
+// is the route (`kernel_route(..., backward=True)`): kRouteHopper (1)
+// when a TMA tensor map can read q, k, v and dO in place (16-byte base,
+// every stepped stride a nonzero multiple of 16 bytes) up to head dim
+// 256: bf16 dQ and dK/dV take the Hopper kernels; otherwise the
+// mma.sync kernels, up to 128 with 2-byte loads (0), above 128 the wide
+// kernels with 16-byte staging (2, every row on 16 bytes) or 2-byte
+// staging (0).
 // Return the cudaError_t of the launch (0 = success); the caller
 // raises on anything else. The wrapper has checked shapes, types, that
 // the head dim is contiguous and that lse and delta are contiguous

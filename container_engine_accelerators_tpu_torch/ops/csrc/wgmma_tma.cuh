@@ -13,9 +13,10 @@
 // limitations under the License.
 
 // Building blocks of the Hopper flash kernels (the bf16 forward in
-// flash_fwd.cu, dK/dV in flash_bwd.cu): TMA tile loads guarded by
-// mbarriers, wgmma.mma_async on 128-byte-swizzled shared tiles, and
-// register hand-over between a producer warpgroup and its consumers.
+// flash_fwd.cu, dQ and dK/dV in flash_bwd.cu): TMA tile loads guarded
+// by mbarriers, wgmma.mma_async on 128-byte-swizzled shared tiles,
+// register hand-over between a producer warpgroup and its consumers,
+// and tiles handed between consumers through shared memory.
 //
 // Why these and not the mma.sync helpers of mma_bf16.cuh: on an H100
 // only wgmma reaches the tensor cores' full rate, and wgmma reads its
@@ -57,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace cea_hopper {
 
@@ -167,6 +170,29 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
                : "memory");
 }
 
+// Arrive on `bar` once this thread's cp.async copies so far have landed
+// (the barrier's count includes this arrival).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// ---------------------------------------------------------------------
+// Hand-over between consumer warpgroups through shared memory.
+
+// Make this thread's plain shared-memory stores visible to the
+// asynchronous proxy (the wgmma that reads them as a shared operand).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads's) over `threads`
+// threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------
 // Register hand-over (whole warpgroups; the count a multiple of 8).
 
@@ -186,19 +212,39 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile at p:
 // start address, leading byte offset `lbo`, stride byte offset 1024
 // (8 rows), layout type 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
-  const uint32_t a = smem_u32(p);
+__device__ __forceinline__ uint64_t sw128_desc_at(uint32_t a, uint32_t lbo) {
   return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
          (static_cast<uint64_t>(kGroupBytes >> 4) << 32) | (1ull << 62);
 }
 
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return sw128_desc_at(smem_u32(p), lbo);
+}
+
 // A K-major operand (depth contiguous): 16-deep step `ks` of the
-// [rows][64]-chunked tile at `tile` whose chunks are `chunk_bytes`
-// apart.
+// [rows][64]-chunked tile at shared address `tile` whose chunks are
+// `chunk_bytes` apart.
+__device__ __forceinline__ uint64_t kmajor_desc_at(uint32_t tile,
+                                                   int chunk_bytes, int ks) {
+  return sw128_desc_at(tile + (ks / 4) * chunk_bytes + (ks % 4) * 32, 16);
+}
+
 __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile,
                                                 int chunk_bytes, int ks) {
-  return sw128_desc(tile + (ks / 4) * chunk_bytes + (ks % 4) * 32, 16);
+  return kmajor_desc_at(smem_u32(tile), chunk_bytes, ks);
+}
+
+// A word of shared memory, read anew at every call: what is computed
+// from it stays where it is used (neither compiler hoists it out of a
+// loop), e.g. the descriptors of a tile that a loop reads each pass,
+// which hoisted would hold two registers each across the loop.
+__device__ __forceinline__ uint32_t ld_shared_volatile(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(smem_u32(p)));
+  return v;
 }
 
 // An MN-major operand (N contiguous, depth down the rows): 16-deep
@@ -339,6 +385,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two f32 values rounded to bf16 into (row, columns col and col + 1;
+// col even) of a [rows][64] 128-byte-swizzled tile whose first row
+// starts an 8-row swizzle group: the layout TMA writes and a K-major
+// descriptor reads (the 16-byte unit u of row r sits at unit u ^ (r %
+// 8), as in load_a_sw128).
+__device__ __forceinline__ void store_sw128_pair(unsigned char* tile,
+                                                 int row, int col, float lo,
+                                                 float hi) {
+  *reinterpret_cast<uint32_t*>(tile + row * kRowBytes +
+                               (((col >> 3) ^ (row & 7)) << 4) +
+                               (col & 7) * 2) = pack_bf16(lo, hi);
+}
+
 // The A operand of 16-deep step k of the next product from
 // accumulator blocks 2k and 2k + 1, rounded to bf16.
 template <int N>
@@ -383,16 +442,37 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapFloatOOBfill);
 
 inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
+  // Host threads launch concurrently (ctypes drops the GIL): the
+  // pointer is published atomically; a failed lookup is tried again.
+  static std::atomic<EncodeTiledFn> fn{nullptr};
+  EncodeTiledFn f = fn.load(std::memory_order_acquire);
+  if (f == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult status;
     if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
                                 cudaEnableDefault, &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
+        status == cudaDriverEntryPointSuccess) {
+      f = reinterpret_cast<EncodeTiledFn>(p);
+      fn.store(f, std::memory_order_release);
+    }
   }
-  return fn;
+  return f;
+}
+
+// Make the current device's primary context current in the calling
+// host thread, once a thread. cuTensorMapEncodeTiled is a driver call
+// and fails with CUDA_ERROR_INVALID_CONTEXT in a thread where no
+// context is current, which a host thread's first launch can meet:
+// PyTorch's caching allocator hands it its tensors without a runtime
+// call that would bind one. cudaSetDevice binds it (CUDA 12).
+inline cudaError_t bind_thread_context() {
+  static thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  bound = err == cudaSuccess;
+  return err;
 }
 
 // The tensor map of one [B, S, H, D] bf16 operand read through its
@@ -429,20 +509,25 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int batch,
 
 constexpr int kMaxDevices = 64;
 
-// Once a device, before kernel `fn`'s first launch there (`Config`, the
-// kernel's configuration type, keys the once): check that it was
-// compiled with enough registers a thread for its producer warpgroup
-// to drop to `dec` and its `consumers` warpgroups to rise to `inc`
-// (setmaxnreg moves registers inside the block's allocation; asking
-// for more than it holds would stall), and opt in to `smem` bytes of
-// dynamic shared memory.
+// Before every launch of kernel `fn`: bind the thread's context
+// (bind_thread_context, for the tensor maps the launch encodes next).
+// Once a device, before its first launch there (`Config`, the kernel's
+// configuration type, keys the once): check that it was compiled with
+// enough registers a thread for its producer warpgroup to drop to
+// `dec` and its `consumers` warpgroups to rise to `inc` (setmaxnreg
+// moves registers inside the block's allocation; asking for more than
+// it holds would stall), and opt in to `smem` bytes of dynamic shared
+// memory.
 template <typename Config, typename Kernel>
 cudaError_t prepare_launch(Kernel fn, int threads, int consumers, int dec,
                            int inc, size_t smem) {
-  static bool ready[kMaxDevices] = {};
+  static std::atomic<bool> ready[kMaxDevices];
+  cudaError_t err = bind_thread_context();
+  if (err != cudaSuccess) return err;
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && ready[dev])) return err;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && ready[dev].load()))
+    return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;

@@ -231,3 +231,107 @@ def test_wrappers_pass_the_kernel_head_dim(recorded, d, kd, want):
     for args in recorded.values():
         assert args[-2] == pytest.approx(1.0 / np.sqrt(d))
         assert args[-1] == want
+
+
+def _launch_all(q, k, v, do):
+    b, s, h, _ = q.shape
+    lse = torch.zeros((b, s, h), dtype=torch.float32)
+    attn.flash_fwd.launch(q, k, v, True, 0)
+    attn.flash_bwd_dq.launch(q, k, v, do, lse, lse, True, 0)
+    attn.flash_bwd_dkv.launch(q, k, v, do, lse, lse, True, 0)
+
+
+def _flags(recorded):
+    return {name: args[-1] for name, args in recorded.items()}
+
+
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_backward_takes_the_hopper_route_up_to_256(recorded, d):
+    """bf16 dQ and dK/dV at kernel head dims 136-256 on rows a tensor
+    map describes pass ROUTE_HOPPER; the forward's flag stays
+    ``rows_aligned`` (its wide mma.sync kernel, 16-byte staging)."""
+    q, k, v, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
+                   for _ in range(4))
+    assert attn.tma_rows(q, k, v, do) == 1
+    before = [attn.flash_bwd_dq.hopper_launches,
+              attn.flash_bwd_dkv.hopper_launches]
+    _launch_all(q, k, v, do)
+    assert _flags(recorded) == {"flash_fwd": 1,
+                                "flash_bwd_dq": attn.ROUTE_HOPPER,
+                                "flash_bwd_dkv": attn.ROUTE_HOPPER}
+    assert [attn.flash_bwd_dq.hopper_launches,
+            attn.flash_bwd_dkv.hopper_launches] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("d", [264, 320])
+def test_backward_above_256_keeps_the_wide_kernels(recorded, d):
+    """Past kernel head dim 256 no Hopper backward exists: aligned rows
+    pass ROUTE_ROWS16 (the wide mma.sync kernels, 16-byte staging)."""
+    q, k, v, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
+                   for _ in range(4))
+    assert attn.tma_rows(q, k, v, do) == 1
+    _launch_all(q, k, v, do)
+    assert _flags(recorded) == {"flash_fwd": 1,
+                                "flash_bwd_dq": attn.ROUTE_ROWS16,
+                                "flash_bwd_dkv": attn.ROUTE_ROWS16}
+
+
+def test_wide_broadcast_and_misaligned_rows_keep_the_wide_kernels(recorded):
+    """D 256 rows a tensor map cannot describe: k and v broadcast over
+    the heads (rows still on 16 bytes: ROUTE_ROWS16) and slices of a
+    fused projection one element in (0, 2-byte staging). The forward's
+    flag is ``rows_aligned`` as before."""
+    d = 256
+    q, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.zeros((2, 10, 1, d), dtype=torch.bfloat16).expand(
+        2, 10, H, d) for _ in range(2))
+    assert attn.tma_rows(q, k, v, do) == 0
+    before = [attn.flash_bwd_dq.hopper_launches,
+              attn.flash_bwd_dkv.hopper_launches]
+    _launch_all(q, k, v, do)
+    assert _flags(recorded) == {"flash_fwd": 1,
+                                "flash_bwd_dq": attn.ROUTE_ROWS16,
+                                "flash_bwd_dkv": attn.ROUTE_ROWS16}
+    assert [attn.flash_bwd_dq.hopper_launches,
+            attn.flash_bwd_dkv.hopper_launches] == before
+    recorded.clear()
+    fused = torch.zeros((2, 10, 4 * H * d + 1), dtype=torch.bfloat16)
+    q, k, v, do = (fused[:, :, 1 + i * H * d:1 + (i + 1) * H * d]
+                   .unflatten(-1, (H, d)) for i in range(4))
+    _launch_all(q, k, v, do)
+    assert _flags(recorded) == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 256, 264])
+@pytest.mark.parametrize("extra", [0, 1])
+def test_forward_flag_is_unchanged_at_every_head_dim(d, extra):
+    """The forward's flag is ``tma_rows`` up to 128 and ``rows_aligned``
+    above, whatever the backward's; the backward's equals it up to
+    128."""
+    fused = torch.zeros((2, 10, 3 * H * d + extra), dtype=torch.bfloat16)
+    q, k, v = (fused[:, :, extra + i * H * d:extra + (i + 1) * H * d]
+               .unflatten(-1, (H, d)) for i in range(3))
+    want = attn.tma_rows(q, k, v) if d <= 128 else attn.rows_aligned(q, k, v)
+    assert attn.kernel_route(d, q, k, v) == want
+    if d <= 128:
+        assert attn.kernel_route(d, q, k, v, backward=True) == want
+
+
+@pytest.mark.parametrize("symbol,key", [
+    ("_ZN12_GLOBAL__N_129flash_bwd_dkv_wgmma_tc_kernelILi256ELi2EEEv"
+     "NS_9TmaParamsE", "flash_bwd_dkv_wgmma_tc_kernel<256,2>"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wgmma_tc_kernel<256, 2>("
+     "(anonymous namespace)::TmaParams)",
+     "flash_bwd_dkv_wgmma_tc_kernel<256,2>"),
+    ("_ZN12_GLOBAL__N_128flash_bwd_dq_wgmma_tc_kernelILi256ELi1EEEv"
+     "NS_9TmaParamsE", "flash_bwd_dq_wgmma_tc_kernel<256,1>"),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma_tc_kernel<256, 1>("
+     "(anonymous namespace)::TmaParams)",
+     "flash_bwd_dq_wgmma_tc_kernel<256,1>"),
+])
+def test_kernel_key_reads_the_wide_hopper_symbols(symbol, key):
+    """The D 256 Hopper kernels' ptxas and cuobjdump names map to the
+    short names phase 2 reports and checks."""
+    assert _chip_smoke().kernel_key(symbol) == key

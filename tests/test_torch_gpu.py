@@ -403,6 +403,154 @@ def test_hopper_kernels_are_deterministic(cuda, shape):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# The Hopper dQ and dK/dV at kernel head dims 136-256 (DMAX 256; 136
+# and 192 zero-filled by TMA past their last column): causal at S 17
+# and 2048, the W 200 band at S 1000, a ragged S 150 with the W 64 band.
+WIDE_HOPPER_CASES = [
+    ((2, 17, 2, 136), True, 0),
+    ((2, 17, 2, 192), True, 0),
+    ((2, 17, 2, 256), True, 0),
+    ((1, 2048, 2, 136), True, 0),
+    ((1, 2048, 2, 192), True, 0),
+    ((1, 2048, 2, 256), True, 0),
+    ((1, 1000, 2, 256), True, 200),
+    ((2, 150, 4, 256), True, 64),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window", WIDE_HOPPER_CASES)
+def test_hopper_backward_at_head_dims_136_to_256(cuda, shape, causal,
+                                                  window):
+    args = _bwd_args(shape, torch.bfloat16, causal, window, cuda)
+    kd, _ = attn.head_dim_route(shape[3])
+    assert attn.kernel_route(kd, *args[:4], backward=True) == (
+        attn.ROUTE_HOPPER)
+    before = (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+    dq = attn.flash_bwd_dq(*args, causal, window)
+    dk, dv = attn.flash_bwd_dkv(*args, causal, window)
+    torch.cuda.synchronize()
+    assert (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    rq = attn.flash_attention_dq_reference(*args, causal, window)
+    _assert_near(dq, rq, torch.bfloat16, "dq")
+    rk, rv = attn.flash_attention_dkv_reference(*args, causal, window)
+    _assert_near(dk, rk, torch.bfloat16, "dk")
+    _assert_near(dv, rv, torch.bfloat16, "dv")
+
+
+def test_wide_hopper_backward_is_deterministic(cuda):
+    """D 256 on the Hopper dQ and dK/dV: two launches give bitwise-equal
+    outputs (one owner block a tile, no atomics)."""
+    args = _bwd_args((2, 1000, 4, 256), torch.bfloat16, True, 0, cuda)
+    assert torch.equal(attn.flash_bwd_dq(*args, True, 0),
+                       attn.flash_bwd_dq(*args, True, 0))
+    first = attn.flash_bwd_dkv(*args, True, 0)
+    second = attn.flash_bwd_dkv(*args, True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _wide_rows(kind, shape, device):
+    """q, k, v, dO at ``shape`` (D 256): "tma" plain tensors, "broadcast"
+    k and v expanded over the heads, "misaligned" slices of one fused
+    projection one element in."""
+    b, s, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=device,
+                           dtype=torch.bfloat16)
+
+    if kind == "misaligned":
+        fused = randn(b, s, 4 * h * d + 1)
+        return [fused[:, :, 1 + i * h * d:1 + (i + 1) * h * d]
+                .unflatten(-1, (h, d)) for i in range(4)]
+    q, do = randn(*shape), randn(*shape)
+    if kind == "broadcast":
+        k, v = (randn(b, s, 1, d).expand(shape) for _ in range(2))
+    else:
+        k, v = randn(*shape), randn(*shape)
+    return [q, k, v, do]
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("tma", ("flash_bwd_dq_wgmma_tc_kernel<256, 1>",
+             "flash_bwd_dkv_wgmma_tc_kernel<256, 2>")),
+    ("broadcast", ("flash_bwd_dq_wide_tc_kernel",
+                   "flash_bwd_dkv_wide_tc_kernel")),
+    ("misaligned", ("flash_bwd_dq_wide_tc_kernel",
+                    "flash_bwd_dkv_wide_tc_kernel")),
+])
+def test_wide_backward_runs_the_kernels_of_its_route(cuda, kind, want):
+    """At D 256 rows a tensor map describes run the Hopper dQ and dK/dV;
+    k and v broadcast over the heads, or rows off 16 bytes, the wide
+    mma.sync kernels: the kernels a profiler records for the two calls.
+    Each agrees with the plain versions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (2, 150, 4, 256)
+    q, k, v, do = _wide_rows(kind, shape, cuda)
+    o, lse = attn.flash_attention_reference(q, k, v, True, 64)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dq = attn.flash_bwd_dq(*args)
+        dk, dv = attn.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "flash_bwd" in e.key]
+    assert len(names) == 2 and all(
+        any(w in n for n in names) for w in want), names
+    _assert_near(dq, attn.flash_attention_dq_reference(*args), torch.bfloat16,
+                 "dq")
+    rk, rv = attn.flash_attention_dkv_reference(*args)
+    _assert_near(dk, rk, torch.bfloat16, "dk")
+    _assert_near(dv, rv, torch.bfloat16, "dv")
+
+
+def test_first_launch_in_a_fresh_thread(cuda):
+    """A host thread's first launch of each Hopper kernel succeeds when
+    the caching allocator serves every tensor it allocates, so the
+    thread has made no runtime call that would make a context current:
+    the tensor maps' encoder, a driver call, needs one (a profile
+    capture's launch thread died of it). The outputs equal the same
+    launches' on this thread, bitwise."""
+    import threading
+
+    results = {}
+    inputs = {d: _bwd_args((2, 512, 4, d), torch.bfloat16, True, 0, cuda)
+              for d in (64, 256)}
+
+    def run(into):
+        for d, args in inputs.items():
+            into[d] = (attn.flash_fwd(*args[:3], True, 0),
+                       attn.flash_bwd_dq(*args, True, 0),
+                       attn.flash_bwd_dkv(*args, True, 0))
+        torch.cuda.synchronize()
+
+    # The same launches once, their outputs freed: the thread's come
+    # from the allocator's cache.
+    run({})
+    errors = []
+
+    def thread():
+        try:
+            run(results)
+        except RuntimeError as err:
+            errors.append(repr(err))
+
+    t = threading.Thread(target=thread)
+    t.start()
+    t.join(timeout=120)
+    assert not errors, errors
+    want = {}
+    run(want)
+    for d in inputs:
+        for got, exp in zip(results[d], want[d]):
+            got = got if isinstance(got, tuple) else (got,)
+            exp = exp if isinstance(exp, tuple) else (exp,)
+            assert all(torch.equal(a, b) for a, b in zip(got, exp)), d
+
+
 def test_broadcast_rows_take_the_mma_sync_kernels(cuda):
     """k and v broadcast over the heads (stride 0): no TMA tensor map
     describes them, so the forward, dQ and dK/dV take their mma.sync
