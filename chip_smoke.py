@@ -32,10 +32,11 @@
    warpgroups a block, and on q/k/v/dO rows that do not start on 16
    bytes (the mma.sync kernels, ``attention.tma_rows``); every flash
    kernel, f32 and bf16, at head dims 4 and 12 (padded to 8 and 16) and
-   136, 192, 256, 320 and 640 (the wide kernels; the bf16 dQ and dK/dV
-   at 136-256 on TMA rows the Hopper kernels at DMAX 256, each launch's
-   route held: the D 256 rows off 16 bytes and k, v broadcast over the
-   heads take the wide mma.sync kernels), causal at S 17 and with the
+   136, 192, 256, 320 and 640 (the wide kernels; the bf16 forward, dQ
+   and dK/dV at 136-256 on TMA rows the Hopper kernels at DMAX 256,
+   each launch's route held: the D 256 rows off 16 bytes and k, v
+   broadcast over the heads take the wide mma.sync kernels), causal at
+   S 17 and with the
    W 200 band at S 1000, bf16 causal at S 2048 (HEAD_DIM_CASES); one
    causal W 64
    forward at S 4 194 368, past the old grid.y limit of 65 535 row
@@ -45,7 +46,8 @@
    requires bitwise-equal outputs; and counts the tensor-core
    instructions in their SASS (cuobjdump): HMMA or HGMMA in every
    ``*_tc_kernel``, HGMMA in each wgmma kernel, and all three wgmma
-   kernels present;
+   kernels present, with their D 256 instantiations (``WIDE_WGMMA``,
+   whose registers phase 2 logs);
 4. times each kernel at its path's shapes beside its bound, its plain
    version and one PyTorch library call (flash forward at the serving
    prefill widths, at the demo draft's D 16 and at the training shape;
@@ -55,8 +57,8 @@
    beside the mma.sync design's time where one was taken
    (``MMA_SYNC_MS``), and the next-token objective's logits copy
    alone; the flash forward, dQ and dK/dV at D 256 (WIDE_SHAPE,
-   GPT-J-6B's attention) beside their bounds and SDPA's, dQ and dK/dV
-   (the Hopper kernels) beside the wide mma.sync kernels' times they
+   GPT-J-6B's attention) beside their bounds and SDPA's, all three (the
+   Hopper kernels) beside the wide mma.sync kernels' times they
    replaced (``MMA_SYNC_MS``); and a line of
    this run's D <= 128 times over PERF.md's (``recorded_ratios``);
 5. serves the full-width LM (the architecture of
@@ -385,12 +387,14 @@
 20. trains and serves head dim 256 (``drive_d256``): GPT-J-6B's
    attention widths (E 4096 over 16 heads, rope; vocab 32000; depth cut
    from 28 layers to 4). (a) D256_STEPS steps through the driver at S
-   2048, batch 4: 4/4/4/1/1 launches a step, every dQ and dK/dV launch
-   on the Hopper kernels (``hopper_launches``), a finite and falling
+   2048, batch 4: 4/4/4/1/1 launches a step, every forward, dQ and
+   dK/dV launch on the Hopper kernels (``hopper_launches``), a finite
+   and falling
    loss, step time, tokens/s and peak memory; (b) the batch-2 kernel
    step against the plain step at phase 7's limits; (c) the launcher's
    dense pool serves one greedy prompt: 4 ``flash_fwd`` launches for
-   its one admission, the stream under the near-tie rule against
+   its one admission, all on the Hopper kernel, the stream under the
+   near-tie rule against
    greedy_decode.
 
 Where a training step's device time goes is measured by
@@ -680,14 +684,15 @@ BF16_TC_CASES = [((2, 333, 4, 128), "bfloat16", True, 0, False),
 # Head dims past the multiples of 8 up to 128 (``attention.
 # head_dim_route``): D 4 and 12 run zero-padded to 8 and 16, D 136 to
 # 320 the wide kernels (128-column chunks of each output over the grid,
-# bf16 on mma.sync), except the bf16 dQ and dK/dV at D 136-256 on rows a
-# TMA tensor map describes, which run the Hopper kernels at DMAX 256
+# bf16 on mma.sync), except the bf16 forward, dQ and dK/dV at D 136-256
+# on rows a TMA tensor map describes, which run the Hopper kernels at
+# DMAX 256
 # (136 and 192 zero-filled past their last column). f32 and bf16,
 # causal at length 17 and with the W 200 band at length 1000; bf16
 # causal at length 2048 (D 136, 192, 256); at D 256 the ragged S 150
 # with the W 64 band on TMA rows (Hopper), on rows off 16 bytes and on k
-# and v broadcast over the heads (both the wide mma.sync kernels,
-# ``check_backward`` holds the route); D 640 (bf16, aligned and ragged
+# and v broadcast over the heads (both the wide mma.sync kernels;
+# ``check_flash`` and ``check_backward`` hold the route); D 640 (bf16, aligned and ragged
 # rows) stages its own tile again each partner tile, past the four
 # 128-column slabs the wide kernels hold.
 HEAD_DIM_CASES = [((b, s, 2, d), dtype, True, w, False)
@@ -712,14 +717,32 @@ MMA_SYNC_MS = {("flash_fwd", (8, 2048, 8, 64), 0): 0.1949,
                ("flash_bwd_dkv", (8, 2048, 8, 64), 512): 0.2284,
                ("flash_bwd_dq", (8, 2048, 8, 64), 512): 0.1481,
                ("flash_fwd", (1, 1920, 8, 64), 0): 0.0460,
-               # The wide mma.sync dQ and dK/dV the D 256 Hopper kernels
-               # replaced on TMA rows (PERF.md, PR 21).
+               # The wide mma.sync forward, dQ and dK/dV the D 256
+               # Hopper kernels replaced on TMA rows (PERF.md §6).
+               ("flash_fwd", (4, 2048, 16, 256), 0): 1.1736,
                ("flash_bwd_dq", (4, 2048, 16, 256), 0): 2.4167,
                ("flash_bwd_dkv", (4, 2048, 16, 256), 0): 3.1527}
 
 
+def hopper_route(torch, attn, dtype, kd, handed):
+    """(runs a Hopper kernel, the route it must take) for operands
+    ``handed`` (padded to kernel head dim ``kd``) of type ``dtype``:
+    bf16 runs the Hopper forward, dQ and dK/dV exactly where a tensor
+    map describes the rows up to kernel head dim 256; other bf16 rows
+    above 128 take the wide mma.sync kernels (16-byte staging where
+    every row starts on 16 bytes)."""
+    hopper = (dtype == torch.bfloat16 and kd <= 256
+              and attn.tma_rows(*handed) == 1)
+    if hopper:
+        return True, attn.ROUTE_HOPPER
+    if kd > 128:
+        return False, attn.ROUTE_ROWS16 * attn.rows_aligned(*handed)
+    return False, 0
+
+
 def check_flash(torch, attn):
-    """Phase 3: the kernel against the plain version, O and lse."""
+    """Phase 3: the kernel against the plain version, O and lse, and
+    each launch's route (``hopper_route``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [((1, s, 8, 64), "bfloat16", True, 0, False)
              for s in (16, 200, 512, 1920)]
@@ -731,6 +754,12 @@ def check_flash(torch, attn):
     for shape, dtype, causal, window, misaligned in cases:
         dtype = getattr(torch, dtype)
         q, k, v = attn_operands(torch, shape, dtype, 3, gen, misaligned)
+        # The route of what the wrapper hands the kernel (padded to kd).
+        kd, _ = attn.head_dim_route(shape[3])
+        handed = attn._padded(kd, q, k, v)
+        route = attn.kernel_route(kd, *handed)
+        hopper, want = hopper_route(torch, attn, dtype, kd, handed)
+        hopper0 = attn.flash_fwd.hopper_launches
         o, lse = attn.flash_attention_lse(q, k, v, causal=causal,
                                           window=window or None)
         torch.cuda.synchronize()
@@ -742,9 +771,13 @@ def check_flash(torch, attn):
                     window=window, rows_aligned=attn.rows_aligned(q, k, v),
                     tma_rows=attn.tma_rows(q, k, v),
                     head_dim_route=attn.head_dim_route(shape[3]),
+                    route=route, hopper_launches=(
+                        attn.flash_fwd.hopper_launches - hopper0),
                     err_o=err_o, err_lse=err_l, tol=tol)
         log("flash check", json.dumps(case))
-        if not (err_o <= tol and err_l <= tol):
+        if not (err_o <= tol and err_l <= tol
+                and case["hopper_launches"] == int(hopper)
+                and (dtype != torch.bfloat16 or route == want)):
             raise AssertionError(f"flash kernel disagrees: {case}")
         results.append(case)
     return results
@@ -831,7 +864,8 @@ def check_backward(torch, attn):
         # The route of what the wrapper hands the kernels (padded to kd).
         kd, _ = attn.head_dim_route(shape[3])
         handed = attn._padded(kd, *args[:4])
-        route = attn.kernel_route(kd, *handed, backward=True)
+        route = attn.kernel_route(kd, *handed)
+        hopper, want = hopper_route(torch, attn, dtype, kd, handed)
         hopper0 = [kern.hopper_launches for kern in kernels]
         dq = attn.flash_bwd_dq(*args, causal, window)
         dk, dv = attn.flash_bwd_dkv(*args, causal, window)
@@ -846,15 +880,8 @@ def check_backward(torch, attn):
                         kern.hopper_launches - n
                         for kern, n in zip(kernels, hopper0)],
                     lse_cotangent=lse_grad)
-        # bf16 runs the Hopper dQ and dK/dV exactly where a tensor map
-        # describes the rows up to kernel head dim 256; the wide D 256
-        # inputs it cannot describe take the mma.sync kernels.
-        hopper = (dtype == torch.bfloat16 and kd <= 256
-                  and attn.tma_rows(*handed) == 1)
-        ok = case["hopper_launches"] == [int(hopper)] * 2
-        if kd > 128 and dtype == torch.bfloat16 and not hopper:
-            ok = ok and route == (attn.ROUTE_ROWS16
-                                  * attn.rows_aligned(*handed))
+        ok = (case["hopper_launches"] == [int(hopper)] * 2
+              and (dtype != torch.bfloat16 or route == want))
         for name, got, want in (("dq", dq, rq), ("dk", dk, rk),
                                 ("dv", dv, rv)):
             err, tol = near(got, want, str(dtype))
@@ -1001,6 +1028,13 @@ def ptxas_report(compiler):
             raise AssertionError(f"no tensor-core kernel in {lib}'s "
                                  f"ptxas output:\n{text}")
     log("registers and spills (ptxas -v):", json.dumps(report))
+    # The D 256 Hopper kernels of each library compiled in this run
+    # (k[:9]: "flash_fwd" or "flash_bwd").
+    wide = {k: report.get(k) for k in WIDE_WGMMA if compiler.get(k[:9])}
+    log("D 256 Hopper kernels (ptxas -v):", json.dumps(wide))
+    if any(v is None for v in wide.values()):
+        raise AssertionError(f"D 256 Hopper kernels missing from ptxas's "
+                             f"output: {wide}")
     spills = {k: v for k, v in report.items()
               if "_tc_kernel" in k and v.get("spill_bytes", 1)}
     if spills:
@@ -1017,6 +1051,10 @@ def ptxas_report(compiler):
 WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_tc_kernel",),
                  "flash_bwd": ("flash_bwd_dkv_wgmma_tc_kernel",
                                "flash_bwd_dq_wgmma_tc_kernel")}
+# Their instantiations at kernel head dims 136-256 (DMAX 256).
+WIDE_WGMMA = ("flash_fwd_wgmma_tc_kernel<256,2>",
+              "flash_bwd_dq_wgmma_tc_kernel<256,1>",
+              "flash_bwd_dkv_wgmma_tc_kernel<256,2>")
 
 
 def tensor_core_counts(build):
@@ -1053,6 +1091,7 @@ def tensor_core_counts(build):
            if not (n["HGMMA"] if "wgmma" in k else n["HMMA"] + n["HGMMA"])}
     missing = [name for names in WGMMA_KERNELS.values() for name in names
                if not any(k.startswith(name + "<") for k in tc)]
+    missing += [key for key in WIDE_WGMMA if key not in tc]
     if not tc or bad or missing:
         raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
                              f"(wgmma kernels: HGMMA): {bad}; wgmma "
@@ -6444,8 +6483,7 @@ def d256_training(torch, attn, convert, train, kernels):
     the batch-2 kernel step against the plain step at phase 7's
     limits (``check_plain_step``)."""
     per_step = (D256["num_layers"],) * 3 + (1, 1)
-    bwd = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
-    hopper0 = [kern.hopper_launches for kern in bwd]
+    hopper0 = [kern.hopper_launches for kern in attn.KERNELS]
     summary, launches, trainer, state = drive(
         torch, train, kernels,
         train_argv(D256_STEPS, D256_WARMUP, D256_BATCH) + d256_flags(),
@@ -6453,25 +6491,29 @@ def d256_training(torch, attn, convert, train, kernels):
     del trainer, state
     losses, result = summary["losses"], summary["driver_result"]
     summary["tokens_per_s"] = result["tokens_per_sec"]
-    # Every dQ and dK/dV launch of the steps ran the Hopper kernels.
+    # Every forward, dQ and dK/dV launch of the steps ran the Hopper
+    # kernels.
     summary["hopper_launches"] = {
-        kern.name: kern.hopper_launches - n for kern, n in zip(bwd, hopper0)}
+        kern.name: kern.hopper_launches - n
+        for kern, n in zip(attn.KERNELS, hopper0)}
     log("D 256 training:", json.dumps(summary))
     if not losses[-1] < losses[0]:
         raise AssertionError(f"(a) D 256 loss did not fall: {losses}")
-    if summary["hopper_launches"] != {k.name: launches[k.name] for k in bwd}:
-        raise AssertionError(f"(a) D 256 backward off the Hopper kernels: "
+    if summary["hopper_launches"] != {k.name: launches[k.name]
+                                      for k in attn.KERNELS}:
+        raise AssertionError(f"(a) D 256 flash off the Hopper kernels: "
                              f"{summary['hopper_launches']} of {launches}")
     torch.cuda.empty_cache()
     plain = check_plain_step(torch, attn, convert, train, extra=d256_flags())
     return summary, plain, launches
 
 
-def d256_serving(torch, kernels, rng):
+def d256_serving(torch, attn, kernels, rng):
     """20c: the launcher on the dense pool at D256's widths serves one
     greedy prompt: D256["num_layers"] flash_fwd launches for its one
-    admission, nothing else, and the stream under the near-tie rule
-    against greedy_decode (``stream_divergence``)."""
+    admission, all on the Hopper kernel, nothing else, and the stream
+    under the near-tie rule against greedy_decode
+    (``stream_divergence``)."""
     from container_engine_accelerators_tpu_torch.serving import serve
     argv = (["--model", "transformer", "--model-name", "lm"] + d256_flags()
             + ["--max-seq-len", str(D256["max_seq_len"]),
@@ -6486,9 +6528,11 @@ def d256_serving(torch, kernels, rng):
         prefills0 = engine.prefills
         for kern in kernels:
             kern.launches = 0
+        hopper0 = attn.flash_fwd.hopper_launches
         status, body = post(server.port, {"prompts": [prompt],
                                           "max_new_tokens": D256_NEW})
         launches = {kern.name: kern.launches for kern in kernels}
+        hopper = attn.flash_fwd.hopper_launches - hopper0
         admissions = engine.prefills - prefills0
     finally:
         server.stop()
@@ -6497,11 +6541,13 @@ def d256_serving(torch, kernels, rng):
                                   seq) if seq else None)
     out = dict(argv=argv, launch=launch, status=status,
                admissions=admissions, launches=launches,
+               hopper_launches=hopper,
                new_tokens=len(seq) - len(prompt) if seq else 0,
                diverged=diverged)
     log("D 256 serving:", json.dumps(out))
     if (status != 200 or admissions != 1
             or launches["flash_fwd"] != D256["num_layers"] * admissions
+            or hopper != launches["flash_fwd"]
             or any(n for k, n in launches.items() if k != "flash_fwd")
             or out["new_tokens"] != D256_NEW
             or (diverged is not None and not diverged["near_tie"])):
@@ -6517,7 +6563,7 @@ def drive_d256(torch, attn, convert, train, kernels, rng):
     t0 = time.perf_counter()
     summary, plain, train_launches = d256_training(torch, attn, convert,
                                                    train, kernels)
-    serving, serve_launches = d256_serving(torch, kernels, rng)
+    serving, serve_launches = d256_serving(torch, attn, kernels, rng)
     out = dict(config=D256, batch=D256_BATCH, seq=TRAIN_SEQ,
                cut="28 layers to 4", train=summary, plain_step=plain,
                serving=serving, phase_s=time.perf_counter() - t0)

@@ -35,8 +35,8 @@ or raises. There is no fallback from a kernel to its plain version.
 The kernels take every head dim the plain versions take
 (``head_dim_route``): a head dim that is not a multiple of 8 is
 zero-padded to one, and one above 128 runs the wide kernels, except
-the bf16 dQ and dK/dV up to 256, which run Hopper kernels too
-(``kernel_route``).
+the bf16 forward, dQ and dK/dV up to 256 on rows a TMA tensor map
+describes, which run Hopper kernels too (``kernel_route``).
 
 Each wrapper declares its products (``attention_flops``, over the kept
 pairs) to ``obs.efficiency.count_flops``, which cannot see a kernel:
@@ -61,11 +61,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Output columns a block of the wide kernels owns
 # (csrc/flash_grid.cuh's kWideCols).
 _WIDE_COLS = 128
-# The largest kernel head dim of the bf16 Hopper dQ and dK/dV kernels
-# (csrc/flash_bwd.cu's kHopperWideDim).
-_HOPPER_BWD_COLS = 256
-# ``kernel_route``'s values besides 0 (ROUTE_HOPPER is csrc/flash_bwd.cu's
-# kRouteHopper; the wide kernels read ROUTE_ROWS16 as "rows on 16 bytes").
+# The largest kernel head dim of the bf16 Hopper kernels
+# (csrc/flash_grid.cuh's kHopperWideDim).
+_HOPPER_COLS = 256
+# ``kernel_route``'s values besides 0 (csrc/flash_grid.cuh's kRouteHopper
+# and kRouteRows16; the wide kernels read ROUTE_ROWS16 as "rows on 16
+# bytes").
 ROUTE_HOPPER = 1
 ROUTE_ROWS16 = 2
 
@@ -204,33 +205,27 @@ def head_dim_route(d):
     back: zero columns add nothing to a score, and their output columns
     are dropped), and the 128-column chunks of O, dQ, dK and dV the
     kernels split over their grid: 1 up to kd 128 (the kernels at DMAX
-    64 and 128), ceil(kd / 128) above (the wide kernels; the Hopper dQ
-    and dK/dV up to kd 256 keep every column in one block)."""
+    64 and 128), ceil(kd / 128) above (the wide kernels; the Hopper
+    kernels up to kd 256 keep every column in one block)."""
     kd = -(-d // 8) * 8
     return kd, -(-kd // _WIDE_COLS)
 
 
-def kernel_route(kd, *xs, backward=False):
+def kernel_route(kd, *xs):
     """The one place the route of a launch is decided, passed to every
-    entry point as its ``aligned`` flag, for operands ``xs`` at kernel
-    head dim ``kd`` (``head_dim_route``). f32 runs the FMA kernels
-    whatever the flag. bf16 up to kd 128: ``tma_rows`` (1, ROUTE_HOPPER:
-    the Hopper kernels, wgmma and TMA; 0: the mma.sync kernels, which
-    stage rows with 2-byte loads). Above 128 the forward runs the wide
-    mma.sync kernel whatever the flag, which is ``rows_aligned`` there
-    (1: it stages rows by 16-byte loads; 0: by 2-byte loads). The
-    ``backward`` (dQ and dK/dV) runs its Hopper kernels up to kd
-    _HOPPER_BWD_COLS where ``tma_rows`` is 1 (ROUTE_HOPPER), and the
-    wide mma.sync kernels otherwise: ROUTE_ROWS16 (16-byte staging)
-    where ``rows_aligned`` is 1 (a broadcast row stride, or kd above
-    _HOPPER_BWD_COLS), 0 (2-byte staging) where it is 0. No failure
-    falls back from one route to another."""
-    if kd <= _WIDE_COLS:
-        return tma_rows(*xs)
-    if not backward:
-        return rows_aligned(*xs)
-    if kd <= _HOPPER_BWD_COLS and tma_rows(*xs):
+    entry point (the forward, dQ and dK/dV alike) as its ``aligned``
+    flag, for operands ``xs`` at kernel head dim ``kd``
+    (``head_dim_route``). f32 runs the FMA kernels whatever the flag.
+    bf16 runs the Hopper kernels (wgmma and TMA) up to kd _HOPPER_COLS
+    where ``tma_rows`` is 1 (ROUTE_HOPPER); otherwise the mma.sync
+    kernels: up to kd 128 with 2-byte loads (0), above 128 the wide
+    kernels with 16-byte staging (ROUTE_ROWS16, where ``rows_aligned``
+    is 1: a broadcast row stride, or kd above _HOPPER_COLS) or 2-byte
+    staging (0). No failure falls back from one route to another."""
+    if kd <= _HOPPER_COLS and tma_rows(*xs):
         return ROUTE_HOPPER
+    if kd <= _WIDE_COLS:
+        return 0
     return ROUTE_ROWS16 * rows_aligned(*xs)
 
 
@@ -281,7 +276,24 @@ def _check_rows(what, b, s, h, rows):
                 f"[{b}, {s}, {h}]: {tuple(x.shape)} {x.dtype}")
 
 
-class FlashForward(_build.Kernel):
+class _FlashKernel(_build.Kernel):
+    """Common to the three flash wrappers: beside ``launches``, the
+    launches that ran the bf16 Hopper kernels (``hopper_launches``,
+    ``kernel_route``'s ROUTE_HOPPER)."""
+
+    def __init__(self):
+        super().__init__()
+        self.hopper_launches = 0
+
+    def _count_route(self, route, dtype):
+        """After a launch on ``route``: count it if it ran a Hopper
+        kernel."""
+        if route == ROUTE_HOPPER and dtype == torch.bfloat16:
+            with self._lock:
+                self.hopper_launches += 1
+
+
+class FlashForward(_FlashKernel):
     """The flash-forward kernel's wrapper: checks, allocation, launch
     and a count of launches. The route (``head_dim_route``,
     ``kernel_route``) picks the kernel; every one counts here."""
@@ -317,11 +329,13 @@ class FlashForward(_build.Kernel):
         lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
         if o.numel() == 0:
             return o, lse
+        route = kernel_route(d, q, k, v)
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      o.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
                      b, s, h, d, *_strides(q, k, v), int(bool(causal)),
-                     int(window), scale, kernel_route(d, q, k, v),
+                     int(window), scale, route,
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
+        self._count_route(route, q.dtype)
         return o, lse
 
 
@@ -331,7 +345,7 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                     ctypes.c_int, ctypes.c_void_p])
 
 
-class _FlashBackward(_build.Kernel):
+class _FlashBackward(_FlashKernel):
     """Common checks and launch of the two backward kernels. Both
     entry points take (q, k, v, do, lse, delta, out0, out1, dtype, b,
     s, h, d, 12 strides, causal, window, scale, aligned, stream); dQ
@@ -340,12 +354,6 @@ class _FlashBackward(_build.Kernel):
     library = "flash_bwd"
     argtypes = _BWD_ARGTYPES
     n_out = 1
-
-    def __init__(self):
-        super().__init__()
-        # The launches of ``launches`` that ran the bf16 Hopper kernels
-        # (``kernel_route``'s ROUTE_HOPPER).
-        self.hopper_launches = 0
 
     def launch(self, q, k, v, do, lse, delta, causal, window):
         """Launch on CUDA tensors (no device dispatch), at any head dim
@@ -370,16 +378,14 @@ class _FlashBackward(_build.Kernel):
         if q.numel() == 0:
             return tuple(outs)
         ptrs = [o.data_ptr() for o in outs] + [None] * (2 - self.n_out)
-        route = kernel_route(d, q, k, v, do, backward=True)
+        route = kernel_route(d, q, k, v, do)
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      *ptrs, _DTYPE_CODES[q.dtype], b, s, h, d,
                      *_strides(q, k, v, do), int(bool(causal)),
                      int(window), scale, route,
                      what=f"shape {tuple(q.shape)}, {q.dtype}")
-        if route == ROUTE_HOPPER and q.dtype == torch.bfloat16:
-            with self._lock:
-                self.hopper_launches += 1
+        self._count_route(route, q.dtype)
         return tuple(outs)
 
 

@@ -175,6 +175,8 @@
 
 namespace {
 
+using cea_grid::kHopperWideDim;
+using cea_grid::kRouteHopper;
 using cea_grid::kWideCols;
 using cea_grid::Place;
 using cea_grid::place;
@@ -201,18 +203,13 @@ struct Params {
   long long q_stride[3], k_stride[3], v_stride[3], do_stride[3];
   int causal, window;
   float scale;
-  // The route (the wrapper's `kernel_route(..., backward=True)`): up to
+  // The route (the wrapper's `kernel_route`, flash_grid.cuh): up to
   // head dim 128, kRouteHopper when a TMA tensor map describes q, k, v
   // and dO (`tma_rows`), 0 otherwise; above, kRouteHopper for the Hopper
-  // kernels at DMAX 256, 2 (the wrapper's ROUTE_ROWS16) or 0 for the wide
-  // mma.sync kernels (16-byte or 2-byte staging).
+  // kernels at DMAX 256, kRouteRows16 or 0 for the wide mma.sync kernels
+  // (16-byte or 2-byte staging).
   int aligned;
 };
-
-constexpr int kRouteHopper = 1;
-// The largest head dim of the bf16 Hopper kernels (kernel head dims
-// 136-256 run at DMAX 256).
-constexpr int kHopperWideDim = 256;
 
 // ---------------------------------------------------------------------
 // f32: the exact FMA kernels.
@@ -2963,7 +2960,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 
 // Both entry points: dtype 0 = float32, 1 = bfloat16; strides in
 // elements, (batch, seq, head) for q, k, v, dO in that order. `aligned`
-// is the route (`kernel_route(..., backward=True)`): kRouteHopper (1)
+// is the route (`kernel_route`): kRouteHopper (1)
 // when a TMA tensor map can read q, k, v and dO in place (16-byte base,
 // every stepped stride a nonzero multiple of 16 bytes) up to head dim
 // 256: bf16 dQ and dK/dV take the Hopper kernels; otherwise the

@@ -42,16 +42,20 @@
 // Head dims: the wrapper pads a head dim that is not a multiple of 8
 // to one and passes the true head dim's scale (`head_dim_route`), so
 // `dim` here is a multiple of 8. Up to 128 the kernels below run at
-// DMAX 64 or 128; above, the wide kernels (at the end of this file)
-// split O's columns into 128-column chunks over grid.y. Row tiles and
-// heads share grid.x (flash_grid.cuh), so no sequence length meets a
-// grid limit.
+// DMAX 64 or 128. Above, bf16 on rows a TMA tensor map describes runs
+// the Hopper kernel at DMAX 256 up to head dim 256 (the wrapper's
+// route kRouteHopper; 136-248 zero-filled by TMA past the last
+// column); everything else runs the wide kernels (at the end of this
+// file), which split O's columns into 128-column chunks over grid.y.
+// Row tiles and heads share grid.x (flash_grid.cuh), so no sequence
+// length meets a grid limit.
 //
 // Five kernels, chosen by the input type, the head dim and the rows'
 // alignment (the wrapper's `kernel_route`):
 //
 // bf16, the Hopper kernel (`flash_fwd_wgmma_tc_kernel`, for every
-// input a TMA tensor map can describe: the wrapper's `tma_rows`). Only
+// input a TMA tensor map can describe, the wrapper's `tma_rows`, up to
+// head dim 256). Only
 // wgmma reaches the tensor cores' full rate on this card, so the design
 // is FlashAttention-3's shape (wgmma_tma.cuh has the building blocks):
 // one producer warpgroup whose first thread loads the block's Q tile
@@ -79,6 +83,13 @@
 // before P.V is the one change of numerics against the f32 kernel (as
 // in FlashAttention-2 and -3); the row sums stay f32. Each output tile
 // has one owner block, no atomics: two launches are bitwise equal.
+// At DMAX 256 (head dims 136-256) O alone takes 128 registers a
+// thread, so a block is two consumers of 64 rows and no producer, one
+// block an SM: Q stays in shared memory as the A operand of S
+// (wgmma_ss), K and V stream through rings of their own, a tile's
+// softmax runs while the last tile's P.V and the other consumer's
+// products are in flight, and the heads go in groups whose K and V
+// the L2 cache holds (fwd_wide_body).
 //
 // bf16 rows that a tensor map cannot describe (a view whose rows start
 // off 16 bytes, a broadcast stride; `tma_rows` is 0) take the mma.sync
@@ -87,8 +98,9 @@
 // shared memory (mma_bf16.cuh), S and P.V by mma.m16n8k16. No other
 // case up to D 128 reaches it.
 //
-// Above D 128: `flash_fwd_wide_tc_kernel` (bf16, mma.sync, whatever
-// the rows) and `flash_fwd_f32_wide_kernel` (f32, FMA).
+// Above D 128, on rows a tensor map cannot describe or above head dim
+// 256: `flash_fwd_wide_tc_kernel` (bf16, mma.sync); f32 at any rows:
+// `flash_fwd_f32_wide_kernel` (FMA).
 //
 // f32, the exact FMA kernel (`flash_fwd_f32_kernel`): the tensor cores
 // would round f32 inputs to TF32 (10-bit mantissa), outside the f32
@@ -110,9 +122,13 @@
 
 namespace {
 
+using cea_grid::kHopperWideDim;
+using cea_grid::kRouteHopper;
 using cea_grid::kWideCols;
+using cea_grid::l2_group;
 using cea_grid::Place;
 using cea_grid::place;
+using cea_grid::place_grouped;
 using cea_mma::bf16;
 
 constexpr int kBlockQ = 64;   // query rows per block
@@ -130,7 +146,11 @@ struct Params {
   long long q_stride[3], k_stride[3], v_stride[3];
   int causal, window;
   float scale;
-  int aligned;  // a TMA tensor map describes q, k, v (`tma_rows`)
+  // The route (the wrapper's `kernel_route`, flash_grid.cuh):
+  // kRouteHopper when a TMA tensor map describes q, k, v (`tma_rows`) up
+  // to head dim 256; otherwise 0, or above 128 kRouteRows16 (the wide
+  // kernel's 16-byte staging).
+  int aligned;
 };
 
 // ---------------------------------------------------------------------
@@ -517,30 +537,48 @@ struct TmaParams {
 // where it does not, WG 1 and two blocks an SM. (128-key tiles, S by
 // m64n128k16 with two consumers, measured slower at [8, 2048, 8, 64]
 // and much slower with the W 512 band, whose edge tiles they waste.)
+// At DMAX 256 (kWide: kernel head dims 136-256) O takes 128 f32
+// registers a thread beside S (32) and P's A operands (16), so a block
+// is two consumers of 64 query rows and no producer warpgroup, one
+// block an SM (fwd_wide_body): Q takes 64 KB, K and V stream through
+// rings of their own (kKStages and kVStages tiles of 32 KB).
 template <int DMAX, int WG>
 struct FwdWg {
+  static constexpr bool kWide = DMAX > 128;
   static constexpr int kChunks = DMAX / 64;
   static constexpr int kRowsQ = 64 * WG;
   // Three stages where they fit (a tile landing while a consumer holds
   // the last tile's V and this tile's K), two otherwise.
   static constexpr int kStages = (WG == 1 && DMAX > 64) ? 2 : 3;
-  static constexpr int kThreads = 128 * (WG + 1);
-  static constexpr int kMinBlocks = WG == 1 ? 2 : 1;
+  static constexpr int kThreads = 128 * (kWide ? WG : WG + 1);
+  static constexpr int kMinBlocks = (WG == 1 && !kWide) ? 2 : 1;
   // setmaxnreg: the producer keeps 24 registers a thread; the consumers
   // take what the block's allocation (65536 / kThreads / kMinBlocks,
-  // rounded down to 8: 128, 168 or 128 a thread) leaves.
-  static constexpr int kRegsProducer = 24;
-  static constexpr int kRegsConsumer = WG == 1 ? 232 : WG == 2 ? 240 : 160;
+  // rounded down to 8: 128, 168 or 128 a thread) leaves. Without a
+  // producer (kWide) no registers move: each thread may hold 255.
+  static constexpr int kRegsProducer = kWide ? 0 : 24;
+  static constexpr int kRegsConsumer =
+      kWide ? 0 : WG == 1 ? 232 : WG == 2 ? 240 : 160;
   static constexpr int kChunkQ = kRowsQ * cea_hopper::kRowBytes;
   static constexpr int kChunkK = kBlockK * cea_hopper::kRowBytes;
   static constexpr int kQBytes = kChunks * kChunkQ;
   static constexpr int kKBytes = kChunks * kChunkK;  // one K or V tile
   static constexpr int kStageBytes = 2 * kKBytes;
+  // kWide: K's slot frees once the tile's S is in, V's only once its
+  // P.V is, a tile later; each ring has a loading thread of its own,
+  // so a K load never waits behind a V slot.
+  static constexpr int kKStages = 3;
+  static constexpr int kVStages = 2;
   static constexpr size_t smem_bytes() {
-    // 1024 bytes of alignment slack, Q, the K/V ring, the barriers.
-    return 1024 + kQBytes + kStages * kStageBytes +
-           sizeof(uint64_t) * (1 + 2 * kStages);
+    // 1024 bytes of alignment slack, Q, the K/V ring (kWide: the K ring
+    // and the V ring), the barriers (kWide: and Q's address).
+    return kWide ? 1024 + kQBytes + (kKStages + kVStages) * kKBytes +
+                       sizeof(uint64_t) * (2 + 2 * (kKStages + kVStages))
+                 : 1024 + kQBytes + kStages * kStageBytes +
+                       sizeof(uint64_t) * (1 + 2 * kStages);
   }
+  static_assert(!kWide || WG == 2, "D 256: two consumers");
+  static_assert(smem_bytes() <= 232448, "an H100 block's shared memory");
 };
 
 // What the masks read, held in registers by each consumer (the masks
@@ -629,10 +667,10 @@ __device__ __forceinline__ void fwd_pv(float (&o)[DMAX / 64][32],
                       mnmajor_desc(vs, kBlockK * kRowBytes, c, kk));
 }
 
+// The block's work up to DMAX 128: WG consumer warpgroups of 64 query
+// rows each, one K/V ring.
 template <int DMAX, int WG>
-__global__ void __launch_bounds__(FwdWg<DMAX, WG>::kThreads,
-                                  FwdWg<DMAX, WG>::kMinBlocks)
-flash_fwd_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+__device__ __forceinline__ void fwd_own_rows(const TmaParams& tp) {
   using namespace cea_hopper;
   using C = FwdWg<DMAX, WG>;
   constexpr int kStages = C::kStages;
@@ -839,8 +877,265 @@ flash_fwd_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
   }
 }
 
+// S = Q.K^T for consumer `wg` at DMAX 256: its 64 rows of Q the
+// shared-memory A operand (from the address `q_addr` holds), K the
+// K-major B operand (`ks`, a K ring slot); issued and committed as one
+// wgmma group, not waited for. Q's address is read at each call, so
+// its 16 descriptors are formed beside their wgmma and not held in 32
+// registers across the loop (O's 128 take most of the budget).
+template <int DMAX>
+__device__ __forceinline__ void fwd_wide_scores(float (&sc)[32],
+                                                const uint32_t* q_addr,
+                                                const unsigned char* ks,
+                                                int wg) {
+  using namespace cea_hopper;
+  using C = FwdWg<DMAX, 2>;
+  // Warpgroup wg's 64 rows of the block's Q tile.
+  const uint32_t q_a = ld_shared_volatile(q_addr) + 64 * wg * kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    wgmma_ss_n64<0>(sc, kmajor_desc_at(q_a, C::kChunkQ, kk),
+                    kmajor_desc(ks, C::kChunkK, kk), kk > 0);
+  wgmma_commit();
+}
+
+// The block's work at DMAX 256 (FwdWg::kWide): two consumer warpgroups
+// and no producer. Warpgroup wg owns query rows q0 + 64 wg .. + 63 of
+// the block's 128, and both run every key tile of the block's range (a
+// tile outside a warpgroup's own range is masked for all its rows: it
+// leaves the warpgroup's O and row sums as they were, or, before the
+// first tile it sees, is wiped by that tile's rescale). Per tile a
+// warpgroup queues this tile's S and the last tile's P.V as two wgmma
+// groups, frees the K slot and runs the online softmax once S is in,
+// while P.V runs (it reads P's A operands and writes O, which the
+// softmax leaves alone, so ptxas keeps the wgmma asynchronous), then
+// frees the V slot, rescales O and forms the next P. The two take turns
+// on the tensor cores (named barriers 1 and 2): a warpgroup issues its
+// products, then hands the turn over, so one's softmax runs beside the
+// other's products. The first thread of warpgroup 0 loads Q (64 KB) and
+// the K tiles, that of warpgroup 1 the V tiles, each refilling the
+// slot a tile freed a turn before; each K and V tile serves 128 rows.
+template <int DMAX>
+__device__ __forceinline__ void fwd_wide_body(const TmaParams& tp) {
+  using namespace cea_hopper;
+  using C = FwdWg<DMAX, 2>;
+  constexpr int kKStages = C::kKStages;
+  constexpr int kVStages = C::kVStages;
+  constexpr int kSteps = kBlockK / 16;  // 16-key steps of P.V
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);
+  unsigned char* k_ring = q_s + C::kQBytes;
+  unsigned char* v_ring = k_ring + kKStages * C::kKBytes;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(v_ring + kVStages * C::kKBytes);
+  uint64_t* k_full = q_full + 1;          // [kKStages]: K tile landed
+  uint64_t* k_empty = k_full + kKStages;  // [kKStages]: both S done
+  uint64_t* v_full = k_empty + kKStages;  // [kVStages]
+  uint64_t* v_empty = v_full + kVStages;  // [kVStages]: both P.V done
+  // Q's shared address (fwd_wide_scores).
+  uint32_t* q_addr = reinterpret_cast<uint32_t*>(v_empty + kVStages);
+
+  const Params& p = tp.p;
+  // Heads in groups whose K and V the L2 cache holds (place_grouped).
+  const Place pl = place_grouped(
+      p.batch, p.heads, p.seq, C::kRowsQ,
+      l2_group(p.batch * p.heads, p.seq, p.dim));
+  const int b = pl.b;
+  const int h = pl.h;
+  // Causal: the last Q tiles see the most keys; run them first.
+  const int q0 = (pl.tiles - 1 - pl.rank) * C::kRowsQ;
+  const int seq = p.seq;
+  // The key range the block's Q tile sees, as in the other kernels.
+  const int q_last = min(q0 + C::kRowsQ, seq) - 1;
+  const int k_hi = p.causal ? q_last : seq - 1;
+  const int k_lo = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+  const int kt_lo = k_lo / kBlockK, kt_hi = k_hi / kBlockK;
+  const int n = kt_hi - kt_lo + 1;  // key tiles, both warpgroups'
+  // Key tile i of the range into its ring slot.
+  auto load_k = [&](int i) {
+    const int s = i % kKStages;
+    mbar_arrive_expect_tx(&k_full[s], C::kKBytes);
+    for (int c = 0; c < C::kChunks; ++c)
+      tma_load_4d(k_ring + s * C::kKBytes + c * C::kChunkK, &tp.tk,
+                  &k_full[s], 64 * c, h, (kt_lo + i) * kBlockK, b);
+  };
+  auto load_v = [&](int i) {
+    const int s = i % kVStages;
+    mbar_arrive_expect_tx(&v_full[s], C::kKBytes);
+    for (int c = 0; c < C::kChunks; ++c)
+      tma_load_4d(v_ring + s * C::kKBytes + c * C::kChunkK, &tp.tv,
+                  &v_full[s], 64 * c, h, (kt_lo + i) * kBlockK, b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 8);
+    }
+    q_addr[0] = smem_u32(q_s);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(&tp.tk);
+    mbar_arrive_expect_tx(q_full, C::kQBytes);
+    for (int c = 0; c < C::kChunks; ++c)
+      tma_load_4d(q_s + c * C::kChunkQ, &tp.tq, q_full, 64 * c, h, q0, b);
+    for (int i = 0; i < min(kKStages, n); ++i) load_k(i);
+  } else if (threadIdx.x == 128) {
+    tma_prefetch_map(&tp.tv);
+    for (int i = 0; i < min(kVStages, n); ++i) load_v(i);
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int row0 = r0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+  const float scale2 = p.scale * kLog2e;
+  const float neg2 = kNeg * kLog2e;
+  const MaskShape sh = {seq, p.causal, p.window};
+  auto k_tile = [&](int i) { return k_ring + (i % kKStages) * C::kKBytes; };
+  auto v_tile = [&](int i) { return v_ring + (i % kVStages) * C::kKBytes; };
+  // A tile's scores need their masks if a mask can reach one of them.
+  auto masked = [&](int k0) {
+    return k0 + kBlockK > seq ||
+           (p.causal && (k0 + kBlockK - 1 > r0 ||
+                         (p.window && k0 <= r0 + 63 - p.window)));
+  };
+  // The turn on the tensor cores: warpgroup wg waits at barrier 1 + wg
+  // and hands over at the other's.
+  auto take_turn = [&] { named_barrier_sync(1 + wg, 256); };
+  auto pass_turn = [&] { named_barrier_arrive(2 - wg, 256); };
+
+  float o[C::kChunks][32];
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+  float m[2] = {neg2, neg2};
+  float den[2] = {0.f, 0.f};  // this lane's share of the row sums
+  float corr[2];
+  float sc[32];
+  uint32_t pa[kSteps][4];
+  if (wg == 1) pass_turn();  // warpgroup 0 goes first
+  mbar_wait(q_full, 0);
+  // The first tile: S, then its softmax.
+  mbar_wait(&k_full[0], 0);
+  take_turn();
+  wgmma_fence();
+  fwd_wide_scores<DMAX>(sc, q_addr, k_tile(0), wg);
+  pass_turn();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if (lane == 0) mbar_arrive(&k_empty[0]);
+  softmax_tile(sc, m, den, corr, sh, row0, kt_lo * kBlockK, t,
+               masked(kt_lo * kBlockK), scale2, neg2);
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) acc_to_a(pa[kk], sc, kk);
+  // Each further tile: in this warpgroup's turn its S, then the last
+  // tile's P.V; the softmax once S is in, while P.V (and the other
+  // warpgroup's products) run; then O moves to this tile's max.
+  for (int i = 1; i < n; ++i) {
+    const int prev = i - 1;
+    mbar_wait(&k_full[i % kKStages], (i / kKStages) & 1);
+    mbar_wait(&v_full[prev % kVStages], (prev / kVStages) & 1);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) fence_regs(o[c]);
+    take_turn();
+    wgmma_fence();
+    fwd_wide_scores<DMAX>(sc, q_addr, k_tile(i), wg);
+    fwd_pv<DMAX>(o, pa, v_tile(prev));
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(&k_empty[i % kKStages]);
+    softmax_tile(sc, m, den, corr, sh, row0, (kt_lo + i) * kBlockK, t,
+                 masked((kt_lo + i) * kBlockK), scale2, neg2);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) fence_regs(o[c]);
+    if (lane == 0) mbar_arrive(&v_empty[prev % kVStages]);
+    // Refill the slots tile prev held, once both warpgroups are done
+    // with it: its K (the other warpgroup's S of it ran a turn ago) by
+    // warpgroup 0, its V (warpgroup 0's P.V of it ran a turn ago) by
+    // warpgroup 1.
+    if (threadIdx.x == 0 && prev + kKStages < n) {
+      mbar_wait(&k_empty[prev % kKStages], (prev / kKStages) & 1);
+      load_k(prev + kKStages);
+    } else if (threadIdx.x == 128 && prev + kVStages < n) {
+      mbar_wait(&v_empty[prev % kVStages], (prev / kVStages) & 1);
+      load_v(prev + kVStages);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j + 2 * r] *= corr[r];
+          o[c][4 * j + 2 * r + 1] *= corr[r];
+        }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) acc_to_a(pa[kk], sc, kk);
+  }
+  // The last tile's P.V (warpgroup 1 hands over no turn after it: none
+  // is left).
+  mbar_wait(&v_full[(n - 1) % kVStages], ((n - 1) / kVStages) & 1);
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c) fence_regs(o[c]);
+  take_turn();
+  wgmma_fence();
+  fwd_pv<DMAX>(o, pa, v_tile(n - 1));
+  wgmma_commit();
+  if (wg == 0) pass_turn();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c) fence_regs(o[c]);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q_pos = row0 + 8 * r;
+    const float total = quad_sum(den[r]);
+    if (q_pos >= seq) continue;
+    const float inv = 1.f / total;
+    const long long row =
+        (static_cast<long long>(b) * seq + q_pos) * p.heads + h;
+    bf16* og = static_cast<bf16*>(p.o) + row * p.dim;
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + j * 8 + 2 * t;
+        if (col < p.dim)
+          *reinterpret_cast<__nv_bfloat162*>(og + col) =
+              __floats2bfloat162_rn(o[c][4 * j + 2 * r] * inv,
+                                    o[c][4 * j + 2 * r + 1] * inv);
+      }
+    if (t == 0) p.lse[row] = m[r] * kLn2 + logf(total);
+  }
+}
+
+template <int DMAX, int WG>
+__global__ void __launch_bounds__(FwdWg<DMAX, WG>::kThreads,
+                                  FwdWg<DMAX, WG>::kMinBlocks)
+flash_fwd_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
+  if constexpr (FwdWg<DMAX, WG>::kWide)
+    fwd_wide_body<DMAX>(tp);
+  else
+    fwd_own_rows<DMAX, WG>(tp);
+}
+
 // ---------------------------------------------------------------------
-// Head dims above 128: the wide kernels, f32 (FMA) and bf16 (mma.sync).
+// Head dims above 128: the wide kernels, f32 (FMA, at any rows) and
+// bf16 (mma.sync: rows no tensor map describes, head dims above 256).
 //
 // A block owns 64 query rows and one 128-column chunk of O (grid.y;
 // flash_grid.cuh). S = Q.K^T runs over the whole head dim, Q and K
@@ -852,9 +1147,9 @@ flash_fwd_wgmma_tc_kernel(const __grid_constant__ TmaParams tp) {
 // and chunk 0 writes lse. bf16 holds the block's Q slabs for the whole
 // K loop up to D 512 and stages one again a K tile above; it stages
 // rows by 16-byte loads where every row starts on 16 bytes (the
-// wrapper's flag), by 2-byte loads otherwise. At [4, 2048, 16, 256]
-// causal it takes about 8x its bound (PERF.md §6); a wgmma design for
-// D > 128 is future work.
+// wrapper's flag kRouteRows16), by 2-byte loads otherwise. At
+// [4, 2048, 16, 256] causal the bf16 one took about 8x its bound
+// (PERF.md §6), where the Hopper kernel above now serves TMA rows.
 
 constexpr int kF32Slab = 64;  // Q/K columns staged at a time (f32)
 
@@ -1273,24 +1568,33 @@ cudaError_t launch_wg_n(const Params& p, cudaStream_t stream) {
 // Three consumer warpgroups (192-row Q tiles) at D 64, two (128-row)
 // at D 128, one block an SM, once the grid of such tiles fills the
 // card's 132 SMs; otherwise one (64-row tiles, two blocks an SM), so a
-// short or single-sequence prefill still spreads over the SMs.
+// short or single-sequence prefill still spreads over the SMs. At DMAX
+// 256 always two and no producer (128-row tiles, one block an SM; 1024
+// blocks at [4, 2048, 16, 256]).
 template <int DMAX>
 cudaError_t launch_wg(const Params& p, cudaStream_t stream) {
-  constexpr int kWide = DMAX == 64 ? 3 : 2;
-  const long long tiles = static_cast<long long>(p.batch) * p.heads *
-                          ((p.seq + 64 * kWide - 1) / (64 * kWide));
-  return tiles >= 132 ? launch_wg_n<DMAX, kWide>(p, stream)
-                      : launch_wg_n<DMAX, 1>(p, stream);
+  if constexpr (FwdWg<DMAX, 2>::kWide) {
+    return launch_wg_n<DMAX, 2>(p, stream);
+  } else {
+    constexpr int kWg = DMAX == 64 ? 3 : 2;
+    const long long tiles = static_cast<long long>(p.batch) * p.heads *
+                            ((p.seq + 64 * kWg - 1) / (64 * kWg));
+    return tiles >= 132 ? launch_wg_n<DMAX, kWg>(p, stream)
+                        : launch_wg_n<DMAX, 1>(p, stream);
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor cores).
-// Strides are in elements. Up to head dim 128, aligned = 1 when a TMA
+// Strides are in elements. `aligned` is the route (`kernel_route`, as
+// the backward's entry points read it): kRouteHopper (1) when a TMA
 // tensor map can read q, k and v in place (16-byte base, every stepped
-// stride a nonzero multiple of 16 bytes): the Hopper kernel; 0: the
-// mma.sync kernel with 2-byte loads. Above 128, the wide kernels, and
-// aligned = 1 when every row starts on 16 bytes (16-byte staging).
+// stride a nonzero multiple of 16 bytes) up to head dim 256: the
+// Hopper kernel (DMAX 256 above 128); otherwise the mma.sync kernels,
+// up to 128 with 2-byte loads (0), above 128 the wide kernel with
+// 16-byte staging (kRouteRows16, every row on 16 bytes) or 2-byte
+// staging (0).
 // Returns the cudaError_t of the launch (0 = success); the caller
 // raises on anything else. The wrapper has checked shapes, types and
 // that the head dim is contiguous, and hands over a head dim that is a
@@ -1328,6 +1632,10 @@ extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
   p.aligned = aligned;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dim > kWideCols) {
+    if (dtype == 1 && aligned == kRouteHopper)
+      return static_cast<int>(dim > kHopperWideDim
+                                  ? cudaErrorInvalidValue
+                                  : launch_wg<kHopperWideDim>(p, st));
     if (dtype == 0)
       return static_cast<int>(launch_wide(flash_fwd_f32_wide_kernel, p,
                                           f32_wide_smem_bytes(), kThreads,
@@ -1342,7 +1650,7 @@ extern "C" int cea_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return static_cast<int>(wide ? launch_f32<128>(p, st)
                                  : launch_f32<64>(p, st));
-  if (dtype == 1 && aligned)
+  if (dtype == 1 && aligned == kRouteHopper)
     return static_cast<int>(wide ? launch_wg<128>(p, st)
                                  : launch_wg<64>(p, st));
   if (dtype == 1)

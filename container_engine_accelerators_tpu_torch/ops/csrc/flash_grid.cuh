@@ -33,6 +33,18 @@ namespace cea_grid {
 // Output columns a block of a wide kernel owns (head dims above 128).
 constexpr int kWideCols = 128;
 
+// The route each flash entry point takes as its `aligned` flag (the
+// wrapper's `kernel_route`, one rule for the forward, dQ and dK/dV):
+// kRouteHopper for bf16 rows a TMA tensor map describes up to head dim
+// kHopperWideDim (the Hopper kernels; 136-256 at DMAX 256); otherwise 0
+// (up to 128: the mma.sync kernels; above: the wide kernels staging
+// rows by 2-byte loads) or, above 128, kRouteRows16 (the wide kernels
+// staging rows by 16-byte loads). f32 runs its FMA kernels whatever
+// the flag.
+constexpr int kRouteHopper = 1;
+constexpr int kRouteRows16 = 2;
+constexpr int kHopperWideDim = 256;
+
 struct Place {
   int b, h;   // batch and head
   int rank;   // the row tile's place in launch order, 0 first
@@ -48,6 +60,43 @@ __device__ __forceinline__ Place place(int batch, int heads, int seq,
   pl.h = static_cast<int>(bh % heads);
   pl.rank = static_cast<int>(blockIdx.x / bh_n);
   pl.tiles = (seq + rows - 1) / rows;
+  return pl;
+}
+
+// K and V bytes (bf16) of the (batch, head) pairs whose row tiles run
+// together under `place_grouped`: a share of the card's 50 MB L2 cache
+// that holds them while every row tile of those pairs streams them.
+constexpr long long kL2GroupBytes = 8ll << 20;
+
+// The (batch, head) pairs of a group under `place_grouped`: as many as
+// kL2GroupBytes of K and V hold at this length and head dim, at least
+// one, at most every pair.
+__host__ __device__ inline int l2_group(int pairs, int seq, int dim) {
+  const long long per = 4ll * seq * dim;  // K and V of one pair, bf16
+  const long long g = kL2GroupBytes / per;
+  return g < 1 ? 1 : (g > pairs ? pairs : static_cast<int>(g));
+}
+
+// As `place`, for a kernel whose K and V over every head outgrow the L2
+// cache (bf16 head dim 256: 2 MB a pair at S 2048, 128 MB at
+// [4, 2048, 16, 256]): grid.x runs over groups of `group` pairs, one
+// group after another, and inside a group over (row tile, pair), pairs
+// fastest, so the tiles in flight share the K and V rows of a few
+// pairs, and inside each group the heaviest tile still goes first.
+__device__ __forceinline__ Place place_grouped(int batch, int heads, int seq,
+                                               int rows, int group) {
+  const unsigned bh_n = static_cast<unsigned>(batch) * heads;
+  const unsigned tiles = (static_cast<unsigned>(seq) + rows - 1) / rows;
+  const unsigned per = static_cast<unsigned>(group) * tiles;
+  const unsigned g0 = blockIdx.x / per * group;  // the group's first pair
+  const unsigned in = blockIdx.x % per;
+  const unsigned gn = min(static_cast<unsigned>(group), bh_n - g0);
+  const unsigned bh = g0 + in % gn;
+  Place pl;
+  pl.b = static_cast<int>(bh / heads);
+  pl.h = static_cast<int>(bh % heads);
+  pl.rank = static_cast<int>(in / gn);
+  pl.tiles = static_cast<int>(tiles);
   return pl;
 }
 

@@ -143,16 +143,17 @@ def test_head_dim_route(d, want):
 
 
 def test_kernel_route_reads_the_rows_above_128():
-    """Up to kernel head dim 128 the flag is ``tma_rows``; above, where
-    bf16 runs the wide mma.sync kernels whatever it says, it is
-    ``rows_aligned`` (16-byte or 2-byte staging): a broadcast row
-    stride that a tensor map refuses still stages by 16 bytes."""
+    """Up to kernel head dim 256 rows a tensor map describes take the
+    Hopper kernels (ROUTE_HOPPER); up to 128 every other row takes the
+    mma.sync kernels (0); above, the wide kernels read
+    ``rows_aligned``: a broadcast row stride that a tensor map refuses
+    still stages by 16 bytes (ROUTE_ROWS16), rows off 16 bytes by 2."""
     aligned = torch.zeros((2, 10, H, 256), dtype=torch.bfloat16)
     broadcast = torch.zeros((2, 1, H, 256), dtype=torch.bfloat16).expand(
         2, 10, H, 256)
-    assert attn.kernel_route(256, aligned) == 1
+    assert attn.kernel_route(256, aligned) == attn.ROUTE_HOPPER
     assert attn.tma_rows(broadcast) == 0
-    assert attn.kernel_route(256, aligned, broadcast) == 1
+    assert attn.kernel_route(256, aligned, broadcast) == attn.ROUTE_ROWS16
     assert attn.kernel_route(256, aligned[:, :, :, 1:]) == 0
     q, k, v = _fused(3)
     assert attn.kernel_route(D, q, k, v) == attn.tma_rows(q, k, v) == 1
@@ -245,56 +246,60 @@ def _flags(recorded):
     return {name: args[-1] for name, args in recorded.items()}
 
 
+def _hopper_counts():
+    return [kern.hopper_launches for kern in attn.KERNELS]
+
+
 @pytest.mark.parametrize("d", [136, 192, 256])
 def test_backward_takes_the_hopper_route_up_to_256(recorded, d):
-    """bf16 dQ and dK/dV at kernel head dims 136-256 on rows a tensor
-    map describes pass ROUTE_HOPPER; the forward's flag stays
-    ``rows_aligned`` (its wide mma.sync kernel, 16-byte staging)."""
+    """bf16 forward, dQ and dK/dV at kernel head dims 136-256 on rows a
+    tensor map describes pass ROUTE_HOPPER, and each counts a Hopper
+    launch."""
     q, k, v, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
                    for _ in range(4))
     assert attn.tma_rows(q, k, v, do) == 1
-    before = [attn.flash_bwd_dq.hopper_launches,
-              attn.flash_bwd_dkv.hopper_launches]
+    before = _hopper_counts()
     _launch_all(q, k, v, do)
-    assert _flags(recorded) == {"flash_fwd": 1,
+    assert _flags(recorded) == {"flash_fwd": attn.ROUTE_HOPPER,
                                 "flash_bwd_dq": attn.ROUTE_HOPPER,
                                 "flash_bwd_dkv": attn.ROUTE_HOPPER}
-    assert [attn.flash_bwd_dq.hopper_launches,
-            attn.flash_bwd_dkv.hopper_launches] == [n + 1 for n in before]
+    assert _hopper_counts() == [n + 1 for n in before]
 
 
 @pytest.mark.parametrize("d", [264, 320])
 def test_backward_above_256_keeps_the_wide_kernels(recorded, d):
-    """Past kernel head dim 256 no Hopper backward exists: aligned rows
-    pass ROUTE_ROWS16 (the wide mma.sync kernels, 16-byte staging)."""
+    """Past kernel head dim 256 no Hopper kernel exists: aligned rows
+    pass ROUTE_ROWS16 to the forward, dQ and dK/dV alike (the wide
+    mma.sync kernels, 16-byte staging), and none counts a Hopper
+    launch."""
     q, k, v, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
                    for _ in range(4))
     assert attn.tma_rows(q, k, v, do) == 1
+    before = _hopper_counts()
     _launch_all(q, k, v, do)
-    assert _flags(recorded) == {"flash_fwd": 1,
+    assert _flags(recorded) == {"flash_fwd": attn.ROUTE_ROWS16,
                                 "flash_bwd_dq": attn.ROUTE_ROWS16,
                                 "flash_bwd_dkv": attn.ROUTE_ROWS16}
+    assert _hopper_counts() == before
 
 
 def test_wide_broadcast_and_misaligned_rows_keep_the_wide_kernels(recorded):
     """D 256 rows a tensor map cannot describe: k and v broadcast over
     the heads (rows still on 16 bytes: ROUTE_ROWS16) and slices of a
-    fused projection one element in (0, 2-byte staging). The forward's
-    flag is ``rows_aligned`` as before."""
+    fused projection one element in (0, 2-byte staging), for the
+    forward as for dQ and dK/dV."""
     d = 256
     q, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
              for _ in range(2))
     k, v = (torch.zeros((2, 10, 1, d), dtype=torch.bfloat16).expand(
         2, 10, H, d) for _ in range(2))
     assert attn.tma_rows(q, k, v, do) == 0
-    before = [attn.flash_bwd_dq.hopper_launches,
-              attn.flash_bwd_dkv.hopper_launches]
+    before = _hopper_counts()
     _launch_all(q, k, v, do)
-    assert _flags(recorded) == {"flash_fwd": 1,
+    assert _flags(recorded) == {"flash_fwd": attn.ROUTE_ROWS16,
                                 "flash_bwd_dq": attn.ROUTE_ROWS16,
                                 "flash_bwd_dkv": attn.ROUTE_ROWS16}
-    assert [attn.flash_bwd_dq.hopper_launches,
-            attn.flash_bwd_dkv.hopper_launches] == before
+    assert _hopper_counts() == before
     recorded.clear()
     fused = torch.zeros((2, 10, 4 * H * d + 1), dtype=torch.bfloat16)
     q, k, v, do = (fused[:, :, 1 + i * H * d:1 + (i + 1) * H * d]
@@ -302,21 +307,61 @@ def test_wide_broadcast_and_misaligned_rows_keep_the_wide_kernels(recorded):
     _launch_all(q, k, v, do)
     assert _flags(recorded) == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                 "flash_bwd_dkv": 0}
+    assert _hopper_counts() == before
 
 
 @pytest.mark.parametrize("d", [8, 64, 128, 136, 256, 264])
 @pytest.mark.parametrize("extra", [0, 1])
-def test_forward_flag_is_unchanged_at_every_head_dim(d, extra):
-    """The forward's flag is ``tma_rows`` up to 128 and ``rows_aligned``
-    above, whatever the backward's; the backward's equals it up to
-    128."""
-    fused = torch.zeros((2, 10, 3 * H * d + extra), dtype=torch.bfloat16)
-    q, k, v = (fused[:, :, extra + i * H * d:extra + (i + 1) * H * d]
-               .unflatten(-1, (H, d)) for i in range(3))
-    want = attn.tma_rows(q, k, v) if d <= 128 else attn.rows_aligned(q, k, v)
+def test_forward_flag_is_unchanged_at_every_head_dim(recorded, d, extra):
+    """One route for the three kernels: at every head dim the forward
+    gets the flag dQ and dK/dV get, ``kernel_route``'s: ROUTE_HOPPER
+    up to 256 on rows a tensor map describes, ROUTE_ROWS16 on such rows
+    past 256, 0 on rows off 16 bytes."""
+    fused = torch.zeros((2, 10, 4 * H * d + extra), dtype=torch.bfloat16)
+    q, k, v, do = (fused[:, :, extra + i * H * d:extra + (i + 1) * H * d]
+                   .unflatten(-1, (H, d)) for i in range(4))
+    want = (0 if extra else attn.ROUTE_HOPPER if d <= 256
+            else attn.ROUTE_ROWS16)
     assert attn.kernel_route(d, q, k, v) == want
-    if d <= 128:
-        assert attn.kernel_route(d, q, k, v, backward=True) == want
+    _launch_all(q, k, v, do)
+    assert _flags(recorded) == dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), want)
+
+
+def _rows(kind, d):
+    """q, k, v, dO at head dim ``d``: "tma" plain tensors, "broadcast"
+    k and v expanded over the heads, "misaligned" slices of one fused
+    projection one element in."""
+    if kind == "misaligned":
+        fused = torch.zeros((2, 10, 4 * H * d + 1), dtype=torch.bfloat16)
+        return [fused[:, :, 1 + i * H * d:1 + (i + 1) * H * d]
+                .unflatten(-1, (H, d)) for i in range(4)]
+    q, k, v, do = (torch.zeros((2, 10, H, d), dtype=torch.bfloat16)
+                   for _ in range(4))
+    if kind == "broadcast":
+        k, v = (torch.zeros((2, 10, 1, d), dtype=torch.bfloat16).expand(
+            2, 10, H, d) for _ in range(2))
+    return [q, k, v, do]
+
+
+@pytest.mark.parametrize("kern", attn.KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize("kind,d,dtype,hopper", [
+    ("tma", 64, torch.bfloat16, True), ("tma", 256, torch.bfloat16, True),
+    ("broadcast", 256, torch.bfloat16, False),
+    ("misaligned", 192, torch.bfloat16, False),
+    ("tma", 320, torch.bfloat16, False), ("tma", 256, torch.float32, False)])
+def test_each_wrapper_counts_its_hopper_launches(recorded, kern, kind, d,
+                                                 dtype, hopper):
+    """Each wrapper counts a Hopper launch (``hopper_launches``) exactly
+    where its route is ROUTE_HOPPER on bf16; f32 runs the FMA kernels
+    whatever the flag and counts none."""
+    xs = [x.to(dtype) for x in _rows(kind, d)]
+    lse = torch.zeros((2, 10, H), dtype=torch.float32)
+    args = xs[:3] + ([] if kern is attn.flash_fwd else [xs[3], lse, lse])
+    before = kern.hopper_launches
+    kern.launch(*args, True, 0)
+    assert recorded[kern.name][-1] == attn.kernel_route(d, *xs)
+    assert kern.hopper_launches == before + int(hopper)
 
 
 @pytest.mark.parametrize("symbol,key", [
@@ -330,8 +375,14 @@ def test_forward_flag_is_unchanged_at_every_head_dim(d, extra):
     ("void (anonymous namespace)::flash_bwd_dq_wgmma_tc_kernel<256, 1>("
      "(anonymous namespace)::TmaParams)",
      "flash_bwd_dq_wgmma_tc_kernel<256,1>"),
+    ("_ZN12_GLOBAL__N_125flash_fwd_wgmma_tc_kernelILi256ELi2EEEv"
+     "NS_9TmaParamsE", "flash_fwd_wgmma_tc_kernel<256,2>"),
+    ("void (anonymous namespace)::flash_fwd_wgmma_tc_kernel<256, 2>("
+     "(anonymous namespace)::TmaParams)",
+     "flash_fwd_wgmma_tc_kernel<256,2>"),
 ])
 def test_kernel_key_reads_the_wide_hopper_symbols(symbol, key):
-    """The D 256 Hopper kernels' ptxas and cuobjdump names map to the
-    short names phase 2 reports and checks."""
+    """The D 256 Hopper kernels' (forward, dQ, dK/dV) ptxas and
+    cuobjdump names map to the short names phase 2 reports and
+    checks."""
     assert _chip_smoke().kernel_key(symbol) == key

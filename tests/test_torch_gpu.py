@@ -403,9 +403,10 @@ def test_hopper_kernels_are_deterministic(cuda, shape):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-# The Hopper dQ and dK/dV at kernel head dims 136-256 (DMAX 256; 136
-# and 192 zero-filled by TMA past their last column): causal at S 17
-# and 2048, the W 200 band at S 1000, a ragged S 150 with the W 64 band.
+# The Hopper forward, dQ and dK/dV at kernel head dims 136-256 (DMAX
+# 256; 136 and 192 zero-filled by TMA past their last column): causal
+# at S 17 and 2048, the W 200 band at S 1000, a ragged S 150 with the W
+# 64 band.
 WIDE_HOPPER_CASES = [
     ((2, 17, 2, 136), True, 0),
     ((2, 17, 2, 192), True, 0),
@@ -422,20 +423,35 @@ WIDE_HOPPER_CASES = [
 def test_hopper_backward_at_head_dims_136_to_256(cuda, shape, causal,
                                                   window):
     args = _bwd_args(shape, torch.bfloat16, causal, window, cuda)
+    q, k, v = args[:3]
     kd, _ = attn.head_dim_route(shape[3])
-    assert attn.kernel_route(kd, *args[:4], backward=True) == (
-        attn.ROUTE_HOPPER)
-    before = (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+    assert attn.kernel_route(kd, *args[:4]) == attn.ROUTE_HOPPER
+    before = [(kern.launches, kern.hopper_launches)
+              for kern in attn.KERNELS]
+    o, got_lse = attn.flash_fwd(q, k, v, causal, window)
     dq = attn.flash_bwd_dq(*args, causal, window)
     dk, dv = attn.flash_bwd_dkv(*args, causal, window)
     torch.cuda.synchronize()
-    assert (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [(kern.launches, kern.hopper_launches)
+            for kern in attn.KERNELS] == [(n + 1, m + 1) for n, m in before]
+    ro, rl = attn.flash_attention_reference(q, k, v, causal, window)
+    _assert_near(o, ro, torch.bfloat16, "o")
+    torch.testing.assert_close(got_lse, rl, rtol=2e-2, atol=2e-2)
     rq = attn.flash_attention_dq_reference(*args, causal, window)
     _assert_near(dq, rq, torch.bfloat16, "dq")
     rk, rv = attn.flash_attention_dkv_reference(*args, causal, window)
     _assert_near(dk, rk, torch.bfloat16, "dk")
     _assert_near(dv, rv, torch.bfloat16, "dv")
+
+
+def test_wide_hopper_forward_is_deterministic(cuda):
+    """D 256 on the Hopper forward: two launches give bitwise-equal O
+    and lse (one owner block a 64-row tile, no atomics)."""
+    q, k, v = _bwd_args((2, 1000, 4, 256), torch.bfloat16, True, 0,
+                        cuda)[:3]
+    first = attn.flash_fwd(q, k, v, True, 0)
+    second = attn.flash_fwd(q, k, v, True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_wide_hopper_backward_is_deterministic(cuda):
@@ -473,33 +489,39 @@ def _wide_rows(kind, shape, device):
 
 
 @pytest.mark.parametrize("kind,want", [
-    ("tma", ("flash_bwd_dq_wgmma_tc_kernel<256, 1>",
+    ("tma", ("flash_fwd_wgmma_tc_kernel<256, 2>",
+             "flash_bwd_dq_wgmma_tc_kernel<256, 1>",
              "flash_bwd_dkv_wgmma_tc_kernel<256, 2>")),
-    ("broadcast", ("flash_bwd_dq_wide_tc_kernel",
+    ("broadcast", ("flash_fwd_wide_tc_kernel",
+                   "flash_bwd_dq_wide_tc_kernel",
                    "flash_bwd_dkv_wide_tc_kernel")),
-    ("misaligned", ("flash_bwd_dq_wide_tc_kernel",
+    ("misaligned", ("flash_fwd_wide_tc_kernel",
+                    "flash_bwd_dq_wide_tc_kernel",
                     "flash_bwd_dkv_wide_tc_kernel")),
 ])
 def test_wide_backward_runs_the_kernels_of_its_route(cuda, kind, want):
-    """At D 256 rows a tensor map describes run the Hopper dQ and dK/dV;
-    k and v broadcast over the heads, or rows off 16 bytes, the wide
-    mma.sync kernels: the kernels a profiler records for the two calls.
-    Each agrees with the plain versions."""
+    """At D 256 rows a tensor map describes run the Hopper forward, dQ
+    and dK/dV; k and v broadcast over the heads, or rows off 16 bytes,
+    the wide mma.sync kernels: the kernels a profiler records for the
+    three calls. Each agrees with the plain versions."""
     from torch.profiler import ProfilerActivity, profile
 
     shape = (2, 150, 4, 256)
     q, k, v, do = _wide_rows(kind, shape, cuda)
-    o, lse = attn.flash_attention_reference(q, k, v, True, 64)
-    delta = (do.float() * o.float()).sum(-1)
+    ro, lse = attn.flash_attention_reference(q, k, v, True, 64)
+    delta = (do.float() * ro.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True, 64)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o, got_lse = attn.flash_fwd(q, k, v, True, 64)
         dq = attn.flash_bwd_dq(*args)
         dk, dv = attn.flash_bwd_dkv(*args)
         torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if "flash_bwd" in e.key]
-    assert len(names) == 2 and all(
+    names = [e.key for e in prof.key_averages() if "flash_" in e.key]
+    assert len(names) == 3 and all(
         any(w in n for n in names) for w in want), names
+    _assert_near(o, ro, torch.bfloat16, "o")
+    torch.testing.assert_close(got_lse, lse, rtol=2e-2, atol=2e-2)
     _assert_near(dq, attn.flash_attention_dq_reference(*args), torch.bfloat16,
                  "dq")
     rk, rv = attn.flash_attention_dkv_reference(*args)
