@@ -76,6 +76,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..analysis import tsan
 from ..serving.affinity import KV_BLOCK_ENV, chain_digest
 from ..utils import _env_flag, env_number, env_str, faults
@@ -1209,16 +1210,23 @@ def _paged_prefill_impl(model, arena, prefix_table, row, shared_len,
     the full-length cache), as its ``per_row_index`` clone. The
     seen-token row marks the suffix's valid tokens only; the echo
     covers this chunk. Returns (dense cache, first [1], first_lp [1],
-    echo [width], seen_row [V] bool)."""
-    cache = _arena_to_dense(arena, prefix_table, slot_len)
-    if model.attention_window:
-        logits = logits_of(model(row, cache, torch.full(
-            (1,), int(shared_len), device=row.device)))
-    else:
-        logits = logits_of(model(row, cache, int(shared_len),
-                                 chunk_attends_cache=True))
-    return (cache,) + _prefill_tail(logits[0], row, suffix_len, knobs,
-                                    generator, agree)
+    echo [width], seen_row [V] bool). Spans: ``engine.prefix_gather``,
+    ``engine.prefill_forward`` and ``engine.first_token``, timed on the
+    device."""
+    dev = row.device
+    with obs.span("engine.prefix_gather", timed_on=dev):
+        cache = _arena_to_dense(arena, prefix_table, slot_len)
+    with obs.span("engine.prefill_forward", timed_on=dev):
+        if model.attention_window:
+            logits = logits_of(model(row, cache, torch.full(
+                (1,), int(shared_len), device=dev)))
+        else:
+            logits = logits_of(model(row, cache, int(shared_len),
+                                     chunk_attends_cache=True))
+    with obs.span("engine.first_token", timed_on=dev):
+        tail = _prefill_tail(logits[0], row, suffix_len, knobs,
+                             generator, agree)
+    return (cache,) + tail
 
 
 def _draft_scan(draft, cache, row_pos, tok, k, span, block_table=None):
@@ -1402,6 +1410,10 @@ class SlotDecodeEngine:
                 for p in params)
         else:
             self.active_param_count = self.param_count
+        # The same gauge's attention term: 4·D per attended key per
+        # query head per layer (the scores and the weighted sum), over
+        # ``live_keys()``.
+        self.key_flops = 4.0 * model.embed_dim * model.num_layers
         self.slots = int(slots)
         self.slot_len = int(slot_len)
         self.kv_quant = _model_quant_mode(model) if quant == "bf16" else quant
@@ -1532,8 +1544,14 @@ class SlotDecodeEngine:
     def active_count(self):
         return int(self._active.sum())
 
-    def occupancy_avg(self):
-        return self.row_steps / self.steps if self.steps else None
+    def live_keys(self):
+        """The keys the next step's queries attend over live tokens:
+        min(pos + 1, window) summed over the active rows (host arrays
+        only)."""
+        keys = self._row_pos[self._active].astype(np.int64) + 1
+        if self._model.attention_window:
+            keys = np.minimum(keys, self._model.attention_window)
+        return int(keys.sum())
 
     def _row(self, tokens):
         faults.fire("prefill")
@@ -1547,19 +1565,21 @@ class SlotDecodeEngine:
         return row
 
     @torch.inference_mode()
-    def score(self, tokens, prompt_len):
+    def score(self, tokens, prompt_len, *, span=None):
         """Prompt echo logprobs only (the max_new_tokens=0 scoring
         mode): the admission prefill into a scratch cache; no slot used
         and, paged, no blocks. Returns a [>= prompt_len] f32 array
         (entry 0 = 0.0); entries at and beyond prompt_len are padding
-        scratch."""
+        scratch. ``span``, as in ``admit``."""
         if self.paged:
             _, _, _, echo, _, _ = self._paged_prefill(
                 np.asarray(tokens, np.int64).reshape(-1)[:prompt_len], 0,
                 np.full((self._n_blk,), self._trash, np.int64),
-                SamplingKnobs(1), 0)
+                SamplingKnobs(1), 0, span)
             return echo.cpu().numpy()
         row = self._row(tokens)
+        if span:
+            span.set(shared_tokens=0, width=int(row.shape[1]))
         _, _, echo, _ = _slot_prefill(
             self._model, row, int(prompt_len),
             self._model.init_cache(1, row.shape[1], self.kv_quant,
@@ -1681,13 +1701,15 @@ class SlotDecodeEngine:
         return self._pool.available(), self._pool.usable
 
     def _paged_prefill(self, suffix, shared_len, prefix_table, knobs,
-                       seed):
+                       seed, span=None):
         faults.fire("prefill")
         width = self._pick_width(max(len(suffix), 1), shared_len)
         row = np.zeros((width,), np.int64)
         row[:len(suffix)] = suffix
         self.prefills += 1
         self.prefill_widths[int(width)] += 1
+        if span:
+            span.set(shared_tokens=int(shared_len), width=int(width))
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(seed))
         out = _paged_prefill_impl(
@@ -1760,7 +1782,7 @@ class SlotDecodeEngine:
             for a, p in zip(layer, pre):
                 a[blocks, offsets] = p[0, shared:prompt_len]
 
-    def _paged_admit(self, slot, plan, prompt_len, knobs, seed):
+    def _paged_admit(self, slot, plan, prompt_len, knobs, seed, span):
         pool, bs = self._pool, self._block_size
         if pool.available() < plan["needed"]:
             raise EngineCapacityError(
@@ -1839,7 +1861,7 @@ class SlotDecodeEngine:
                 ptab[len(plan["sources"])] = boundary
             pre_cache, first, first_lp, echo, seen_row, generator = (
                 self._paged_prefill(toks[shared:], shared, ptab, knobs,
-                                    seed))
+                                    seed, span))
             last_idx = (prompt_len - 1) // bs
             for bi in range(fresh_from, last_idx + 1):
                 b = pool.alloc()
@@ -1848,8 +1870,9 @@ class SlotDecodeEngine:
             remaining = plan["total_span"] - (last_idx + 1)
             self._committed_slot[slot] = remaining
             pool.committed += remaining
-            self._paged_insert(pre_cache, shared, prompt_len, table_row,
-                               cow)
+            with obs.span("engine.kv_insert", timed_on=self.device):
+                self._paged_insert(pre_cache, shared, prompt_len,
+                                   table_row, cow)
             if hold is not None:
                 # The copy has landed; drop the donor pin (a revival
                 # donor returns to the free list, keys intact).
@@ -1986,12 +2009,14 @@ class SlotDecodeEngine:
     @torch.inference_mode()
     def admit(self, tokens, prompt_len, *, temperature=0.0, top_k=0,
               top_p=1.0, min_p=0.0, repetition_penalty=1.0, seed=0,
-              max_new=None, allow_prefix=True):
+              max_new=None, allow_prefix=True, span=None):
         """Prefill ``tokens`` (a [>= prompt_len] int row: bucket-padded
         on the dense pool, padding ignored on the paged pool) into a
         free slot. Returns (slot, first_token, first_logprob,
         echo_logprobs). The first generated token is produced here; the
-        next ``step`` yields the second.
+        next ``step`` yields the second. A ``span`` (the caller's
+        admission span) is given the prefill's ``shared_tokens`` (the
+        prefix hit) and padded ``width``.
 
         Paged pool: ``max_new`` bounds the row's block reservation
         (default: the worst case to slot_len); ``allow_prefix=False``
@@ -2024,9 +2049,11 @@ class SlotDecodeEngine:
             plan = self._paged_plan(tokens, prompt_len, max_new,
                                     allow_prefix, repetition_penalty)
             first, first_lp, echo, seen_row, generator = self._paged_admit(
-                slot, plan, prompt_len, knobs, seed)
+                slot, plan, prompt_len, knobs, seed, span)
         else:
             row = self._row(tokens)
+            if span:
+                span.set(shared_tokens=0, width=int(row.shape[1]))
             generator = torch.Generator(device=self.device)
             generator.manual_seed(int(seed))
             view = [tuple(a[slot:slot + 1] for a in layer)
@@ -2210,28 +2237,35 @@ class SlotDecodeEngine:
         if self._draft_model is not None:
             return self._spec_step()
         dev = self.device
-        tok = torch.as_tensor(self._tok, device=dev)[:, None]
-        if self.paged:
-            cows = self._paged_prestep()
-            faults.fire("step")
-            for src, dst in cows:
-                self._copy_block(src, dst)
-            limit = self._n_blk * self._block_size - 1
-            pos = torch.as_tensor(np.minimum(self._row_pos, limit),
+        # Spans: the host's block upkeep and uploads, then the forward
+        # (every row attends ``span`` positions) and the sampling, timed
+        # on the device.
+        with obs.span("engine.prestep"):
+            tok = torch.as_tensor(self._tok, device=dev)[:, None]
+            if self.paged:
+                cows = self._paged_prestep()
+                faults.fire("step")
+                for src, dst in cows:
+                    self._copy_block(src, dst)
+                span = self._n_blk * self._block_size
+                tables = torch.as_tensor(self._tables, device=dev)
+            else:
+                faults.fire("step")
+                span, tables = self.slot_len, None
+            pos = torch.as_tensor(np.minimum(self._row_pos, span - 1),
                                   device=dev)
-            raw = logits_of(self._model(
-                tok, self._cache, pos,
-                block_table=torch.as_tensor(self._tables, device=dev)))
-        else:
-            faults.fire("step")
-            pos = torch.as_tensor(
-                np.minimum(self._row_pos, self.slot_len - 1), device=dev)
-            raw = logits_of(self._model(tok, self._cache, pos))
-        nxt, lp = _slot_sample(raw[:, 0], self._seen, self._knobs,
-                               self._generators)
-        if self.agree is not None:
-            nxt = self.agree(nxt)
-        self._seen[torch.arange(self.slots, device=dev), nxt] = True
+        with obs.span("engine.forward", timed_on=dev) as sp:
+            if sp:
+                sp.set(keys_attended=self.slots * span,
+                       keys_live=self.live_keys())
+            raw = logits_of(self._model(tok, self._cache, pos,
+                                        block_table=tables))
+        with obs.span("engine.sample", timed_on=dev):
+            nxt, lp = _slot_sample(raw[:, 0], self._seen, self._knobs,
+                                   self._generators)
+            if self.agree is not None:
+                nxt = self.agree(nxt)
+            self._seen[torch.arange(self.slots, device=dev), nxt] = True
         self._row_pos += self._active
         toks = nxt.cpu().numpy()
         np.copyto(self._tok, toks, where=self._active)

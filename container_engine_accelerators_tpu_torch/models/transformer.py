@@ -90,6 +90,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import obs
 from ..ops.attention import flash_attention
 from ..utils import not_ported
 from .quantized import Int8Linear
@@ -376,6 +377,14 @@ class CausalSelfAttention(nn.Module):
 
     def _cached_attention(self, q, k, v, cache, index, block_table,
                           chunk_attends_cache, slot_pos):
+        """The cache write and the attention over it, in a
+        ``model.attention`` span timed on the device."""
+        with obs.span("model.attention", timed_on=q.device):
+            return self._attend_cache(q, k, v, cache, index, block_table,
+                                      chunk_attends_cache, slot_pos)
+
+    def _attend_cache(self, q, k, v, cache, index, block_table,
+                      chunk_attends_cache, slot_pos):
         cache_k = cache[0]
         b, q_len, heads, d = q.shape
         steps = torch.arange(q_len, device=q.device)

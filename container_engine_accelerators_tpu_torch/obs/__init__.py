@@ -21,8 +21,10 @@ fleet; efficiency, memory, profiler, postmortem, straggler), with the
 same module-level helpers over one process-wide tracer::
 
     from container_engine_accelerators_tpu_torch import obs
-    with obs.span("serving.prefill", bucket=64):
+    with obs.span("serving.prefill", prompt_tokens=64):
         ...
+    with obs.span("model.attention", timed_on=q.device):
+        ...                    # its record also gets ``device_s``
     obs.event("serving.engine_quarantine", reason="step")
     obs.histogram("serving_request_latency_seconds").observe(dt)
 
@@ -77,9 +79,10 @@ from .trace import (
 TRACER = get_tracer()
 
 
-def span(name, parent=None, **attrs):
-    """Open a span on the process-wide tracer."""
-    return TRACER.span(name, parent=parent, **attrs)
+def span(name, parent=None, timed_on=None, **attrs):
+    """Open a span on the process-wide tracer (``timed_on``: a
+    ``torch.device`` on which it is also timed; ``Tracer.span``)."""
+    return TRACER.span(name, parent=parent, timed_on=timed_on, **attrs)
 
 
 def event(name, **fields):

@@ -128,9 +128,15 @@ def transformer_train_flops(param_count, tokens):
     return 6.0 * float(param_count) * float(tokens)
 
 
-def transformer_decode_flops(param_count, tokens):
-    """Analytic decode FLOPs: forward only, 2·N per generated token."""
-    return 2.0 * float(param_count) * float(tokens)
+def transformer_decode_flops(param_count, tokens, attended_keys=0,
+                             key_flops=0.0):
+    """Analytic decode FLOPs: forward only, 2·N per generated token,
+    plus ``key_flops`` per attended key (4·D·H·L in a transformer: the
+    scores and the weighted sum of each query head and layer), with
+    ``attended_keys`` summed over the generated tokens' live contexts.
+    The two-argument form is the JAX package's."""
+    return (2.0 * float(param_count) * float(tokens)
+            + float(key_flops) * float(attended_keys))
 
 
 # -- counted FLOPs ------------------------------------------------------

@@ -17,7 +17,27 @@
 The port's own copy of the JAX package's ``obs/trace.py``, the
 journal file writer included. Bounded memory (completed spans and events live in fixed-
 capacity rings), near-zero cost when disabled (``tracer.span(...)``
-returns one module-level no-op span), stdlib only.
+returns one module-level no-op span), stdlib only at import.
+
+One clock: each tracer reads the unix time and ``perf_counter`` once
+(its anchor, in ``snapshot()``), and every span's ``start_unix`` is
+the anchor plus the ``perf_counter`` time since it, so starts and
+durations lie on one monotonic clock.
+
+Device time: ``span(name, timed_on=<torch.device>)`` also times the
+span on that device. On CUDA the span looks up the device's current
+stream once, at enter, and records a pair of timing events on it, one
+at enter and one at exit (none if a CUDA graph is being captured at
+enter). The span's record carries ``device_s``, None until the pair is
+resolved: the stream time between the two events, which holds the
+enclosed work and any gap in which the stream waited for the host's
+next launch. Resolution never synchronises: ``snapshot()``, and a
+span exit once ``RESOLVE_EVERY`` more pairs wait, query the pending
+end events in stream order, stop at the first that has not completed,
+write ``device_s`` into the record in the ring and reuse the events.
+At most ``capacity`` pairs wait; past that the oldest is dropped and
+counted (``dropped_device``). On any other device the work ran
+synchronously, so ``device_s`` is the span's own duration.
 
 Environment:
   CEA_TPU_TRACE=0        disable span/event recording (histograms
@@ -30,6 +50,7 @@ Environment:
 """
 
 import atexit
+import collections
 import json
 import os
 import random
@@ -190,21 +211,24 @@ class Span:
 
     __slots__ = ("name", "attrs", "trace_id", "span_id", "parent_id",
                  "start_wall", "_t0", "duration", "status", "thread",
-                 "_tracer")
+                 "_tracer", "timed_on", "_stream", "_pair")
 
     def __init__(self, tracer, name, attrs, trace_id, span_id,
-                 parent_id):
+                 parent_id, timed_on=None):
         self.name = name
         self.attrs = attrs
         self.trace_id = trace_id
         self.span_id = span_id
         self.parent_id = parent_id
-        self.start_wall = time.time()
         self._t0 = time.perf_counter()
+        self.start_wall = tracer.unix_at(self._t0)
         self.duration = None
         self.status = "ok"
         self.thread = threading.current_thread().name
         self._tracer = tracer
+        self.timed_on = timed_on  # the torch.device it is timed on
+        self._stream = None       # that device's stream, at enter
+        self._pair = None         # its CUDA (start, end) events
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -212,6 +236,8 @@ class Span:
 
     def __enter__(self):
         self._tracer._push(self)
+        if self.timed_on is not None and self.timed_on.type == "cuda":
+            self._tracer._start_device(self)
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -227,7 +253,7 @@ class Span:
         return (self.trace_id, self.span_id)
 
     def to_dict(self):
-        return {
+        out = {
             "name": self.name,
             "trace_id": self.trace_id,
             "span_id": self.span_id,
@@ -238,12 +264,39 @@ class Span:
             "thread": self.thread,
             "attrs": self.attrs,
         }
+        if self.timed_on is not None:
+            # A CUDA span's device time arrives with its events; the
+            # work of any other device ran in the span's own time.
+            out["device_s"] = (None if self.timed_on.type == "cuda"
+                               else self.duration)
+        return out
+
+
+class CudaClock:
+    """The device clock of CUDA spans: timing events, recorded on the
+    device's current stream. A tracer's ``device_clock`` seam."""
+
+    def new_event(self):
+        import torch
+        return torch.cuda.Event(enable_timing=True)
+
+    def stream(self, device):
+        """The stream to time ``device``'s work on, or None while the
+        current stream captures a CUDA graph."""
+        import torch
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        return torch.cuda.current_stream(device)
 
 
 class Tracer:
     """Spans + events + histograms behind one bounded journal."""
 
-    def __init__(self, capacity=None, enabled=None):
+    # A span exit resolves the pending device pairs once this many more
+    # wait than after the last try (``snapshot()`` always resolves).
+    RESOLVE_EVERY = 64
+
+    def __init__(self, capacity=None, enabled=None, device_clock=None):
         if capacity is None:
             capacity = env_number("CEA_TPU_TRACE_CAP", DEFAULT_CAP,
                                   parse=int)
@@ -274,7 +327,19 @@ class Tracer:
         self._next_id = (random.getrandbits(52) | (1 << 51))
         self._open = {}          # span_id -> Span (leak guard surface)
         self._local = threading.local()
-        self._started_unix = time.time()
+        self._anchor_unix = time.time()
+        self._anchor_perf = time.perf_counter()
+        self._started_unix = self._anchor_unix
+        self._clock = device_clock or CudaClock()
+        self._event_pool = []
+        self._pending = collections.deque()   # (record, (start, end))
+        self._resolve_at = self.RESOLVE_EVERY
+        self._dropped_device = 0
+
+    def unix_at(self, perf):
+        """The unix time of ``perf_counter`` reading ``perf``, on this
+        tracer's one clock."""
+        return self._anchor_unix + (perf - self._anchor_perf)
 
     # -- spans --------------------------------------------------------
 
@@ -284,13 +349,14 @@ class Tracer:
             self._next_id += 1
             return i
 
-    def span(self, name, parent=None, **attrs):
+    def span(self, name, parent=None, timed_on=None, **attrs):
         """Open a span. Use as ``with tracer.span("phase") as sp:``.
 
         ``parent`` is an explicit (trace_id, span_id) context (from
         Span.context()) for cross-thread parenting; by default the
-        innermost span open on THIS thread is the parent. Disabled
-        tracers return the no-op singleton.
+        innermost span open on THIS thread is the parent. ``timed_on``:
+        a ``torch.device`` on which the span is also timed (the module
+        docstring). Disabled tracers return the no-op singleton.
         """
         if not self.enabled:
             return NULL_SPAN
@@ -303,7 +369,8 @@ class Tracer:
                 trace_id, parent_id = top.trace_id, top.span_id
             else:
                 trace_id, parent_id = span_id, None
-        return Span(self, name, attrs, trace_id, span_id, parent_id)
+        return Span(self, name, attrs, trace_id, span_id, parent_id,
+                    timed_on)
 
     def current(self):
         """Innermost open span on this thread, or None."""
@@ -326,14 +393,56 @@ class Tracer:
 
     def _pop(self, span):
         span.duration = time.perf_counter() - span._t0
+        pair = span._pair
+        if pair is not None:
+            pair[1].record(span._stream)
         stack = getattr(self._local, "stack", None)
         if stack and stack[-1] is span:
             stack.pop()
         elif stack and span in stack:  # exited out of order; heal
             stack.remove(span)
+        record = span.to_dict()
         with self._lock:
             self._open.pop(span.span_id, None)
-            self._append(self._spans, span.to_dict(), "spans")
+            self._append(self._spans, record, "spans")
+            if pair is not None:
+                pending = self._pending
+                pending.append((record, pair))
+                if len(pending) > self.capacity:
+                    pending.popleft()
+                    self._dropped_device += 1
+                if len(pending) >= self._resolve_at:
+                    self._resolve_device()
+
+    def _start_device(self, span):
+        """Record a CUDA span's start event on its device's stream (no
+        events while that stream captures a graph)."""
+        stream = self._clock.stream(span.timed_on)
+        if stream is None:
+            return
+        with self._lock:
+            pool = self._event_pool
+            pair = ((pool.pop(), pool.pop()) if len(pool) >= 2 else None)
+        if pair is None:
+            pair = (self._clock.new_event(), self._clock.new_event())
+        pair[0].record(stream)
+        span._stream, span._pair = stream, pair
+
+    def _resolve_device(self):
+        """Fill ``device_s`` of the pending CUDA spans whose end event
+        has completed, oldest first, up to the first that has not
+        (caller holds self._lock). Only ``query()``: never a wait. A
+        start event precedes its end on one stream, so the end's
+        completion answers for both."""
+        pending = self._pending
+        while pending:
+            record, (start, end) = pending[0]
+            if not end.query():
+                break
+            record["device_s"] = start.elapsed_time(end) / 1e3
+            pending.popleft()
+            self._event_pool.extend((start, end))
+        self._resolve_at = len(pending) + self.RESOLVE_EVERY
 
     def _append(self, ring, item, kind):
         # Caller holds self._lock.
@@ -353,7 +462,7 @@ class Tracer:
         if not self.enabled:
             return
         ctx = self.current_context()
-        rec = {"name": name, "unix": time.time(),
+        rec = {"name": name, "unix": self.unix_at(time.perf_counter()),
                "thread": threading.current_thread().name,
                "fields": fields}
         if ctx is not None:
@@ -392,21 +501,27 @@ class Tracer:
     # -- export seams -------------------------------------------------
 
     def snapshot(self):
-        """Journal snapshot: completed spans, open spans, events,
-        drop counts. The /debug/trace payload and the trace-file
-        body share this one shape."""
+        """Journal snapshot: completed spans (device spans resolved as
+        far as their events have completed), open spans, events, drop
+        counts and the clock's anchor. The /debug/trace payload and the
+        trace-file body share this one shape."""
         with self._lock:
+            if self._pending:
+                self._resolve_device()
             return {
                 "enabled": self.enabled,
                 "capacity": self.capacity,
                 "identity": identity(),
                 "started_unix": self._started_unix,
+                "anchor": {"unix": self._anchor_unix,
+                           "perf_counter": self._anchor_perf},
                 "spans": list(self._spans),
                 "open_spans": [s.to_dict() for s in
                                self._open.values()],
                 "events": list(self._events),
                 "dropped_spans": self._dropped_spans,
                 "dropped_events": self._dropped_events,
+                "dropped_device": self._dropped_device,
             }
 
     def histograms(self):
@@ -451,7 +566,10 @@ class Tracer:
                 h.reset()
             self._counters.clear()
             self._gauges.clear()
+            self._pending.clear()
+            self._resolve_at = self.RESOLVE_EVERY
             self._dropped_spans = self._dropped_events = 0
+            self._dropped_device = 0
         stack = getattr(self._local, "stack", None)
         if stack:
             del stack[:]

@@ -271,6 +271,9 @@ class Trainer:
       under the ``train.step_compile`` span, later steps to
       ``productive`` under ``train.step_run``; ``record_data_wait`` and
       ``record_badput`` are the seams train.py records through.
+    - ``train.step_run`` and, inside every step, ``train.forward``,
+      ``train.backward`` and ``train.update`` carry their time on the
+      device's stream (``device_s``; ``obs.trace``), without a sync.
     """
 
     def __init__(self, model, loss_fn, optimizer, mesh=None,
@@ -410,7 +413,7 @@ class Trainer:
             self._record_step(time.perf_counter() - t0)
             return out
         t0 = time.perf_counter()
-        with obs.span("train.step_run"):
+        with obs.span("train.step_run", timed_on=self._device()):
             out = self._step(state, batch)
         self._record_step(time.perf_counter() - t0)
         return out
@@ -474,15 +477,21 @@ class Trainer:
             valid / (seq - 1))
 
     def _step(self, state, batch):
+        """The step's work, in ``train.forward``, ``train.backward`` (a
+        pair per micro-batch) and ``train.update`` spans timed on the
+        device."""
         images, labels = batch
+        dev = self._device()
         if self._augment is not None:
             images = self._augment(step_generator(
                 AUGMENT_KEY, state.step, images.device), images)
         state.optimizer.zero_grad(set_to_none=True)
         accum = self._grad_accum
         if accum == 1:
-            loss = self._loss_of(images, labels, state.step)
-            loss.backward()
+            with obs.span("train.forward", timed_on=dev):
+                loss = self._loss_of(images, labels, state.step)
+            with obs.span("train.backward", timed_on=dev):
+                loss.backward()
             loss = loss.detach()
         else:
             if images.shape[0] % accum:
@@ -492,9 +501,11 @@ class Trainer:
             loss = torch.zeros((), dtype=torch.float32, device=images.device)
             chunks = zip(images.chunk(accum), labels.chunk(accum))
             for idx, (images_c, labels_c) in enumerate(chunks):
-                chunk_loss = self._loss_of(images_c, labels_c,
-                                           state.step * accum + idx)
-                (chunk_loss / accum).backward()
+                with obs.span("train.forward", timed_on=dev):
+                    chunk_loss = self._loss_of(images_c, labels_c,
+                                               state.step * accum + idx)
+                with obs.span("train.backward", timed_on=dev):
+                    (chunk_loss / accum).backward()
                 loss = loss + chunk_loss.detach().float() / accum
         norm = None
         if self._spmd is not None:
@@ -502,7 +513,8 @@ class Trainer:
             loss = self._spmd.mean_over_data(loss)
             if self._tx.grad_clip > 0:
                 norm = self._spmd.grad_norm(self.model)
-        self._tx.update(state.optimizer, state.step, norm=norm)
+        with obs.span("train.update", timed_on=dev):
+            self._tx.update(state.optimizer, state.step, norm=norm)
         if self._ema_decay:
             self._update_ema(state)
         state.step += 1

@@ -177,10 +177,14 @@ class LockstepEngine:
 
     def __getattr__(self, name):
         if name in STATE_CALLS:
-            def call(*args, **kwargs):
+            def call(*args, span=None, **kwargs):
+                # An admission's ``span`` is rank 0's trace; the
+                # followers replay the call without it.
                 with self._channel.lock:
                     self._channel.send(("call", name, args, kwargs,
                                         engine_digest(self._engine)))
+                    if span is not None:
+                        kwargs["span"] = span
                     return getattr(self._engine, name)(*args, **kwargs)
             return call
         return getattr(self._engine, name)

@@ -81,11 +81,12 @@ capture runs, 501 where the profiler cannot); /stats carries
 ``hbm_in_use_bytes`` and ``hbm_peak_bytes`` (obs/memory.py's CUDA
 allocator monitor, None on the CPU) and, for generation,
 ``decode_mfu`` (2·N analytic FLOPs per active row per step, N the
-engine's ``active_param_count``, over the step's wall time and the
-card's peak; None where no peak is known); the postmortem providers
-``hbm_memory``, ``serving_requests`` and, on the paged pool,
-``serving_kv_blocks`` land in a SIGTERM or crash flight record
-(obs/postmortem.py).
+engine's ``active_param_count``, plus 4·D per attended key per query
+head per layer over each active row's live context, over the step's
+wall time and the card's peak; None where no peak is known); the
+postmortem providers ``hbm_memory``, ``serving_requests`` and, on the
+paged pool, ``serving_kv_blocks`` land in a SIGTERM or crash flight
+record (obs/postmortem.py).
 
 Not carried from the JAX server: the device plugin's health query in
 /stats (a TPU device plugin).
@@ -361,9 +362,12 @@ class _EngineService:
     contract). ``admission`` (the server-wide ``_Admission``) bounds
     submitted-but-unretired rows; past it submissions shed.
 
-    Telemetry: ``serving.engine_step`` and ``serving.prefill`` spans,
-    the occupancy, step/prefill latency, TTFT/TPOT and rehydrate
-    histograms, the slot, KV-block and saturation gauges, the SLO burn
+    Telemetry: ``serving.engine_step`` and ``serving.prefill`` spans
+    (the latter with ``prompt_tokens``, ``shared_tokens``, the padded
+    ``width`` and ``phase``; the engine's ``engine.*`` and
+    ``model.attention`` spans nest under both), the occupancy,
+    step/prefill latency, TTFT/TPOT and rehydrate histograms, the
+    slot, KV-block and saturation gauges, the SLO burn
     counters and the request ledger (/stats, /metrics,
     /debug/requests); the decode-MFU ledger and the memory monitor on
     the step boundary; the ``serving_requests`` and, paged,
@@ -453,9 +457,10 @@ class _EngineService:
         # /stats reads) and the last admission blocker the loop saw.
         self._last_saturation = None
         self._last_block_cause = None
-        # Decode MFU: 2·N analytic FLOPs per active row per step, rated
-        # against the engine device's peak (a known card, or
-        # CEA_TPU_PEAK_FLOPS; no gauge where neither is known).
+        # Decode MFU: 2·N analytic FLOPs per active row per step plus
+        # the attention over live keys, rated against the engine
+        # device's peak (a known card, or CEA_TPU_PEAK_FLOPS; no gauge
+        # where neither is known).
         self._mfu = FlopsLedger(
             gauge=DECODE_MFU_GAUGE,
             peak_flops=peak_flops_per_chip(device_kind(engine.device)),
@@ -881,12 +886,14 @@ class _EngineService:
         t0 = time.perf_counter()
         fault = None
         try:
+            # The engine gives the span the prompt's prefix hit and the
+            # padded chunk's width.
             with obs.span("serving.prefill", parent=work.ctx,
-                          bucket=int(row.shape[0]),
+                          prompt_tokens=int(p_len),
                           phase=("engine_replay" if replay
-                                 else "engine_admission")):
+                                 else "engine_admission")) as sp:
                 if work.score_only:
-                    echo = self._engine.score(row, p_len)
+                    echo = self._engine.score(row, p_len, span=sp)
                     work.timeline.lap("prefill")
                     work.lps = list(echo[:p_len])
                     with self._lock:
@@ -899,7 +906,7 @@ class _EngineService:
                     top_p=work.top_p, min_p=work.min_p,
                     repetition_penalty=work.rep_pen, seed=work.seed,
                     max_new=max_new,
-                    allow_prefix=self._allow_prefix(work))
+                    allow_prefix=self._allow_prefix(work), span=sp)
                 work.timeline.lap("recovery" if replay else "prefill")
                 self._attribute_rehydrate(work.timeline)
         except EngineCapacityError:
@@ -1179,14 +1186,13 @@ class _EngineService:
                     self._stop.wait(0.05)
                 continue
             active = self._engine.active_count()
+            keys = self._engine.live_keys()
             parent = next((w.ctx for w in self._slot_work.values()
                            if w.ctx is not None), None)
             t0 = time.perf_counter()
             fault = None
             try:
-                with obs.span("serving.engine_step", parent=parent,
-                              slots_active=active,
-                              slots_free=self._engine.slots - active):
+                with obs.span("serving.engine_step", parent=parent):
                     out = self._engine.step()
             except Exception as e:
                 # Handled after the finally, so the step histogram
@@ -1216,12 +1222,14 @@ class _EngineService:
                 continue
             self._publish_step(active)
             # Decode MFU (N = the ACTIVE parameter count, so MoE's
-            # unrouted experts do not inflate it) over the step's wall
-            # time: step() returns host tokens, so it has synchronized.
-            # The memory sample is throttled.
+            # unrouted experts do not inflate it, plus the attention over
+            # the rows' live keys) over the step's wall time: step()
+            # returns host tokens, so it has synchronized. The memory
+            # sample is throttled.
             self._mfu.observe(
                 transformer_decode_flops(
-                    self._engine.active_param_count, active),
+                    self._engine.active_param_count, active, keys,
+                    self._engine.key_flops),
                 step_dt)
             self._memory.sample(min_interval_s=MEMORY_SAMPLE_INTERVAL_S)
             if out is None:

@@ -276,3 +276,120 @@ def test_paged_env_gate_raises(monkeypatch):
     assert decode.SlotDecodeEngine(port, 2, 16, paged=True).paged
     with pytest.raises(ValueError, match="kv_blocks"):
         decode.SlotDecodeEngine(port, 2, 16, paged=True, kv_blocks=1)
+
+
+def _tree(spans):
+    """{span name: [(record, [child records])]}."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s["parent_id"], []).append(s)
+    out = {}
+    for s in spans:
+        out.setdefault(s["name"], []).append((s, kids.get(s["span_id"], [])))
+    return out
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_admission_and_step_spans(window):
+    """The engine's spans through the serving loop, on the CPU: an
+    admission is ``serving.prefill`` (the prompt, its prefix hit and the
+    padded width, set by the engine) over the prefix gather, the chunk's
+    forward (one ``model.attention`` a layer), the first token and the
+    KV insert; a
+    step is ``serving.engine_step`` over the host's upkeep, the forward
+    (slots x span keys attended, the live ones counted from the rows'
+    positions) and the sampling. Device spans read their own duration
+    on the CPU. The same prompt twice hits the prefix index."""
+    from container_engine_accelerators_tpu_torch import obs
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM)
+    from container_engine_accelerators_tpu_torch.serving import server
+
+    torch.manual_seed(0)
+    model = TransformerLM(vocab_size=64, embed_dim=32, num_layers=2,
+                          num_heads=4, num_kv_heads=2, max_seq_len=64,
+                          pos_embedding="rope", attention_window=window,
+                          dtype=torch.float32, device="cpu")
+    eng = decode.SlotDecodeEngine(model, 2, 32, paged=True, kv_block_size=4,
+                                  buckets=[8, 16], kv_quant="bf16",
+                                  kv_spill=False)
+    obs.TRACER.reset()
+    svc = server._EngineService(eng, server._Admission(0))
+    try:
+        for _ in range(2):
+            row = np.zeros((16,), np.int32)
+            row[:9] = np.arange(1, 10)
+            work = server._EngineWork(row, 9, 3, 0.0, 0, 1.0, 0.0, 1.0, -1,
+                                      False, 0, None)
+            assert svc.submit_many([work]) is not None
+            assert work.done.get(timeout=60)[0] == "ok"
+    finally:
+        svc.stop()
+    spans = obs.TRACER.snapshot()["spans"]
+    tree = _tree(spans)
+
+    def cap(pos):
+        return min(pos + 1, window) if window else pos + 1
+
+    prefills = tree["serving.prefill"]
+    assert [p["attrs"] for p, _ in prefills] == [
+        {"phase": "engine_admission", "prompt_tokens": 9,
+         "shared_tokens": shared, "width": width}
+        for shared, width in ((0, 16), (8, 8))]
+    for _, kids in prefills:
+        assert [k["name"] for k in kids] == [
+            "engine.prefix_gather", "engine.prefill_forward",
+            "engine.first_token", "engine.kv_insert"]
+        assert [k["attrs"] for k in kids] == [{}] * 4
+        fwd = kids[1]
+        (_, attn), = [t for t in tree["engine.prefill_forward"]
+                      if t[0] is fwd]
+        assert [a["name"] for a in attn] == ["model.attention"] * 2
+    steps = tree["serving.engine_step"]
+    assert len(steps) == 4
+    for step, kids in steps:
+        assert step["attrs"] == {}
+        assert [k["name"] for k in kids] == [
+            "engine.prestep", "engine.forward", "engine.sample"]
+        assert kids[0]["attrs"] == kids[2]["attrs"] == {}
+        fwd = kids[1]["attrs"]
+        assert fwd["keys_attended"] == 2 * 32
+        assert 0 < fwd["keys_live"] <= fwd["keys_attended"]
+    # One row at positions 9 and 10 in each request's two steps.
+    assert [s["attrs"]["keys_live"] for s, _ in tree["engine.forward"]] == [
+        cap(9), cap(10)] * 2
+    assert len(tree["model.attention"]) == 2 * (2 + 4)
+    for s in spans:
+        if s["name"].startswith(("engine.", "model.")) and (
+                s["name"] != "engine.prestep"):
+            assert s["device_s"] == s["duration_s"] > 0, s["name"]
+        else:
+            assert "device_s" not in s, s["name"]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_score_gives_the_callers_span_the_prefill_width(paged):
+    """``score`` (as ``admit``) hands the caller's admission span the
+    prefill's prefix hit and padded width: the row's own length on the
+    dense pool, the bucket on the paged one. The echo is the same with
+    and without a span."""
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM)
+    from container_engine_accelerators_tpu_torch.obs import trace
+
+    torch.manual_seed(0)
+    model = TransformerLM(vocab_size=64, embed_dim=32, num_layers=2,
+                          num_heads=4, num_kv_heads=2, max_seq_len=64,
+                          pos_embedding="rope", dtype=torch.float32,
+                          device="cpu")
+    kw = (dict(paged=True, kv_block_size=4, buckets=[8, 16], kv_spill=False)
+          if paged else dict(paged=False))
+    eng = decode.SlotDecodeEngine(model, 2, 32, **kw)
+    row = np.zeros((12,), np.int32)
+    row[:9] = np.arange(1, 10)
+    tracer = trace.Tracer(enabled=True)
+    with tracer.span("serving.prefill") as sp:
+        echo = eng.score(row, 9, span=sp)
+    (rec,) = tracer.snapshot()["spans"]
+    assert rec["attrs"] == {"shared_tokens": 0, "width": 16 if paged else 12}
+    np.testing.assert_array_equal(echo, eng.score(row, 9))

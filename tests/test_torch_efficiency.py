@@ -95,6 +95,32 @@ def test_analytic_flops_formulas():
                 == jax_eff.transformer_decode_flops(n, t) == 2 * n * t)
 
 
+def test_decode_flops_count_attention_over_live_keys():
+    """The serving loop's decode FLOPs add 4·D per attended key per
+    query head per layer over each active row's live context (what the
+    benchmark's decode_mfu counts): a row at position p of a window-W
+    model attends min(p + 1, W) keys."""
+    from container_engine_accelerators_tpu_torch.models import decode
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM)
+
+    torch.manual_seed(0)
+    model = TransformerLM(vocab_size=64, embed_dim=32, num_layers=2,
+                          num_heads=4, max_seq_len=64, attention_window=8,
+                          dtype=torch.float32, device="cpu")
+    eng = decode.SlotDecodeEngine(model, 3, 32, paged=False)
+    for plen in (5, 9):
+        row = np.zeros((16,), np.int64)
+        row[:plen] = np.arange(1, plen + 1)
+        eng.admit(row, plen)
+    keys = eng.live_keys()
+    assert keys == min(5 + 1, 8) + min(9 + 1, 8)
+    assert eng.key_flops == 4 * (32 // 4) * 4 * 2
+    n = eng.active_param_count
+    assert efficiency.transformer_decode_flops(
+        n, 2, keys, eng.key_flops) == 2 * n * 2 + 4 * 8 * 4 * 2 * 14
+
+
 @pytest.mark.parametrize("causal, window", [(False, 0), (True, 0),
                                             (True, 5)])
 def test_count_flops_counts_kernels_by_their_kept_pairs(causal, window):

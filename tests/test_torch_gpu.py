@@ -30,6 +30,7 @@ where ``attention.tma_rows`` is 0), f32 on the FMA kernels.
 """
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -1299,3 +1300,39 @@ def test_lockstep_engine_on_a_one_rank_group(nccl_group):
         channel.stop()
         want = run(decode.SlotDecodeEngine(model, **kwargs))
         assert got == want, paged
+
+
+def _event_seconds(work):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    work()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def test_device_span_times_the_card_without_a_wait(cuda):
+    """A device-timed span around ~50 ms of device work exits on the
+    host at once (no sync), reads unresolved until the work is done,
+    then resolves to the plain event-timed duration within 10%."""
+    from container_engine_accelerators_tpu_torch.obs import trace
+
+    tracer = trace.Tracer(enabled=True)
+    with tracer.span("warm", timed_on=cuda):
+        torch.cuda._sleep(1000)
+    probe = 10_000_000
+    cycles = int(probe * 0.05 / _event_seconds(
+        lambda: torch.cuda._sleep(probe)))
+    plain = _event_seconds(lambda: torch.cuda._sleep(cycles))
+    assert 0.03 < plain < 0.08
+    t0 = time.perf_counter()
+    with tracer.span("sleep", timed_on=cuda):
+        torch.cuda._sleep(cycles)
+    host = time.perf_counter() - t0
+    assert host < 1e-3
+    (rec,) = [s for s in tracer.snapshot()["spans"] if s["name"] == "sleep"]
+    assert rec["device_s"] is None
+    torch.cuda.synchronize()
+    (rec,) = [s for s in tracer.snapshot()["spans"] if s["name"] == "sleep"]
+    assert abs(rec["device_s"] - plain) < 0.1 * plain, (rec, plain)

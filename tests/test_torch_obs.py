@@ -16,12 +16,15 @@
 against the JAX package's, on the same inputs: Prometheus text byte for
 byte, the traceparent / request-id carrier, the request timeline, the
 ledger's attribution summary, saturation, and fault-plan parsing and
-counting."""
+counting. Then the port's own device-timed spans and one clock, which
+the JAX tracer does not have, on a fake CUDA event seam."""
 
 import json
+import types
 
 import numpy as np
 import pytest
+import torch
 
 from container_engine_accelerators_tpu import obs as jax_obs
 from container_engine_accelerators_tpu.obs import export as jax_export
@@ -312,3 +315,182 @@ def test_debug_surface_and_spans():
     assert mine == jax_export.perfetto_trace(snap)
     assert obs.debug_response(tracer, "/nope") is None
     assert trace.Tracer(enabled=False).span("x") is trace.NULL_SPAN
+
+
+# -- device-timed spans -------------------------------------------------
+
+CUDA = types.SimpleNamespace(type="cuda")
+
+
+class _FakeEvent:
+    """A CUDA timing event that completes when the test says so; a wait
+    or a time read before its query answers True fails the test."""
+
+    def __init__(self, clock):
+        self.clock = clock
+        self.done = False
+        self.t = None
+        self.queries = 0
+
+    def record(self, stream):
+        assert stream == "stream"
+        self.done, self.t = False, self.clock.now
+
+    def query(self):
+        self.queries += 1
+        return self.done
+
+    def synchronize(self):
+        raise AssertionError("a device span synchronised")
+
+    def elapsed_time(self, end):
+        if not (self.done and end.done):
+            raise AssertionError("elapsed_time on an unresolved event")
+        return 1e3 * (end.t - self.t)
+
+
+class _FakeClock:
+    """The tracer's device-clock seam: ``now`` is the device time the
+    next recorded event stamps."""
+
+    def __init__(self):
+        self.made = []
+        self.now = 0.0
+        self.capture = False
+        self.lookups = 0
+
+    def new_event(self):
+        self.made.append(_FakeEvent(self))
+        return self.made[-1]
+
+    def stream(self, device):
+        assert device is CUDA
+        self.lookups += 1
+        return None if self.capture else "stream"
+
+
+def _device_s(tracer):
+    return {s["name"]: s["device_s"] for s in tracer.snapshot()["spans"]}
+
+
+def test_device_span_on_the_cpu_is_its_duration():
+    tracer = trace.Tracer(enabled=True)
+    with tracer.span("work", timed_on=torch.device("cpu"), rows=2):
+        torch.ones(64, 64).sum()
+    (rec,) = tracer.snapshot()["spans"]
+    assert rec["device_s"] == rec["duration_s"] > 0
+    assert rec["attrs"] == {"rows": 2}
+    # ``device`` is an attribute, as on the JAX package's spans.
+    with tracer.span("rpc", device="cuda:0"):
+        pass
+    rec = tracer.snapshot()["spans"][-1]
+    assert rec["attrs"] == {"device": "cuda:0"} and "device_s" not in rec
+
+
+def test_device_spans_resolve_in_stream_order_without_a_sync():
+    clock = _FakeClock()
+    tracer = trace.Tracer(enabled=True, device_clock=clock)
+    for i, name in enumerate("abc"):
+        clock.now = 10.0 * i
+        with tracer.span(name, timed_on=CUDA):
+            clock.now = 10.0 * i + i + 1      # 1, 2 and 3 s a span
+    # One stream lookup a span, at enter.
+    assert len(clock.made) == 6 and clock.lookups == 3
+    assert _device_s(tracer) == {"a": None, "b": None, "c": None}
+    a0, a1, b0, b1, c0, c1 = clock.made
+    for event in (a0, a1, b0, c0, c1):
+        event.done = True
+    # b's end has not completed: b and c (behind it) stay pending. An
+    # end that completed answers for its start.
+    assert _device_s(tracer) == {"a": 1.0, "b": None, "c": None}
+    assert c1.queries == 0 and a0.queries == 0
+    b1.done = True
+    assert _device_s(tracer) == {"a": 1.0, "b": 2.0, "c": 3.0}
+    # Resolved pairs go back to the pool: the next spans reuse them.
+    with tracer.span("d", timed_on=CUDA):
+        with tracer.span("e", timed_on=CUDA):
+            pass
+    assert len(clock.made) == 6
+
+
+def test_device_spans_resolve_at_later_span_exits():
+    """Span exits leave pending pairs alone until ``RESOLVE_EVERY`` of
+    them wait; a try that finds the oldest incomplete waits as many
+    more pairs before it queries again."""
+    every = trace.Tracer.RESOLVE_EVERY
+    clock = _FakeClock()
+    tracer = trace.Tracer(enabled=True, device_clock=clock)
+    for _ in range(every - 1):
+        with tracer.span("a", timed_on=CUDA):
+            clock.now += 0.5
+    for event in clock.made:
+        event.done = True
+    with tracer.span("host"):
+        pass
+    assert all(e.queries == 0 for e in clock.made)
+    assert all(r["device_s"] is None for r in tracer._spans[:-1])
+    with tracer.span("b", timed_on=CUDA):
+        clock.now += 0.5
+    early, late = clock.made[-2:]
+    assert [r["device_s"] for r in tracer._spans[:every - 1]] == (
+        [0.5] * (every - 1))
+    # The newest end had not completed: it stays pending, and the next
+    # query waits for RESOLVE_EVERY more pairs.
+    assert tracer._spans[-1]["device_s"] is None and late.queries == 1
+    for _ in range(every - 1):
+        with tracer.span("c", timed_on=CUDA):
+            pass
+    assert late.queries == 1
+    early.done = late.done = True
+    with tracer.span("c", timed_on=CUDA):
+        pass
+    assert late.queries == 2 and tracer._spans[every]["device_s"] == 0.5
+
+
+def test_pending_device_pairs_are_bounded():
+    clock = _FakeClock()
+    tracer = trace.Tracer(capacity=2, enabled=True, device_clock=clock)
+    for name in "abc":
+        with tracer.span(name, timed_on=CUDA):
+            pass
+    snap = tracer.snapshot()
+    assert snap["dropped_device"] == 1
+    assert [s["name"] for s in snap["spans"]] == ["b", "c"]
+    for event in clock.made:
+        event.done = True
+    assert _device_s(tracer) == {"b": 0.0, "c": 0.0}
+    tracer.reset()
+    assert tracer.snapshot()["dropped_device"] == 0
+
+
+def test_no_device_event_while_disabled_or_capturing():
+    clock = _FakeClock()
+    off = trace.Tracer(enabled=False, device_clock=clock)
+    with off.span("x", timed_on=CUDA) as sp:
+        pass
+    assert sp is trace.NULL_SPAN and off.snapshot()["spans"] == []
+    clock.capture = True
+    on = trace.Tracer(enabled=True, device_clock=clock)
+    with on.span("graph", timed_on=CUDA):
+        pass
+    assert clock.made == []
+    assert _device_s(on) == {"graph": None}
+
+
+def test_span_starts_are_monotonic_from_the_anchor():
+    tracer = trace.Tracer(enabled=True)
+    for i in range(50):
+        with tracer.span("s%d" % i):
+            pass
+    snap = tracer.snapshot()
+    anchor = snap["anchor"]
+    assert snap["started_unix"] == anchor["unix"]
+    starts = [s["start_unix"] for s in snap["spans"]]
+    assert starts[0] >= anchor["unix"]
+    for prev, s in zip(snap["spans"], snap["spans"][1:]):
+        # One clock: a span starts after the one before it ended (up
+        # to the unix scale's float rounding).
+        assert s["start_unix"] >= prev["start_unix"]
+        assert prev["start_unix"] + prev["duration_s"] <= (
+            s["start_unix"] + 1e-6)
+    assert tracer.unix_at(anchor["perf_counter"]) == anchor["unix"]

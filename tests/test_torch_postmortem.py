@@ -73,7 +73,9 @@ def test_capture_writes_open_spans_and_state(tmp_path):
     assert out == str(path)
     doc = json.loads(path.read_text())
     jax_doc = json.loads(theirs.read_text())
-    assert set(doc) == set(jax_doc)
+    # The port's journal adds its clock's anchor and the device spans'
+    # drop count to the JAX package's shape.
+    assert set(doc) == set(jax_doc) | {"anchor", "dropped_device"}
     assert set(doc["open_spans"][0]) == set(jax_doc["open_spans"][0])
     assert doc["exit_reason"] == "manual"
     assert [s["name"] for s in doc["open_spans"]] == ["rpc.inflight"]

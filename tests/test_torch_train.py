@@ -589,3 +589,35 @@ def test_profile_names_each_kernel_of_the_port(kernel, label):
     transforms) under convolution, not under the matrix products."""
     from container_engine_accelerators_tpu_torch import train_profile
     assert train_profile.category(kernel) == label
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_step_spans_time_forward_backward_and_update(accum):
+    """A step after the first runs under ``train.step_run`` with its
+    forward, backward (a pair per micro-batch) and update as children,
+    each timed on the device (on the CPU: its own duration); nothing
+    names the training forward's layers."""
+    from container_engine_accelerators_tpu_torch import obs
+
+    _, tree, config = torch_parity.flax_lm("learned_mha")
+    model = convert.load_lm(config, tree, device="cpu", dtype=torch.float32,
+                            trainable=True)
+    trainer = Trainer(model, transformer.next_token_loss_fn(
+        xent.mean_cross_entropy_loss), Sgd(0.1, momentum=0.9),
+        grad_accum=accum, mfu_source="off")
+    state = trainer.init_state()
+    toks = torch.from_numpy(torch_parity.tokens(2, (BATCH, SEQ))).long()
+    obs.TRACER.reset()
+    for _ in range(2):
+        state, _ = trainer.train_step(state, (toks, toks))
+    spans = obs.TRACER.snapshot()["spans"]
+    (run,) = [s for s in spans if s["name"] == "train.step_run"]
+    kids = [s["name"] for s in spans if s["parent_id"] == run["span_id"]]
+    assert kids == ["train.forward", "train.backward"] * accum + [
+        "train.update"]
+    assert {s["name"] for s in spans} == {
+        "train.step_compile", "train.step_run", "train.forward",
+        "train.backward", "train.update"}
+    for s in spans:
+        if s["name"] != "train.step_compile":
+            assert s["device_s"] == s["duration_s"] > 0, s["name"]
